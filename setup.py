@@ -26,7 +26,10 @@ setup(
         "GCN model zoo, sparse engine, distributed halo-exchange SpMM, "
         "epidemic-simulation workloads, policy generators"
     ),
-    packages=find_packages(include=["pygcn_tpu", "pygcn_tpu.*"]),
+    packages=find_packages(include=["pygcn_tpu", "pygcn_tpu.*",
+                                    "pygcn_tpu_torch", "pygcn_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"pygcn_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "optax"],
     extras_require={
