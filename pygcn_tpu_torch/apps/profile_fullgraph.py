@@ -1,4 +1,4 @@
-"""Where a full-graph GCN training step spends its time on the CUDA card.
+"""Where a full-graph GCN or GAT training step spends its time on the CUDA card.
 
 Builds the same run as ``train_fullgraph`` (any of its flags; ``--clustered``
 for the flagship), warms up, then traces a few training steps with
@@ -9,6 +9,7 @@ share of the profiled window, and the kernels by device time per step. Needs a C
 Usage::
 
     python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered
+    python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered --model gat --hidden 8
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ def main(argv=None) -> dict:
     run = prepare(args)
 
     def step():
-        return train_step(run.model, run.opt, run.x, run.labels, run.mask, run.graph)
+        return train_step(run.model, run.opt, run.x, run.labels, run.mask, run.graph,
+                          **run.fwd_kw)
 
     for _ in range(WARMUP):
         step()

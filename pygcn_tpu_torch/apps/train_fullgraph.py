@@ -1,20 +1,25 @@
-"""Full-graph GCN training at ogbn-arxiv scale on one CUDA card.
+"""Full-graph GCN or GAT training at ogbn-arxiv scale on one CUDA card.
 
-The port of ``pygcn_tpu/apps/train_fullgraph.py`` for ``--model gcn``: an
-N-layer GCN over the sparse engine, Adam with L2 decay, masked NLL. Without
+The port of ``pygcn_tpu/apps/train_fullgraph.py`` for ``--model gcn`` (an
+N-layer GCN over the sparse engine) and ``--model gat`` (the 2-layer GAT of
+``nn/gat.py``, ``--gat_heads`` heads of ``--hidden`` features), with Adam
+with L2 decay and masked NLL. Without
 ``--clustered`` it times epochs on a synthetic Chung-Lu power-law graph with
 random labels. With ``--clustered`` it runs the convergence flagship: a
 learnable community-classification graph with shuffled ids, locality
 ordering (native label propagation when graphkit loads, else BFS), the
-hybrid BCSR+ELL layout whose tiles run on kernel B1, per-epoch validation
-and early stopping.
+hybrid BCSR+ELL layout whose tiles run on kernel B1 (GCN) or on the
+tile-attention kernels B3/B5/B6 (GAT), per-epoch validation and early
+stopping.
 
 Runs on ``--device cuda`` (the default; raises when no card is present) or,
-when asked, ``--device cpu``, where kernel B1 is replaced by its plain version.
+when asked, ``--device cpu``, where the kernels are replaced by their plain
+versions.
 
 Usage::
 
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --max_epochs 50
+    python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gat --hidden 8
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pygcn_tpu_torch.graph.graph import Graph
+from pygcn_tpu_torch.graph.graph import COLPANEL_MIN_NODES, Graph
+from pygcn_tpu_torch.nn.gat import GAT
 from pygcn_tpu_torch.nn.layers import GraphConv
 
 
@@ -69,10 +75,14 @@ def masked_nll(logp: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> 
     return (per_node * mask).sum() / mask.sum()
 
 
-def train_step(model: GCN, opt: torch.optim.Optimizer, x, labels, mask, graph) -> torch.Tensor:
-    """One full-graph step; returns the loss before the update (as the JAX step does)."""
+def train_step(model: nn.Module, opt: torch.optim.Optimizer, x, labels, mask, graph,
+               **fwd_kw) -> torch.Tensor:
+    """One full-graph step; returns the loss before the update (as the JAX step does).
+
+    ``fwd_kw`` goes to the model's forward (the GAT's attention layouts).
+    """
     opt.zero_grad(set_to_none=True)
-    loss = masked_nll(model(x, graph), labels, mask)
+    loss = masked_nll(model(x, graph, **fwd_kw), labels, mask)
     loss.backward()
     opt.step()
     return loss.detach()
@@ -110,7 +120,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--remat", action="store_true",
                     help="recompute layer activations in the backward pass")
     ap.add_argument("--model", default="gcn",
-                    help="only gcn is ported; gat/gatv2/sage/gin/appnp exit")
+                    help="gcn, or gat: the 2-layer multi-head GAT (--hidden is the "
+                         "per-head width; --layers and --remat do not apply); "
+                         "gatv2/sage/gin/appnp are not ported yet")
+    ap.add_argument("--gat_heads", type=int, default=8)
     ap.add_argument("--shards", type=int, default=1,
                     help="only 1 is ported")
     ap.add_argument("--clustered", action="store_true",
@@ -125,8 +138,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--content", default=None, help="not ported yet")
     ap.add_argument("--cites", default=None, help="not ported yet")
     args = ap.parse_args(argv)
-    if args.model != "gcn":
-        raise SystemExit(f"--model {args.model}: not ported yet (only gcn is)")
+    if args.model not in ("gcn", "gat"):
+        raise SystemExit(f"--model {args.model}: not ported yet (gcn and gat are)")
     if args.shards != 1:
         raise SystemExit("--shards > 1: not ported yet")
     if args.npz or args.content or args.cites:
@@ -146,9 +159,10 @@ class Setup:
     x: torch.Tensor
     labels: torch.Tensor
     mask: torch.Tensor
-    model: GCN
+    model: nn.Module  # GCN or GAT
     opt: torch.optim.Optimizer
     tile_frac: Optional[float]  # share of edges on hybrid tiles (--clustered)
+    fwd_kw: dict  # extra forward arguments: the GAT's edge_map, hybrid_tiles, tiles_t
 
 
 def prepare(args: argparse.Namespace) -> Setup:
@@ -175,10 +189,17 @@ def prepare(args: argparse.Namespace) -> Setup:
             build_hybrid=False, build_colpanel=False,
         )
         data = reorder_dataset(data, locality_order(data.graph, "auto"))
-        # layouts on the ordered ids, by the Graph.from_coo auto-policy
-        graph = Graph.from_scipy(data.graph.to_scipy(), is_symmetric=True,
-                                 build_dense=False, build_bcsr=False,
-                                 hybrid_min_edges_per_tile=64)
+        # layouts on the ordered ids, by the Graph.from_coo auto-policy;
+        # attention needs the ELL slot path and the hybrid tiles
+        kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
+                  hybrid_min_edges_per_tile=64)
+        if args.model == "gat":
+            if data.graph.n_nodes > COLPANEL_MIN_NODES:
+                raise NotImplementedError(
+                    f"--model gat above {COLPANEL_MIN_NODES} nodes runs on the "
+                    "column-panel attention path, which is not ported yet")
+            kw.update(build_ell=True, build_hybrid=True, build_colpanel=False)
+        graph = Graph.from_scipy(data.graph.to_scipy(), **kw)
         data.graph = graph
         if graph.hybrid is not None:
             tile_frac = graph.hybrid.tile_edges / graph.n_edges
@@ -203,36 +224,63 @@ def prepare(args: argparse.Namespace) -> Setup:
     print(f"graph: {graph.n_nodes} nodes, {graph.n_edges} edges "
           f"(built in {time.time() - t0:.1f}s)")
 
+    gen = torch.Generator().manual_seed(args.seed)
+    fwd_kw = {}
+    if args.model == "gat":
+        model = GAT(args.feat_dim, args.hidden, args.n_classes, heads=args.gat_heads,
+                    generator=gen)
+        fwd_kw = _gat_layouts(graph)
+    else:
+        dims = [args.feat_dim] + [args.hidden] * (args.layers - 1) + [args.n_classes]
+        model = GCN(dims, generator=gen, remat=args.remat)
     graph = graph.to(device)
+    fwd_kw = {k: v.to(device) if hasattr(v, "to") else v for k, v in fwd_kw.items()}
     x, labels, mask = x.to(device), labels.to(device), mask.to(device)
-    dims = [args.feat_dim] + [args.hidden] * (args.layers - 1) + [args.n_classes]
-    model = GCN(dims, generator=torch.Generator().manual_seed(args.seed),
-                remat=args.remat).to(device)
+    model = model.to(device)
     opt = adam_l2(model.parameters(), args.lr, args.weight_decay)
-    return Setup(device, graph, data, x, labels, mask, model, opt, tile_frac)
+    return Setup(device, graph, data, x, labels, mask, model, opt, tile_frac, fwd_kw)
+
+
+def _gat_layouts(graph: Graph) -> dict:
+    """The GAT's attention layouts, built on the host: the ELL edge map and,
+    when the hybrid layout has tiles and an ELL residual, the exact transpose
+    tiles of the tile-attention path."""
+    from pygcn_tpu_torch.ops.ell import ELL
+    from pygcn_tpu_torch.ops.gat import build_edge_map, build_gat_tiles_t
+
+    kw = {"edge_map": build_edge_map(graph) if graph.ell is not None else None,
+          "hybrid_tiles": False, "tiles_t": None}
+    hy = graph.hybrid
+    if hy is not None and hy.bcsr is not None and isinstance(hy.ell, ELL):
+        kw.update(hybrid_tiles=True, tiles_t=build_gat_tiles_t(graph))
+        print(f"gat: tile-attention path (kernels B3/B5/B6 on {hy.bcsr.data.shape[0]} "
+              f"tiles, {hy.tile_edges / graph.n_edges:.1%} of edges; ELL residual)")
+    return kw
 
 
 def main(argv=None):
     """Run the CLI. With ``--clustered`` returns a dict of the run's results
     (accuracies, step and evaluation counts, ``tile_frac``, the ``graph`` on
-    its device and, with ``--memstats``, ``peak_mem_bytes``); else the
+    its device, for the GAT its ``edge_map``, ``hybrid_tiles`` and
+    ``tiles_t``, and, with ``--memstats``, ``peak_mem_bytes``); else the
     seconds per epoch."""
     args = parse_args(argv)
     run = prepare(args)
     device = run.device
 
     def run_step():
-        return train_step(run.model, run.opt, run.x, run.labels, run.mask, run.graph)
+        return train_step(run.model, run.opt, run.x, run.labels, run.mask, run.graph,
+                          **run.fwd_kw)
 
     @torch.no_grad()
     def predict():
-        return run.model(run.x, run.graph)
+        return run.model(run.x, run.graph, **run.fwd_kw)
 
     if args.memstats and device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     if args.clustered:
         result = _run_convergence(args, run.data, run_step, predict)
-        result.update(tile_frac=run.tile_frac, graph=run.graph)
+        result.update(tile_frac=run.tile_frac, graph=run.graph, **run.fwd_kw)
     else:
         result = _time_epochs(args, run.graph, run_step)
     if args.memstats:

@@ -1,11 +1,14 @@
-"""Carry ``train_fullgraph``'s GCN weights between the JAX package and the port.
+"""Carry ``train_fullgraph``'s weights between the JAX package and the port.
 
 The JAX trainer keeps its GCN as a list of layers, ``[{"w": [in, out],
 "b": [out]}, ...]``; the port's :class:`~pygcn_tpu_torch.apps.train_fullgraph.GCN`
 keeps the same arrays as ``layers.<i>.weight`` (``[in, out]``) and
-``layers.<i>.bias``. The two random generators differ, so tests start both
-packages from one set of weights carried across here. Arrays go through
-NumPy; nothing of JAX is imported.
+``layers.<i>.bias``. Its GAT is the tree ``{"gat1" | "gat2": {"w", "a_src",
+"a_dst", "b"}}`` that ``pygcn_tpu.nn.gat.GAT.init`` returns; the port's
+:class:`~pygcn_tpu_torch.nn.gat.GAT` keeps the same arrays under
+``gat1.w``, ``gat1.a_src`` and so on. The two random generators differ, so
+tests start both packages from one set of weights carried across here.
+Arrays go through NumPy; nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -33,3 +36,20 @@ def state_dict_to_params(state) -> list:
          "b": state[f"layers.{i}.bias"].detach().cpu().numpy().copy()}
         for i in range(n_layers)
     ]
+
+
+GAT_LAYERS = ("gat1", "gat2")
+GAT_PARAMS = ("w", "a_src", "a_dst", "b")
+
+
+def gat_params_to_state_dict(params) -> dict:
+    """JAX-side GAT param tree → state dict of :class:`~pygcn_tpu_torch.nn.gat.GAT`."""
+    return {f"{layer}.{name}": torch.from_numpy(np.array(params[layer][name], dtype=np.float32))
+            for layer in GAT_LAYERS for name in GAT_PARAMS if name in params[layer]}
+
+
+def state_dict_to_gat_params(state) -> dict:
+    """GAT state dict → JAX-side param tree of NumPy arrays."""
+    return {layer: {name: state[f"{layer}.{name}"].detach().cpu().numpy().copy()
+                    for name in GAT_PARAMS if f"{layer}.{name}" in state}
+            for layer in GAT_LAYERS}

@@ -1,0 +1,398 @@
+// Kernels B3, B5 and B6 for Hopper (sm_90a): GAT attention over BCSR tiles.
+//
+// For a tile edge u -> v (tile[v][u] != 0; the tile's value is never
+// multiplied in) and head h:  e = leaky(ldst[v,h] + lsrc[u,h]).
+//
+//   B3 (replaces pygcn_tpu/ops/pallas/gat_tile_attn.py:_fwd_kernel_revisit):
+//      m[v,h]   = max over v's tile edges of e (NEG where v has none)
+//      den[v,h] = sum_u exp(e - m),  num[v, hF:(h+1)F] = sum_u exp(e - m) s2[u, hF:(h+1)F]
+//   B5 (replaces _bwd_dldst_kernel, stream=False), over the forward tiles:
+//      dldst[v,h] = sum_u p (s2[u,h.] . dnum[v,h.] + dden[v,h]) leaky'(pre)
+//   B6 (replaces _bwd_sender_kernel, stream=False), over the transpose tiles
+//      (rows are senders u, columns receivers v):
+//      ds[u, h.] = sum_v p dnum[v, h.],   dlsrc[u,h] = sum_v (the B5 term)
+//   with pre = ldst[v,h] + lsrc[u,h], p = exp(leaky(pre) - m[v,h]) and
+//   leaky'(pre) = pre >= 0 ? 1 : slope (the derivative jax.nn.leaky_relu has).
+//
+// Design. The TPU grid runs the tiles in order and carries a block row's
+// running max, num and den in a revisited output block. Here one CTA of 128
+// threads owns one (head, block row): blockIdx.x = block_row * H + head, so
+// the H CTAs of a block row are scheduled together and read its tiles once
+// from device memory and H - 1 times from L2. It loops over the row's tiles
+// (block_row_ptr[r] .. [r+1]); thread i owns row i of the block and keeps its
+// state (m, den, num[F] for B3; dnum_v[F] and the sum for B5; s2_u[F], ds[F]
+// and the sum for B6) in registers across the tiles. Each output is written
+// once, with no atomics, so results are deterministic. A block row without
+// tiles writes num = den = 0 and m = NEG (B3) and zero gradients.
+//
+// Per tile the CTA stages the column side's operands for its head in shared
+// memory (B3/B5: lsrc and s2 of the 128 senders; B6: ldst, m, dden and dnum of
+// the 128 receivers). The mask is never stored: warp w reads rows 32w..32w+31
+// of the tile, one 16-byte (f32) or 8-byte (bf16) load a lane per row, and four
+// ballots give that row's 128 mask bits (bit l of word c is column 4l + c),
+// which lane r keeps for its own row. The warp then walks the columns that
+// any of its 32 rows needs (the OR of its words, a warp-uniform loop) and
+// evaluates every (row, column) slot there, selecting, never multiplying, by
+// the mask: exp(NEG - NEG) = 1 must not leak in. B3 takes the tile's row max
+// first, rescales by corr = exp(m_old - m_new) (1 with den = 0 for a row still
+// at NEG) and then accumulates, the flash order of the TPU kernel.
+//
+// Bound on an H100 SXM at the ogbn-arxiv hybrid (2863 f32 tiles, 3.1M tile
+// edges, N = 169,343; layer 1 H = 8, F = 8): each launch must read the tiles as
+// stored (0.19 GB) plus O(N (H + H F)) bytes of operands and outputs (about
+// 0.1 GB), about 0.09 ms at 3.35 TB/s; its 20-40 operations per edge and head
+// take under 0.01 ms at the 67 TFLOP/s f32 rate: bound by bytes. This design
+// reads the tiles from L2 H times and evaluates about 90% of the slots of a
+// 7%-full tile (a column is skipped only when all 32 rows of the warp lack it),
+// an exp and F to 2F FMAs each, which keeps it above the bound. Skipping by
+// edge lists, tensor cores for the F-wide products and TMA staging are left
+// to later work.
+//
+// Precision: expf (not __expf) and f32 FMA, no TF32, so the kernels match their
+// plain PyTorch versions to rounding. Ragged shapes are masked in the kernel:
+// rows of operands past n read as zero and output rows past n are not
+// written, so nothing is padded by a copy. Per-head widths F <= MAX_F are
+// padded in registers to the next compiled width FP. Plain C interface,
+// loaded with ctypes.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+namespace {
+
+constexpr int TM = 128;  // tile rows
+constexpr int TK = 128;  // tile columns
+constexpr int THREADS = 128;  // one thread per tile row
+constexpr int MAX_F = 64;
+constexpr float NEG = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
+
+static_assert(THREADS == TM, "one thread per tile row");
+
+__device__ __forceinline__ float leaky(float x, float slope) { return x >= 0.f ? x : slope * x; }
+
+// The four mask words of this thread's row of `tile`: bit l of word c is set
+// when tile[row][4l + c] != 0 (-0 counts as zero, as in the plain version).
+__device__ __forceinline__ void mask_words(const void* tile, bool bf16, uint32_t w[4]) {
+  const int lane = threadIdx.x & 31;
+  const int row0 = threadIdx.x & ~31;
+#pragma unroll 8
+  for (int r = 0; r < 32; ++r) {
+    const size_t row = static_cast<size_t>(row0 + r) * TK;
+    bool nz0, nz1, nz2, nz3;
+    if (bf16) {
+      const uint2 b =
+          __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(tile) + row) + lane);
+      nz0 = (b.x & 0x7fffu) != 0;
+      nz1 = (b.x & 0x7fff0000u) != 0;
+      nz2 = (b.y & 0x7fffu) != 0;
+      nz3 = (b.y & 0x7fff0000u) != 0;
+    } else {
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(tile) + row) + lane);
+      nz0 = v.x != 0.f;
+      nz1 = v.y != 0.f;
+      nz2 = v.z != 0.f;
+      nz3 = v.w != 0.f;
+    }
+    const uint32_t b0 = __ballot_sync(FULL, nz0), b1 = __ballot_sync(FULL, nz1);
+    const uint32_t b2 = __ballot_sync(FULL, nz2), b3 = __ballot_sync(FULL, nz3);
+    if (lane == r) {
+      w[0] = b0;
+      w[1] = b1;
+      w[2] = b2;
+      w[3] = b3;
+    }
+  }
+}
+
+__device__ __forceinline__ const void* tile_ptr(const void* tiles, bool bf16, int t) {
+  return static_cast<const char*>(tiles) + static_cast<size_t>(t) * TM * TK * (bf16 ? 2 : 4);
+}
+
+// Calls body(j, on) for every column j of the tile that some row of the warp
+// needs; `on` says whether this thread's row has an edge there. The loop is
+// uniform across the warp.
+template <typename Body>
+__device__ __forceinline__ void for_columns(const uint32_t w[4], Body body) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t any = __reduce_or_sync(FULL, w[c]);
+    while (any) {
+      const int l = __ffs(any) - 1;
+      any &= any - 1;
+      body(4 * l + c, (w[c] >> l) & 1u);
+    }
+  }
+}
+
+// Stage rows col0 .. col0 + TK - 1 of the head's F columns of x [n, H*F] into
+// xs [TK][FP], zero past n and past F.
+template <int FP>
+__device__ __forceinline__ void stage_feats(float* xs, const float* x, long long col0, int n,
+                                            int hf, int head, int f) {
+  for (int i = threadIdx.x; i < TK * FP; i += THREADS) {
+    const int j = i / FP, k = i % FP;
+    const long long row = col0 + j;
+    xs[i] = (row < n && k < f) ? x[row * hf + static_cast<long long>(head) * f + k] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float node(const float* a, long long row, int n, int h, int head) {
+  return row < n ? a[row * h + head] : 0.f;
+}
+
+template <int FP>
+__global__ void __launch_bounds__(THREADS)
+gat_fwd_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
+               const int* __restrict__ block_row_ptr, const float* __restrict__ lsrc,
+               const float* __restrict__ ldst, const float* __restrict__ s2,
+               float* __restrict__ num_out, float* __restrict__ den_out,
+               float* __restrict__ m_out, int n, int h, int f, float slope) {
+  __shared__ __align__(16) float s_sh[TK * FP];
+  __shared__ float ls_sh[TK];
+  const int head = blockIdx.x % h, br = blockIdx.x / h;
+  const int hf = h * f;
+  const long long v = static_cast<long long>(br) * TM + threadIdx.x;
+  const float ld = node(ldst, v, n, h, head);
+  float m = NEG, den = 0.f, acc[FP];
+#pragma unroll
+  for (int k = 0; k < FP; ++k) acc[k] = 0.f;
+
+  const int t_end = block_row_ptr[br + 1];
+  for (int t = block_row_ptr[br]; t < t_end; ++t) {
+    const long long col0 = static_cast<long long>(block_cols[t]) * TK;
+    __syncthreads();  // the previous tile's slabs are no longer read
+    ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
+    stage_feats<FP>(s_sh, s2, col0, n, hf, head, f);
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles, bf16, t), bf16, w);
+    __syncthreads();
+
+    float tmax = NEG;
+    for_columns(w, [&](int j, bool on) {
+      const float e = leaky(ld + ls_sh[j], slope);
+      if (on) tmax = fmaxf(tmax, e);
+    });
+    const float m_new = fmaxf(m, tmax);
+    const float corr = expf(m - m_new);  // NEG - NEG: 1, with den still 0
+    den *= corr;
+#pragma unroll
+    for (int k = 0; k < FP; ++k) acc[k] *= corr;
+    m = m_new;
+    for_columns(w, [&](int j, bool on) {
+      const float e = leaky(ld + ls_sh[j], slope);
+      const float p = on ? expf(e - m) : 0.f;
+      den += p;
+      const float4* sj = reinterpret_cast<const float4*>(s_sh + j * FP);
+#pragma unroll
+      for (int q = 0; q < FP / 4; ++q) {
+        const float4 s = sj[q];
+        acc[4 * q + 0] = fmaf(p, s.x, acc[4 * q + 0]);
+        acc[4 * q + 1] = fmaf(p, s.y, acc[4 * q + 1]);
+        acc[4 * q + 2] = fmaf(p, s.z, acc[4 * q + 2]);
+        acc[4 * q + 3] = fmaf(p, s.w, acc[4 * q + 3]);
+      }
+    });
+  }
+  if (v < n) {
+    float* dst = num_out + v * hf + static_cast<long long>(head) * f;
+#pragma unroll
+    for (int k = 0; k < FP; ++k)
+      if (k < f) dst[k] = acc[k];
+    den_out[v * h + head] = den;
+    m_out[v * h + head] = m;
+  }
+}
+
+template <int FP>
+__global__ void __launch_bounds__(THREADS)
+gat_bwd_dldst_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
+                     const int* __restrict__ block_row_ptr, const float* __restrict__ lsrc,
+                     const float* __restrict__ ldst, const float* __restrict__ s2,
+                     const float* __restrict__ m_in, const float* __restrict__ dnum,
+                     const float* __restrict__ dden, float* __restrict__ dldst_out, int n,
+                     int h, int f, float slope) {
+  __shared__ __align__(16) float s_sh[TK * FP];
+  __shared__ float ls_sh[TK];
+  const int head = blockIdx.x % h, br = blockIdx.x / h;
+  const int hf = h * f;
+  const long long v = static_cast<long long>(br) * TM + threadIdx.x;
+  const float ld = node(ldst, v, n, h, head);
+  const float mv = node(m_in, v, n, h, head);
+  const float dd = node(dden, v, n, h, head);
+  float dn[FP];
+#pragma unroll
+  for (int k = 0; k < FP; ++k)
+    dn[k] = (v < n && k < f) ? dnum[v * hf + static_cast<long long>(head) * f + k] : 0.f;
+  float acc = 0.f;
+
+  const int t_end = block_row_ptr[br + 1];
+  for (int t = block_row_ptr[br]; t < t_end; ++t) {
+    const long long col0 = static_cast<long long>(block_cols[t]) * TK;
+    __syncthreads();
+    ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
+    stage_feats<FP>(s_sh, s2, col0, n, hf, head, f);
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles, bf16, t), bf16, w);
+    __syncthreads();
+
+    for_columns(w, [&](int j, bool on) {
+      const float pre = ld + ls_sh[j];
+      const float p = on ? expf(leaky(pre, slope) - mv) : 0.f;
+      const float4* sj = reinterpret_cast<const float4*>(s_sh + j * FP);
+      float gdot = 0.f;
+#pragma unroll
+      for (int q = 0; q < FP / 4; ++q) {
+        const float4 s = sj[q];
+        gdot = fmaf(dn[4 * q + 0], s.x, gdot);
+        gdot = fmaf(dn[4 * q + 1], s.y, gdot);
+        gdot = fmaf(dn[4 * q + 2], s.z, gdot);
+        gdot = fmaf(dn[4 * q + 3], s.w, gdot);
+      }
+      acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
+    });
+  }
+  if (v < n) dldst_out[v * h + head] = acc;
+}
+
+template <int FP>
+__global__ void __launch_bounds__(THREADS)
+gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
+                      const int* __restrict__ block_cols, const int* __restrict__ block_row_ptr,
+                      const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                      const float* __restrict__ s2, const float* __restrict__ m_in,
+                      const float* __restrict__ dnum, const float* __restrict__ dden,
+                      float* __restrict__ ds_out, float* __restrict__ dlsrc_out, int n, int h,
+                      int f, float slope) {
+  __shared__ __align__(16) float dn_sh[TK * FP];
+  __shared__ float ld_sh[TK], m_sh[TK], dd_sh[TK];
+  const int head = blockIdx.x % h, br = blockIdx.x / h;
+  const int hf = h * f;
+  const long long u = static_cast<long long>(br) * TM + threadIdx.x;  // sender
+  const float lu = node(lsrc, u, n, h, head);
+  float su[FP], ds[FP];
+#pragma unroll
+  for (int k = 0; k < FP; ++k) {
+    su[k] = (u < n && k < f) ? s2[u * hf + static_cast<long long>(head) * f + k] : 0.f;
+    ds[k] = 0.f;
+  }
+  float dl = 0.f;
+
+  const int t_end = block_row_ptr[br + 1];
+  for (int t = block_row_ptr[br]; t < t_end; ++t) {
+    const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
+    __syncthreads();
+    ld_sh[threadIdx.x] = node(ldst, col0 + threadIdx.x, n, h, head);
+    m_sh[threadIdx.x] = node(m_in, col0 + threadIdx.x, n, h, head);
+    dd_sh[threadIdx.x] = node(dden, col0 + threadIdx.x, n, h, head);
+    stage_feats<FP>(dn_sh, dnum, col0, n, hf, head, f);
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
+    __syncthreads();
+
+    for_columns(w, [&](int j, bool on) {
+      const float pre = lu + ld_sh[j];
+      const float p = on ? expf(leaky(pre, slope) - m_sh[j]) : 0.f;
+      const float4* dj = reinterpret_cast<const float4*>(dn_sh + j * FP);
+      float gdot = 0.f;
+#pragma unroll
+      for (int q = 0; q < FP / 4; ++q) {
+        const float4 d = dj[q];
+        ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
+        ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
+        ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
+        ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
+        gdot = fmaf(su[4 * q + 0], d.x, gdot);
+        gdot = fmaf(su[4 * q + 1], d.y, gdot);
+        gdot = fmaf(su[4 * q + 2], d.z, gdot);
+        gdot = fmaf(su[4 * q + 3], d.w, gdot);
+      }
+      dl += p * (gdot + dd_sh[j]) * (pre >= 0.f ? 1.f : slope);
+    });
+  }
+  if (u < n) {
+    float* dst = ds_out + u * hf + static_cast<long long>(head) * f;
+#pragma unroll
+    for (int k = 0; k < FP; ++k)
+      if (k < f) dst[k] = ds[k];
+    dlsrc_out[u * h + head] = dl;
+  }
+}
+
+// The kernel compiled for the smallest width FP >= f.
+template <typename Kernel>
+Kernel pick_width(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k40,
+                  Kernel k64) {
+  return f <= 4 ? k4 : f <= 8 ? k8 : f <= 16 ? k16 : f <= 32 ? k32 : f <= 40 ? k40 : k64;
+}
+
+#define WIDTHS(kernel) kernel<4>, kernel<8>, kernel<16>, kernel<32>, kernel<40>, kernel<64>
+
+dim3 grid_of(int n_block_rows, int h) { return dim3(static_cast<unsigned>(n_block_rows) * h); }
+
+}  // namespace
+
+extern "C" {
+
+// Tile shape and the largest per-head width the kernels are compiled for.
+int gat_tile_attn_config(int* tm, int* tk, int* max_f) {
+  *tm = TM;
+  *tk = TK;
+  *max_f = MAX_F;
+  return 0;
+}
+
+// B3. Returns cudaGetLastError() after the launch.
+int gat_tile_fwd(const void* tiles, const void* block_cols, const void* block_row_ptr,
+                 const void* lsrc, const void* ldst, const void* s2, void* num, void* den,
+                 void* m, int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
+                 void* stream) {
+  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_width(f, WIDTHS(gat_fwd_kernel));
+  kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, tile_bf16, static_cast<const int*>(block_cols),
+      static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
+      static_cast<const float*>(ldst), static_cast<const float*>(s2),
+      static_cast<float*>(num), static_cast<float*>(den), static_cast<float*>(m), n, h, f,
+      slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B5 over the forward tiles.
+int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* block_row_ptr,
+                       const void* lsrc, const void* ldst, const void* s2, const void* m,
+                       const void* dnum, const void* dden, void* dldst, int n_block_rows,
+                       int n, int h, int f, int tile_bf16, float slope, void* stream) {
+  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_width(f, WIDTHS(gat_bwd_dldst_kernel));
+  kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, tile_bf16, static_cast<const int*>(block_cols),
+      static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
+      static_cast<const float*>(ldst), static_cast<const float*>(s2),
+      static_cast<const float*>(m), static_cast<const float*>(dnum),
+      static_cast<const float*>(dden), static_cast<float*>(dldst), n, h, f, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B6 over the transpose tiles (block rows are senders).
+int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void* block_row_ptr,
+                        const void* lsrc, const void* ldst, const void* s2, const void* m,
+                        const void* dnum, const void* dden, void* ds, void* dlsrc,
+                        int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
+                        void* stream) {
+  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_width(f, WIDTHS(gat_bwd_sender_kernel));
+  kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles_t, tile_bf16, static_cast<const int*>(block_cols),
+      static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
+      static_cast<const float*>(ldst), static_cast<const float*>(s2),
+      static_cast<const float*>(m), static_cast<const float*>(dnum),
+      static_cast<const float*>(dden), static_cast<float*>(ds), static_cast<float*>(dlsrc),
+      n, h, f, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -342,3 +342,14 @@ def _build_bcsr(coo: sp.coo_matrix, tile: tuple[int, int]) -> BCSR:
         n_block_rows=n_block_rows,
         n_block_cols=n_block_cols,
     )
+
+
+def drop_zero_tiles(bcsr: BCSR) -> BCSR:
+    """``bcsr`` without its all-zero tiles, such as the padding tile that
+    :func:`_build_bcsr` gives each empty block row: those rows then own no tile
+    at all, a case every kernel over BCSR tiles must handle too."""
+    keep = bcsr.data.reshape(bcsr.data.shape[0], -1).ne(0).any(dim=1)
+    counts = torch.bincount(bcsr.block_rows[keep].long(), minlength=bcsr.n_block_rows)
+    ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return dataclasses.replace(bcsr, data=bcsr.data[keep], block_rows=bcsr.block_rows[keep],
+                               block_cols=bcsr.block_cols[keep], block_row_ptr=ptr)

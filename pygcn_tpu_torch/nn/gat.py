@@ -1,0 +1,90 @@
+"""Graph attention network (GAT) layers as ``nn.Module``\\ s.
+
+The port of ``pygcn_tpu/nn/gat.py`` (GAT v1): multi-head additive attention
+(Veličković et al. 2018), ELU between the layers, head-concat on the hidden
+layer and head-mean on the output layer. Weights are drawn from an explicit
+``torch.Generator`` with the reference's GraphConv bounds
+(``pygcn_tpu_torch/nn/init.py``); tests that need the JAX package's weights
+carry them across with ``pygcn_tpu_torch.convert``. GATv2 and dropout are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pygcn_tpu_torch.graph.graph import Graph
+from pygcn_tpu_torch.nn import init as tinit
+from pygcn_tpu_torch.ops.gat import (attention_aggregate, gat_attention, gat_conv_ell,
+                                     gat_conv_hybrid)
+
+
+class GATConv(nn.Module):
+    """One multi-head GAT layer.
+
+    ``out = concat_h(Σ_u alpha^h_uv · (x_u @ W^h))`` (mean over heads when
+    ``concat=False``), ``alpha`` the per-receiver softmax of
+    ``leaky_relu(a_src·s_u + a_dst·s_v)``. Parameters as in the JAX tree:
+    ``w [in, H·F]``, ``a_src``/``a_dst [H, F]``, ``b [H·F]`` (``[F]`` when
+    averaging).
+    """
+
+    def __init__(self, in_features: int, out_features: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2, bias: bool = True, *,
+                 generator: torch.Generator):
+        super().__init__()
+        h, f = heads, out_features
+        self.heads, self.out_features = h, f
+        self.concat, self.negative_slope = concat, negative_slope
+        self.w = nn.Parameter(tinit.graphconv_weight(in_features, h * f, generator))
+        self.a_src = nn.Parameter(tinit.graphconv_weight(h, f, generator))
+        self.a_dst = nn.Parameter(tinit.graphconv_weight(h, f, generator))
+        self.b = nn.Parameter(tinit.graphconv_bias(h * f if concat else f, generator)) \
+            if bias else None
+
+    def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
+                tiles_t=None) -> torch.Tensor:
+        """Tile attention on the hybrid layout when ``hybrid_tiles`` (with
+        ``tiles_t`` from ``ops.gat.build_gat_tiles_t``), else the ELL path
+        when an ``edge_map`` is given, else the COO path."""
+        n = x.shape[0]
+        h, f = self.heads, self.out_features
+        s = torch.matmul(x, self.w).view(n, h, f)
+        if hybrid_tiles:
+            out = gat_conv_hybrid(graph, tiles_t, s, self.a_src, self.a_dst, self.negative_slope)
+        elif edge_map is not None:
+            out = gat_conv_ell(graph, edge_map, s, self.a_src, self.a_dst, self.negative_slope)
+        else:
+            alpha = gat_attention(graph, s, self.a_src, self.a_dst, self.negative_slope)
+            out = attention_aggregate(graph, s, alpha)  # [N, H, F]
+        out = out.reshape(n, h * f) if self.concat else out.mean(dim=1)
+        if self.b is not None:
+            out = out + self.b
+        return out
+
+
+class GAT(nn.Module):
+    """2-layer GAT: ``elu(GATConv(heads, concat)) → GATConv(out_heads, mean)``
+    with log-softmax output, the standard transductive configuration (8
+    hidden heads of 8 features, one output head)."""
+
+    def __init__(self, nfeat: int, nhid: int, nclass: int, heads: int = 8, out_heads: int = 1,
+                 negative_slope: float = 0.2, dropout: float = 0.0, v2: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if v2:
+            raise NotImplementedError("GATv2 (v2=True) is not ported yet")
+        if dropout > 0.0:
+            raise NotImplementedError("GAT input and attention dropout are not ported yet")
+        self.gat1 = GATConv(nfeat, nhid, heads, concat=True, negative_slope=negative_slope,
+                            generator=generator)
+        self.gat2 = GATConv(nhid * heads, nclass, out_heads, concat=False,
+                            negative_slope=negative_slope, generator=generator)
+
+    def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
+                tiles_t=None) -> torch.Tensor:
+        kw = dict(edge_map=edge_map, hybrid_tiles=hybrid_tiles, tiles_t=tiles_t)
+        x = F.elu(self.gat1(x, graph, **kw))
+        return F.log_softmax(self.gat2(x, graph, **kw), dim=1)

@@ -21,7 +21,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bcsr_spmm",)
+SOURCES = ("bcsr_spmm", "gat_tile_attn")
 
 
 def nvcc() -> str:

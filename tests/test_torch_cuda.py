@@ -1,4 +1,5 @@
-"""Kernel B1 on a CUDA card against its plain version (skipped without a card).
+"""Kernels B1, B3, B5 and B6 on a CUDA card against their plain versions
+(skipped without a card).
 
 Run on a machine with an H100 from the repo root (``--noconftest`` because
 ``tests/conftest.py`` configures JAX, which that machine does not need)::
@@ -13,8 +14,9 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from pygcn_tpu_torch.graph.graph import Graph, _build_bcsr
+from pygcn_tpu_torch.graph.graph import Graph, _build_bcsr, drop_zero_tiles
 from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
 pytestmark = pytest.mark.cuda
 
@@ -22,7 +24,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernel B1 has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -58,3 +61,71 @@ def test_b1_gradient_on_asymmetric_graph(dev):
     (dx,) = torch.autograd.grad(spmm(g, x, impl="bcsr"), x, cot)
     torch.testing.assert_close(dx, b1.bcsr_spmm_plain(g.bcsr_t, cot, n_rows=300),
                                rtol=1e-4, atol=1e-4)
+
+
+def gat_tiles(symmetric, dtype, drop_padding, seed=0):
+    """Ragged 300-node tile sets whose block row 1 has no edge (with or
+    without the builder's zero padding tile) and their exact transpose; the
+    symmetric set's transpose has that empty block row too."""
+    rng = np.random.default_rng(seed)
+    m = sp.random(300, 300, density=0.05, random_state=rng, format="coo", dtype=np.float32)
+    keep = (m.row // 128 != 1) & ((m.col // 128 != 1) | (not symmetric))
+    m = sp.coo_matrix((np.ones(int(keep.sum()), np.float32), (m.row[keep], m.col[keep])),
+                      shape=m.shape)
+    if symmetric:
+        m = m.maximum(m.T).tocoo()
+    b = _build_bcsr(m, (128, 128))
+    bt = gta.transpose_bcsr(b)
+    if drop_padding:
+        b, bt = drop_zero_tiles(b), drop_zero_tiles(bt)
+    return (dataclasses.replace(b, data=b.data.to(dtype)),
+            dataclasses.replace(bt, data=bt.data.to(dtype)))
+
+
+@pytest.mark.parametrize("hf", [(2, 4), (8, 8), (4, 16), (1, 40), (3, 5)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("drop_padding", [False, True], ids=["padding_tile", "no_tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+def test_gat_tile_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
+    gen = torch.Generator(device=dev).manual_seed(h * 100 + f)
+    lsrc, ldst = (torch.randn(300, h, device=dev, generator=gen) for _ in range(2))
+    s2 = torch.randn(300, h * f, device=dev, generator=gen)
+    dnum = torch.randn(300, h * f, device=dev, generator=gen)
+    dden = torch.randn(300, h, device=dev, generator=gen)
+    before = dict(gta.launches)
+    got = gta.tile_fwd(b, lsrc, ldst, s2, h, f, 0.2)
+    ref = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)
+    m = ref[2]
+    got_dl = gta.tile_bwd_dldst(b, lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    ref_dl = gta.tile_bwd_dldst_plain(b, lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    got_snd = gta.tile_bwd_sender(bt, lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    ref_snd = gta.tile_bwd_sender_plain(bt, lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    torch.cuda.synchronize()
+    assert gta.launches == {k: before[k] + 1 for k in before}
+    for a, r in zip((*got, got_dl, *got_snd), (*ref, ref_dl, *ref_snd)):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    assert (got[2][128:256] == gta.NEG).all() and not got[1][128:256].any()
+    assert not got_dl[128:256].any()
+    if symmetric:
+        assert not got_snd[0][128:256].any() and not got_snd[1][128:256].any()
+
+
+def test_gat_tile_kernels_leaky_derivative_at_zero(dev):
+    """Integer logits put many pre-activations at exactly 0, where the
+    kernels' leaky' must be 1, as in the plain versions (and JAX)."""
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False, seed=3))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lsrc, ldst = (torch.randint(-1, 2, (300, 2), device=dev, generator=gen).float()
+                  for _ in range(2))
+    s2, dnum = (torch.randn(300, 8, device=dev, generator=gen) for _ in range(2))
+    dden = torch.randn(300, 2, device=dev, generator=gen)
+    m = gta.tile_fwd_plain(b, lsrc, ldst, s2, 2, 4, 0.2)[2]
+    args = (lsrc, ldst, s2, m, dnum, dden, 2, 4, 0.2)
+    got = (gta.tile_bwd_dldst(b, *args), *gta.tile_bwd_sender(bt, *args))
+    ref = (gta.tile_bwd_dldst_plain(b, *args), *gta.tile_bwd_sender_plain(bt, *args))
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)

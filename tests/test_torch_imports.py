@@ -13,6 +13,7 @@ from pygcn_tpu_torch.apps import train_fullgraph
 from pygcn_tpu_torch.graph.graph import Graph
 from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
 from pygcn_tpu_torch.ops.cuda import build
+from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -24,7 +25,9 @@ def port_modules():
 
 def test_every_module_imports_without_jax_or_pygcn_tpu():
     mods = port_modules()
-    assert "pygcn_tpu_torch.ops.cuda.bcsr_spmm" in mods and len(mods) >= 20
+    for m in ("ops.cuda.bcsr_spmm", "ops.cuda.gat_tile_attn", "ops.gat", "nn.gat", "convert"):
+        assert f"pygcn_tpu_torch.{m}" in mods
+    assert len(mods) >= 23
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -57,6 +60,26 @@ def test_b1_wrapper_never_runs_plain_for_a_non_cpu_request():
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
         b1.bcsr_spmm(g.bcsr, torch.ones(3, 4, device="meta"), n_rows=3)
     assert b1.launches == before
+
+
+def test_gat_tile_wrapper_never_runs_plain_for_a_non_cpu_request():
+    g = Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=False, build_dense=False,
+                       build_hybrid=True, build_ell=True, hybrid_min_edges_per_tile=1)
+    bcsr = g.hybrid.bcsr
+    bcsr_t = gta.transpose_bcsr(bcsr)
+    lsrc, ldst, s2 = torch.zeros(3, 2), torch.zeros(3, 2), torch.zeros(3, 8)
+    before = dict(gta.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, 2, 4, 0.2)
+    args = (lsrc, ldst, s2, torch.zeros(3, 2), torch.zeros(3, 8), torch.zeros(3, 2), 2, 4, 0.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_bwd_dldst_cuda(bcsr, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_bwd_sender_cuda(bcsr_t, *args)
+    meta = [t.to("meta") for t in (lsrc, ldst, s2)]
+    with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
+        gta.gat_tile_partials((2, 4, 0.2), bcsr, bcsr_t, *meta)
+    assert gta.launches == before
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch):
