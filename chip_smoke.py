@@ -7,16 +7,18 @@ Run from the root of a checkout, with no arguments::
 
 It builds every CUDA kernel of the port from ``pygcn_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version on the card, holds a small GCN and a small GAT on the card against
-the same models on the CPU, drives the port's two main paths at the
-ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the hybrid layout) for a
-few epochs each, ``apps/train_fullgraph --clustered`` (3-layer GCN, widths
-128/128/40, kernel B1) and ``--clustered --model gat --hidden 8`` (2-layer
-GAT, 8 heads of 8 then 1 head of 40, kernels B3/B5/B6), checks that each path
-launched its kernels as often as it must, and times each kernel at its path's
-shapes. Its last line is ``{"ok": true, "device": {...}}``; any failure
-exits non-zero before it. Without a CUDA card, or outside a checkout, it
-exits non-zero and prints no result.
+version on the card, holds a small GCN, a small GAT and a small GATv2 on the
+card against the same models on the CPU, drives the port's three main paths
+at the ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the hybrid
+layout) for a few epochs each, ``apps/train_fullgraph --clustered`` (3-layer
+GCN, widths 128/128/40, kernel B1), ``--clustered --model gat --hidden 8``
+(2-layer GAT, 8 heads of 8 then 1 head of 40, kernels B3/B5/B6) and
+``--clustered --model gatv2 --hidden 8`` (the same with GATv2 layers, kernels
+B7/B8/B9), checks that each path launched its kernels as often as it must,
+and times each kernel at its path's shapes. Its last line is
+``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
+Without a CUDA card, or outside a checkout, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -37,9 +39,9 @@ F32_FLOPS = 67e12
 
 # Tolerances of the kernels against their plain versions on the card. Both
 # sum the same f32 terms (bf16 tiles: for B1, x rounded to bf16 in both,
-# products exact in f32; for B3/B5/B6 the tiles only gate the mask) in
-# another order, and B3 rescales its running sums tile by tile where the
-# plain version exponentiates once against the final max; with unit-normal
+# products exact in f32; for B3-B9 the tiles only gate the mask) in another
+# order, and B3 and B7 rescale their running sums as the max rises where the
+# plain versions exponentiate once against the final max; with unit-normal
 # inputs and sums of up to a few thousand terms the error stays below 1e-4
 # relative.
 RTOL = ATOL = 1e-4
@@ -48,6 +50,8 @@ RTOL = ATOL = 1e-4
 # main path (8x8, 1x40), two more compiled widths (2x4, 4x16) and one that
 # runs a wider kernel with its last columns masked (3x5, on the width-8 kernels).
 GAT_SHAPES = ((2, 4), (8, 8), (4, 16), (1, 40), (3, 5))
+# GATv2's add the widest compiled width, where B8 holds the most registers.
+GATV2_SHAPES = GAT_SHAPES + ((1, 64),)
 SLOPE = 0.2
 
 
@@ -195,51 +199,64 @@ def _gat_tiles(rng, symmetric, dtype, drop_padding):
     return tuple(dataclasses.replace(x, data=x.data.to(dtype)).to("cuda") for x in (b, bt))
 
 
-def check_gat_tiles(torch):
-    """Kernels B3, B5 and B6 against their plain versions on the card: the
-    partials and their VJP through ``GATTilePartials``."""
+def check_gat_tiles(torch, v2: bool):
+    """Kernels B3, B5 and B6 (with ``v2``: B7, B8 and B9) against their plain
+    versions on the card: the partials and their VJP through
+    ``GATTilePartials`` (``dlsrc``, ``dldst``, ``ds``) or ``GATv2TilePartials``
+    (``dsl``, ``dsr``, ``da``)."""
     import numpy as np
 
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
-    rng = np.random.default_rng(1)
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    names, shapes, seed = ("B7/B8/B9", GATV2_SHAPES, 2) if v2 else ("B3/B5/B6", GAT_SHAPES, 1)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
     cases = 0
     for symmetric in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
             for drop_padding in (False, True):
                 b, bt = _gat_tiles(rng, symmetric, dtype, drop_padding)
-                for h, f in GAT_SHAPES:
-                    ops = [torch.randn(300, w, device="cuda", generator=gen)
-                           for w in (h, h, h * f)]
+                for h, f in shapes:
+                    op_shapes = (((300, h * f), (300, h * f), (h, f)) if v2
+                                 else ((300, h), (300, h), (300, h * f)))
+                    ops = [torch.randn(*shape, device="cuda", generator=gen)
+                           for shape in op_shapes]
                     cot = [torch.randn(300, w, device="cuda", generator=gen) for w in (h * f, h)]
                     args = [o.clone().requires_grad_(True) for o in ops]
-                    got = gta.gat_tile_partials((h, f, SLOPE), b, bt, *args)
+                    partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
+                    got = partials((h, f, SLOPE), b, bt, *args)
                     grads = torch.autograd.grad(got[:2], args, cot)
-                    ref = gta.tile_fwd_plain(b, *ops, h, f, SLOPE)
+                    ref = (gta.tile_v2_fwd_plain if v2 else gta.tile_fwd_plain)(
+                        b, *ops, h, f, SLOPE)
                     bwd = (*ops, ref[2], *cot, h, f, SLOPE)
-                    dldst = gta.tile_bwd_dldst_plain(b, *bwd)
-                    ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
+                    if v2:
+                        dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+                        ref_grads = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr,
+                                     dapart.sum(dim=0).view(h, f))
+                    else:
+                        ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
+                        ref_grads = (dlsrc, gta.tile_bwd_dldst_plain(b, *bwd), ds)
                     torch.cuda.synchronize()
-                    label = (f"B3/B5/B6 {'sym' if symmetric else 'asym'} {dtype} "
+                    label = (f"{names} {'sym' if symmetric else 'asym'} {dtype} "
                              f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
-                    pairs = list(zip(got, ref)) + list(zip(grads, (dlsrc, dldst, ds)))
-                    for a, r in pairs:
+                    for a, r in list(zip(got, ref)) + list(zip(grads, ref_grads)):
                         if a.shape != r.shape or not torch.isfinite(a).all():
                             fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
                         torch.testing.assert_close(a.detach(), r, rtol=RTOL, atol=ATOL)
                         worst = max(worst, float((a.detach() - r).abs().max()))
+                    # grads[1] is the receiver gradient: dldst, or dsr
                     if not ((got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
                             and not got[1][128:256].any() and not grads[1][128:256].any()):
                         fail(f"{label}: the block row without edges is not num = den = 0, "
-                             "m = NEG, dldst = 0")
+                             f"m = NEG, {'dsr' if v2 else 'dldst'} = 0")
                     cases += 1
-    print(f"B3/B5/B6 vs plain on the card: {cases} cases (asymmetric and symmetric ragged "
+    vjp = ("dsl/dsr/da through GATv2TilePartials" if v2
+           else "dlsrc/dldst/ds through GATTilePartials")
+    print(f"{names} vs plain on the card: {cases} cases (asymmetric and symmetric ragged "
           f"300-node tile sets, f32 and bf16 tiles, an empty block row with and without its "
-          f"padding tile, (H, F) in {list(GAT_SHAPES)}; num/den/m and the VJP "
-          f"dlsrc/dldst/ds through GATTilePartials) within rtol=atol={RTOL}; "
-          f"max abs err {worst:.3e}", flush=True)
+          f"padding tile, (H, F) in {list(shapes)}; num/den/m and the VJP {vjp}) within "
+          f"rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
 
 
 def check_small_reference(torch):
@@ -276,10 +293,10 @@ def check_small_reference(torch):
           f"{data.graph.hybrid.bcsr.data.shape[0]} tiles", flush=True)
 
 
-def check_small_gat_reference(torch):
-    """The 2-layer GAT on the card against the same GAT on the CPU (plain
-    versions), on a small clustered graph whose hybrid layout has tiles and an
-    ELL residual: log-probs, loss and gradients."""
+def check_small_gat_reference(torch, v2: bool):
+    """The 2-layer GAT (GATv2 with ``v2``) on the card against the same model
+    on the CPU (plain versions), on a small clustered graph whose hybrid
+    layout has tiles and an ELL residual: log-probs, loss and gradients."""
     import numpy as np
 
     from pygcn_tpu_torch.apps.train_fullgraph import masked_nll
@@ -300,7 +317,8 @@ def check_small_gat_reference(torch):
     mask[torch.from_numpy(data.idx_train.astype(np.int64))] = 1.0
     outs = {}
     for dev in ("cpu", "cuda"):
-        model = GAT(32, 8, 5, heads=8, generator=torch.Generator().manual_seed(3)).to(dev)
+        model = GAT(32, 8, 5, heads=8, v2=v2,
+                    generator=torch.Generator().manual_seed(3)).to(dev)
         logp = model(x.to(dev), data.graph.to(dev), hybrid_tiles=True, tiles_t=tiles_t.to(dev))
         loss = masked_nll(logp, labels.to(dev), mask.to(dev))
         loss.backward()
@@ -310,7 +328,8 @@ def check_small_gat_reference(torch):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
         worst = max(worst, float((a - b).abs().max()))
-    print(f"small GAT reference: 2-layer GAT (8 heads x 8, then 1 x 5) on the card matches "
+    name = "GATv2" if v2 else "GAT"
+    print(f"small {name} reference: 2-layer {name} (8 heads x 8, then 1 x 5) on the card matches "
           f"the CPU plain path (log-probs, loss, {len(outs['cpu']) - 2} gradients) within "
           f"rtol=atol=1e-4 on {data.graph.n_nodes} nodes, {hy.bcsr.data.shape[0]} tiles, "
           f"tile_frac {hy.tile_edges / data.graph.n_edges:.4f}; max abs err {worst:.3e}",
@@ -346,32 +365,38 @@ def run_main_path(torch):
     return graph, launches
 
 
-def run_gat_main_path(torch):
+def run_gat_main_path(torch, v2: bool):
+    """``--model gat`` (or ``gatv2``) at the arxiv flagship: every tile kernel
+    of the other version launched 0 times, this version's forward kernel
+    2 per step + 2 per evaluation and its two backward kernels 2 per step."""
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
+    model, (fwd, recv, send) = (("gatv2", ("B7", "B8", "B9")) if v2
+                                else ("gat", ("B3", "B5", "B6")))
     for k in gta.launches:
         gta.launches[k] = 0
-    result = train_fullgraph.main(["--clustered", "--model", "gat", "--hidden", "8",
+    result = train_fullgraph.main(["--clustered", "--model", model, "--hidden", "8",
                                    "--max_epochs", "3", "--memstats", "--device", "cuda"])
     torch.cuda.synchronize()
     launches = dict(gta.launches)
     graph = result["graph"]
     steps, evals = result["steps"], result["evals"]
-    expected = {"B3": 2 * steps + 2 * evals, "B5": 2 * steps, "B6": 2 * steps}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({fwd: 2 * steps + 2 * evals, recv: 2 * steps, send: 2 * steps})
     tiles = graph.hybrid.bcsr.data.shape[0] if graph.hybrid.bcsr is not None else 0
-    print(f"GAT main path: {graph.n_nodes} nodes, {graph.n_edges} edges, tile_frac="
+    print(f"{model} main path: {graph.n_nodes} nodes, {graph.n_edges} edges, tile_frac="
           f"{result['tile_frac']}, {tiles} tiles ({result['tiles_t'].data.shape[0]} "
           f"transpose tiles), {steps} steps + {evals} evals, launches {launches} (expected "
-          f"B3 2/step + 2/eval, B5 and B6 2/step: {expected}), ms/step "
+          f"{fwd} 2/step + 2/eval, {recv} and {send} 2/step: {expected}), ms/step "
           f"{result['epoch_s'] * 1e3:.3f}, peak memory {result['peak_mem_bytes'] / 2**30:.3f} "
           f"GiB, last loss {result['loss']}, best val {result['val']}", flush=True)
     if not result["tile_frac"] or result["tile_frac"] <= 0 or not result["hybrid_tiles"]:
-        fail(f"tile_frac={result['tile_frac']}: the GAT did not take the tile-attention path")
-    if launches != expected or 0 in launches.values():
-        fail(f"GAT main path launched {launches}, expected {expected}")
+        fail(f"tile_frac={result['tile_frac']}: {model} did not take the tile-attention path")
+    if launches != expected or 0 in (launches[fwd], launches[recv], launches[send]):
+        fail(f"{model} main path launched {launches}, expected {expected}")
     if not math.isfinite(result["loss"]) or not math.isfinite(result["val"]):
-        fail(f"non-finite GAT loss {result['loss']} or val {result['val']}")
+        fail(f"non-finite {model} loss {result['loss']} or val {result['val']}")
     return result, launches
 
 
@@ -434,9 +459,27 @@ def _rows_under(torch, blocks, size, n):
     return min(n, int(torch.unique(blocks).numel()) * size)
 
 
-def time_gat(torch, graph, tiles_t):
-    """B3, B5 and B6 at the GAT main path's tiles, for both layer shapes:
-    kernel and plain times (CUDA events) and the bound of each function."""
+def _without_longest_row(b):
+    """Tile set ``b`` with its longest block row's tiles taken out (that row
+    then owns none): the kernels' time on it shows how much of a launch that
+    row's CTAs set."""
+    import dataclasses
+
+    per_row = b.block_row_ptr[1:] - b.block_row_ptr[:-1]
+    r = int(per_row.argmax())
+    keep = b.block_rows != r
+    ptr = b.block_row_ptr.clone()
+    ptr[r + 1:] -= per_row[r]
+    return dataclasses.replace(b, data=b.data[keep].contiguous(),
+                               block_rows=b.block_rows[keep].contiguous(),
+                               block_cols=b.block_cols[keep].contiguous(), block_row_ptr=ptr)
+
+
+def time_gat(torch, graph, tiles_t, v2: bool):
+    """B3, B5 and B6 (with ``v2``: B7, B8 and B9) at the GAT main path's
+    tiles, for both layer shapes: kernel and plain times (CUDA events), the
+    bound of each function, and the kernel's time without the longest block
+    row (``ms_without_longest_row``, a diagnostic of the launch's tail)."""
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.utils.timing import cuda_ms
 
@@ -444,13 +487,19 @@ def time_gat(torch, graph, tiles_t):
     n = graph.n_nodes
     gen = torch.Generator(device="cuda").manual_seed(2)
     # the function's work: one term per tile edge (the tiles' nonzeros, the
-    # same in the transpose) and head; per term B3 takes the logit (add,
+    # same in the transpose) and head. Per term B3 takes the logit (add,
     # leaky), the max, the shifted exp, the den add and 2F for the weighted
     # sum; B5 the logit, the exp, 2F for s_u . dnum_v, then + dden, * p,
-    # * leaky' and the sum; B6 that and 2F more for ds.
+    # * leaky' and the sum; B6 that and 2F more for ds. GATv2's logit is 5F
+    # (per f: add, leaky as a multiply and a select, times a, the sum); B7
+    # adds the max, the shifted exp, the den add and 2F for num; B8 adds the
+    # exp, 2F for sl_u . dnum_v, + dden and * p, then per f 4 for dsr
+    # (leaky', * a, * de, the sum) and 2 for dapart (* de, the sum); B9 the
+    # same with 2F for the aggregation p * dnum_v in place of dapart.
     nnz = int(torch.count_nonzero(bcsr.data))
     ops_per_term = {"B3": lambda f: 2 * f + 6, "B5": lambda f: 2 * f + 8,
-                    "B6": lambda f: 4 * f + 8}
+                    "B6": lambda f: 4 * f + 8, "B7": lambda f: 7 * f + 4,
+                    "B8": lambda f: 13 * f + 4, "B9": lambda f: 13 * f + 4}
     fwd_rows = _rows_under(torch, bcsr.block_rows, bcsr.tm, n)
     fwd_cols = _rows_under(torch, bcsr.block_cols, bcsr.tk, n)
     t_rows = _rows_under(torch, tiles_t.block_rows, tiles_t.tm, n)
@@ -458,6 +507,8 @@ def time_gat(torch, graph, tiles_t):
 
     def tile_bytes(b):
         return b.data.shape[0] * b.tm * b.tk * b.data.element_size()
+
+    short = {id(bcsr): _without_longest_row(bcsr), id(tiles_t): _without_longest_row(tiles_t)}
 
     # one CTA per (head, block row) walks the row's tiles: the longest rows
     # set the kernels' tail
@@ -471,25 +522,49 @@ def time_gat(torch, graph, tiles_t):
     rows = []
     for h, f in ((8, 8), (1, 40)):
         hf = h * f
-        lsrc, ldst, dden = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(3))
-        s2, dnum = (torch.randn(n, hf, device="cuda", generator=gen) for _ in range(2))
-        fwd = (bcsr, lsrc, ldst, s2, h, f, SLOPE)
-        m = gta.tile_fwd_plain(*fwd)[2]
-        bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, SLOPE)
-        runs = {
-            # name: (kernel, plain, bytes: tiles + operand rows under the tiles
-            #        + outputs, each read or written once)
-            "B3": (lambda: gta.tile_fwd_cuda(*fwd), lambda: gta.tile_fwd_plain(*fwd),
-                   tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * h + n * (hf + 2 * h))),
-            "B5": (lambda: gta.tile_bwd_dldst_cuda(bcsr, *bwd),
-                   lambda: gta.tile_bwd_dldst_plain(bcsr, *bwd),
-                   tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + n * h)),
-            "B6": (lambda: gta.tile_bwd_sender_cuda(tiles_t, *bwd),
-                   lambda: gta.tile_bwd_sender_plain(tiles_t, *bwd),
-                   tile_bytes(tiles_t) + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
-                                              + n * (hf + h))),
-        }
-        for name, (kernel, plain, nbytes) in runs.items():
+        dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (hf, h))
+        # name: (kernel, plain, bytes: tiles + operand rows under the tiles
+        #        + outputs, each read or written once)
+        if v2:
+            sl2, sr2 = (torch.randn(n, hf, device="cuda", generator=gen) for _ in range(2))
+            a = torch.randn(h, f, device="cuda", generator=gen)
+            fwd = (bcsr, sl2, sr2, a, h, f, SLOPE)
+            bwd = (sl2, sr2, a, gta.tile_v2_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
+            runs = {
+                "B7": (lambda b: gta.tile_v2_fwd_cuda(b, *fwd[1:]),
+                       lambda b: gta.tile_v2_fwd_plain(b, *fwd[1:]), bcsr,
+                       tile_bytes(bcsr) + 4 * (fwd_cols * hf + fwd_rows * hf + hf
+                                               + n * (hf + 2 * h))),
+                "B8": (lambda b: gta.tile_v2_bwd_recv_cuda(b, *bwd),
+                       lambda b: gta.tile_v2_bwd_recv_plain(b, *bwd), bcsr,
+                       tile_bytes(bcsr) + 4 * (fwd_cols * hf + fwd_rows * (2 * hf + 2 * h) + hf
+                                               + n * 2 * hf)),
+                "B9": (lambda b: gta.tile_v2_bwd_send_cuda(b, *bwd),
+                       lambda b: gta.tile_v2_bwd_send_plain(b, *bwd), tiles_t,
+                       tile_bytes(tiles_t) + 4 * (t_rows * hf + t_cols * (2 * hf + 2 * h) + hf
+                                                  + n * hf)),
+            }
+        else:
+            lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
+            s2 = torch.randn(n, hf, device="cuda", generator=gen)
+            fwd = (bcsr, lsrc, ldst, s2, h, f, SLOPE)
+            bwd = (lsrc, ldst, s2, gta.tile_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
+            runs = {
+                "B3": (lambda b: gta.tile_fwd_cuda(b, *fwd[1:]),
+                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr,
+                       tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * h
+                                               + n * (hf + 2 * h))),
+                "B5": (lambda b: gta.tile_bwd_dldst_cuda(b, *bwd),
+                       lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr,
+                       tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf)
+                                               + n * h)),
+                "B6": (lambda b: gta.tile_bwd_sender_cuda(b, *bwd),
+                       lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t,
+                       tile_bytes(tiles_t) + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
+                                                  + n * (hf + h))),
+            }
+        for name, (kernel_on, plain_on, tiles, nbytes) in runs.items():
+            kernel, plain = (lambda: kernel_on(tiles)), (lambda: plain_on(tiles))
             a, r = kernel(), plain()
             torch.cuda.synchronize()
             a, r = (a if isinstance(a, tuple) else (a,)), (r if isinstance(r, tuple) else (r,))
@@ -500,24 +575,49 @@ def time_gat(torch, graph, tiles_t):
             ms = cuda_ms(kernel, iters=20)
             plain_ms = cuda_ms(plain, iters=5, warmup=1)
             ms2 = cuda_ms(kernel, iters=20)
+            short_ms = cuda_ms(lambda: kernel_on(short[id(tiles)]), iters=20)
             flops = nnz * h * ops_per_term[name](f)
             bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-            row = {"kernel": name, "H": h, "F": f, "tiles": (tiles_t if name == "B6" else bcsr)
-                   .data.shape[0], "tile_nnz": nnz, "ms": min(ms, ms2), "ms_runs": [ms, ms2],
-                   "plain_ms": plain_ms, "library_ms": None,
+            row = {"kernel": name, "H": h, "F": f, "tiles": tiles.data.shape[0],
+                   "tile_nnz": nnz, "ms": min(ms, ms2), "ms_runs": [ms, ms2],
+                   "ms_without_longest_row": short_ms, "plain_ms": plain_ms, "library_ms": None,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                    "bytes": nbytes, "flops": flops, "max_abs_err": err}
             print(f"{name} timing: " + json.dumps(row), flush=True)
             rows.append(row)
-    print("B3/B5/B6 library_ms: null; no single PyTorch call computes these attention "
-          "partials or their gradients (a sparse softmax over the tile edges would need "
-          "several)", flush=True)
+    print(f"{'/'.join(runs)} library_ms: null; no single PyTorch call computes these "
+          "attention partials or their gradients (a sparse softmax over the tile edges "
+          "would need several)", flush=True)
     gta.launches.update(saved)
     return rows
 
 
+def gat_kernel_entries(timing, launches, source, lines):
+    """The ``kernels`` line's entries of the tile-attention kernels named in
+    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row."""
+    out = []
+    for name, line in lines.items():
+        mine = [r for r in timing if r["kernel"] == name]
+        layer1 = mine[0]  # H = 8, F = 8
+        out.append({
+            "name": f"{name} {source.split('/')[-1][:-3]}",
+            "route": "cuda",
+            "source": source,
+            "replaces": f"pygcn_tpu/ops/pallas/gat_tile_attn.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": layer1["ms"],
+            "plain_ms": layer1["plain_ms"],
+            "bound_ms": layer1["bound_ms"],
+            "bound_by": layer1["bound_by"],
+            "library_ms": None,
+        })
+    return out
+
+
 def main() -> None:
+    t_start = time.time()
     torch = setup()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
@@ -526,18 +626,25 @@ def main() -> None:
     print(card, flush=True)
     build_kernels()
     check_b1(torch)
-    check_gat_tiles(torch)
+    check_gat_tiles(torch, v2=False)
+    check_gat_tiles(torch, v2=True)
     check_small_reference(torch)
-    check_small_gat_reference(torch)
+    check_small_gat_reference(torch, v2=False)
+    check_small_gat_reference(torch, v2=True)
     t0 = time.time()
     graph, launches = run_main_path(torch)
     print(f"main path wall: {time.time() - t0:.1f}s", flush=True)
     t0 = time.time()
-    gat_result, gat_launches = run_gat_main_path(torch)
+    gat_result, gat_launches = run_gat_main_path(torch, v2=False)
     print(f"GAT main path wall: {time.time() - t0:.1f}s", flush=True)
     timing = time_b1(torch, graph)
     del graph
-    gat_timing = time_gat(torch, gat_result["graph"], gat_result["tiles_t"])
+    gat_timing = time_gat(torch, gat_result["graph"], gat_result["tiles_t"], v2=False)
+    del gat_result
+    t0 = time.time()
+    gatv2_result, gatv2_launches = run_gat_main_path(torch, v2=True)
+    print(f"GATv2 main path wall: {time.time() - t0:.1f}s", flush=True)
+    gatv2_timing = time_gat(torch, gatv2_result["graph"], gatv2_result["tiles_t"], v2=True)
     h128 = timing[0]
     kernels = {"kernels": [{
         "name": "B1 bcsr_spmm",
@@ -552,22 +659,13 @@ def main() -> None:
         "bound_by": h128["bound_by"],
         "library_ms": h128["library_ms"],
     }]}
-    for name, line in (("B3", 118), ("B5", 265), ("B6", 304)):
-        mine = [r for r in gat_timing if r["kernel"] == name]
-        layer1 = mine[0]  # H = 8, F = 8
-        kernels["kernels"].append({
-            "name": f"{name} gat_tile_attn",
-            "route": "cuda",
-            "source": "pygcn_tpu_torch/csrc/gat_tile_attn.cu",
-            "replaces": f"pygcn_tpu/ops/pallas/gat_tile_attn.py:{line}",
-            "launches": gat_launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": layer1["ms"],
-            "plain_ms": layer1["plain_ms"],
-            "bound_ms": layer1["bound_ms"],
-            "bound_by": layer1["bound_by"],
-            "library_ms": None,
-        })
+    kernels["kernels"] += gat_kernel_entries(
+        gat_timing, gat_launches, "pygcn_tpu_torch/csrc/gat_tile_attn.cu",
+        {"B3": 118, "B5": 265, "B6": 304})
+    kernels["kernels"] += gat_kernel_entries(
+        gatv2_timing, gatv2_launches, "pygcn_tpu_torch/csrc/gatv2_tile_attn.cu",
+        {"B7": 559, "B8": 593, "B9": 633})
+    print(f"chip_smoke wall: {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

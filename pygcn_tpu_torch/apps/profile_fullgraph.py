@@ -1,4 +1,4 @@
-"""Where a full-graph GCN or GAT training step spends its time on the CUDA card.
+"""Where a full-graph GCN, GAT or GATv2 training step spends its time on the CUDA card.
 
 Builds the same run as ``train_fullgraph`` (any of its flags; ``--clustered``
 for the flagship), warms up, then traces a few training steps with
@@ -10,6 +10,7 @@ Usage::
 
     python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered
     python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered --model gat --hidden 8
+    python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered --model gatv2 --hidden 8
 """
 
 from __future__ import annotations

@@ -1,16 +1,17 @@
-"""Full-graph GCN or GAT training at ogbn-arxiv scale on one CUDA card.
+"""Full-graph GCN, GAT or GATv2 training at ogbn-arxiv scale on one CUDA card.
 
 The port of ``pygcn_tpu/apps/train_fullgraph.py`` for ``--model gcn`` (an
-N-layer GCN over the sparse engine) and ``--model gat`` (the 2-layer GAT of
-``nn/gat.py``, ``--gat_heads`` heads of ``--hidden`` features), with Adam
-with L2 decay and masked NLL. Without
+N-layer GCN over the sparse engine), ``--model gat`` (the 2-layer GAT of
+``nn/gat.py``, ``--gat_heads`` heads of ``--hidden`` features) and
+``--model gatv2`` (the same GAT with GATv2 layers), with Adam with L2 decay
+and masked NLL. Without
 ``--clustered`` it times epochs on a synthetic Chung-Lu power-law graph with
 random labels. With ``--clustered`` it runs the convergence flagship: a
 learnable community-classification graph with shuffled ids, locality
 ordering (native label propagation when graphkit loads, else BFS), the
 hybrid BCSR+ELL layout whose tiles run on kernel B1 (GCN) or on the
-tile-attention kernels B3/B5/B6 (GAT), per-epoch validation and early
-stopping.
+tile-attention kernels B3/B5/B6 (GAT) or B7/B8/B9 (GATv2), per-epoch
+validation and early stopping.
 
 Runs on ``--device cuda`` (the default; raises when no card is present) or,
 when asked, ``--device cpu``, where the kernels are replaced by their plain
@@ -20,6 +21,7 @@ Usage::
 
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --max_epochs 50
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gat --hidden 8
+    python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gatv2 --hidden 8
 """
 
 from __future__ import annotations
@@ -120,9 +122,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--remat", action="store_true",
                     help="recompute layer activations in the backward pass")
     ap.add_argument("--model", default="gcn",
-                    help="gcn, or gat: the 2-layer multi-head GAT (--hidden is the "
-                         "per-head width; --layers and --remat do not apply); "
-                         "gatv2/sage/gin/appnp are not ported yet")
+                    help="gcn; gat or gatv2: the 2-layer multi-head GAT with v1 or "
+                         "GATv2 layers (--hidden is the per-head width; --layers and "
+                         "--remat do not apply); sage/gin/appnp are not ported yet")
     ap.add_argument("--gat_heads", type=int, default=8)
     ap.add_argument("--shards", type=int, default=1,
                     help="only 1 is ported")
@@ -138,8 +140,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--content", default=None, help="not ported yet")
     ap.add_argument("--cites", default=None, help="not ported yet")
     args = ap.parse_args(argv)
-    if args.model not in ("gcn", "gat"):
-        raise SystemExit(f"--model {args.model}: not ported yet (gcn and gat are)")
+    if args.model not in ("gcn", "gat", "gatv2"):
+        raise SystemExit(f"--model {args.model}: not ported yet (gcn, gat and gatv2 are)")
     if args.shards != 1:
         raise SystemExit("--shards > 1: not ported yet")
     if args.npz or args.content or args.cites:
@@ -159,7 +161,7 @@ class Setup:
     x: torch.Tensor
     labels: torch.Tensor
     mask: torch.Tensor
-    model: nn.Module  # GCN or GAT
+    model: nn.Module  # GCN or GAT (v1 or v2)
     opt: torch.optim.Optimizer
     tile_frac: Optional[float]  # share of edges on hybrid tiles (--clustered)
     fwd_kw: dict  # extra forward arguments: the GAT's edge_map, hybrid_tiles, tiles_t
@@ -193,10 +195,10 @@ def prepare(args: argparse.Namespace) -> Setup:
         # attention needs the ELL slot path and the hybrid tiles
         kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
                   hybrid_min_edges_per_tile=64)
-        if args.model == "gat":
+        if args.model in ("gat", "gatv2"):
             if data.graph.n_nodes > COLPANEL_MIN_NODES:
                 raise NotImplementedError(
-                    f"--model gat above {COLPANEL_MIN_NODES} nodes runs on the "
+                    f"--model {args.model} above {COLPANEL_MIN_NODES} nodes runs on the "
                     "column-panel attention path, which is not ported yet")
             kw.update(build_ell=True, build_hybrid=True, build_colpanel=False)
         graph = Graph.from_scipy(data.graph.to_scipy(), **kw)
@@ -226,10 +228,11 @@ def prepare(args: argparse.Namespace) -> Setup:
 
     gen = torch.Generator().manual_seed(args.seed)
     fwd_kw = {}
-    if args.model == "gat":
-        model = GAT(args.feat_dim, args.hidden, args.n_classes, heads=args.gat_heads,
+    if args.model in ("gat", "gatv2"):
+        v2 = args.model == "gatv2"
+        model = GAT(args.feat_dim, args.hidden, args.n_classes, heads=args.gat_heads, v2=v2,
                     generator=gen)
-        fwd_kw = _gat_layouts(graph)
+        fwd_kw = _gat_layouts(graph, v2)
     else:
         dims = [args.feat_dim] + [args.hidden] * (args.layers - 1) + [args.n_classes]
         model = GCN(dims, generator=gen, remat=args.remat)
@@ -241,10 +244,11 @@ def prepare(args: argparse.Namespace) -> Setup:
     return Setup(device, graph, data, x, labels, mask, model, opt, tile_frac, fwd_kw)
 
 
-def _gat_layouts(graph: Graph) -> dict:
+def _gat_layouts(graph: Graph, v2: bool) -> dict:
     """The GAT's attention layouts, built on the host: the ELL edge map and,
     when the hybrid layout has tiles and an ELL residual, the exact transpose
-    tiles of the tile-attention path."""
+    tiles of the tile-attention path (kernels B3/B5/B6, or B7/B8/B9 with
+    ``v2``)."""
     from pygcn_tpu_torch.ops.ell import ELL
     from pygcn_tpu_torch.ops.gat import build_edge_map, build_gat_tiles_t
 
@@ -253,7 +257,8 @@ def _gat_layouts(graph: Graph) -> dict:
     hy = graph.hybrid
     if hy is not None and hy.bcsr is not None and isinstance(hy.ell, ELL):
         kw.update(hybrid_tiles=True, tiles_t=build_gat_tiles_t(graph))
-        print(f"gat: tile-attention path (kernels B3/B5/B6 on {hy.bcsr.data.shape[0]} "
+        print(f"{'gatv2' if v2 else 'gat'}: tile-attention path (kernels "
+              f"{'B7/B8/B9' if v2 else 'B3/B5/B6'} on {hy.bcsr.data.shape[0]} "
               f"tiles, {hy.tile_edges / graph.n_edges:.1%} of edges; ELL residual)")
     return kw
 

@@ -4,9 +4,11 @@ The JAX trainer keeps its GCN as a list of layers, ``[{"w": [in, out],
 "b": [out]}, ...]``; the port's :class:`~pygcn_tpu_torch.apps.train_fullgraph.GCN`
 keeps the same arrays as ``layers.<i>.weight`` (``[in, out]``) and
 ``layers.<i>.bias``. Its GAT is the tree ``{"gat1" | "gat2": {"w", "a_src",
-"a_dst", "b"}}`` that ``pygcn_tpu.nn.gat.GAT.init`` returns; the port's
-:class:`~pygcn_tpu_torch.nn.gat.GAT` keeps the same arrays under
-``gat1.w``, ``gat1.a_src`` and so on. The two random generators differ, so
+"a_dst", "b"}}`` that ``pygcn_tpu.nn.gat.GAT.init`` returns, and with
+``v2=True`` ``{"gat1" | "gat2": {"w_l", "a", "w_r", "b"}}`` (no ``w_r`` when
+a layer shares its weights); the port's :class:`~pygcn_tpu_torch.nn.gat.GAT`
+keeps the same arrays under ``gat1.w``, ``gat1.a_src``, ``gat1.w_l`` and so
+on. The two random generators differ, so
 tests start both packages from one set of weights carried across here.
 Arrays go through NumPy; nothing of JAX is imported.
 """
@@ -39,11 +41,12 @@ def state_dict_to_params(state) -> list:
 
 
 GAT_LAYERS = ("gat1", "gat2")
-GAT_PARAMS = ("w", "a_src", "a_dst", "b")
+# v1 and v2 names; each tree or state dict holds the ones its layers have
+GAT_PARAMS = ("w", "a_src", "a_dst", "w_l", "w_r", "a", "b")
 
 
 def gat_params_to_state_dict(params) -> dict:
-    """JAX-side GAT param tree → state dict of :class:`~pygcn_tpu_torch.nn.gat.GAT`."""
+    """JAX-side GAT or GATv2 param tree → state dict of :class:`~pygcn_tpu_torch.nn.gat.GAT`."""
     return {f"{layer}.{name}": torch.from_numpy(np.array(params[layer][name], dtype=np.float32))
             for layer in GAT_LAYERS for name in GAT_PARAMS if name in params[layer]}
 

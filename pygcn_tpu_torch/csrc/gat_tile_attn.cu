@@ -27,12 +27,10 @@
 //
 // Per tile the CTA stages the column side's operands for its head in shared
 // memory (B3/B5: lsrc and s2 of the 128 senders; B6: ldst, m, dden and dnum of
-// the 128 receivers). The mask is never stored: warp w reads rows 32w..32w+31
-// of the tile, one 16-byte (f32) or 8-byte (bf16) load a lane per row, and four
-// ballots give that row's 128 mask bits (bit l of word c is column 4l + c),
-// which lane r keeps for its own row. The warp then walks the columns that
-// any of its 32 rows needs (the OR of its words, a warp-uniform loop) and
-// evaluates every (row, column) slot there, selecting, never multiplying, by
+// the 128 receivers). The mask is never stored: four warp ballots a row give
+// each thread its row's 128 mask bits, and the warp walks the columns that any
+// of its 32 rows needs (gat_tile_common.cuh), evaluating every (row, column)
+// slot there, selecting, never multiplying, by
 // the mask: exp(NEG - NEG) = 1 must not leak in. B3 takes the tile's row max
 // first, rescales by corr = exp(m_old - m_new) (1 with den = 0 for a row still
 // at NEG) and then accumulates, the flash order of the TPU kernel.
@@ -55,94 +53,11 @@
 // padded in registers to the next compiled width FP. Plain C interface,
 // loaded with ctypes.
 
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "gat_tile_common.cuh"
 
 namespace {
 
-constexpr int TM = 128;  // tile rows
-constexpr int TK = 128;  // tile columns
-constexpr int THREADS = 128;  // one thread per tile row
-constexpr int MAX_F = 64;
-constexpr float NEG = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-
-static_assert(THREADS == TM, "one thread per tile row");
-
-__device__ __forceinline__ float leaky(float x, float slope) { return x >= 0.f ? x : slope * x; }
-
-// The four mask words of this thread's row of `tile`: bit l of word c is set
-// when tile[row][4l + c] != 0 (-0 counts as zero, as in the plain version).
-__device__ __forceinline__ void mask_words(const void* tile, bool bf16, uint32_t w[4]) {
-  const int lane = threadIdx.x & 31;
-  const int row0 = threadIdx.x & ~31;
-#pragma unroll 8
-  for (int r = 0; r < 32; ++r) {
-    const size_t row = static_cast<size_t>(row0 + r) * TK;
-    bool nz0, nz1, nz2, nz3;
-    if (bf16) {
-      const uint2 b =
-          __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(tile) + row) + lane);
-      nz0 = (b.x & 0x7fffu) != 0;
-      nz1 = (b.x & 0x7fff0000u) != 0;
-      nz2 = (b.y & 0x7fffu) != 0;
-      nz3 = (b.y & 0x7fff0000u) != 0;
-    } else {
-      const float4 v =
-          __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(tile) + row) + lane);
-      nz0 = v.x != 0.f;
-      nz1 = v.y != 0.f;
-      nz2 = v.z != 0.f;
-      nz3 = v.w != 0.f;
-    }
-    const uint32_t b0 = __ballot_sync(FULL, nz0), b1 = __ballot_sync(FULL, nz1);
-    const uint32_t b2 = __ballot_sync(FULL, nz2), b3 = __ballot_sync(FULL, nz3);
-    if (lane == r) {
-      w[0] = b0;
-      w[1] = b1;
-      w[2] = b2;
-      w[3] = b3;
-    }
-  }
-}
-
-__device__ __forceinline__ const void* tile_ptr(const void* tiles, bool bf16, int t) {
-  return static_cast<const char*>(tiles) + static_cast<size_t>(t) * TM * TK * (bf16 ? 2 : 4);
-}
-
-// Calls body(j, on) for every column j of the tile that some row of the warp
-// needs; `on` says whether this thread's row has an edge there. The loop is
-// uniform across the warp.
-template <typename Body>
-__device__ __forceinline__ void for_columns(const uint32_t w[4], Body body) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    uint32_t any = __reduce_or_sync(FULL, w[c]);
-    while (any) {
-      const int l = __ffs(any) - 1;
-      any &= any - 1;
-      body(4 * l + c, (w[c] >> l) & 1u);
-    }
-  }
-}
-
-// Stage rows col0 .. col0 + TK - 1 of the head's F columns of x [n, H*F] into
-// xs [TK][FP], zero past n and past F.
-template <int FP>
-__device__ __forceinline__ void stage_feats(float* xs, const float* x, long long col0, int n,
-                                            int hf, int head, int f) {
-  for (int i = threadIdx.x; i < TK * FP; i += THREADS) {
-    const int j = i / FP, k = i % FP;
-    const long long row = col0 + j;
-    xs[i] = (row < n && k < f) ? x[row * hf + static_cast<long long>(head) * f + k] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float node(const float* a, long long row, int n, int h, int head) {
-  return row < n ? a[row * h + head] : 0.f;
-}
+using namespace gat_tile;
 
 template <int FP>
 __global__ void __launch_bounds__(THREADS)
@@ -322,17 +237,6 @@ gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
   }
 }
 
-// The kernel compiled for the smallest width FP >= f.
-template <typename Kernel>
-Kernel pick_width(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k40,
-                  Kernel k64) {
-  return f <= 4 ? k4 : f <= 8 ? k8 : f <= 16 ? k16 : f <= 32 ? k32 : f <= 40 ? k40 : k64;
-}
-
-#define WIDTHS(kernel) kernel<4>, kernel<8>, kernel<16>, kernel<32>, kernel<40>, kernel<64>
-
-dim3 grid_of(int n_block_rows, int h) { return dim3(static_cast<unsigned>(n_block_rows) * h); }
-
 }  // namespace
 
 extern "C" {
@@ -351,7 +255,7 @@ int gat_tile_fwd(const void* tiles, const void* block_cols, const void* block_ro
                  void* m, int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
                  void* stream) {
   if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = pick_width(f, WIDTHS(gat_fwd_kernel));
+  const auto kernel = pick_width(f, GAT_TILE_WIDTHS(gat_fwd_kernel));
   kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, tile_bf16, static_cast<const int*>(block_cols),
       static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
@@ -367,7 +271,7 @@ int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* bl
                        const void* dnum, const void* dden, void* dldst, int n_block_rows,
                        int n, int h, int f, int tile_bf16, float slope, void* stream) {
   if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = pick_width(f, WIDTHS(gat_bwd_dldst_kernel));
+  const auto kernel = pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_kernel));
   kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles, tile_bf16, static_cast<const int*>(block_cols),
       static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
@@ -384,7 +288,7 @@ int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void*
                         int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
                         void* stream) {
   if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = pick_width(f, WIDTHS(gat_bwd_sender_kernel));
+  const auto kernel = pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_kernel));
   kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       tiles_t, tile_bf16, static_cast<const int*>(block_cols),
       static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),

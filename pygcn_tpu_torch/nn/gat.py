@@ -1,12 +1,12 @@
 """Graph attention network (GAT) layers as ``nn.Module``\\ s.
 
-The port of ``pygcn_tpu/nn/gat.py`` (GAT v1): multi-head additive attention
-(Veličković et al. 2018), ELU between the layers, head-concat on the hidden
-layer and head-mean on the output layer. Weights are drawn from an explicit
-``torch.Generator`` with the reference's GraphConv bounds
-(``pygcn_tpu_torch/nn/init.py``); tests that need the JAX package's weights
-carry them across with ``pygcn_tpu_torch.convert``. GATv2 and dropout are not
-ported yet.
+The port of ``pygcn_tpu/nn/gat.py``: multi-head additive attention
+(Veličković et al. 2018) or its dynamic GATv2 form (Brody et al. 2022), ELU
+between the layers, head-concat on the hidden layer and head-mean on the
+output layer. Weights are drawn from an explicit ``torch.Generator`` with the
+reference's GraphConv bounds (``pygcn_tpu_torch/nn/init.py``); tests that
+need the JAX package's weights carry them across with
+``pygcn_tpu_torch.convert``. Dropout is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from torch import nn
 from pygcn_tpu_torch.graph.graph import Graph
 from pygcn_tpu_torch.nn import init as tinit
 from pygcn_tpu_torch.ops.gat import (attention_aggregate, gat_attention, gat_conv_ell,
-                                     gat_conv_hybrid)
+                                     gat_conv_hybrid, gatv2_attention, gatv2_conv_ell,
+                                     gatv2_conv_hybrid)
 
 
 class GATConv(nn.Module):
@@ -59,29 +60,75 @@ class GATConv(nn.Module):
         else:
             alpha = gat_attention(graph, s, self.a_src, self.a_dst, self.negative_slope)
             out = attention_aggregate(graph, s, alpha)  # [N, H, F]
-        out = out.reshape(n, h * f) if self.concat else out.mean(dim=1)
-        if self.b is not None:
-            out = out + self.b
-        return out
+        return _combine_heads(out, self.concat, self.b)
+
+
+def _combine_heads(out: torch.Tensor, concat: bool, b) -> torch.Tensor:
+    """``[N, H, F]`` → ``[N, H·F]`` (``concat``) or the mean over heads, plus the bias."""
+    out = out.reshape(out.shape[0], -1) if concat else out.mean(dim=1)
+    return out if b is None else out + b
+
+
+class GATv2Conv(nn.Module):
+    """One multi-head GATv2 layer.
+
+    ``e_uv = a · leaky_relu(x_u @ W_l + x_v @ W_r)``: the nonlinearity
+    precedes the attention vector, so the ranking of neighbours can depend on
+    the receiver. Aggregates the source transform,
+    ``out_v = Σ_u alpha_uv · (x_u @ W_l)``. Parameters as in the JAX tree:
+    ``w_l [in, H·F]``, ``a [H, F]``, ``w_r [in, H·F]`` (absent with
+    ``share_weights``, which ties ``W_r = W_l``) and ``b``.
+    """
+
+    def __init__(self, in_features: int, out_features: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2, bias: bool = True,
+                 share_weights: bool = False, *, generator: torch.Generator):
+        super().__init__()
+        h, f = heads, out_features
+        self.heads, self.out_features = h, f
+        self.concat, self.negative_slope = concat, negative_slope
+        self.w_l = nn.Parameter(tinit.graphconv_weight(in_features, h * f, generator))
+        self.a = nn.Parameter(tinit.graphconv_weight(h, f, generator))
+        self.w_r = None if share_weights else nn.Parameter(
+            tinit.graphconv_weight(in_features, h * f, generator))
+        self.b = nn.Parameter(tinit.graphconv_bias(h * f if concat else f, generator)) \
+            if bias else None
+
+    def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
+                tiles_t=None) -> torch.Tensor:
+        """The paths of :meth:`GATConv.forward`; on the hybrid layout the
+        tile edges run on kernels B7/B8/B9."""
+        n = x.shape[0]
+        h, f = self.heads, self.out_features
+        s_l = torch.matmul(x, self.w_l).view(n, h, f)
+        s_r = torch.matmul(x, self.w_l if self.w_r is None else self.w_r).view(n, h, f)
+        if hybrid_tiles:
+            out = gatv2_conv_hybrid(graph, tiles_t, s_l, s_r, self.a, self.negative_slope)
+        elif edge_map is not None:
+            out = gatv2_conv_ell(graph, edge_map, s_l, s_r, self.a, self.negative_slope)
+        else:
+            alpha = gatv2_attention(graph, s_l, s_r, self.a, self.negative_slope)
+            out = attention_aggregate(graph, s_l, alpha)  # [N, H, F]
+        return _combine_heads(out, self.concat, self.b)
 
 
 class GAT(nn.Module):
     """2-layer GAT: ``elu(GATConv(heads, concat)) → GATConv(out_heads, mean)``
     with log-softmax output, the standard transductive configuration (8
-    hidden heads of 8 features, one output head)."""
+    hidden heads of 8 features, one output head); ``v2`` takes
+    :class:`GATv2Conv` layers."""
 
     def __init__(self, nfeat: int, nhid: int, nclass: int, heads: int = 8, out_heads: int = 1,
                  negative_slope: float = 0.2, dropout: float = 0.0, v2: bool = False, *,
                  generator: torch.Generator):
         super().__init__()
-        if v2:
-            raise NotImplementedError("GATv2 (v2=True) is not ported yet")
         if dropout > 0.0:
             raise NotImplementedError("GAT input and attention dropout are not ported yet")
-        self.gat1 = GATConv(nfeat, nhid, heads, concat=True, negative_slope=negative_slope,
-                            generator=generator)
-        self.gat2 = GATConv(nhid * heads, nclass, out_heads, concat=False,
-                            negative_slope=negative_slope, generator=generator)
+        conv = GATv2Conv if v2 else GATConv
+        self.gat1 = conv(nfeat, nhid, heads, concat=True, negative_slope=negative_slope,
+                         generator=generator)
+        self.gat2 = conv(nhid * heads, nclass, out_heads, concat=False,
+                         negative_slope=negative_slope, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
                 tiles_t=None) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 Each ``pygcn_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a``
 into ``pygcn_tpu_torch/_build/lib<name>.so`` (a directory git ignores) at
-first use, and rebuilt when the source is newer than the library. The
-libraries include no PyTorch headers, so a build takes seconds; wrappers load
-them with ctypes. Several sources build in parallel, one ``nvcc`` each.
+first use, and rebuilt when the source, or a header beside it, is newer than
+the library. The libraries include no PyTorch headers, so a build takes
+seconds; wrappers load them with ctypes. Several sources build in parallel,
+one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bcsr_spmm", "gat_tile_attn")
+SOURCES = ("bcsr_spmm", "gat_tile_attn", "gatv2_tile_attn")
 
 
 def nvcc() -> str:
@@ -43,7 +44,10 @@ def library_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = library_path(name)
-    return not lib.exists() or (CSRC / f"{name}.cu").stat().st_mtime > lib.stat().st_mtime
+    if not lib.exists():
+        return True
+    sources = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return max(p.stat().st_mtime for p in sources) > lib.stat().st_mtime
 
 
 def build(names=SOURCES, *, force: bool = False) -> dict:

@@ -1,18 +1,21 @@
 """Graph attention (GAT) ops: edge softmax and dynamic-weight aggregation.
 
-The port of ``pygcn_tpu/ops/gat.py`` (GAT v1; GATv2 comes in a later slice).
-Attention logits decompose per edge ``u -> v`` as
-``leaky_relu(a_src · s_u + a_dst · s_v)`` with ``s = x @ W``, so each edge
-needs two per-node scalars per head. Three paths compute the same
+The port of ``pygcn_tpu/ops/gat.py`` (GAT v1 and GATv2). v1's attention
+logits decompose per edge ``u -> v`` as ``leaky_relu(a_src · s_u + a_dst · s_v)``
+with ``s = x @ W``, so each edge needs two per-node scalars per head. GATv2's
+``a · leaky_relu(s_l[u] + s_r[v])`` does not decompose: each edge needs the
+full feature vectors. For each version three paths compute the same
 convolution:
 
-- **COO** (:func:`gat_attention`, :func:`attention_aggregate`): softmax and
-  aggregation over the graph's receiver-sorted edge arrays.
-- **ELL** (:func:`gat_conv_ell`): per-bucket blocks of the bucketed-ELL
-  layout, with an :class:`EdgeMap` telling which slots hold real edges.
-- **hybrid** (:func:`gat_conv_hybrid`): tile edges on kernels B3/B5/B6
-  (``ops/cuda/gat_tile_attn.py``), residual edges on the ELL one-pass, merged
-  by the rescaled flash combine.
+- **COO** (:func:`gat_attention`/:func:`gatv2_attention`,
+  :func:`attention_aggregate`): softmax and aggregation over the graph's
+  receiver-sorted edge arrays.
+- **ELL** (:func:`gat_conv_ell`/:func:`gatv2_conv_ell`): per-bucket blocks of
+  the bucketed-ELL layout, with an :class:`EdgeMap` telling which slots hold
+  real edges.
+- **hybrid** (:func:`gat_conv_hybrid`/:func:`gatv2_conv_hybrid`): tile edges
+  on kernels B3/B5/B6 or B7/B8/B9 (``ops/cuda/gat_tile_attn.py``), residual
+  edges on the ELL one-pass, merged by the rescaled flash combine.
 
 The JAX package replicates ``[.., H]`` logits f-fold into ``[.., H·F]`` lanes
 (a TPU layout workaround); the port computes in ``[.., H]`` and broadcasts,
@@ -27,7 +30,8 @@ import numpy as np
 import torch
 
 from pygcn_tpu_torch.graph.graph import Graph, tree_to
-from pygcn_tpu_torch.ops.cuda.gat_tile_attn import NEG, gat_tile_partials, transpose_bcsr
+from pygcn_tpu_torch.ops.cuda.gat_tile_attn import (NEG, gat_tile_partials, gatv2_tile_partials,
+                                                    transpose_bcsr)
 
 
 def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -96,6 +100,22 @@ def gat_attention(graph: Graph, s: torch.Tensor, a_src: torch.Tensor, a_dst: tor
     logit_src, logit_dst = _node_logits(s, a_src, a_dst)
     e = logit_src[graph.senders.long()] + logit_dst[graph.receivers.long()]
     return edge_softmax(graph, _leaky(e, negative_slope))
+
+
+def _v2_logits(g: torch.Tensor, d: torch.Tensor, a: torch.Tensor, negative_slope: float):
+    """``a · leaky(g + d)`` over the last two axes: ``[..., H, F] → [..., H]``."""
+    return torch.einsum("...hf,hf->...h", _leaky(g + d, negative_slope), a)
+
+
+def gatv2_attention(graph: Graph, s_l: torch.Tensor, s_r: torch.Tensor, a: torch.Tensor,
+                    negative_slope: float = 0.2) -> torch.Tensor:
+    """Per-edge, per-head GATv2 attention weights ``alpha [E_pad, H]`` for the
+    source and receiver transforms ``s_l``/``s_r [N, H, F]`` and ``a [H, F]``:
+    the softmax of ``e_uv = a · leaky_relu(s_l[u] + s_r[v])``."""
+    n, h, f = s_l.shape
+    g = s_l.reshape(n, h * f).index_select(0, graph.senders).view(-1, h, f)
+    d = s_r.reshape(n, h * f).index_select(0, graph.receivers).view(-1, h, f)
+    return edge_softmax(graph, _v2_logits(g, d, a, negative_slope))
 
 
 # ---------------------------------------------------------------------- #
@@ -226,21 +246,34 @@ def _ell_attn_partials(ell, logit_src, logit_dst, s2, h: int, f: int, negative_s
     replicated f-fold, ``[N, H·F]``; the values are the same.
     """
     n = s2.shape[0]
-    num_parts, den_parts, max_parts = [], [], []
+    parts = []
     for cols, rows, valid2 in zip(ell.cols, ell.rows, valids):
         nb, k = cols.shape
         flat = cols.reshape(-1)
         lsrc = logit_src.index_select(0, flat).view(nb, k, h)
         ldst = logit_dst.index_select(0, rows)[:, None, :]
         e = torch.where(valid2[..., None], _leaky(lsrc + ldst, negative_slope), -torch.inf)
-        # local max over this virtual row's slots; -inf only for all-padding rows
-        bmax = e.detach().amax(dim=1)  # [nb, h]
-        shift = torch.where(torch.isfinite(bmax), bmax, 0.0)
-        ex = torch.exp(e - shift[:, None, :])  # [nb, k, h]; padding slots exp(-inf) = 0
-        den_parts.append(ex.sum(dim=1))
-        g = s2.index_select(0, flat).view(nb, k, h, f)
-        num_parts.append((g * ex[..., None]).sum(dim=1).reshape(nb, h * f))
-        max_parts.append(bmax)
+        parts.append(_vrow_partials(e, s2.index_select(0, flat).view(nb, k, h, f)))
+    return _combine_vrow_partials(ell, parts, n, f)
+
+
+def _vrow_partials(e: torch.Tensor, g: torch.Tensor):
+    """One bucket's virtual-row partials ``(num [nb, H·F], den [nb, H],
+    max [nb, H])`` from its slot logits ``e [nb, K, H]`` (``-inf`` on padding
+    slots) and gathered features ``g [nb, K, H, F]``, each row exponentiated
+    against its own max (no gradient through the max)."""
+    nb, k, h, f = g.shape
+    # local max over this virtual row's slots; -inf only for all-padding rows
+    bmax = e.detach().amax(dim=1)  # [nb, h]
+    shift = torch.where(torch.isfinite(bmax), bmax, 0.0)
+    ex = torch.exp(e - shift[:, None, :])  # [nb, k, h]; padding slots exp(-inf) = 0
+    return (g * ex[..., None]).sum(dim=1).reshape(nb, h * f), ex.sum(dim=1), bmax
+
+
+def _combine_vrow_partials(ell, parts, n: int, f: int):
+    """Every virtual row's partials onto its receiver's max: ``(num [N, H·F],
+    den [N, H], m [N, H])``, ``m`` ``-inf`` where a receiver has no slot."""
+    num_parts, den_parts, max_parts = zip(*parts)
     r = torch.cat(ell.rows)
     bmax = torch.cat(max_parts)  # [V, h]
     m = _segment_max(bmax, r, n)
@@ -251,6 +284,84 @@ def _ell_attn_partials(ell, logit_src, logit_dst, s2, h: int, f: int, negative_s
     num = _segment_sum(torch.cat(num_parts) * scale.repeat_interleave(f, dim=1), r, n)
     den = _segment_sum(torch.cat(den_parts) * scale, r, n)
     return num, den, m
+
+
+def gatv2_conv_ell(graph: Graph, em: EdgeMap, s_l: torch.Tensor, s_r: torch.Tensor,
+                   a: torch.Tensor, negative_slope: float = 0.2,
+                   stabilizer: str = "flash") -> torch.Tensor:
+    """GATv2 convolution on the bucketed-ELL layout: ``[N, H, F]`` out.
+
+    ``stabilizer="flash"`` (the default; ``"bound"`` is its old name) runs
+    :func:`gatv2_conv_ell_onepass`; v1's node-level bound has no v2 analogue
+    (the nonlinearity precedes ``a``), but the exact per-virtual-row combine
+    needs none. ``"segmax"`` is the three-pass form: a per-receiver max, then
+    the denominators, then the weighted sum of ``s_l``.
+    """
+    if stabilizer in ("flash", "bound"):
+        return gatv2_conv_ell_onepass(graph, em, s_l, s_r, a, negative_slope)
+    if stabilizer != "segmax":
+        raise ValueError(f"unknown stabilizer {stabilizer!r}")
+    ell = graph.ell
+    n, h, f = s_l.shape
+    sl2, sr2 = s_l.reshape(n, h * f), s_r.reshape(n, h * f)
+
+    e_blocks, valid_blocks, max_parts = [], [], []
+    for cols, eidx, rows in zip(ell.cols, em.eidx, ell.rows):
+        nb, k = cols.shape
+        valid = (eidx != em.sentinel)[..., None]  # [nb, k, 1]
+        g = sl2.index_select(0, cols.reshape(-1)).view(nb, k, h, f)
+        d = sr2.index_select(0, rows).view(nb, 1, h, f)
+        e = torch.where(valid, _v2_logits(g, d, a, negative_slope), -torch.inf)
+        e_blocks.append(e)
+        valid_blocks.append(valid)
+        max_parts.append(e.detach().amax(dim=1))  # [nb, h]
+    r = torch.cat(ell.rows)
+    m = _segment_max(torch.cat(max_parts), r, n)
+    m = torch.where(torch.isfinite(m), m, 0.0)  # [N, H], a constant shift
+
+    ex_blocks, den_parts = [], []
+    for e, valid, rows in zip(e_blocks, valid_blocks, ell.rows):
+        ex = torch.exp(e - m.index_select(0, rows)[:, None, :]) * valid
+        ex_blocks.append(ex)
+        den_parts.append(ex.sum(dim=1))
+    denom = torch.clamp(_segment_sum(torch.cat(den_parts), r, n), min=1e-16)
+
+    out_parts = []
+    for cols, ex, rows in zip(ell.cols, ex_blocks, ell.rows):
+        nb, k = cols.shape
+        alpha = ex / denom.index_select(0, rows)[:, None, :]  # [nb, k, h]
+        g = sl2.index_select(0, cols.reshape(-1)).view(nb, k, h, f)
+        out_parts.append((g * alpha[..., None]).reshape(nb, k, h * f).sum(dim=1))
+    return _segment_sum(torch.cat(out_parts), r, n).view(n, h, f)
+
+
+def gatv2_conv_ell_onepass(graph: Graph, em: EdgeMap, s_l: torch.Tensor, s_r: torch.Tensor,
+                           a: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """One-pass GATv2 convolution by the flash-style two-level softmax of
+    :func:`gat_conv_ell_onepass`: one gather of the source block per bucket
+    feeds both the logit and the weighted sum."""
+    n, h, f = s_l.shape
+    valids = [eidx != em.sentinel for eidx in em.eidx]
+    num, den, _m = _ell_attn_partials_v2(graph.ell, s_l.reshape(n, h * f),
+                                         s_r.reshape(n, h * f), a, h, f, negative_slope, valids)
+    return num.view(n, h, f) / torch.clamp(den, min=1e-16)[..., None]
+
+
+def _ell_attn_partials_v2(ell, sl2, sr2, a, h: int, f: int, negative_slope: float, valids):
+    """Per-receiver GATv2 attention partials over an ELL layout's edges, the
+    v2 analogue of :func:`_ell_attn_partials` with the same return contract:
+    ``(num [N, H·F], den [N, H], m [N, H])``, ``num`` aggregating ``sl2``. The
+    JAX function returns ``den`` and ``m`` replicated f-fold, ``[N, H·F]``;
+    the values are the same."""
+    n = sl2.shape[0]
+    parts = []
+    for cols, rows, valid2 in zip(ell.cols, ell.rows, valids):
+        nb, k = cols.shape
+        g = sl2.index_select(0, cols.reshape(-1)).view(nb, k, h, f)
+        d = sr2.index_select(0, rows).view(nb, 1, h, f)
+        e = torch.where(valid2[..., None], _v2_logits(g, d, a, negative_slope), -torch.inf)
+        parts.append(_vrow_partials(e, g))
+    return _combine_vrow_partials(ell, parts, n, f)
 
 
 def build_gat_tiles_t(graph: Graph):
@@ -291,6 +402,22 @@ def gat_conv_hybrid(graph: Graph, tiles_t, s: torch.Tensor, a_src: torch.Tensor,
     :func:`build_gat_tiles_t` of the graph. Needs the hybrid layout with an
     ELL residual; attention dropout is not supported here.
     """
+    ell = _hybrid_residual(graph, tiles_t)
+    n, h, f = s.shape
+    lsrc_n, ldst_n = _node_logits(s, a_src, a_dst)  # [N, H]
+    s2 = s.reshape(n, h * f)
+    edge = _ell_attn_partials(ell, lsrc_n, ldst_n, s2, h, f, negative_slope,
+                              [v != 0 for v in ell.vals])
+    tile = None if graph.hybrid.bcsr is None else gat_tile_partials(
+        (h, f, negative_slope), graph.hybrid.bcsr, tiles_t, lsrc_n, ldst_n, s2)
+    return _flash_merge(tile, edge, n, h, f)
+
+
+def _hybrid_residual(graph: Graph, tiles_t):
+    """The hybrid layout's ELL residual, after the checks both hybrid
+    convolutions need. Its slot is real iff it stores an adjacency value
+    (normalised adjacencies are > 0 on real edges), so callers pass
+    ``vals != 0`` as the valid slots."""
     from pygcn_tpu_torch.ops.ell import ELL
 
     hy = graph.hybrid
@@ -300,23 +427,23 @@ def gat_conv_hybrid(graph: Graph, tiles_t, s: torch.Tensor, a_src: torch.Tensor,
         raise ValueError("hybrid attention needs an ELL residual (hybrid_residual='ell')")
     if hy.bcsr is not None and tiles_t is None:
         raise ValueError("pass tiles_t=build_gat_tiles_t(graph)")
-    n, h, f = s.shape
-    lsrc_n, ldst_n = _node_logits(s, a_src, a_dst)  # [N, H]
-    s2 = s.reshape(n, h * f)
+    return hy.ell
 
-    # residual (non-tile) edges: a slot is real iff it stores an adjacency
-    # value (normalised adjacencies are > 0 on real edges)
-    ell = hy.ell
-    num_e, den_e, m_e = _ell_attn_partials(ell, lsrc_n, ldst_n, s2, h, f, negative_slope,
-                                           [v != 0 for v in ell.vals])
-    if hy.bcsr is None:
+
+def _flash_merge(tile, edge, n: int, h: int, f: int) -> torch.Tensor:
+    """``[N, H, F]`` softmax-weighted sums from the tile side's and the ELL
+    residual's ``(num [N, H·F], den [N, H], m [N, H])`` partials (``tile``
+    None when the layout has no tiles).
+
+    The exact softmax across both structures: both partial sets are rescaled
+    onto the combined per-receiver max. The tile side marks "no edge" with
+    NEG, the ELL side with -inf; receivers with no edge at all end at
+    0 / 1e-16.
+    """
+    num_e, den_e, m_e = edge
+    if tile is None:
         return num_e.view(n, h, f) / torch.clamp(den_e, min=1e-16)[..., None]
-
-    num_t, den_t, m_t = gat_tile_partials((h, f, negative_slope), hy.bcsr, tiles_t,
-                                          lsrc_n, ldst_n, s2)
-    # the exact softmax across both structures: rescale both partial sets onto
-    # the combined per-receiver max. The tile side marks "no edge" with NEG,
-    # the ELL side with -inf; receivers with no edge at all end at 0 / 1e-16.
+    num_t, den_t, m_t = tile
     m_comb = torch.maximum(m_t, m_e).detach()
     shift = torch.where(m_comb > -1e29, m_comb, 0.0)
     st = torch.exp(m_t - shift)
@@ -324,3 +451,24 @@ def gat_conv_hybrid(graph: Graph, tiles_t, s: torch.Tensor, a_src: torch.Tensor,
     num = num_t.view(n, h, f) * st[..., None] + num_e.view(n, h, f) * se[..., None]
     den = den_t * st + den_e * se
     return num / torch.clamp(den, min=1e-16)[..., None]
+
+
+def gatv2_conv_hybrid(graph: Graph, tiles_t, s_l: torch.Tensor, s_r: torch.Tensor,
+                      a: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """GATv2 convolution on the hybrid BCSR+ELL layout: ``[N, H, F]`` out.
+
+    Tile edges run on kernels B7/B8/B9
+    (:func:`~pygcn_tpu_torch.ops.cuda.gat_tile_attn.gatv2_tile_partials`), the
+    residual edges on the ELL v2 one-pass, and :func:`gat_conv_hybrid`'s flash
+    merge joins them. The same constraints as v1: the hybrid layout with an
+    ELL residual, all-nonzero edge weights (checked by
+    :func:`build_gat_tiles_t`), no attention dropout on this path.
+    """
+    ell = _hybrid_residual(graph, tiles_t)
+    n, h, f = s_l.shape
+    sl2, sr2 = s_l.reshape(n, h * f), s_r.reshape(n, h * f)
+    edge = _ell_attn_partials_v2(ell, sl2, sr2, a, h, f, negative_slope,
+                                 [v != 0 for v in ell.vals])
+    tile = None if graph.hybrid.bcsr is None else gatv2_tile_partials(
+        (h, f, negative_slope), graph.hybrid.bcsr, tiles_t, sl2, sr2, a)
+    return _flash_merge(tile, edge, n, h, f)

@@ -1,5 +1,5 @@
-"""Kernels B1, B3, B5 and B6 on a CUDA card against their plain versions
-(skipped without a card).
+"""Kernels B1, B3, B5, B6, B7, B8 and B9 on a CUDA card against their plain
+versions (skipped without a card).
 
 Run on a machine with an H100 from the repo root (``--noconftest`` because
 ``tests/conftest.py`` configures JAX, which that machine does not need)::
@@ -82,8 +82,10 @@ def gat_tiles(symmetric, dtype, drop_padding, seed=0):
             dataclasses.replace(bt, data=bt.data.to(dtype)))
 
 
-@pytest.mark.parametrize("hf", [(2, 4), (8, 8), (4, 16), (1, 40), (3, 5)],
-                         ids=lambda x: f"{x[0]}x{x[1]}")
+GAT_SHAPES = [(2, 4), (8, 8), (4, 16), (1, 40), (3, 5)]
+
+
+@pytest.mark.parametrize("hf", GAT_SHAPES, ids=lambda x: f"{x[0]}x{x[1]}")
 @pytest.mark.parametrize("drop_padding", [False, True], ids=["padding_tile", "no_tile"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
@@ -104,7 +106,7 @@ def test_gat_tile_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
     got_snd = gta.tile_bwd_sender(bt, lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
     ref_snd = gta.tile_bwd_sender_plain(bt, lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
     torch.cuda.synchronize()
-    assert gta.launches == {k: before[k] + 1 for k in before}
+    assert gta.launches == {k: before[k] + (k in ("B3", "B5", "B6")) for k in before}
     for a, r in zip((*got, got_dl, *got_snd), (*ref, ref_dl, *ref_snd)):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
     assert (got[2][128:256] == gta.NEG).all() and not got[1][128:256].any()
@@ -129,3 +131,68 @@ def test_gat_tile_kernels_leaky_derivative_at_zero(dev):
     torch.cuda.synchronize()
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+def v2_operands(dev, h, f, seed, integer=False):
+    """``sl2``, ``sr2``, ``a``, then ``dnum`` and ``dden`` on the card;
+    ``integer`` puts many pre-activations ``sl + sr`` at exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if integer:
+        sl2, sr2 = (torch.randint(-1, 2, (300, h * f), device=dev, generator=gen).float()
+                    for _ in range(2))
+    else:
+        sl2, sr2 = (torch.randn(300, h * f, device=dev, generator=gen) for _ in range(2))
+    a = torch.randn(h, f, device=dev, generator=gen)
+    return sl2, sr2, a, torch.randn(300, h * f, device=dev, generator=gen), \
+        torch.randn(300, h, device=dev, generator=gen)
+
+
+def v2_kernel_and_plain(name, b, bt, ops, m, h, f):
+    """The outputs of kernel ``name`` (through its dispatcher, on CUDA
+    tensors) and of its plain version on the same operands."""
+    sl2, sr2, a, dnum, dden = ops
+    if name == "B7":
+        args = (sl2, sr2, a, h, f, 0.2)
+        return gta.tile_v2_fwd(b, *args), gta.tile_v2_fwd_plain(b, *args)
+    args = (sl2, sr2, a, m, dnum, dden, h, f, 0.2)
+    if name == "B8":
+        return gta.tile_v2_bwd_recv(b, *args), gta.tile_v2_bwd_recv_plain(b, *args)
+    return (gta.tile_v2_bwd_send(bt, *args),), (gta.tile_v2_bwd_send_plain(bt, *args),)
+
+
+@pytest.mark.parametrize("hf", GAT_SHAPES + [(1, 64)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("drop_padding", [False, True], ids=["padding_tile", "no_tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("name", ["B7", "B8", "B9"])
+def test_gatv2_tile_kernel_matches_plain(dev, name, symmetric, dtype, drop_padding, hf):
+    """Each GATv2 tile kernel on the grid of the v1 kernels' test, plus the
+    widest compiled width (F = 64, where B8 holds the most registers)."""
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
+    ops = v2_operands(dev, h, f, h * 100 + f)
+    m = gta.tile_v2_fwd_plain(b, *ops[:3], h, f, 0.2)[2]
+    before = dict(gta.launches)
+    got, ref = v2_kernel_and_plain(name, b, bt, ops, m, h, f)
+    torch.cuda.synchronize()
+    assert gta.launches == {k: before[k] + (k == name) for k in before}
+    for x, r in zip(got, ref):
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+    if name == "B7":
+        assert (got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
+        assert not got[1][128:256].any()
+    elif name == "B8" or symmetric:
+        assert not got[0][128:256].any()
+
+
+def test_gatv2_tile_kernels_leaky_derivative_at_zero(dev):
+    """Integer operands put many pre-activations at exactly 0, where the
+    kernels' leaky' must be 1, as in the plain versions (and JAX)."""
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False, seed=3))
+    ops = v2_operands(dev, 2, 4, 3, integer=True)
+    m = gta.tile_v2_fwd_plain(b, *ops[:3], 2, 4, 0.2)[2]
+    for name in ("B8", "B9"):
+        got, ref = v2_kernel_and_plain(name, b, bt, ops, m, 2, 4)
+        torch.cuda.synchronize()
+        for x, r in zip(got, ref):
+            torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)

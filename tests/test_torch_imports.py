@@ -25,7 +25,8 @@ def port_modules():
 
 def test_every_module_imports_without_jax_or_pygcn_tpu():
     mods = port_modules()
-    for m in ("ops.cuda.bcsr_spmm", "ops.cuda.gat_tile_attn", "ops.gat", "nn.gat", "convert"):
+    for m in ("ops.cuda.bcsr_spmm", "ops.cuda.gat_tile_attn", "ops.cuda.build", "ops.gat",
+              "nn.gat", "convert"):
         assert f"pygcn_tpu_torch.{m}" in mods
     assert len(mods) >= 23
     code = (
@@ -79,6 +80,26 @@ def test_gat_tile_wrapper_never_runs_plain_for_a_non_cpu_request():
     meta = [t.to("meta") for t in (lsrc, ldst, s2)]
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
         gta.gat_tile_partials((2, 4, 0.2), bcsr, bcsr_t, *meta)
+    assert gta.launches == before
+
+
+def test_gatv2_tile_wrapper_never_runs_plain_for_a_non_cpu_request():
+    g = Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=False, build_dense=False,
+                       build_hybrid=True, build_ell=True, hybrid_min_edges_per_tile=1)
+    bcsr = g.hybrid.bcsr
+    bcsr_t = gta.transpose_bcsr(bcsr)
+    sl2, sr2, a = torch.zeros(3, 8), torch.zeros(3, 8), torch.zeros(2, 4)
+    before = dict(gta.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, 2, 4, 0.2)
+    args = (sl2, sr2, a, torch.zeros(3, 2), torch.zeros(3, 8), torch.zeros(3, 2), 2, 4, 0.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_v2_bwd_recv_cuda(bcsr, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_v2_bwd_send_cuda(bcsr_t, *args)
+    meta = [t.to("meta") for t in (sl2, sr2, a)]
+    with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
+        gta.gatv2_tile_partials((2, 4, 0.2), bcsr, bcsr_t, *meta)
     assert gta.launches == before
 
 
