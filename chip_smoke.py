@@ -7,15 +7,25 @@ Run from the root of a checkout, with no arguments::
 
 It builds every CUDA kernel of the port from ``pygcn_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version on the card, holds a small GCN, a small GAT and a small GATv2 on the
-card against the same models on the CPU, drives the port's three main paths
-at the ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the hybrid
-layout) for a few epochs each, ``apps/train_fullgraph --clustered`` (3-layer
-GCN, widths 128/128/40, kernel B1), ``--clustered --model gat --hidden 8``
-(2-layer GAT, 8 heads of 8 then 1 head of 40, kernels B3/B5/B6) and
-``--clustered --model gatv2 --hidden 8`` (the same with GATv2 layers, kernels
-B7/B8/B9), checks that each path launched its kernels as often as it must,
-and times each kernel at its path's shapes. Its last line is
+version on the card (the per-tile "stream" kernels B2, B4, B5s and B6s also,
+once merged, against the revisit kernels B1, B3, B5 and B6), holds a small
+GCN, a small GAT and a small GATv2 on the card against the same models on
+the CPU, and drives the port's main paths at the ogbn-arxiv sizes (169,343
+nodes, average degree 13.3, the hybrid layout) for a few epochs each through
+``apps/train_fullgraph --clustered``:
+
+- the 3-layer GCN (widths 128/128/40): kernel B1, and with ``BCSR_STREAM``
+  kernel B2 and its merge;
+- ``--model gat --hidden 8`` (2-layer GAT, 8 heads of 8 then 1 head of 40):
+  kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s and their
+  merges;
+- ``--model gatv2 --hidden 8``: kernels B7/B8/B9;
+- ``--model sage``, ``gin`` and ``appnp`` (128 -> 128 -> 40): kernel B1.
+
+It checks that each path launched its kernels exactly as often as it must
+and no other tile kernel, runs ``apps/ab_kernel_stream`` (revisit against
+stream on the flagship graph) once, and times each kernel at its path's
+shapes beside its bound. It prints each phase's wall time. Its last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -259,6 +269,103 @@ def check_gat_tiles(torch, v2: bool):
           f"rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
 
 
+def check_stream_kernels(torch):
+    """B2, B4, B5s and B6s against their plain per-tile blocks on the card,
+    over the grids of :func:`check_b1` and :func:`check_gat_tiles`; each
+    merged output against the revisit kernel's (B1, B3, B5, B6); and the
+    stream mode of ``GATTilePartials`` (values and VJP) against its revisit
+    mode."""
+    import numpy as np
+
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    worst, cases = 0.0, 0
+
+    def close(a, r, label):
+        nonlocal worst
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"{label}: shape {tuple(a.shape)} (want {tuple(r.shape)}) or non-finite values")
+        torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+        worst = max(worst, float((a - r).abs().max()))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for drop_padding in (False, True):
+            b = _random_bcsr(rng, 300, 270, 0.05, 1, drop_padding, dtype).to(dev)
+            for h in (1, 40, 128, 200):
+                label = f"B2 {dtype} {'no tile' if drop_padding else 'padding tile'} H={h}"
+                x = torch.from_numpy(rng.standard_normal((270, h)).astype(np.float32)).to(dev)
+                parts = b1.bcsr_spmm_stream(b, x)
+                merged = b1.sum_by_block_row(parts, b, 300)
+                revisit = b1.bcsr_spmm_cuda(b, x, n_rows=300)
+                torch.cuda.synchronize()
+                close(parts, b1.bcsr_spmm_stream_plain(b, x), label)
+                close(merged, revisit, label + " merged vs B1")
+                if merged[128:256].any():
+                    fail(f"{label}: the empty block row is not zero")
+                cases += 1
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    saved = gta.TILE_REVISIT
+    try:
+        for symmetric in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                for drop_padding in (False, True):
+                    b, bt = _gat_tiles(rng, symmetric, dtype, drop_padding)
+                    for h, f in GAT_SHAPES:
+                        label = (f"B4/B5s/B6s {'sym' if symmetric else 'asym'} {dtype} "
+                                 f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
+                        ops = [torch.randn(300, w, device="cuda", generator=gen)
+                               for w in (h, h, h * f)]
+                        cot = [torch.randn(300, w, device="cuda", generator=gen)
+                               for w in (h * f, h)]
+                        blocks = gta.tile_fwd_stream(b, *ops, h, f, SLOPE)
+                        merged = gta.softmax_merge(b, *blocks, 300)
+                        bwd = (*ops, merged[2], *cot, h, f, SLOPE)
+                        dl_t = gta.tile_bwd_dldst_stream(b, *bwd)
+                        ds_t, dls_t = gta.tile_bwd_sender_stream(bt, *bwd)
+                        got = (*blocks, dl_t, ds_t, dls_t)
+                        ref = (*gta.tile_fwd_stream_plain(b, *ops, h, f, SLOPE),
+                               gta.tile_bwd_dldst_stream_plain(b, *bwd),
+                               *gta.tile_bwd_sender_stream_plain(bt, *bwd))
+                        rev = gta.tile_fwd_cuda(b, *ops, h, f, SLOPE)
+                        rev_bwd = (gta.tile_bwd_dldst_cuda(b, *bwd),
+                                   *gta.tile_bwd_sender_cuda(bt, *bwd))
+                        mer_bwd = (b1.sum_by_block_row(dl_t, b, 300),
+                                   b1.sum_by_block_row(ds_t, bt, 300),
+                                   b1.sum_by_block_row(dls_t, bt, 300))
+                        modes = {}
+                        for revisit in (True, False):
+                            gta.TILE_REVISIT = revisit
+                            args = [o.clone().requires_grad_(True) for o in ops]
+                            out = gta.gat_tile_partials((h, f, SLOPE), b, bt, *args)
+                            modes[revisit] = [o.detach() for o in out] + list(
+                                torch.autograd.grad(out[:2], args, cot))
+                        gta.TILE_REVISIT = saved
+                        torch.cuda.synchronize()
+                        for a, r in zip(got, ref):
+                            close(a, r, label)
+                        for a, r in zip((*merged, *mer_bwd), (*rev, *rev_bwd)):
+                            close(a, r, label + " merged vs B3/B5/B6")
+                        for a, r in zip(modes[False], modes[True]):
+                            close(a, r, label + " GATTilePartials stream vs revisit")
+                        if not ((merged[2][128:256] == gta.NEG).all()
+                                and not merged[0][128:256].any()
+                                and not merged[1][128:256].any()
+                                and not mer_bwd[0][128:256].any()):
+                            fail(f"{label}: the block row without edges is not num = den = 0, "
+                                 f"m = NEG, dldst = 0")
+                        cases += 1
+    finally:
+        gta.TILE_REVISIT = saved
+    print(f"B2/B4/B5s/B6s vs plain on the card: {cases} cases (B2 on B1's grid; B4/B5s/B6s on "
+          f"the GAT grid, (H, F) in {list(GAT_SHAPES)}): per-tile blocks vs plain, merged "
+          f"outputs vs B1/B3/B5/B6, GATTilePartials stream vs revisit (values and VJP), within "
+          f"rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
+
+
 def check_small_reference(torch):
     """The GCN on the card against the same GCN on the CPU (plain versions),
     on a small clustered graph with tiles: log-probs, loss and gradients."""
@@ -336,15 +443,15 @@ def check_small_gat_reference(torch, v2: bool):
           flush=True)
 
 
-def run_main_path(torch):
+def run_main_path(torch, epochs):
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.utils import native
 
     print(f"graphkit native library: {'loaded' if native.available() else 'missing (NumPy/BFS fallbacks)'}",
           flush=True)
-    b1.launches = 0
-    result = train_fullgraph.main(["--clustered", "--max_epochs", "3", "--memstats",
+    b1.launches = b1.stream_launches = 0
+    result = train_fullgraph.main(["--clustered", "--max_epochs", str(epochs), "--memstats",
                                    "--device", "cuda"])
     torch.cuda.synchronize()
     launches = b1.launches
@@ -358,14 +465,15 @@ def run_main_path(torch):
           f"best val {result['val']}", flush=True)
     if not result["tile_frac"] or result["tile_frac"] <= 0:
         fail(f"tile_frac={result['tile_frac']}: the hybrid layout has no tiles")
-    if launches != expected or launches == 0:
-        fail(f"B1 launched {launches} times on the main path, expected {expected}")
+    if launches != expected or launches == 0 or b1.stream_launches:
+        fail(f"B1 launched {launches} times on the main path, expected {expected}; "
+             f"B2 {b1.stream_launches} times, expected 0")
     if not math.isfinite(result["loss"]) or not math.isfinite(result["val"]):
         fail(f"non-finite loss {result['loss']} or val {result['val']}")
     return graph, launches
 
 
-def run_gat_main_path(torch, v2: bool):
+def run_gat_main_path(torch, v2: bool, epochs):
     """``--model gat`` (or ``gatv2``) at the arxiv flagship: every tile kernel
     of the other version launched 0 times, this version's forward kernel
     2 per step + 2 per evaluation and its two backward kernels 2 per step."""
@@ -377,7 +485,7 @@ def run_gat_main_path(torch, v2: bool):
     for k in gta.launches:
         gta.launches[k] = 0
     result = train_fullgraph.main(["--clustered", "--model", model, "--hidden", "8",
-                                   "--max_epochs", "3", "--memstats", "--device", "cuda"])
+                                   "--max_epochs", str(epochs), "--memstats", "--device", "cuda"])
     torch.cuda.synchronize()
     launches = dict(gta.launches)
     graph = result["graph"]
@@ -400,6 +508,117 @@ def run_gat_main_path(torch, v2: bool):
     return result, launches
 
 
+def run_stream_main_paths(torch, epochs):
+    """The GCN main path with ``BCSR_STREAM = True`` (B2 6 per step + 3 per
+    evaluation, B1 none) and the GAT main path with ``TILE_REVISIT = False``
+    (B4 2 per step + 2 per evaluation, B5s and B6s 2 per step, every other
+    tile kernel none). Both flags are restored whatever happens."""
+    from pygcn_tpu_torch.apps import train_fullgraph
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    saved = (b1.BCSR_STREAM, gta.TILE_REVISIT)
+    try:
+        b1.BCSR_STREAM = True
+        b1.launches = b1.stream_launches = 0
+        r = train_fullgraph.main(["--clustered", "--max_epochs", str(epochs), "--memstats",
+                                  "--device", "cuda"])
+        torch.cuda.synchronize()
+        gcn = {"B1": b1.launches, "B2": b1.stream_launches}
+        want = {"B1": 0, "B2": 6 * r["steps"] + 3 * r["evals"]}
+        print(f"GCN stream main path (BCSR_STREAM): {r['steps']} steps + {r['evals']} evals, "
+              f"launches {gcn} (expected B2 6/step + 3/eval, B1 0: {want}), ms/step "
+              f"{r['epoch_s'] * 1e3:.3f}, peak memory {r['peak_mem_bytes'] / 2**30:.3f} GiB, "
+              f"last loss {r['loss']}, best val {r['val']}", flush=True)
+        if gcn != want or not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
+            fail(f"GCN stream main path: launches {gcn}, expected {want}; loss {r['loss']}, "
+                 f"val {r['val']}")
+        del r
+        b1.BCSR_STREAM = False
+        gta.TILE_REVISIT = False
+        for k in gta.launches:
+            gta.launches[k] = 0
+        b1.launches = b1.stream_launches = 0
+        r = train_fullgraph.main(["--clustered", "--model", "gat", "--hidden", "8",
+                                  "--max_epochs", str(epochs), "--memstats", "--device", "cuda"])
+        torch.cuda.synchronize()
+        gat = dict(gta.launches)
+        steps, evals = r["steps"], r["evals"]
+        want_gat = dict.fromkeys(gat, 0)
+        want_gat.update({"B4": 2 * steps + 2 * evals, "B5s": 2 * steps, "B6s": 2 * steps})
+        print(f"GAT stream main path (TILE_REVISIT = False): {steps} steps + {evals} evals, "
+              f"launches {gat} (expected B4 2/step + 2/eval, B5s and B6s 2/step: {want_gat}), "
+              f"ms/step {r['epoch_s'] * 1e3:.3f}, peak memory "
+              f"{r['peak_mem_bytes'] / 2**30:.3f} GiB, last loss {r['loss']}, best val "
+              f"{r['val']}", flush=True)
+        if (gat != want_gat or (b1.launches, b1.stream_launches) != (0, 0)
+                or not math.isfinite(r["loss"]) or not math.isfinite(r["val"])):
+            fail(f"GAT stream main path: launches {gat}, expected {want_gat}; loss {r['loss']}, "
+                 f"val {r['val']}")
+        return {"B2": gcn["B2"], **{k: gat[k] for k in ("B4", "B5s", "B6s")}}
+    finally:
+        b1.BCSR_STREAM, gta.TILE_REVISIT = saved
+
+
+# B1 launches of the extension models' training step and evaluation: each
+# spmm is one forward launch, and one backward launch when its input needs a
+# gradient. SAGE and GIN aggregate the input x in layer 1 (no gradient) and
+# the hidden layer in layer 2: 2 + 1 per step, 2 per evaluation. APPNP runs
+# K = 10 propagation steps on the MLP's output: 10 + 10 per step, 10 per
+# evaluation.
+EXTENSION_B1 = {"sage": (3, 2), "gin": (3, 2), "appnp": (20, 10)}
+
+
+def run_extension_main_paths(torch, epochs):
+    """``--model sage``, ``gin`` and ``appnp`` at the default widths (128 ->
+    128 -> 40): B1 exactly :data:`EXTENSION_B1` times, no other kernel."""
+    from pygcn_tpu_torch.apps import train_fullgraph
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    total = 0
+    for model, (per_step, per_eval) in EXTENSION_B1.items():
+        b1.launches = b1.stream_launches = 0
+        for k in gta.launches:
+            gta.launches[k] = 0
+        t0 = time.time()
+        r = train_fullgraph.main(["--clustered", "--model", model, "--max_epochs", str(epochs),
+                                  "--memstats", "--device", "cuda"])
+        torch.cuda.synchronize()
+        want = per_step * r["steps"] + per_eval * r["evals"]
+        print(f"{model} main path: {r['steps']} steps + {r['evals']} evals, B1 launches "
+              f"{b1.launches} (expected {per_step}/step + {per_eval}/eval = {want}), ms/step "
+              f"{r['epoch_s'] * 1e3:.3f}, peak memory {r['peak_mem_bytes'] / 2**30:.3f} GiB, "
+              f"last loss {r['loss']}, best val {r['val']}, wall {time.time() - t0:.1f}s",
+              flush=True)
+        if (b1.launches != want or b1.stream_launches or any(gta.launches.values())
+                or not r["tile_frac"] or not math.isfinite(r["loss"])
+                or not math.isfinite(r["val"])):
+            fail(f"{model} main path: B1 {b1.launches} (expected {want}), B2 "
+                 f"{b1.stream_launches}, tile kernels {gta.launches}, tile_frac "
+                 f"{r['tile_frac']}, loss {r['loss']}, val {r['val']}")
+        total += b1.launches
+        del r
+    return total
+
+
+def run_ab_tool():
+    """``apps/ab_kernel_stream`` at the flagship: revisit against stream."""
+    from pygcn_tpu_torch.apps import ab_kernel_stream
+
+    rows = ab_kernel_stream.main(["--device", "cuda"])
+    diff = rows[-1]
+    # the modes sum the same f32 terms in another order (the merges' index_add_
+    # in no fixed order), and the stream merge rescales by exp(max_t - m) where
+    # the revisit kernels rescale as they go: relative to the output's largest
+    # magnitude they agree to about 1e-6
+    for op in ("hybrid_spmm", "gat_hybrid_fwd", "gat_hybrid_step"):
+        if not diff[op + "_relative"] <= 1e-4:
+            fail(f"A/B: stream and revisit {op} differ by {diff[op]}, "
+                 f"{diff[op + '_relative']} of its largest value (limit 1e-4)")
+    return rows
+
+
 def _tile_csr(torch, bcsr, n_rows, n_cols):
     """The tile matrix as a torch CSR tensor on the card (the library yardstick)."""
     t, r, c = torch.nonzero(bcsr.data, as_tuple=True)
@@ -411,7 +630,10 @@ def _tile_csr(torch, bcsr, n_rows, n_cols):
 
 
 def time_b1(torch, graph):
-    """B1 at the main path's shapes: kernel, plain, bound and library times."""
+    """B1 and B2 at the main path's shapes: kernel, plain, bound and library
+    times, and B2's merge (:func:`sum_by_block_row`). Both compute from the
+    same nonzeros; B2 also writes its parts [T, 128, H] and the merge reads
+    them back."""
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.utils.timing import cuda_ms
 
@@ -423,7 +645,7 @@ def time_b1(torch, graph):
     # the multiplies the function needs: one per stored nonzero and column
     nnz = int(torch.count_nonzero(bcsr.data))
     rows = []
-    saved = b1.launches
+    saved = b1.launches, b1.stream_launches
     for h in (128, 40):
         x = torch.randn((n, h), device="cuda", generator=gen)
         got = b1.bcsr_spmm(bcsr, x, n_rows=n)
@@ -443,14 +665,44 @@ def time_b1(torch, graph):
                   + n * h * 4)  # output
         flops = 2 * nnz * h
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        row = {"H": h, "tiles": t, "tile_nnz": nnz, "ms": min(ms, ms2), "ms_runs": [ms, ms2],
-               "plain_ms": plain_ms, "library_ms": library_ms,
+        row = {"kernel": "B1", "H": h, "tiles": t, "tile_nnz": nnz, "ms": min(ms, ms2),
+               "ms_runs": [ms, ms2], "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes": nbytes, "flops": flops, "max_abs_err": err}
         print("B1 timing: " + json.dumps(row), flush=True)
         rows.append(row)
-    b1.launches = saved
+
+        # B2: the same reads, but it writes the parts (T x 128 x H f32)
+        # where B1 writes the output; the merge reads the parts once and
+        # writes the output once
+        parts = b1.bcsr_spmm_stream(bcsr, x)
+        merged = b1.sum_by_block_row(parts, bcsr, n)
+        parts_ref = b1.bcsr_spmm_stream_plain(bcsr, x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(parts, parts_ref, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(merged, ref, rtol=RTOL, atol=ATOL)
+        err2 = float((parts - parts_ref).abs().max())
+        del parts_ref
+        ms = cuda_ms(lambda: b1.bcsr_spmm_stream(bcsr, x), iters=50)
+        merge_ms = cuda_ms(lambda: b1.sum_by_block_row(parts, bcsr, n), iters=50)
+        plain_ms = cuda_ms(lambda: b1.bcsr_spmm_stream_plain(bcsr, x), iters=20)
+        ms2 = cuda_ms(lambda: b1.bcsr_spmm_stream(bcsr, x), iters=50)
+        parts_bytes = parts.numel() * 4
+        nbytes2 = nbytes - n * h * 4 + parts_bytes
+        bytes_ms = nbytes2 / HBM_BYTES_PER_S * 1e3
+        merge_bytes = parts_bytes + n * h * 4
+        row2 = {"kernel": "B2", "H": h, "tiles": t, "tile_nnz": nnz, "ms": min(ms, ms2),
+                "ms_runs": [ms, ms2], "merge_ms": merge_ms,
+                "merge_bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes2, "flops": flops, "max_abs_err": err2}
+        print("B2 timing: " + json.dumps(row2), flush=True)
+        rows.append(row2)
+        del parts, merged
+    b1.launches, b1.stream_launches = saved
     return rows
 
 
@@ -476,11 +728,14 @@ def _without_longest_row(b):
 
 
 def time_gat(torch, graph, tiles_t, v2: bool):
-    """B3, B5 and B6 (with ``v2``: B7, B8 and B9) at the GAT main path's
-    tiles, for both layer shapes: kernel and plain times (CUDA events), the
-    bound of each function, and the kernel's time without the longest block
-    row (``ms_without_longest_row``, a diagnostic of the launch's tail)."""
+    """B3, B5 and B6 and their stream modes B4, B5s and B6s (with ``v2``: B7,
+    B8 and B9) at the GAT main path's tiles, for both layer shapes: kernel
+    and plain times (CUDA events), the bound of each function, the kernel's
+    time without the longest block row (``ms_without_longest_row``, a
+    diagnostic of the launch's tail), and for the stream kernels their
+    merge's time and bound."""
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+    from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
     from pygcn_tpu_torch.utils.timing import cuda_ms
 
     bcsr = graph.hybrid.bcsr
@@ -495,11 +750,13 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     # adds the max, the shifted exp, the den add and 2F for num; B8 adds the
     # exp, 2F for sl_u . dnum_v, + dden and * p, then per f 4 for dsr
     # (leaky', * a, * de, the sum) and 2 for dapart (* de, the sum); B9 the
-    # same with 2F for the aggregation p * dnum_v in place of dapart.
+    # same with 2F for the aggregation p * dnum_v in place of dapart. The
+    # stream modes B4, B5s and B6s do the terms of B3, B5 and B6.
     nnz = int(torch.count_nonzero(bcsr.data))
     ops_per_term = {"B3": lambda f: 2 * f + 6, "B5": lambda f: 2 * f + 8,
                     "B6": lambda f: 4 * f + 8, "B7": lambda f: 7 * f + 4,
                     "B8": lambda f: 13 * f + 4, "B9": lambda f: 13 * f + 4}
+    ops_per_term.update(B4=ops_per_term["B3"], B5s=ops_per_term["B5"], B6s=ops_per_term["B6"])
     fwd_rows = _rows_under(torch, bcsr.block_rows, bcsr.tm, n)
     fwd_cols = _rows_under(torch, bcsr.block_cols, bcsr.tk, n)
     t_rows = _rows_under(torch, tiles_t.block_rows, tiles_t.tm, n)
@@ -523,8 +780,9 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     for h, f in ((8, 8), (1, 40)):
         hf = h * f
         dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (hf, h))
-        # name: (kernel, plain, bytes: tiles + operand rows under the tiles
-        #        + outputs, each read or written once)
+        # name: (kernel, plain, tiles, bytes: tiles + operand rows under the
+        #        tiles + outputs, each read or written once; for the stream
+        #        kernels, the merge of the kernel's blocks)
         if v2:
             sl2, sr2 = (torch.randn(n, hf, device="cuda", generator=gen) for _ in range(2))
             a = torch.randn(h, f, device="cuda", generator=gen)
@@ -534,36 +792,54 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                 "B7": (lambda b: gta.tile_v2_fwd_cuda(b, *fwd[1:]),
                        lambda b: gta.tile_v2_fwd_plain(b, *fwd[1:]), bcsr,
                        tile_bytes(bcsr) + 4 * (fwd_cols * hf + fwd_rows * hf + hf
-                                               + n * (hf + 2 * h))),
+                                               + n * (hf + 2 * h)), None),
                 "B8": (lambda b: gta.tile_v2_bwd_recv_cuda(b, *bwd),
                        lambda b: gta.tile_v2_bwd_recv_plain(b, *bwd), bcsr,
                        tile_bytes(bcsr) + 4 * (fwd_cols * hf + fwd_rows * (2 * hf + 2 * h) + hf
-                                               + n * 2 * hf)),
+                                               + n * 2 * hf), None),
                 "B9": (lambda b: gta.tile_v2_bwd_send_cuda(b, *bwd),
                        lambda b: gta.tile_v2_bwd_send_plain(b, *bwd), tiles_t,
                        tile_bytes(tiles_t) + 4 * (t_rows * hf + t_cols * (2 * hf + 2 * h) + hf
-                                                  + n * hf)),
+                                                  + n * hf), None),
             }
         else:
             lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
             s2 = torch.randn(n, hf, device="cuda", generator=gen)
             fwd = (bcsr, lsrc, ldst, s2, h, f, SLOPE)
             bwd = (lsrc, ldst, s2, gta.tile_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
+            t_blocks = bcsr.data.shape[0] * bcsr.tm  # rows of the per-tile blocks
+            tt_blocks = tiles_t.data.shape[0] * tiles_t.tm
             runs = {
                 "B3": (lambda b: gta.tile_fwd_cuda(b, *fwd[1:]),
                        lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr,
                        tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * h
-                                               + n * (hf + 2 * h))),
+                                               + n * (hf + 2 * h)), None),
                 "B5": (lambda b: gta.tile_bwd_dldst_cuda(b, *bwd),
                        lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr,
                        tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf)
-                                               + n * h)),
+                                               + n * h), None),
                 "B6": (lambda b: gta.tile_bwd_sender_cuda(b, *bwd),
                        lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t,
                        tile_bytes(tiles_t) + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
-                                                  + n * (hf + h))),
+                                                  + n * (hf + h)), None),
+                "B4": (lambda b: gta.tile_fwd_stream_cuda(b, *fwd[1:]),
+                       lambda b: gta.tile_fwd_stream_plain(b, *fwd[1:]), bcsr,
+                       tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * h
+                                               + t_blocks * (hf + 2 * h)),
+                       lambda out: gta.softmax_merge(bcsr, *out, n)),
+                "B5s": (lambda b: gta.tile_bwd_dldst_stream_cuda(b, *bwd),
+                        lambda b: gta.tile_bwd_dldst_stream_plain(b, *bwd), bcsr,
+                        tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf)
+                                                + t_blocks * h),
+                        lambda out: sum_by_block_row(out[0], bcsr, n)),
+                "B6s": (lambda b: gta.tile_bwd_sender_stream_cuda(b, *bwd),
+                        lambda b: gta.tile_bwd_sender_stream_plain(b, *bwd), tiles_t,
+                        tile_bytes(tiles_t) + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
+                                                   + tt_blocks * (hf + h)),
+                        lambda out: (sum_by_block_row(out[0], tiles_t, n),
+                                     sum_by_block_row(out[1], tiles_t, n))),
             }
-        for name, (kernel_on, plain_on, tiles, nbytes) in runs.items():
+        for name, (kernel_on, plain_on, tiles, nbytes, merge) in runs.items():
             kernel, plain = (lambda: kernel_on(tiles)), (lambda: plain_on(tiles))
             a, r = kernel(), plain()
             torch.cuda.synchronize()
@@ -584,8 +860,14 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                    "bytes": nbytes, "flops": flops, "max_abs_err": err}
+            if merge is not None:
+                # the merge reads the blocks once and writes [n, W] once
+                merge_bytes = sum(x.numel() * 4 + n * x.shape[2] * 4 for x in a)
+                row.update(merge_ms=cuda_ms(lambda: merge(a), iters=20),
+                           merge_bound_ms=merge_bytes / HBM_BYTES_PER_S * 1e3)
             print(f"{name} timing: " + json.dumps(row), flush=True)
             rows.append(row)
+            del a, r
     print(f"{'/'.join(runs)} library_ms: null; no single PyTorch call computes these "
           "attention partials or their gradients (a sparse softmax over the tile edges "
           "would need several)", flush=True)
@@ -595,12 +877,13 @@ def time_gat(torch, graph, tiles_t, v2: bool):
 
 def gat_kernel_entries(timing, launches, source, lines):
     """The ``kernels`` line's entries of the tile-attention kernels named in
-    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row."""
+    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row; a
+    stream kernel's entry also has its merge's time."""
     out = []
     for name, line in lines.items():
         mine = [r for r in timing if r["kernel"] == name]
         layer1 = mine[0]  # H = 8, F = 8
-        out.append({
+        entry = {
             "name": f"{name} {source.split('/')[-1][:-3]}",
             "route": "cuda",
             "source": source,
@@ -612,60 +895,95 @@ def gat_kernel_entries(timing, launches, source, lines):
             "bound_ms": layer1["bound_ms"],
             "bound_by": layer1["bound_by"],
             "library_ms": None,
-        })
+        }
+        if "merge_ms" in layer1:
+            entry["merge_ms"] = layer1["merge_ms"]
+        out.append(entry)
     return out
+
+
+def spmm_kernel_entry(timing, name, launches, line):
+    """The ``kernels`` line's entry of B1 or B2, from its H = 128 row."""
+    mine = [r for r in timing if r["kernel"] == name]
+    h128 = mine[0]
+    entry = {
+        "name": f"{name} bcsr_spmm",
+        "route": "cuda",
+        "source": "pygcn_tpu_torch/csrc/bcsr_spmm.cu",
+        "replaces": f"pygcn_tpu/ops/pallas/bcsr_spmm.py:{line}",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": h128["ms"],
+        "plain_ms": h128["plain_ms"],
+        "bound_ms": h128["bound_ms"],
+        "bound_by": h128["bound_by"],
+        "library_ms": h128["library_ms"],
+    }
+    if "merge_ms" in h128:
+        entry["merge_ms"] = h128["merge_ms"]
+    return entry
+
+
+# Epochs of each main path: enough for a step and an evaluation after the
+# warm-up pair; the launch checks hold at any count.
+EPOCHS = 2
 
 
 def main() -> None:
     t_start = time.time()
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        walls[name] = time.time() - t0
+        print(f"phase {name} wall: {walls[name]:.1f}s", flush=True)
+        return out
+
     torch = setup()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
     card = card_line()
     print(card, flush=True)
-    build_kernels()
-    check_b1(torch)
-    check_gat_tiles(torch, v2=False)
-    check_gat_tiles(torch, v2=True)
-    check_small_reference(torch)
-    check_small_gat_reference(torch, v2=False)
-    check_small_gat_reference(torch, v2=True)
-    t0 = time.time()
-    graph, launches = run_main_path(torch)
-    print(f"main path wall: {time.time() - t0:.1f}s", flush=True)
-    t0 = time.time()
-    gat_result, gat_launches = run_gat_main_path(torch, v2=False)
-    print(f"GAT main path wall: {time.time() - t0:.1f}s", flush=True)
-    timing = time_b1(torch, graph)
+    phase("build", build_kernels)
+    phase("check_b1", check_b1, torch)
+    phase("check_gat_tiles", check_gat_tiles, torch, False)
+    phase("check_gatv2_tiles", check_gat_tiles, torch, True)
+    phase("check_stream_kernels", check_stream_kernels, torch)
+    phase("small_gcn_reference", check_small_reference, torch)
+    phase("small_gat_reference", check_small_gat_reference, torch, False)
+    phase("small_gatv2_reference", check_small_gat_reference, torch, True)
+    graph, launches = phase("gcn_main_path", run_main_path, torch, EPOCHS)
+    timing = phase("time_b1_b2", time_b1, torch, graph)
     del graph
-    gat_timing = time_gat(torch, gat_result["graph"], gat_result["tiles_t"], v2=False)
+    gat_result, gat_launches = phase("gat_main_path", run_gat_main_path, torch, False, EPOCHS)
+    gat_timing = phase("time_gat", time_gat, torch, gat_result["graph"], gat_result["tiles_t"],
+                       False)
     del gat_result
-    t0 = time.time()
-    gatv2_result, gatv2_launches = run_gat_main_path(torch, v2=True)
-    print(f"GATv2 main path wall: {time.time() - t0:.1f}s", flush=True)
-    gatv2_timing = time_gat(torch, gatv2_result["graph"], gatv2_result["tiles_t"], v2=True)
-    h128 = timing[0]
-    kernels = {"kernels": [{
-        "name": "B1 bcsr_spmm",
-        "route": "cuda",
-        "source": "pygcn_tpu_torch/csrc/bcsr_spmm.cu",
-        "replaces": "pygcn_tpu/ops/pallas/bcsr_spmm.py:50",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in timing),
-        "ms": h128["ms"],
-        "plain_ms": h128["plain_ms"],
-        "bound_ms": h128["bound_ms"],
-        "bound_by": h128["bound_by"],
-        "library_ms": h128["library_ms"],
-    }]}
+    gatv2_result, gatv2_launches = phase("gatv2_main_path", run_gat_main_path, torch, True,
+                                         EPOCHS)
+    gatv2_timing = phase("time_gatv2", time_gat, torch, gatv2_result["graph"],
+                         gatv2_result["tiles_t"], True)
+    del gatv2_result
+    stream_launches = phase("stream_main_paths", run_stream_main_paths, torch, EPOCHS)
+    phase("extension_main_paths", run_extension_main_paths, torch, EPOCHS)
+    phase("ab_kernel_stream", run_ab_tool)
+    kernels = {"kernels": [
+        spmm_kernel_entry(timing, "B1", launches, 50),
+        spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),
+    ]}
     kernels["kernels"] += gat_kernel_entries(
         gat_timing, gat_launches, "pygcn_tpu_torch/csrc/gat_tile_attn.cu",
         {"B3": 118, "B5": 265, "B6": 304})
     kernels["kernels"] += gat_kernel_entries(
+        gat_timing, stream_launches, "pygcn_tpu_torch/csrc/gat_tile_attn.cu",
+        {"B4": 151, "B5s": 265, "B6s": 304})
+    kernels["kernels"] += gat_kernel_entries(
         gatv2_timing, gatv2_launches, "pygcn_tpu_torch/csrc/gatv2_tile_attn.cu",
         {"B7": 559, "B8": 593, "B9": 633})
-    print(f"chip_smoke wall: {time.time() - t_start:.1f}s", flush=True)
+    print(f"chip_smoke wall: {time.time() - t_start:.1f}s (phases: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()) + ")", flush=True)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,15 @@ for the flagship), warms up, then traces a few training steps with
 ``torch.profiler`` and prints one JSON line: the host wall time per step (without and with the
 profiler), the device time per step summed over kernels, the device's busy
 share of the profiled window, and the kernels by device time per step. Needs a CUDA card.
+``--stream`` (read here, not by ``train_fullgraph``) runs the per-tile kernels:
+``BCSR_STREAM = True`` and ``TILE_REVISIT = False`` for the run.
 
 Usage::
 
     python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered
     python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered --model gat --hidden 8
     python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered --model gatv2 --hidden 8
+    python -m pygcn_tpu_torch.apps.profile_fullgraph --clustered --model gat --hidden 8 --stream
 """
 
 from __future__ import annotations
@@ -36,9 +39,22 @@ def _kernel_us(evt) -> float:
 
 
 def main(argv=None) -> dict:
-    args = parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    stream = "--stream" in argv
+    args = parse_args([a for a in argv if a != "--stream"])
     if torch.device(args.device).type != "cuda":
         raise SystemExit("profile_fullgraph measures the CUDA device; pass a cuda --device")
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm, gat_tile_attn
+
+    saved = (bcsr_spmm.BCSR_STREAM, gat_tile_attn.TILE_REVISIT)
+    bcsr_spmm.BCSR_STREAM, gat_tile_attn.TILE_REVISIT = stream, not stream
+    try:
+        return _profile(args, stream)
+    finally:
+        bcsr_spmm.BCSR_STREAM, gat_tile_attn.TILE_REVISIT = saved
+
+
+def _profile(args, stream: bool) -> dict:
     run = prepare(args)
 
     def step():
@@ -66,6 +82,8 @@ def main(argv=None) -> dict:
     step_ms = wall_s / STEPS * 1e3
     out = {
         "device": torch.cuda.get_device_name(0),
+        "model": args.model,
+        "stream": stream,
         "steps": STEPS,
         "host_ms_per_step": plain_step_ms,
         "host_ms_per_step_profiled": step_ms,

@@ -1,16 +1,18 @@
-"""Full-graph GCN, GAT or GATv2 training at ogbn-arxiv scale on one CUDA card.
+"""Full-graph GNN training at ogbn-arxiv scale on one CUDA card.
 
 The port of ``pygcn_tpu/apps/train_fullgraph.py`` for ``--model gcn`` (an
 N-layer GCN over the sparse engine), ``--model gat`` (the 2-layer GAT of
-``nn/gat.py``, ``--gat_heads`` heads of ``--hidden`` features) and
-``--model gatv2`` (the same GAT with GATv2 layers), with Adam with L2 decay
-and masked NLL. Without
+``nn/gat.py``, ``--gat_heads`` heads of ``--hidden`` features),
+``--model gatv2`` (the same GAT with GATv2 layers) and the 2-layer extension
+families ``--model sage``, ``gin`` and ``appnp`` (``nn/sage.py``,
+``nn/gin.py``), with Adam with L2 decay and masked NLL. Without
 ``--clustered`` it times epochs on a synthetic Chung-Lu power-law graph with
 random labels. With ``--clustered`` it runs the convergence flagship: a
 learnable community-classification graph with shuffled ids, locality
 ordering (native label propagation when graphkit loads, else BFS), the
-hybrid BCSR+ELL layout whose tiles run on kernel B1 (GCN) or on the
-tile-attention kernels B3/B5/B6 (GAT) or B7/B8/B9 (GATv2), per-epoch
+hybrid BCSR+ELL layout whose tiles run on kernel B1 (GCN, SAGE, GIN, APPNP;
+B2 with ``BCSR_STREAM``) or on the tile-attention kernels B3/B5/B6 (GAT;
+B4/B5s/B6s with ``TILE_REVISIT = False``) or B7/B8/B9 (GATv2), per-epoch
 validation and early stopping.
 
 Runs on ``--device cuda`` (the default; raises when no card is present) or,
@@ -22,6 +24,7 @@ Usage::
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --max_epochs 50
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gat --hidden 8
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gatv2 --hidden 8
+    python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model sage
 """
 
 from __future__ import annotations
@@ -39,7 +42,12 @@ from torch.utils.checkpoint import checkpoint
 
 from pygcn_tpu_torch.graph.graph import COLPANEL_MIN_NODES, Graph
 from pygcn_tpu_torch.nn.gat import GAT
+from pygcn_tpu_torch.nn.gin import APPNP, GIN
 from pygcn_tpu_torch.nn.layers import GraphConv
+from pygcn_tpu_torch.nn.sage import SAGE
+
+# --model sage|gin|appnp: the JAX package's 2-layer extension families
+EXTENSION_MODELS = {"sage": SAGE, "gin": GIN, "appnp": APPNP}
 
 
 class GCN(nn.Module):
@@ -112,7 +120,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--feat_dim", type=int, default=128)
     ap.add_argument("--hidden", type=int, default=128)
     ap.add_argument("--n_classes", type=int, default=40)
-    ap.add_argument("--layers", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=3,
+                    help="GCN layers; the other models have two")
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--lr", type=float, default=0.01)
     ap.add_argument("--weight_decay", type=float, default=0.0)
@@ -120,11 +129,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--memstats", action="store_true",
                     help="print the peak device memory of the training run")
     ap.add_argument("--remat", action="store_true",
-                    help="recompute layer activations in the backward pass")
+                    help="recompute layer activations in the backward pass (GCN only)")
     ap.add_argument("--model", default="gcn",
                     help="gcn; gat or gatv2: the 2-layer multi-head GAT with v1 or "
-                         "GATv2 layers (--hidden is the per-head width; --layers and "
-                         "--remat do not apply); sage/gin/appnp are not ported yet")
+                         "GATv2 layers (--hidden is the per-head width); sage, gin or "
+                         "appnp: the 2-layer extension families (GIN runs on the "
+                         "normalised adjacency). --layers and --remat apply to gcn only")
     ap.add_argument("--gat_heads", type=int, default=8)
     ap.add_argument("--shards", type=int, default=1,
                     help="only 1 is ported")
@@ -140,8 +150,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--content", default=None, help="not ported yet")
     ap.add_argument("--cites", default=None, help="not ported yet")
     args = ap.parse_args(argv)
-    if args.model not in ("gcn", "gat", "gatv2"):
-        raise SystemExit(f"--model {args.model}: not ported yet (gcn, gat and gatv2 are)")
+    if args.model not in ("gcn", "gat", "gatv2", *EXTENSION_MODELS):
+        raise SystemExit(f"--model {args.model}: not ported yet "
+                         "(gcn, gat, gatv2, sage, gin and appnp are)")
     if args.shards != 1:
         raise SystemExit("--shards > 1: not ported yet")
     if args.npz or args.content or args.cites:
@@ -161,10 +172,47 @@ class Setup:
     x: torch.Tensor
     labels: torch.Tensor
     mask: torch.Tensor
-    model: nn.Module  # GCN or GAT (v1 or v2)
+    model: nn.Module  # GCN, GAT (v1 or v2), SAGE, GIN or APPNP
     opt: torch.optim.Optimizer
     tile_frac: Optional[float]  # share of edges on hybrid tiles (--clustered)
     fwd_kw: dict  # extra forward arguments: the GAT's edge_map, hybrid_tiles, tiles_t
+
+
+def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim: int,
+                      seed: int, *, attention: bool):
+    """The ``--clustered`` data on the host: community classification with
+    shuffled ids, locality ordering, then the layouts of the
+    ``Graph.from_coo`` auto-policy on the ordered ids (the hybrid layout at
+    ``hybrid_min_edges_per_tile=64`` between 8K and 1M nodes). ``attention``
+    builds what the GAT needs as well: the ELL slot path and the hybrid tiles."""
+    from pygcn_tpu_torch.graph.datasets import community_classification
+    from pygcn_tpu_torch.parallel.partition import locality_order, reorder_dataset
+    from pygcn_tpu_torch.utils import native
+
+    t0 = time.time()
+    data = community_classification(
+        n=n_nodes, avg_degree=avg_degree, n_classes=n_classes, feat_dim=feat_dim, seed=seed,
+        build_dense=False, build_bcsr=False, build_ell=False,
+        build_hybrid=False, build_colpanel=False,
+    )
+    data = reorder_dataset(data, locality_order(data.graph, "auto"))
+    kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
+              hybrid_min_edges_per_tile=64)
+    if attention:
+        if data.graph.n_nodes > COLPANEL_MIN_NODES:
+            raise NotImplementedError(
+                f"attention above {COLPANEL_MIN_NODES} nodes runs on the column-panel "
+                "attention path, which is not ported yet")
+        kw.update(build_ell=True, build_hybrid=True, build_colpanel=False)
+    graph = Graph.from_scipy(data.graph.to_scipy(), **kw)
+    data.graph = graph
+    hy = graph.hybrid
+    print(f"clustered pipeline: locality order (graphkit "
+          f"{'loaded' if native.available() else 'missing'}) + layouts built in "
+          f"{time.time() - t0:.1f}s"
+          + (f", tile_frac={hy.tile_edges / graph.n_edges:.4f}, tiles="
+             f"{0 if hy.bcsr is None else hy.bcsr.data.shape[0]}" if hy is not None else ""))
+    return data
 
 
 def prepare(args: argparse.Namespace) -> Setup:
@@ -180,37 +228,11 @@ def prepare(args: argparse.Namespace) -> Setup:
     data = None
     tile_frac = None
     if args.clustered:
-        from pygcn_tpu_torch.graph.datasets import community_classification
-        from pygcn_tpu_torch.parallel.partition import locality_order, reorder_dataset
-        from pygcn_tpu_torch.utils import native
-
-        data = community_classification(
-            n=args.n_nodes, avg_degree=args.avg_degree,
-            n_classes=args.n_classes, feat_dim=args.feat_dim, seed=args.seed,
-            build_dense=False, build_bcsr=False, build_ell=False,
-            build_hybrid=False, build_colpanel=False,
-        )
-        data = reorder_dataset(data, locality_order(data.graph, "auto"))
-        # layouts on the ordered ids, by the Graph.from_coo auto-policy;
-        # attention needs the ELL slot path and the hybrid tiles
-        kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
-                  hybrid_min_edges_per_tile=64)
-        if args.model in ("gat", "gatv2"):
-            if data.graph.n_nodes > COLPANEL_MIN_NODES:
-                raise NotImplementedError(
-                    f"--model {args.model} above {COLPANEL_MIN_NODES} nodes runs on the "
-                    "column-panel attention path, which is not ported yet")
-            kw.update(build_ell=True, build_hybrid=True, build_colpanel=False)
-        graph = Graph.from_scipy(data.graph.to_scipy(), **kw)
-        data.graph = graph
+        data = clustered_dataset(args.n_nodes, args.avg_degree, args.n_classes, args.feat_dim,
+                                 args.seed, attention=args.model in ("gat", "gatv2"))
+        graph = data.graph
         if graph.hybrid is not None:
             tile_frac = graph.hybrid.tile_edges / graph.n_edges
-        print(f"clustered pipeline: locality order (graphkit "
-              f"{'loaded' if native.available() else 'missing'}) + layouts built in "
-              f"{time.time() - t0:.1f}s"
-              + (f", tile_frac={tile_frac:.4f}, tiles="
-                 f"{0 if graph.hybrid.bcsr is None else graph.hybrid.bcsr.data.shape[0]}"
-                 if graph.hybrid is not None else ""))
         x = torch.from_numpy(data.features)
         labels = torch.from_numpy(data.labels.astype(np.int64))
         mask = torch.zeros(graph.n_nodes)
@@ -233,6 +255,12 @@ def prepare(args: argparse.Namespace) -> Setup:
         model = GAT(args.feat_dim, args.hidden, args.n_classes, heads=args.gat_heads, v2=v2,
                     generator=gen)
         fwd_kw = _gat_layouts(graph, v2)
+    elif args.model in EXTENSION_MODELS:
+        # note: the adjacency here is sym-normalised; GIN's canonical sum
+        # aggregator wants raw weights, so with A_hat it runs as a
+        # degree-weighted variant (as in the JAX package)
+        model = EXTENSION_MODELS[args.model](args.feat_dim, args.hidden, args.n_classes,
+                                             generator=gen)
     else:
         dims = [args.feat_dim] + [args.hidden] * (args.layers - 1) + [args.n_classes]
         model = GCN(dims, generator=gen, remat=args.remat)

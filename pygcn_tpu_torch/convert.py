@@ -8,9 +8,14 @@ keeps the same arrays as ``layers.<i>.weight`` (``[in, out]``) and
 ``v2=True`` ``{"gat1" | "gat2": {"w_l", "a", "w_r", "b"}}`` (no ``w_r`` when
 a layer shares its weights); the port's :class:`~pygcn_tpu_torch.nn.gat.GAT`
 keeps the same arrays under ``gat1.w``, ``gat1.a_src``, ``gat1.w_l`` and so
-on. The two random generators differ, so
-tests start both packages from one set of weights carried across here.
-Arrays go through NumPy; nothing of JAX is imported.
+on. The SAGE, GIN and APPNP trees of ``pygcn_tpu.nn.sage`` and
+``pygcn_tpu.nn.gin`` (``{"sage1": {"w_self", "w_nb", "b"}, ...}``,
+``{"gin1": {"mlp": {"w1", "b1", "w2", "b2"}, "eps"}, ...}``,
+``{"mlp": {...}}``) map onto the state dicts of
+:mod:`pygcn_tpu_torch.nn.sage` and :mod:`pygcn_tpu_torch.nn.gin` by joining
+their keys with dots (:func:`tree_to_state_dict`). The two random generators
+differ, so tests start both packages from one set of weights carried across
+here. Arrays go through NumPy; nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -56,3 +61,28 @@ def state_dict_to_gat_params(state) -> dict:
     return {layer: {name: state[f"{layer}.{name}"].detach().cpu().numpy().copy()
                     for name in GAT_PARAMS if f"{layer}.{name}" in state}
             for layer in GAT_LAYERS}
+
+
+def tree_to_state_dict(params, prefix: str = "") -> dict:
+    """A nested JAX-side param tree (dicts of arrays: SAGE, GIN, APPNP) →
+    state dict, each key the path of dict keys joined by dots."""
+    state = {}
+    for name, value in params.items():
+        if isinstance(value, dict):
+            state.update(tree_to_state_dict(value, f"{prefix}{name}."))
+        else:
+            state[f"{prefix}{name}"] = torch.from_numpy(np.array(value, dtype=np.float32))
+    return state
+
+
+def state_dict_to_tree(state) -> dict:
+    """State dict → the nested JAX-side param tree of NumPy arrays
+    (:func:`tree_to_state_dict`'s inverse)."""
+    tree = {}
+    for key, value in state.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = value.detach().cpu().numpy().copy()
+    return tree

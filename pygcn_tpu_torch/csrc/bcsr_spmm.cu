@@ -1,7 +1,9 @@
-// Kernel B1 for Hopper (sm_90a): block-sparse SpMM over BCSR tiles.
+// Kernels B1 and B2 for Hopper (sm_90a): block-sparse SpMM over BCSR tiles.
 //
-//   y[:n_rows, :h] = sum over tiles t of  data[t] @ x[bc[t]*TK : +TK, :]
-//                    added into block row br[t]
+//   B1: y[:n_rows, :h] = sum over tiles t of  data[t] @ x[bc[t]*TK : +TK, :]
+//                        added into block row br[t]
+//   B2: part[t] = data[t] @ x[bc[t]*TK : +TK, :], one [TM, h] block per tile
+//       (the caller sums the parts into their block rows)
 //
 // Replaces the TPU kernel pygcn_tpu/ops/pallas/bcsr_spmm.py:_kernel, whose
 // grid runs the tiles in order on one core and carries each block row's sum
@@ -29,6 +31,15 @@
 // bf16 tiles: x is rounded to bf16 first (round to nearest even, as the JAX
 // kernel's astype does) and the sum is kept in f32; the bf16 x bf16 products
 // are exact in f32, so only the input rounding differs from the f32 path.
+//
+// B2 (replaces pygcn_tpu/ops/pallas/bcsr_spmm.py:_kernel_stream, the
+// BCSR_STREAM mode) is the same kernel with STREAM set: one CTA owns one
+// (tile, slab of BN output columns), takes that tile's k-chunks only, and
+// writes all TM rows of the tile's part. A launch then has one CTA per tile
+// instead of one per block row, so no block row with many tiles sets its
+// tail, but it writes T x TM x h parts (~0.19 GB at the arxiv shapes) that a
+// merge reads back. Bound at those shapes: the tiles, the x rows under them
+// and the parts, ~0.46 GB, ~0.14 ms at 3.35 TB/s.
 //
 // Ragged shapes are masked in the kernel: rows of x past n_cols read as zero,
 // output rows past n_rows and columns past h are not written, so neither x nor
@@ -75,7 +86,9 @@ __device__ __forceinline__ float x_value(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T, bool VEC>
+// STREAM (B2): blockIdx.x is a tile, block_row_ptr is not read, and out is
+// the parts [T * TM, h] (n_rows = T * TM).
+template <typename T, bool VEC, bool STREAM>
 __global__ void __launch_bounds__(THREADS, 2)
 bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_cols,
                  const int* __restrict__ block_row_ptr, const float* __restrict__ x,
@@ -83,7 +96,7 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_cols,
   __shared__ __align__(16) float As[2][BK][AS_STRIDE];  // As[b][k][r] = tile[r][k0 + k]
   __shared__ __align__(16) float Bs[2][BK][BN];         // Bs[b][k][c] = x[col0 + k0 + k][n0 + c]
 
-  const int br = blockIdx.x;
+  const int br = blockIdx.x;  // block row of the output, or (STREAM) the tile
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
   const int tx = tid % (BN / RN);
@@ -95,8 +108,9 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_cols,
 #pragma unroll
     for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
 
-  const int t_begin = block_row_ptr[br];
-  const int n_chunks = (block_row_ptr[br + 1] - t_begin) * CHUNKS_PER_TILE;
+  const int t_begin = STREAM ? br : block_row_ptr[br];
+  const int n_chunks =
+      STREAM ? CHUNKS_PER_TILE : (block_row_ptr[br + 1] - t_begin) * CHUNKS_PER_TILE;
 
   float4 ra[A_VECS];
   float4 rb[B_VECS];
@@ -196,15 +210,16 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_cols,
   }
 }
 
-template <typename T>
+// grid_rows CTAs down: block rows (B1) or tiles (B2, STREAM).
+template <typename T, bool STREAM>
 int launch(const void* data, const void* block_cols, const void* block_row_ptr,
-           const void* x, void* out, int n_block_rows, int n_rows, int n_cols, int h,
+           const void* x, void* out, int grid_rows, int n_rows, int n_cols, int h,
            void* stream) {
-  const dim3 grid(n_block_rows, (h + BN - 1) / BN);
+  const dim3 grid(grid_rows, (h + BN - 1) / BN);
   const bool vec = h % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   void (*kernel)(const T*, const int*, const int*, const float*, float*, int, int, int) =
-      vec ? bcsr_spmm_kernel<T, true> : bcsr_spmm_kernel<T, false>;
+      vec ? bcsr_spmm_kernel<T, true, STREAM> : bcsr_spmm_kernel<T, false, STREAM>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(block_cols),
       static_cast<const int*>(block_row_ptr), static_cast<const float*>(x),
@@ -223,20 +238,34 @@ int bcsr_spmm_tile(int* tm, int* tk) {
   return 0;
 }
 
-// f32 tiles, f32 x -> f32 out. Returns cudaGetLastError() after the launch.
+// B1. f32 tiles, f32 x -> f32 out. Returns cudaGetLastError() after the launch.
 int bcsr_spmm_f32(const void* data, const void* block_cols, const void* block_row_ptr,
                   const void* x, void* out, int n_block_rows, int n_rows, int n_cols,
                   int h, void* stream) {
-  return launch<float>(data, block_cols, block_row_ptr, x, out, n_block_rows, n_rows,
-                       n_cols, h, stream);
+  return launch<float, false>(data, block_cols, block_row_ptr, x, out, n_block_rows, n_rows,
+                              n_cols, h, stream);
 }
 
-// bf16 tiles, f32 x (rounded to bf16 in the kernel) -> f32 out.
+// B1. bf16 tiles, f32 x (rounded to bf16 in the kernel) -> f32 out.
 int bcsr_spmm_bf16(const void* data, const void* block_cols, const void* block_row_ptr,
                    const void* x, void* out, int n_block_rows, int n_rows, int n_cols,
                    int h, void* stream) {
-  return launch<__nv_bfloat16>(data, block_cols, block_row_ptr, x, out, n_block_rows,
-                               n_rows, n_cols, h, stream);
+  return launch<__nv_bfloat16, false>(data, block_cols, block_row_ptr, x, out, n_block_rows,
+                                      n_rows, n_cols, h, stream);
+}
+
+// B2. f32 tiles, f32 x -> f32 parts [n_tiles * TM, h].
+int bcsr_spmm_stream_f32(const void* data, const void* block_cols, const void* x, void* parts,
+                         int n_tiles, int n_cols, int h, void* stream) {
+  return launch<float, true>(data, block_cols, nullptr, x, parts, n_tiles, n_tiles * TM,
+                             n_cols, h, stream);
+}
+
+// B2. bf16 tiles, f32 x (rounded to bf16 in the kernel) -> f32 parts.
+int bcsr_spmm_stream_bf16(const void* data, const void* block_cols, const void* x, void* parts,
+                          int n_tiles, int n_cols, int h, void* stream) {
+  return launch<__nv_bfloat16, true>(data, block_cols, nullptr, x, parts, n_tiles,
+                                     n_tiles * TM, n_cols, h, stream);
 }
 
 }  // extern "C"

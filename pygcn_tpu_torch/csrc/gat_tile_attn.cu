@@ -1,4 +1,5 @@
-// Kernels B3, B5 and B6 for Hopper (sm_90a): GAT attention over BCSR tiles.
+// Kernels B3, B5 and B6, and their per-tile modes B4, B5s and B6s, for Hopper
+// (sm_90a): GAT attention over BCSR tiles.
 //
 // For a tile edge u -> v (tile[v][u] != 0; the tile's value is never
 // multiplied in) and head h:  e = leaky(ldst[v,h] + lsrc[u,h]).
@@ -35,6 +36,20 @@
 // first, rescales by corr = exp(m_old - m_new) (1 with den = 0 for a row still
 // at NEG) and then accumulates, the flash order of the TPU kernel.
 //
+// Per-tile ("stream") modes, the kernels' STREAM template parameter. They
+// replace the TILE_REVISIT = False path of the TPU file: B4 is
+// _fwd_kernel_stream, B5s and B6s are _bwd_dldst_kernel and _bwd_sender_kernel
+// with stream=True. One CTA owns one (head, tile): blockIdx.x = tile * H + head,
+// its block row is block_rows[tile], and it runs the body above over that one
+// tile and writes the tile's block of TM rows (all of them, rows past n
+// included) into per-tile outputs [T, TM, W], which the caller merges. B4's
+// max is the tile's own row max (NEG where the row has no edge there, with
+// num = den = 0 then); the merge rescales the tiles onto the block row's max.
+// B5s and B6s read the merged max m. The grid has H * T CTAs instead of
+// H * (block rows), so no block row with many tiles sets the launch's tail,
+// at the price of writing the blocks (at 8 heads x 8: num_t 0.09 GB) and
+// merging them.
+//
 // Bound on an H100 SXM at the ogbn-arxiv hybrid (2863 f32 tiles, 3.1M tile
 // edges, N = 169,343; layer 1 H = 8, F = 8): each launch must read the tiles as
 // stored (0.19 GB) plus O(N (H + H F)) bytes of operands and outputs (about
@@ -59,16 +74,42 @@ namespace {
 
 using namespace gat_tile;
 
-template <int FP>
+// The tiles CTA blk walks, [*t_begin, *t_end), and the block row they share:
+// with STREAM, blk is a tile and `rows` the tiles' block_rows [T]; else blk is
+// a block row and `rows` its block_row_ptr [n_block_rows + 1].
+template <bool STREAM>
+__device__ __forceinline__ int tile_run(const int* __restrict__ rows, int blk, int* t_begin,
+                                        int* t_end) {
+  if (STREAM) {
+    *t_begin = blk;
+    *t_end = blk + 1;
+    return rows[blk];
+  }
+  *t_begin = rows[blk];
+  *t_end = rows[blk + 1];
+  return blk;
+}
+
+// The row of the output this thread writes, or -1 for none: its row v of the
+// node space (v < n) or, with STREAM, row threadIdx.x of tile blk's block.
+template <bool STREAM>
+__device__ __forceinline__ long long out_row(int blk, long long v, int n) {
+  if (STREAM) return static_cast<long long>(blk) * TM + threadIdx.x;
+  return v < n ? v : -1;
+}
+
+template <int FP, bool STREAM>
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
-               const int* __restrict__ block_row_ptr, const float* __restrict__ lsrc,
+               const int* __restrict__ rows, const float* __restrict__ lsrc,
                const float* __restrict__ ldst, const float* __restrict__ s2,
                float* __restrict__ num_out, float* __restrict__ den_out,
                float* __restrict__ m_out, int n, int h, int f, float slope) {
   __shared__ __align__(16) float s_sh[TK * FP];
   __shared__ float ls_sh[TK];
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
+  const int head = blockIdx.x % h, blk = blockIdx.x / h;
+  int t_begin, t_end;
+  const int br = tile_run<STREAM>(rows, blk, &t_begin, &t_end);
   const int hf = h * f;
   const long long v = static_cast<long long>(br) * TM + threadIdx.x;
   const float ld = node(ldst, v, n, h, head);
@@ -76,8 +117,7 @@ gat_fwd_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__
 #pragma unroll
   for (int k = 0; k < FP; ++k) acc[k] = 0.f;
 
-  const int t_end = block_row_ptr[br + 1];
-  for (int t = block_row_ptr[br]; t < t_end; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     const long long col0 = static_cast<long long>(block_cols[t]) * TK;
     __syncthreads();  // the previous tile's slabs are no longer read
     ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
@@ -112,27 +152,30 @@ gat_fwd_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__
       }
     });
   }
-  if (v < n) {
-    float* dst = num_out + v * hf + static_cast<long long>(head) * f;
+  const long long o = out_row<STREAM>(blk, v, n);
+  if (o >= 0) {
+    float* dst = num_out + o * hf + static_cast<long long>(head) * f;
 #pragma unroll
     for (int k = 0; k < FP; ++k)
       if (k < f) dst[k] = acc[k];
-    den_out[v * h + head] = den;
-    m_out[v * h + head] = m;
+    den_out[o * h + head] = den;
+    m_out[o * h + head] = m;
   }
 }
 
-template <int FP>
+template <int FP, bool STREAM>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_dldst_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
-                     const int* __restrict__ block_row_ptr, const float* __restrict__ lsrc,
+                     const int* __restrict__ rows, const float* __restrict__ lsrc,
                      const float* __restrict__ ldst, const float* __restrict__ s2,
                      const float* __restrict__ m_in, const float* __restrict__ dnum,
                      const float* __restrict__ dden, float* __restrict__ dldst_out, int n,
                      int h, int f, float slope) {
   __shared__ __align__(16) float s_sh[TK * FP];
   __shared__ float ls_sh[TK];
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
+  const int head = blockIdx.x % h, blk = blockIdx.x / h;
+  int t_begin, t_end;
+  const int br = tile_run<STREAM>(rows, blk, &t_begin, &t_end);
   const int hf = h * f;
   const long long v = static_cast<long long>(br) * TM + threadIdx.x;
   const float ld = node(ldst, v, n, h, head);
@@ -144,8 +187,7 @@ gat_bwd_dldst_kernel(const void* __restrict__ tiles, int bf16, const int* __rest
     dn[k] = (v < n && k < f) ? dnum[v * hf + static_cast<long long>(head) * f + k] : 0.f;
   float acc = 0.f;
 
-  const int t_end = block_row_ptr[br + 1];
-  for (int t = block_row_ptr[br]; t < t_end; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     const long long col0 = static_cast<long long>(block_cols[t]) * TK;
     __syncthreads();
     ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
@@ -170,13 +212,14 @@ gat_bwd_dldst_kernel(const void* __restrict__ tiles, int bf16, const int* __rest
       acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
     });
   }
-  if (v < n) dldst_out[v * h + head] = acc;
+  const long long o = out_row<STREAM>(blk, v, n);
+  if (o >= 0) dldst_out[o * h + head] = acc;
 }
 
-template <int FP>
+template <int FP, bool STREAM>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
-                      const int* __restrict__ block_cols, const int* __restrict__ block_row_ptr,
+                      const int* __restrict__ block_cols, const int* __restrict__ rows,
                       const float* __restrict__ lsrc, const float* __restrict__ ldst,
                       const float* __restrict__ s2, const float* __restrict__ m_in,
                       const float* __restrict__ dnum, const float* __restrict__ dden,
@@ -184,7 +227,9 @@ gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
                       int f, float slope) {
   __shared__ __align__(16) float dn_sh[TK * FP];
   __shared__ float ld_sh[TK], m_sh[TK], dd_sh[TK];
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
+  const int head = blockIdx.x % h, blk = blockIdx.x / h;
+  int t_begin, t_end;
+  const int br = tile_run<STREAM>(rows, blk, &t_begin, &t_end);
   const int hf = h * f;
   const long long u = static_cast<long long>(br) * TM + threadIdx.x;  // sender
   const float lu = node(lsrc, u, n, h, head);
@@ -196,8 +241,7 @@ gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
   }
   float dl = 0.f;
 
-  const int t_end = block_row_ptr[br + 1];
-  for (int t = block_row_ptr[br]; t < t_end; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
     __syncthreads();
     ld_sh[threadIdx.x] = node(ldst, col0 + threadIdx.x, n, h, head);
@@ -228,13 +272,66 @@ gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
       dl += p * (gdot + dd_sh[j]) * (pre >= 0.f ? 1.f : slope);
     });
   }
-  if (u < n) {
-    float* dst = ds_out + u * hf + static_cast<long long>(head) * f;
+  const long long o = out_row<STREAM>(blk, u, n);
+  if (o >= 0) {
+    float* dst = ds_out + o * hf + static_cast<long long>(head) * f;
 #pragma unroll
     for (int k = 0; k < FP; ++k)
       if (k < f) dst[k] = ds[k];
-    dlsrc_out[u * h + head] = dl;
+    dlsrc_out[o * h + head] = dl;
   }
+}
+
+// GAT_TILE_WIDTHS for kernels that also take the mode S.
+#define GAT_WIDTHS_OF_MODE(kernel, S) \
+  kernel<4, S>, kernel<8, S>, kernel<16, S>, kernel<32, S>, kernel<40, S>, kernel<64, S>
+
+// The launches, by mode. `rows` is block_row_ptr and `grid_rows` the block
+// row count, or with S (stream) block_rows and the tile count.
+template <bool S>
+int launch_fwd(const void* tiles, const void* block_cols, const void* rows, const void* lsrc,
+               const void* ldst, const void* s2, void* num, void* den, void* m, int grid_rows,
+               int n, int h, int f, int tile_bf16, float slope, void* stream) {
+  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_width(f, GAT_WIDTHS_OF_MODE(gat_fwd_kernel, S));
+  kernel<<<grid_of(grid_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, tile_bf16, static_cast<const int*>(block_cols), static_cast<const int*>(rows),
+      static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+      static_cast<const float*>(s2), static_cast<float*>(num), static_cast<float*>(den),
+      static_cast<float*>(m), n, h, f, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool S>
+int launch_dldst(const void* tiles, const void* block_cols, const void* rows, const void* lsrc,
+                 const void* ldst, const void* s2, const void* m, const void* dnum,
+                 const void* dden, void* dldst, int grid_rows, int n, int h, int f,
+                 int tile_bf16, float slope, void* stream) {
+  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_width(f, GAT_WIDTHS_OF_MODE(gat_bwd_dldst_kernel, S));
+  kernel<<<grid_of(grid_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles, tile_bf16, static_cast<const int*>(block_cols), static_cast<const int*>(rows),
+      static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+      static_cast<const float*>(s2), static_cast<const float*>(m),
+      static_cast<const float*>(dnum), static_cast<const float*>(dden),
+      static_cast<float*>(dldst), n, h, f, slope);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool S>
+int launch_sender(const void* tiles_t, const void* block_cols, const void* rows,
+                  const void* lsrc, const void* ldst, const void* s2, const void* m,
+                  const void* dnum, const void* dden, void* ds, void* dlsrc, int grid_rows, int n,
+                  int h, int f, int tile_bf16, float slope, void* stream) {
+  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_width(f, GAT_WIDTHS_OF_MODE(gat_bwd_sender_kernel, S));
+  kernel<<<grid_of(grid_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      tiles_t, tile_bf16, static_cast<const int*>(block_cols), static_cast<const int*>(rows),
+      static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+      static_cast<const float*>(s2), static_cast<const float*>(m),
+      static_cast<const float*>(dnum), static_cast<const float*>(dden),
+      static_cast<float*>(ds), static_cast<float*>(dlsrc), n, h, f, slope);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -249,54 +346,62 @@ int gat_tile_attn_config(int* tm, int* tk, int* max_f) {
   return 0;
 }
 
-// B3. Returns cudaGetLastError() after the launch.
+// Each entry returns cudaGetLastError() after its launch.
+
+// B3: num [n, H*F], den, m [n, H].
 int gat_tile_fwd(const void* tiles, const void* block_cols, const void* block_row_ptr,
                  const void* lsrc, const void* ldst, const void* s2, void* num, void* den,
                  void* m, int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
                  void* stream) {
-  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = pick_width(f, GAT_TILE_WIDTHS(gat_fwd_kernel));
-  kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles, tile_bf16, static_cast<const int*>(block_cols),
-      static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
-      static_cast<const float*>(ldst), static_cast<const float*>(s2),
-      static_cast<float*>(num), static_cast<float*>(den), static_cast<float*>(m), n, h, f,
-      slope);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(tiles, block_cols, block_row_ptr, lsrc, ldst, s2, num, den, m,
+                           n_block_rows, n, h, f, tile_bf16, slope, stream);
 }
 
-// B5 over the forward tiles.
+// B4: num_t [T, TM, H*F], den_t, max_t [T, TM, H].
+int gat_tile_fwd_stream(const void* tiles, const void* block_cols, const void* block_rows,
+                        const void* lsrc, const void* ldst, const void* s2, void* num_t,
+                        void* den_t, void* max_t, int n_tiles, int n, int h, int f,
+                        int tile_bf16, float slope, void* stream) {
+  return launch_fwd<true>(tiles, block_cols, block_rows, lsrc, ldst, s2, num_t, den_t, max_t,
+                          n_tiles, n, h, f, tile_bf16, slope, stream);
+}
+
+// B5 over the forward tiles: dldst [n, H].
 int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* block_row_ptr,
                        const void* lsrc, const void* ldst, const void* s2, const void* m,
                        const void* dnum, const void* dden, void* dldst, int n_block_rows,
                        int n, int h, int f, int tile_bf16, float slope, void* stream) {
-  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_kernel));
-  kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles, tile_bf16, static_cast<const int*>(block_cols),
-      static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
-      static_cast<const float*>(ldst), static_cast<const float*>(s2),
-      static_cast<const float*>(m), static_cast<const float*>(dnum),
-      static_cast<const float*>(dden), static_cast<float*>(dldst), n, h, f, slope);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dldst<false>(tiles, block_cols, block_row_ptr, lsrc, ldst, s2, m, dnum, dden,
+                             dldst, n_block_rows, n, h, f, tile_bf16, slope, stream);
 }
 
-// B6 over the transpose tiles (block rows are senders).
+// B5s over the forward tiles: dldst_t [T, TM, H].
+int gat_tile_bwd_dldst_stream(const void* tiles, const void* block_cols, const void* block_rows,
+                              const void* lsrc, const void* ldst, const void* s2, const void* m,
+                              const void* dnum, const void* dden, void* dldst_t, int n_tiles,
+                              int n, int h, int f, int tile_bf16, float slope, void* stream) {
+  return launch_dldst<true>(tiles, block_cols, block_rows, lsrc, ldst, s2, m, dnum, dden,
+                            dldst_t, n_tiles, n, h, f, tile_bf16, slope, stream);
+}
+
+// B6 over the transpose tiles (block rows are senders): ds [n, H*F], dlsrc [n, H].
 int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void* block_row_ptr,
                         const void* lsrc, const void* ldst, const void* s2, const void* m,
                         const void* dnum, const void* dden, void* ds, void* dlsrc,
                         int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
                         void* stream) {
-  if (f < 1 || f > MAX_F) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_kernel));
-  kernel<<<grid_of(n_block_rows, h), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      tiles_t, tile_bf16, static_cast<const int*>(block_cols),
-      static_cast<const int*>(block_row_ptr), static_cast<const float*>(lsrc),
-      static_cast<const float*>(ldst), static_cast<const float*>(s2),
-      static_cast<const float*>(m), static_cast<const float*>(dnum),
-      static_cast<const float*>(dden), static_cast<float*>(ds), static_cast<float*>(dlsrc),
-      n, h, f, slope);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sender<false>(tiles_t, block_cols, block_row_ptr, lsrc, ldst, s2, m, dnum,
+                              dden, ds, dlsrc, n_block_rows, n, h, f, tile_bf16, slope, stream);
+}
+
+// B6s over the transpose tiles: ds_t [Tt, TM, H*F], dlsrc_t [Tt, TM, H].
+int gat_tile_bwd_sender_stream(const void* tiles_t, const void* block_cols,
+                               const void* block_rows, const void* lsrc, const void* ldst,
+                               const void* s2, const void* m, const void* dnum, const void* dden,
+                               void* ds_t, void* dlsrc_t, int n_tiles, int n, int h, int f,
+                               int tile_bf16, float slope, void* stream) {
+  return launch_sender<true>(tiles_t, block_cols, block_rows, lsrc, ldst, s2, m, dnum, dden,
+                             ds_t, dlsrc_t, n_tiles, n, h, f, tile_bf16, slope, stream);
 }
 
 }  // extern "C"

@@ -14,6 +14,16 @@ default (``TILE_REVISIT = True``) path of its ``gat_tile_partials``:
 - **B6** ``_bwd_sender_kernel`` (``stream=False``): the sender gradients
   ``ds`` and ``dlsrc``, over the exact transpose tiles (:func:`transpose_bcsr`);
 
+their per-tile ("stream") modes, on its ``TILE_REVISIT = False`` path, where
+each tile writes its own block ``[T, tm, W]`` and plain-PyTorch merges join
+the blocks by block row (:func:`softmax_merge`, :func:`sum_by_block_row`):
+
+- **B4** ``_fwd_kernel_stream``: per tile, the row max over the tile's own
+  edges ``max_t`` (``NEG`` where a row has none there), and ``num_t``/``den_t``
+  relative to it;
+- **B5s**, **B6s**: B5's and B6's bodies over one tile (``stream=True``),
+  writing ``dldst_t``, and ``ds_t``/``dlsrc_t``, per tile;
+
 and of its ``gatv2_tile_partials``, where the logit of a tile edge ``u -> v``
 is ``e = Σ_f a[h,f]·leaky(sl[u,hF+f] + sr[v,hF+f])``:
 
@@ -23,19 +33,21 @@ is ``e = Σ_f a[h,f]·leaky(sl[u,hF+f] + sr[v,hF+f])``:
   partial ``dapart [N, H·F]`` of ``da``, over the forward tiles;
 - **B9** ``_v2_bwd_send_kernel``: ``dsl [N, H·F]``, over the transpose tiles.
 
-The CUDA sources, ``pygcn_tpu_torch/csrc/gat_tile_attn.cu`` (B3/B5/B6) and
-``gatv2_tile_attn.cu`` (B7/B8/B9), carry the design notes: one CTA per (head,
-block row) loops over the row's tiles, each thread owns one row of the block,
-and each output is written once, without atomics. At the ogbn-arxiv hybrid's
-shapes all six are bound by bytes (the tiles as stored, about 0.19 GB a
-launch); the kernels evaluate every (row, column) slot of a tile column that
-some row of the warp needs, so they sit above that bound.
+The CUDA sources, ``pygcn_tpu_torch/csrc/gat_tile_attn.cu`` (B3/B5/B6 and
+B4/B5s/B6s) and ``gatv2_tile_attn.cu`` (B7/B8/B9), carry the design notes:
+one CTA per (head, block row) loops over the row's tiles, or in the stream
+modes one CTA per (head, tile) takes one; each thread owns one row of the
+block, and each output is written once, without atomics. At the ogbn-arxiv
+hybrid's shapes all nine are bound by bytes (the tiles as stored, about
+0.19 GB a launch); the kernels evaluate every (row, column) slot of a tile
+column that some row of the warp needs, so they sit above that bound.
 
 Tile values only gate the mask (``tile != 0``); they are never multiplied in.
 Each kernel has a plain PyTorch version here (``*_plain``), the CPU path and
 the card's yardstick. The wrappers pick by the device of the operands: CPU
 tensors run the plain version, CUDA tensors run the kernel or raise, any other
-device raises. ``launches`` counts each kernel's launches.
+device raises. ``launches`` counts each kernel's launches. GATv2 has no
+stream mode, in JAX or here: :data:`TILE_REVISIT` does not change B7/B8/B9.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ import numpy as np
 import torch
 
 from pygcn_tpu_torch.graph.graph import BCSR
+from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
 
 NEG = -1e30  # finite stand-in for -inf: max/exp algebra without NaNs
 
@@ -54,8 +67,15 @@ NEG = -1e30  # finite stand-in for -inf: max/exp algebra without NaNs
 TILE = (128, 128)
 MAX_F = 64
 
+# The JAX package's A/B flag (``pygcn_tpu/ops/pallas/gat_tile_attn.py:115``),
+# with its default. :class:`GATTilePartials` reads it once in its forward
+# and runs its backward in the same mode: False runs B4, then B5s and B6s,
+# with the merges, in place of B3, B5 and B6.
+TILE_REVISIT = True
+
 # Kernel launches since import (or since a caller reset them to 0).
-launches = {"B3": 0, "B5": 0, "B6": 0, "B7": 0, "B8": 0, "B9": 0}
+launches = {"B3": 0, "B4": 0, "B5": 0, "B5s": 0, "B6": 0, "B6s": 0, "B7": 0, "B8": 0,
+            "B9": 0}
 
 _libs = {}
 
@@ -116,57 +136,78 @@ def _slabs(a: torch.Tensor, blocks: torch.Tensor, n_blocks: int, size: int) -> t
     return ap.view(n_blocks, size, a.shape[1]).index_select(0, blocks.long())
 
 
-def _by_block_row(parts: torch.Tensor, bcsr: BCSR, n: int) -> torch.Tensor:
-    """Sum per-tile ``[T, tm, W]`` parts into their block rows → ``[n, W]``."""
-    out = parts.new_zeros((bcsr.n_block_rows, bcsr.tm, parts.shape[2]))
-    out.index_add_(0, bcsr.block_rows.long(), parts)
-    return out.view(-1, parts.shape[2])[:n]
-
-
 def tile_fwd_plain(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
-    """B3's function with tensor ops: ``(num [N, H·F], den [N, H], m [N, H])``.
+    """B3's function with tensor ops: ``(num [N, H·F], den [N, H], m [N, H])``,
+    B4's per-tile partials merged by :func:`softmax_merge`: the same ``m``,
+    and the same ``num``/``den`` relative to it up to rounding, as the
+    kernel's online order."""
+    parts = tile_fwd_stream_plain(bcsr, lsrc, ldst, s2, h, f, slope)
+    return softmax_merge(bcsr, *parts, s2.shape[0])
 
-    Takes the max over each receiver's tile edges before exponentiating
-    (:func:`_softmax_partials`): the same ``m``, and the same ``num``/``den``
-    relative to it, as the kernel's online order. Loops over heads, so no
-    ``[T, H, tm, tk]`` temporary is built.
-    """
+
+def tile_fwd_stream_plain(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
+    """B4's function: per tile ``(num_t [T, tm, H·F], den_t [T, tm, H],
+    max_t [T, tm, H])`` (:func:`_tile_partials`)."""
     tm, tk = bcsr.tm, bcsr.tk
     ls = _slabs(lsrc, bcsr.block_cols, bcsr.n_block_cols, tk)  # [T, tk, H]
     ld = _slabs(ldst, bcsr.block_rows, bcsr.n_block_rows, tm)  # [T, tm, H]
     sv = _slabs(s2, bcsr.block_cols, bcsr.n_block_cols, tk)  # [T, tk, H·F]
     logits = (_leaky(ld[:, :, hh, None] + ls[:, None, :, hh], slope) for hh in range(h))
-    return _softmax_partials(bcsr, logits, sv, f, s2.shape[0])
+    return _tile_partials(bcsr, logits, sv, f)
 
 
-def _softmax_partials(bcsr: BCSR, logits, sv, f: int, n: int):
-    """``(num [n, H·F], den [n, H], m [n, H])`` from each head's tile logits
-    ``[T, tm, tk]`` (an iterable over heads) and the senders' features
-    ``sv [T, tk, H·F]``: each tile's row max, merged by block row
-    (``scatter_reduce`` ``amax`` on a ``NEG`` start), then one exponentiation
-    against it."""
-    tm = bcsr.tm
-    t = bcsr.data.shape[0]
+def _tile_partials(bcsr: BCSR, logits, sv, f: int):
+    """Per tile ``(num_t [T, tm, H·F], den_t [T, tm, H], max_t [T, tm, H])``
+    from each head's tile logits ``[T, tm, tk]`` (an iterable over heads) and
+    the senders' features ``sv [T, tk, H·F]``: each row's max over the tile's
+    own edges (``NEG`` where the row has none there, with ``num_t = den_t = 0``),
+    then one exponentiation against it. Loops over heads, so no
+    ``[T, H, tm, tk]`` temporary is built."""
     mask = bcsr.data != 0  # [T, tm, tk]
-    br = bcsr.block_rows.long()
-    nums, dens, ms = [], [], []
+    nums, dens, maxs = [], [], []
     for hh, e in enumerate(logits):
         neg = torch.where(mask, e, NEG)
-        tmax = neg.amax(dim=2)  # [T, tm]
-        m = torch.full((bcsr.n_block_rows, tm), NEG, dtype=e.dtype, device=e.device)
-        m = m.scatter_reduce(0, br[:, None].expand(t, tm), tmax, "amax", include_self=True)
-        ex = torch.where(mask, torch.exp(neg - m[br][:, :, None]), 0.0)
-        dens.append(_by_block_row(ex.sum(dim=2, keepdim=True), bcsr, n))
-        nums.append(_by_block_row(torch.bmm(ex, sv[:, :, hh * f:(hh + 1) * f]), bcsr, n))
-        ms.append(m.view(-1, 1)[:n])
-    return torch.cat(nums, 1), torch.cat(dens, 1), torch.cat(ms, 1)
+        tmax = neg.amax(dim=2, keepdim=True)  # [T, tm, 1]
+        ex = torch.where(mask, torch.exp(neg - tmax), 0.0)
+        dens.append(ex.sum(dim=2, keepdim=True))
+        nums.append(torch.bmm(ex, sv[:, :, hh * f:(hh + 1) * f]))
+        maxs.append(tmax)
+    return torch.cat(nums, 2), torch.cat(dens, 2), torch.cat(maxs, 2)
 
 
-def tile_bwd_dldst_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
-                         slope: float):
-    """B5's function: ``dldst [N, H]`` over the forward tiles, with
-    ``p = mask·exp(e − m_v)`` (``m`` as B3 returned it)."""
-    n = s2.shape[0]
+def softmax_merge(bcsr: BCSR, num_t, den_t, max_t, n: int):
+    """Merge per-tile partials (B4's) into ``(num [n, H·F], den [n, H], m [n, H])``,
+    as the JAX package's stream path does (``gat_tile_attn.py:246-257``):
+    ``m`` is the max of ``max_t`` over each block row's tiles, every tile is
+    rescaled by ``exp(max_t − m)`` (``m`` taken as 0 where it is ``NEG``), and
+    the rescaled blocks are summed by block row. Plain PyTorch, on the CPU and
+    the card alike.
+
+    The max starts from ``NEG`` (``scatter_reduce`` ``amax`` with
+    ``include_self``): a receiver with no tile edge has ``m = NEG`` and
+    ``num = den = 0``, as in the revisit mode. JAX's ``segment_max`` gives
+    ``-inf`` for a block row that owns no tile at all; the tiles JAX builds
+    give every empty block row a zero tile, so the two agree there, and on
+    tile sets without it (``drop_zero_tiles``) the port keeps ``NEG``.
+    """
+    t, tm, h = max_t.shape
+    br = bcsr.block_rows.long()
+    m = max_t.new_full((bcsr.n_block_rows, tm, h), NEG)
+    m = m.scatter_reduce(0, br[:, None, None].expand(t, tm, h), max_t, "amax",
+                         include_self=True)
+    shift = torch.where(m > -1e29, m, 0.0)
+    scale = torch.exp(max_t - shift[br])  # [T, tm, H]
+    den = sum_by_block_row(den_t * scale, bcsr, n)
+    num = sum_by_block_row((num_t.view(t, tm, h, -1) * scale[..., None]).view(t, tm, -1),
+                           bcsr, n)
+    return num, den, m.view(-1, h)[:n]
+
+
+def tile_bwd_dldst_stream_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                                slope: float):
+    """B5s's function: per tile ``dldst_t [T, tm, H]`` over the forward
+    tiles, with ``p = mask·exp(e − m_v)`` (``m`` the merged max the forward
+    returned)."""
     tm, tk = bcsr.tm, bcsr.tk
     mask = bcsr.data != 0
     ls = _slabs(lsrc, bcsr.block_cols, bcsr.n_block_cols, tk)
@@ -182,15 +223,23 @@ def tile_bwd_dldst_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: i
         p = torch.where(mask, torch.exp(_leaky(pre, slope) - mv[:, :, hh, None]), 0.0)
         gdot = torch.bmm(dnv[:, :, fs], sv[:, :, fs].transpose(1, 2))
         de = p * (gdot + ddv[:, :, hh, None]) * torch.where(pre >= 0, 1.0, slope)
-        out.append(_by_block_row(de.sum(dim=2, keepdim=True), bcsr, n))
-    return torch.cat(out, 1)
+        out.append(de.sum(dim=2, keepdim=True))
+    return torch.cat(out, 2)
 
 
-def tile_bwd_sender_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
-                          slope: float):
-    """B6's function: ``(ds [N, H·F], dlsrc [N, H])`` over the transpose
-    tiles, whose rows are senders ``u`` and columns receivers ``v``."""
-    n = s2.shape[0]
+def tile_bwd_dldst_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                         slope: float):
+    """B5's function: ``dldst [N, H]`` over the forward tiles, with
+    ``p = mask·exp(e − m_v)`` (``m`` as B3 returned it): B5s's blocks merged."""
+    parts = tile_bwd_dldst_stream_plain(bcsr, lsrc, ldst, s2, m, dnum, dden, h, f, slope)
+    return sum_by_block_row(parts, bcsr, s2.shape[0])
+
+
+def tile_bwd_sender_stream_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                                 slope: float):
+    """B6s's function: per transpose tile ``(ds_t [Tt, tm, H·F],
+    dlsrc_t [Tt, tm, H])``; the tiles' rows are senders ``u`` and their
+    columns receivers ``v``."""
     tm, tk = bcsr_t.tm, bcsr_t.tk
     mask = bcsr_t.data != 0
     lu = _slabs(lsrc, bcsr_t.block_rows, bcsr_t.n_block_rows, tm)
@@ -204,11 +253,20 @@ def tile_bwd_sender_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f
         fs = slice(hh * f, (hh + 1) * f)
         pre = lu[:, :, hh, None] + ldv[:, None, :, hh]  # [T, tm(u), tk(v)]
         p = torch.where(mask, torch.exp(_leaky(pre, slope) - mv[:, None, :, hh]), 0.0)
-        ds.append(_by_block_row(torch.bmm(p, dnv[:, :, fs]), bcsr_t, n))
+        ds.append(torch.bmm(p, dnv[:, :, fs]))
         gdot = torch.bmm(su[:, :, fs], dnv[:, :, fs].transpose(1, 2))
         de = p * (gdot + ddv[:, None, :, hh]) * torch.where(pre >= 0, 1.0, slope)
-        dl.append(_by_block_row(de.sum(dim=2, keepdim=True), bcsr_t, n))
-    return torch.cat(ds, 1), torch.cat(dl, 1)
+        dl.append(de.sum(dim=2, keepdim=True))
+    return torch.cat(ds, 2), torch.cat(dl, 2)
+
+
+def tile_bwd_sender_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                          slope: float):
+    """B6's function: ``(ds [N, H·F], dlsrc [N, H])`` over the transpose
+    tiles: B6s's blocks merged."""
+    n = s2.shape[0]
+    ds_t, dl_t = tile_bwd_sender_stream_plain(bcsr_t, lsrc, ldst, s2, m, dnum, dden, h, f, slope)
+    return sum_by_block_row(ds_t, bcsr_t, n), sum_by_block_row(dl_t, bcsr_t, n)
 
 
 def _v2_logit(a, rows, cols, hh: int, f: int, slope: float) -> torch.Tensor:
@@ -227,11 +285,12 @@ def _v2_logit(a, rows, cols, hh: int, f: int, slope: float) -> torch.Tensor:
 
 def tile_v2_fwd_plain(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float):
     """B7's function with tensor ops: ``(num [N, H·F], den [N, H], m [N, H])``,
-    ``num`` aggregating ``sl2``; the max and merge as in :func:`tile_fwd_plain`."""
+    ``num`` aggregating ``sl2``; per-tile partials and their merge as in
+    :func:`tile_fwd_plain`."""
     slv = _slabs(sl2, bcsr.block_cols, bcsr.n_block_cols, bcsr.tk)  # [T, tk(u), H·F]
     srv = _slabs(sr2, bcsr.block_rows, bcsr.n_block_rows, bcsr.tm)  # [T, tm(v), H·F]
     logits = (_v2_logit(a, srv, slv, hh, f, slope) for hh in range(h))
-    return _softmax_partials(bcsr, logits, slv, f, sl2.shape[0])
+    return softmax_merge(bcsr, *_tile_partials(bcsr, logits, slv, f), sl2.shape[0])
 
 
 def tile_v2_bwd_recv_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
@@ -260,8 +319,8 @@ def tile_v2_bwd_recv_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: in
             pre = srv[:, :, idx, None] + slv[:, None, :, idx]
             g_sr.append((de * (a[hh, ff] * torch.where(pre >= 0, 1.0, slope))).sum(dim=2))
             g_ap.append((de * _leaky(pre, slope)).sum(dim=2))
-        dsr.append(_by_block_row(torch.stack(g_sr, 2), bcsr, n))
-        dap.append(_by_block_row(torch.stack(g_ap, 2), bcsr, n))
+        dsr.append(sum_by_block_row(torch.stack(g_sr, 2), bcsr, n))
+        dap.append(sum_by_block_row(torch.stack(g_ap, 2), bcsr, n))
     return torch.cat(dsr, 1), torch.cat(dap, 1)
 
 
@@ -291,7 +350,7 @@ def tile_v2_bwd_send_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: 
             idx = hh * f + ff
             pre = slu[:, :, idx, None] + srv[:, None, :, idx]
             logit.append((de * (a[hh, ff] * torch.where(pre >= 0, 1.0, slope))).sum(dim=2))
-        dsl.append(_by_block_row(agg + torch.stack(logit, 2), bcsr_t, n))
+        dsl.append(sum_by_block_row(agg + torch.stack(logit, 2), bcsr_t, n))
     return torch.cat(dsl, 1)
 
 
@@ -310,8 +369,11 @@ def _load(name: str):
         lib = ctypes.CDLL(str(build.library_path(name)))
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # tiles, block_cols, block_row_ptr, <operands>, <outputs>,
-        # n_block_rows, n, h, f, tile_bf16, slope, stream
-        entries = ((("gat_tile_fwd", 6), ("gat_tile_bwd_dldst", 7), ("gat_tile_bwd_sender", 8))
+        # n_block_rows, n, h, f, tile_bf16, slope, stream; the stream modes
+        # take block_rows and the tile count in place of the block rows'
+        entries = ((("gat_tile_fwd", 6), ("gat_tile_bwd_dldst", 7), ("gat_tile_bwd_sender", 8),
+                    ("gat_tile_fwd_stream", 6), ("gat_tile_bwd_dldst_stream", 7),
+                    ("gat_tile_bwd_sender_stream", 8))
                    if name == "gat_tile_attn" else
                    (("gatv2_tile_fwd", 6), ("gatv2_tile_bwd_recv", 8),
                     ("gatv2_tile_bwd_send", 7)))
@@ -334,13 +396,13 @@ def _load(name: str):
 def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
     """Everything kernel ``name`` needs of its operands; raises otherwise.
 
-    ``tensors`` must have the ``shapes`` given: for B3/B5/B6 ``lsrc``,
+    ``tensors`` must have the ``shapes`` given: for B3-B6 ``lsrc``,
     ``ldst`` ``[n, H]`` and ``s2`` ``[n, H·F]``; for B7/B8/B9 ``sl2``, ``sr2``
     ``[n, H·F]`` and ``a`` ``[H, F]``; then for the backward ``m`` ``[n, H]``,
     ``dnum`` ``[n, H·F]`` and ``dden`` ``[n, H]``.
     """
     dev = tensors[0].device
-    arrays = (bcsr.data, bcsr.block_cols, bcsr.block_row_ptr, *tensors)
+    arrays = (bcsr.data, bcsr.block_rows, bcsr.block_cols, bcsr.block_row_ptr, *tensors)
     if dev.type != "cuda" or any(t.device != dev for t in arrays):
         raise ValueError(f"{name} needs the tiles and operands on one CUDA device, got "
                          + ", ".join(str(t.device) for t in arrays))
@@ -353,15 +415,17 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
                          + "; got " + ", ".join(str(tuple(t.shape)) for t in tensors))
     if bcsr.data.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"tiles must be float32 or bfloat16, got {bcsr.data.dtype}")
-    if bcsr.block_cols.dtype != torch.int32 or bcsr.block_row_ptr.dtype != torch.int32:
-        raise TypeError("block_cols and block_row_ptr must be int32")
+    if any(t.dtype != torch.int32
+           for t in (bcsr.block_rows, bcsr.block_cols, bcsr.block_row_ptr)):
+        raise TypeError("block_rows, block_cols and block_row_ptr must be int32")
     if (bcsr.tm, bcsr.tk) != TILE:
         raise ValueError(f"{name} is built for {TILE} tiles, got {(bcsr.tm, bcsr.tk)}")
-    # Shapes only: checking the pointers' values would wait for the device.
+    # Shapes only: checking the indices' values would wait for the device.
     if bcsr.block_row_ptr.numel() != bcsr.n_block_rows + 1:
         raise ValueError("block_row_ptr must have n_block_rows + 1 entries")
-    if bcsr.block_cols.numel() != bcsr.data.shape[0]:
-        raise ValueError("block_cols must have one entry per tile")
+    if bcsr.block_cols.numel() != bcsr.data.shape[0] or \
+            bcsr.block_rows.numel() != bcsr.data.shape[0]:
+        raise ValueError("block_rows and block_cols must have one entry per tile")
     if n > bcsr.n_block_rows * bcsr.tm or n > bcsr.n_block_cols * bcsr.tk:
         raise ValueError(f"{n} nodes exceed the tiles' {bcsr.n_block_rows * bcsr.tm} rows "
                          f"or {bcsr.n_block_cols * bcsr.tk} columns")
@@ -372,15 +436,19 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
 
 
 def _launch(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int, f: int,
-            slope: float):
+            slope: float, stream: bool = False):
+    """Launch ``fn_name``: one CTA per (head, block row), or with ``stream``
+    one per (head, tile)."""
     lib = _load(lib_name)
     n = ins[0].shape[0]
     dev = ins[0].device
+    rows, grid_rows = ((bcsr.block_rows, bcsr.data.shape[0]) if stream
+                       else (bcsr.block_row_ptr, bcsr.n_block_rows))
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
-            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), bcsr.block_row_ptr.data_ptr(),
+            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), rows.data_ptr(),
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-            bcsr.n_block_rows, n, h, f, int(bcsr.data.dtype == torch.bfloat16),
+            grid_rows, n, h, f, int(bcsr.data.dtype == torch.bfloat16),
             float(slope), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
@@ -389,6 +457,12 @@ def _launch(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: in
 
 def _empty(n, w, like):
     return torch.empty((n, w), dtype=torch.float32, device=like.device)
+
+
+def _blocks(bcsr: BCSR, w, like):
+    """Per-tile outputs ``[T, tm, w]``."""
+    return torch.empty((bcsr.data.shape[0], bcsr.tm, w), dtype=torch.float32,
+                       device=like.device)
 
 
 def _v1_shapes(n, h, f):
@@ -434,6 +508,43 @@ def tile_bwd_sender_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f:
     if n and h:
         _launch("gat_tile_attn", "B6", "gat_tile_bwd_sender", bcsr_t, ins, (ds, dlsrc), h, f, slope)
     return ds, dlsrc
+
+
+def tile_fwd_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
+    """Launch B4 on the current stream; raises on anything it does not take."""
+    n = s2.shape[0]
+    _check_cuda("B4", bcsr, (lsrc, ldst, s2), _v1_shapes(n, h, f), n, f)
+    num_t, den_t, max_t = _blocks(bcsr, h * f, s2), _blocks(bcsr, h, s2), _blocks(bcsr, h, s2)
+    if bcsr.data.shape[0] and h:
+        _launch("gat_tile_attn", "B4", "gat_tile_fwd_stream", bcsr, (lsrc, ldst, s2),
+                (num_t, den_t, max_t), h, f, slope, stream=True)
+    return num_t, den_t, max_t
+
+
+def tile_bwd_dldst_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                               slope: float):
+    """Launch B5s on the current stream; raises on anything it does not take."""
+    n = s2.shape[0]
+    ins = (lsrc, ldst, s2, m, dnum, dden)
+    _check_cuda("B5s", bcsr, ins, _v1_shapes(n, h, f), n, f)
+    dldst_t = _blocks(bcsr, h, s2)
+    if bcsr.data.shape[0] and h:
+        _launch("gat_tile_attn", "B5s", "gat_tile_bwd_dldst_stream", bcsr, ins, (dldst_t,), h,
+                f, slope, stream=True)
+    return dldst_t
+
+
+def tile_bwd_sender_stream_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                                slope: float):
+    """Launch B6s on the current stream; raises on anything it does not take."""
+    n = s2.shape[0]
+    ins = (lsrc, ldst, s2, m, dnum, dden)
+    _check_cuda("B6s", bcsr_t, ins, _v1_shapes(n, h, f), n, f)
+    ds_t, dlsrc_t = _blocks(bcsr_t, h * f, s2), _blocks(bcsr_t, h, s2)
+    if bcsr_t.data.shape[0] and h:
+        _launch("gat_tile_attn", "B6s", "gat_tile_bwd_sender_stream", bcsr_t, ins,
+                (ds_t, dlsrc_t), h, f, slope, stream=True)
+    return ds_t, dlsrc_t
 
 
 def tile_v2_fwd_cuda(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float):
@@ -492,6 +603,20 @@ def tile_bwd_sender(bcsr_t, *args):
     return _pick(tile_bwd_sender_plain, tile_bwd_sender_cuda, args[2])(bcsr_t, *args)
 
 
+def tile_fwd_stream(bcsr, lsrc, ldst, s2, h, f, slope):
+    return _pick(tile_fwd_stream_plain, tile_fwd_stream_cuda, s2)(bcsr, lsrc, ldst, s2, h, f,
+                                                                  slope)
+
+
+def tile_bwd_dldst_stream(bcsr, *args):
+    return _pick(tile_bwd_dldst_stream_plain, tile_bwd_dldst_stream_cuda, args[2])(bcsr, *args)
+
+
+def tile_bwd_sender_stream(bcsr_t, *args):
+    return _pick(tile_bwd_sender_stream_plain, tile_bwd_sender_stream_cuda, args[2])(bcsr_t,
+                                                                                     *args)
+
+
 def tile_v2_fwd(bcsr, sl2, sr2, a, h, f, slope):
     return _pick(tile_v2_fwd_plain, tile_v2_fwd_cuda, sl2)(bcsr, sl2, sr2, a, h, f, slope)
 
@@ -516,13 +641,20 @@ def _require_square(name: str, bcsr: BCSR, bcsr_t: BCSR) -> None:
 class GATTilePartials(torch.autograd.Function):
     """Per-receiver attention partials over the tile edges, with the backward
     of ``pygcn_tpu``'s ``custom_vjp``: B3 forward, then B5 over the forward
-    tiles and B6 over ``bcsr_t``. ``m`` carries no gradient."""
+    tiles and B6 over ``bcsr_t``; or, when :data:`TILE_REVISIT` is False at the
+    forward, B4 and :func:`softmax_merge`, then B5s and B6s, each merged by
+    :func:`sum_by_block_row`. ``m`` carries no gradient."""
 
     @staticmethod
     def forward(ctx, meta, bcsr, bcsr_t, lsrc, ldst, s2):
         h, f, slope = meta
         lsrc, ldst, s2 = lsrc.contiguous(), ldst.contiguous(), s2.contiguous()
-        num, den, m = tile_fwd(bcsr, lsrc, ldst, s2, h, f, slope)
+        ctx.revisit = TILE_REVISIT
+        if ctx.revisit:
+            num, den, m = tile_fwd(bcsr, lsrc, ldst, s2, h, f, slope)
+        else:
+            num, den, m = softmax_merge(bcsr, *tile_fwd_stream(bcsr, lsrc, ldst, s2, h, f, slope),
+                                        s2.shape[0])
         ctx.meta, ctx.bcsr, ctx.bcsr_t = meta, bcsr, bcsr_t
         ctx.save_for_backward(lsrc, ldst, s2, m)
         ctx.mark_non_differentiable(m)
@@ -535,8 +667,14 @@ class GATTilePartials(torch.autograd.Function):
         _require_square("gat_tile_partials", bcsr, bcsr_t)
         lsrc, ldst, s2, m = ctx.saved_tensors
         args = (lsrc, ldst, s2, m, dnum.contiguous(), dden.contiguous(), h, f, slope)
-        dldst = tile_bwd_dldst(bcsr, *args)
-        ds, dlsrc = tile_bwd_sender(bcsr_t, *args)
+        if ctx.revisit:
+            dldst = tile_bwd_dldst(bcsr, *args)
+            ds, dlsrc = tile_bwd_sender(bcsr_t, *args)
+        else:
+            n = s2.shape[0]
+            dldst = sum_by_block_row(tile_bwd_dldst_stream(bcsr, *args), bcsr, n)
+            ds_t, dl_t = tile_bwd_sender_stream(bcsr_t, *args)
+            ds, dlsrc = sum_by_block_row(ds_t, bcsr_t, n), sum_by_block_row(dl_t, bcsr_t, n)
         return None, None, None, dlsrc, dldst, ds
 
 

@@ -1,5 +1,5 @@
-"""Kernels B1, B3, B5, B6, B7, B8 and B9 on a CUDA card against their plain
-versions (skipped without a card).
+"""Kernels B1-B9, and the stream modes B5s and B6s, on a CUDA card against
+their plain versions (skipped without a card).
 
 Run on a machine with an H100 from the repo root (``--noconftest`` because
 ``tests/conftest.py`` configures JAX, which that machine does not need)::
@@ -46,6 +46,27 @@ def test_b1_kernel_matches_plain(dev, dtype, h):
     assert b1.launches == before + 1
     torch.testing.assert_close(got, b1.bcsr_spmm_plain(b, x, n_rows=300), rtol=1e-4, atol=1e-4)
     assert not got[128:256].any()
+
+
+@pytest.mark.parametrize("h", [1, 40, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_kernel_matches_plain(dev, dtype, h):
+    """B2's per-tile parts on B1's grid (a ragged last block column, the
+    block row without entries with its padding tile, ragged H)."""
+    rng = np.random.default_rng(h + 7)
+    m = sp.random(300, 270, density=0.05, random_state=rng, format="coo",
+                  data_rvs=rng.standard_normal, dtype=np.float32)
+    keep = m.row // 128 != 1
+    m = sp.coo_matrix((m.data[keep], (m.row[keep], m.col[keep])), shape=m.shape)
+    b = _build_bcsr(m, (128, 128))
+    b = dataclasses.replace(b, data=b.data.to(dtype)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((270, h)).astype(np.float32)).to(dev)
+    before = (b1.launches, b1.stream_launches)
+    got = b1.bcsr_spmm_stream(b, x)
+    torch.cuda.synchronize()
+    assert (b1.launches, b1.stream_launches) == (before[0], before[1] + 1)
+    assert got.shape == (b.data.shape[0], 128, h)
+    torch.testing.assert_close(got, b1.bcsr_spmm_stream_plain(b, x), rtol=1e-4, atol=1e-4)
 
 
 def test_b1_gradient_on_asymmetric_graph(dev):
@@ -113,6 +134,36 @@ def test_gat_tile_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
     assert not got_dl[128:256].any()
     if symmetric:
         assert not got_snd[0][128:256].any() and not got_snd[1][128:256].any()
+
+
+@pytest.mark.parametrize("hf", GAT_SHAPES, ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("drop_padding", [False, True], ids=["padding_tile", "no_tile"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+def test_gat_stream_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
+    """B4, B5s and B6s: per-tile blocks against their plain versions, on the
+    grid of the revisit kernels' test; ``m`` is the merged max."""
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
+    gen = torch.Generator(device=dev).manual_seed(h * 100 + f + 1)
+    lsrc, ldst = (torch.randn(300, h, device=dev, generator=gen) for _ in range(2))
+    s2 = torch.randn(300, h * f, device=dev, generator=gen)
+    dnum = torch.randn(300, h * f, device=dev, generator=gen)
+    dden = torch.randn(300, h, device=dev, generator=gen)
+    before = dict(gta.launches)
+    got = gta.tile_fwd_stream(b, lsrc, ldst, s2, h, f, 0.2)
+    ref = gta.tile_fwd_stream_plain(b, lsrc, ldst, s2, h, f, 0.2)
+    m = gta.softmax_merge(b, *ref, 300)[2]
+    args = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    got_dl = gta.tile_bwd_dldst_stream(b, *args)
+    ref_dl = gta.tile_bwd_dldst_stream_plain(b, *args)
+    got_snd = gta.tile_bwd_sender_stream(bt, *args)
+    ref_snd = gta.tile_bwd_sender_stream_plain(bt, *args)
+    torch.cuda.synchronize()
+    assert gta.launches == {k: before[k] + (k in ("B4", "B5s", "B6s")) for k in before}
+    for a, r in zip((*got, got_dl, *got_snd), (*ref, ref_dl, *ref_snd)):
+        assert a.shape == r.shape
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
 
 
 def test_gat_tile_kernels_leaky_derivative_at_zero(dev):

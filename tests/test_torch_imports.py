@@ -26,9 +26,9 @@ def port_modules():
 def test_every_module_imports_without_jax_or_pygcn_tpu():
     mods = port_modules()
     for m in ("ops.cuda.bcsr_spmm", "ops.cuda.gat_tile_attn", "ops.cuda.build", "ops.gat",
-              "nn.gat", "convert"):
+              "nn.gat", "nn.sage", "nn.gin", "apps.ab_kernel_stream", "convert"):
         assert f"pygcn_tpu_torch.{m}" in mods
-    assert len(mods) >= 23
+    assert len(mods) >= 26
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -48,6 +48,14 @@ def test_cli_default_device_raises_without_cuda(monkeypatch):
         train_fullgraph.main(["--n_nodes", "200", "--epochs", "1"])
 
 
+def test_ab_tool_default_device_raises_without_cuda(monkeypatch):
+    from pygcn_tpu_torch.apps import ab_kernel_stream
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ab_kernel_stream.main(["--n_nodes", "200"])
+
+
 def _tiny_graph():
     return Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=True,
                           build_dense=False, build_hybrid=False, build_ell=False)
@@ -61,6 +69,40 @@ def test_b1_wrapper_never_runs_plain_for_a_non_cpu_request():
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
         b1.bcsr_spmm(g.bcsr, torch.ones(3, 4, device="meta"), n_rows=3)
     assert b1.launches == before
+
+
+def test_b2_wrapper_never_runs_plain_for_a_non_cpu_request(monkeypatch):
+    g = _tiny_graph()
+    before = (b1.launches, b1.stream_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        b1.bcsr_spmm_stream_cuda(g.bcsr, torch.ones(3, 4))
+    with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
+        b1.bcsr_spmm_stream(g.bcsr, torch.ones(3, 4, device="meta"))
+    monkeypatch.setattr(b1, "BCSR_STREAM", True)
+    with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
+        b1.bcsr_spmm(g.bcsr, torch.ones(3, 4, device="meta"), n_rows=3)
+    assert (b1.launches, b1.stream_launches) == before
+
+
+def test_gat_stream_wrappers_never_run_plain_for_a_non_cpu_request(monkeypatch):
+    g = Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=False, build_dense=False,
+                       build_hybrid=True, build_ell=True, hybrid_min_edges_per_tile=1)
+    bcsr = g.hybrid.bcsr
+    bcsr_t = gta.transpose_bcsr(bcsr)
+    lsrc, ldst, s2 = torch.zeros(3, 2), torch.zeros(3, 2), torch.zeros(3, 8)
+    before = dict(gta.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, 2, 4, 0.2)
+    args = (lsrc, ldst, s2, torch.zeros(3, 2), torch.zeros(3, 8), torch.zeros(3, 2), 2, 4, 0.2)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_bwd_dldst_stream_cuda(bcsr, *args)
+    with pytest.raises(ValueError, match="CUDA"):
+        gta.tile_bwd_sender_stream_cuda(bcsr_t, *args)
+    monkeypatch.setattr(gta, "TILE_REVISIT", False)
+    meta = [t.to("meta") for t in (lsrc, ldst, s2)]
+    with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
+        gta.gat_tile_partials((2, 4, 0.2), bcsr, bcsr_t, *meta)
+    assert gta.launches == before
 
 
 def test_gat_tile_wrapper_never_runs_plain_for_a_non_cpu_request():

@@ -176,7 +176,8 @@ def test_cli_synthetic_timing():
     assert dt > 0
 
 
-@pytest.mark.parametrize("flags", [["--model", "sage"], ["--shards", "2"], ["--npz", "x.npz"],
+@pytest.mark.parametrize("flags", [["--model", "sage", "--shards", "2"], ["--shards", "2"],
+                                   ["--npz", "x.npz"],
                                    ["--content", "a", "--cites", "b"]])
 def test_cli_unported_options_exit(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
