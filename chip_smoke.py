@@ -7,15 +7,16 @@ Run from the root of a checkout, with no arguments::
 
 It builds every CUDA kernel of the port from ``pygcn_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version on the card (the per-tile "stream" kernels B2, B4, B5s and B6s also,
-once merged, against the revisit kernels B1, B3, B5 and B6), holds a small
-GCN, a small GAT and a small GATv2 on the card against the same models on
-the CPU, and drives the port's main paths at the ogbn-arxiv sizes (169,343
-nodes, average degree 13.3, the hybrid layout) for a few epochs each through
-``apps/train_fullgraph --clustered``:
+version on the card (the per-tile "stream" kernels also against the revisit
+kernels: B2, whose merge is fused, against B1, and B4, B5s and B6s, once
+merged, against B3, B5 and B6), holds a small GCN, a small GAT and a small
+GATv2 on the card against the same models on the CPU, and drives the port's
+main paths at the ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the
+hybrid layout) for a few epochs each through ``apps/train_fullgraph
+--clustered``:
 
 - the 3-layer GCN (widths 128/128/40): kernel B1, and with ``BCSR_STREAM``
-  kernel B2 and its merge;
+  kernel B2;
 - ``--model gat --hidden 8`` (2-layer GAT, 8 heads of 8 then 1 head of 40):
   kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s and their
   merges;
@@ -41,11 +42,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and f32
-# FLOP/s outside the tensor cores, at the full 700 W power limit.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
 
 # Tolerances of the kernels against their plain versions on the card. Both
 # sum the same f32 terms (bf16 tiles: for B1, x rounded to bf16 in both,
@@ -129,9 +125,11 @@ def _random_bcsr(rng, n_rows, n_cols, density, empty_block_row, drop_padding, dt
 
 
 def check_b1(torch):
-    """Kernel B1 against its plain version on the card: values and gradient."""
+    """Kernel B1 against its plain version on the card: values and gradient,
+    and on the long-row tile set values and the same bits in two launches."""
     import numpy as np
 
+    from pygcn_tpu_torch.apps.time_spmm import long_row_counts, long_row_tiles
     from pygcn_tpu_torch.graph.graph import Graph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
 
@@ -154,6 +152,22 @@ def check_b1(torch):
                     fail(f"B1 {dtype} H={h}: the empty block row is not zero")
                 worst = max(worst, float((got - ref).abs().max()))
                 cases += 1
+        b, n_rows, n_cols = long_row_tiles(b1.MAX_TILES, rng, dtype)
+        b = b.to(dev)
+        for h in (1, 40, 128, 200):
+            x = torch.from_numpy(rng.standard_normal((n_cols, h)).astype(np.float32)).to(dev)
+            got = b1.bcsr_spmm(b, x, n_rows=n_rows)
+            again = b1.bcsr_spmm(b, x, n_rows=n_rows)
+            ref = b1.bcsr_spmm_plain(b, x, n_rows=n_rows)
+            torch.cuda.synchronize()
+            if got.shape != (n_rows, h) or not torch.isfinite(got).all():
+                fail(f"B1 long rows {dtype} H={h}: shape {tuple(got.shape)} or non-finite")
+            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+            if not torch.equal(got, again) or got[:128].any():
+                fail(f"B1 long rows {dtype} H={h}: two launches differ, or the block row "
+                     f"without tiles is not zero")
+            worst = max(worst, float((got - ref).abs().max()))
+            cases += 1
 
     # asymmetric graph: forward on bcsr, gradient through bcsr_t
     n = 300
@@ -180,8 +194,9 @@ def check_b1(torch):
         cases += 2
     print(f"B1 vs plain on the card: {cases} cases (f32 and bf16 tiles, ragged 300x270, "
           f"empty block row with and without its padding tile, H in 1/40/128/200, "
-          f"BCSRSpMM value and gradient on an asymmetric graph) within rtol=atol={RTOL}; "
-          f"max abs err {worst:.3e}", flush=True)
+          f"BCSRSpMM value and gradient on an asymmetric graph; block rows of "
+          f"{long_row_counts(b1.MAX_TILES)} tiles, bitwise equal in two launches) "
+          f"within rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
 
 
 def _gat_tiles(rng, symmetric, dtype, drop_padding):
@@ -270,13 +285,16 @@ def check_gat_tiles(torch, v2: bool):
 
 
 def check_stream_kernels(torch):
-    """B2, B4, B5s and B6s against their plain per-tile blocks on the card,
-    over the grids of :func:`check_b1` and :func:`check_gat_tiles`; each
-    merged output against the revisit kernel's (B1, B3, B5, B6); and the
+    """B2 (its merge fused: it writes ``[n_rows, H]``) against the plain
+    per-tile parts merged by block row and against B1, over the grids of
+    :func:`check_b1` and its long-row tile set; B4, B5s and B6s against
+    their plain per-tile blocks over the grids of :func:`check_gat_tiles`,
+    each merged output against the revisit kernel's (B3, B5, B6); and the
     stream mode of ``GATTilePartials`` (values and VJP) against its revisit
     mode."""
     import numpy as np
 
+    from pygcn_tpu_torch.apps.time_spmm import long_row_tiles
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
@@ -292,18 +310,22 @@ def check_stream_kernels(torch):
         worst = max(worst, float((a - r).abs().max()))
 
     for dtype in (torch.float32, torch.bfloat16):
-        for drop_padding in (False, True):
-            b = _random_bcsr(rng, 300, 270, 0.05, 1, drop_padding, dtype).to(dev)
+        sets = [(f"{'no tile' if drop else 'padding tile'}",
+                 (_random_bcsr(rng, 300, 270, 0.05, 1, drop, dtype), 300, 270), 128)
+                for drop in (False, True)]
+        sets.append(("long rows", long_row_tiles(b1.MAX_TILES, rng, dtype), 0))
+        for name, (b, n_rows, n_cols), empty in sets:
+            b = b.to(dev)
             for h in (1, 40, 128, 200):
-                label = f"B2 {dtype} {'no tile' if drop_padding else 'padding tile'} H={h}"
-                x = torch.from_numpy(rng.standard_normal((270, h)).astype(np.float32)).to(dev)
-                parts = b1.bcsr_spmm_stream(b, x)
-                merged = b1.sum_by_block_row(parts, b, 300)
-                revisit = b1.bcsr_spmm_cuda(b, x, n_rows=300)
+                label = f"B2 {dtype} {name} H={h}"
+                x = torch.from_numpy(rng.standard_normal((n_cols, h)).astype(np.float32)).to(dev)
+                fused = b1.bcsr_spmm_stream(b, x, n_rows=n_rows)
+                revisit = b1.bcsr_spmm_cuda(b, x, n_rows=n_rows)
                 torch.cuda.synchronize()
-                close(parts, b1.bcsr_spmm_stream_plain(b, x), label)
-                close(merged, revisit, label + " merged vs B1")
-                if merged[128:256].any():
+                close(fused, b1.sum_by_block_row(b1.bcsr_spmm_stream_plain(b, x), b, n_rows),
+                      label)
+                close(fused, revisit, label + " vs B1")
+                if fused[empty:empty + 128].any():
                     fail(f"{label}: the empty block row is not zero")
                 cases += 1
 
@@ -360,10 +382,11 @@ def check_stream_kernels(torch):
                         cases += 1
     finally:
         gta.TILE_REVISIT = saved
-    print(f"B2/B4/B5s/B6s vs plain on the card: {cases} cases (B2 on B1's grid; B4/B5s/B6s on "
-          f"the GAT grid, (H, F) in {list(GAT_SHAPES)}): per-tile blocks vs plain, merged "
-          f"outputs vs B1/B3/B5/B6, GATTilePartials stream vs revisit (values and VJP), within "
-          f"rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
+    print(f"B2/B4/B5s/B6s vs plain on the card: {cases} cases (B2 on B1's grids, its fused "
+          f"output vs the plain parts merged and vs B1; B4/B5s/B6s on the GAT grid, (H, F) in "
+          f"{list(GAT_SHAPES)}: per-tile blocks vs plain, merged outputs vs B3/B5/B6, "
+          f"GATTilePartials stream vs revisit (values and VJP)), within rtol=atol={RTOL}; "
+          f"max abs err {worst:.3e}", flush=True)
 
 
 def check_small_reference(torch):
@@ -629,79 +652,74 @@ def _tile_csr(torch, bcsr, n_rows, n_cols):
     return coo.to_sparse_csr()
 
 
+# B1's work-item sizes C timed by time_b1 (B1's MAX_TILES was picked from them)
+SWEEP_MAX_TILES = (2, 4, 8)
+
+
 def time_b1(torch, graph):
     """B1 and B2 at the main path's shapes: kernel, plain, bound and library
-    times, and B2's merge (:func:`sum_by_block_row`). Both compute from the
-    same nonzeros; B2 also writes its parts [T, 128, H] and the merge reads
-    them back."""
+    times, and each kernel's time without the longest block row (how much of
+    a launch that row sets); B1 also at each C of :data:`SWEEP_MAX_TILES`.
+    Both compute the same function from the same bytes, so they share one
+    bound; B2's time includes the zero fill of the output it adds into. B1
+    also gives the same bits in two launches."""
+    from pygcn_tpu_torch.apps.time_spmm import spmm_bound, without_longest_row
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.utils.timing import cuda_ms
 
     bcsr = graph.hybrid.bcsr
     n = graph.n_nodes
     csr = _tile_csr(torch, bcsr, n, n)
+    short = without_longest_row(bcsr)
+    max_tiles = b1.MAX_TILES
+    sched = b1.spmm_schedule(bcsr, max_tiles)
+    per_row = torch.diff(bcsr.block_row_ptr.long())
+    print(f"B1 schedule at C = {max_tiles}: {sched.items.shape[0]} work items over "
+          f"{bcsr.n_block_rows} block rows (tiles per row: mean "
+          f"{float(per_row.float().mean()):.2f}, max {int(per_row.max())}), "
+          f"{sched.n_slots} partial blocks in the workspace", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    n_x_rows = min(n, int(torch.unique(bcsr.block_cols).numel()) * bcsr.tk)
-    # the multiplies the function needs: one per stored nonzero and column
-    nnz = int(torch.count_nonzero(bcsr.data))
     rows = []
     saved = b1.launches, b1.stream_launches
     for h in (128, 40):
         x = torch.randn((n, h), device="cuda", generator=gen)
-        got = b1.bcsr_spmm(bcsr, x, n_rows=n)
         ref = b1.bcsr_spmm_plain(bcsr, x, n_rows=n)
         lib = torch.sparse.mm(csr, x)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(lib, ref, rtol=RTOL, atol=ATOL)
-        err = float((got - ref).abs().max())
-        ms = cuda_ms(lambda: b1.bcsr_spmm(bcsr, x, n_rows=n), iters=50)
         plain_ms = cuda_ms(lambda: b1.bcsr_spmm_plain(bcsr, x, n_rows=n), iters=20)
         library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=50)
-        ms2 = cuda_ms(lambda: b1.bcsr_spmm(bcsr, x, n_rows=n), iters=50)
-        t = bcsr.data.shape[0]
-        nbytes = (t * bcsr.tm * bcsr.tk * bcsr.data.element_size()  # tiles, as stored
-                  + n_x_rows * h * 4  # x rows under some tile, read once
-                  + n * h * 4)  # output
-        flops = 2 * nnz * h
-        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        row = {"kernel": "B1", "H": h, "tiles": t, "tile_nnz": nnz, "ms": min(ms, ms2),
-               "ms_runs": [ms, ms2], "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "bytes": nbytes, "flops": flops, "max_abs_err": err}
-        print("B1 timing: " + json.dumps(row), flush=True)
-        rows.append(row)
-
-        # B2: the same reads, but it writes the parts (T x 128 x H f32)
-        # where B1 writes the output; the merge reads the parts once and
-        # writes the output once
-        parts = b1.bcsr_spmm_stream(bcsr, x)
-        merged = b1.sum_by_block_row(parts, bcsr, n)
-        parts_ref = b1.bcsr_spmm_stream_plain(bcsr, x)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(parts, parts_ref, rtol=RTOL, atol=ATOL)
-        torch.testing.assert_close(merged, ref, rtol=RTOL, atol=ATOL)
-        err2 = float((parts - parts_ref).abs().max())
-        del parts_ref
-        ms = cuda_ms(lambda: b1.bcsr_spmm_stream(bcsr, x), iters=50)
-        merge_ms = cuda_ms(lambda: b1.sum_by_block_row(parts, bcsr, n), iters=50)
-        plain_ms = cuda_ms(lambda: b1.bcsr_spmm_stream_plain(bcsr, x), iters=20)
-        ms2 = cuda_ms(lambda: b1.bcsr_spmm_stream(bcsr, x), iters=50)
-        parts_bytes = parts.numel() * 4
-        nbytes2 = nbytes - n * h * 4 + parts_bytes
-        bytes_ms = nbytes2 / HBM_BYTES_PER_S * 1e3
-        merge_bytes = parts_bytes + n * h * 4
-        row2 = {"kernel": "B2", "H": h, "tiles": t, "tile_nnz": nnz, "ms": min(ms, ms2),
-                "ms_runs": [ms, ms2], "merge_ms": merge_ms,
-                "merge_bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
-                "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes2, "flops": flops, "max_abs_err": err2}
-        print("B2 timing: " + json.dumps(row2), flush=True)
-        rows.append(row2)
-        del parts, merged
+        bound_ms, bound_by, nbytes, flops = spmm_bound(bcsr, n, h)
+        by_c = {c: [] for c in SWEEP_MAX_TILES}
+        try:
+            for _ in range(2):  # in turns, twice, to show the spread
+                for c in SWEEP_MAX_TILES:
+                    b1.MAX_TILES = c
+                    by_c[c].append(cuda_ms(lambda: b1.bcsr_spmm_cuda(bcsr, x, n_rows=n),
+                                           iters=50))
+        finally:
+            b1.MAX_TILES = max_tiles
+        for name, fn in (("B1", b1.bcsr_spmm_cuda), ("B2", b1.bcsr_spmm_stream_cuda)):
+            got, again = fn(bcsr, x, n_rows=n), fn(bcsr, x, n_rows=n)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+            if name == "B1" and not torch.equal(got, again):
+                fail(f"B1 at H={h} gave other bits in a second launch")
+            err = float((got - ref).abs().max())
+            del got, again
+            ms = cuda_ms(lambda: fn(bcsr, x, n_rows=n), iters=50)
+            short_ms = cuda_ms(lambda: fn(short, x, n_rows=n), iters=50)
+            ms2 = cuda_ms(lambda: fn(bcsr, x, n_rows=n), iters=50)
+            row = {"kernel": name, "H": h, "tiles": bcsr.data.shape[0],
+                   "tile_nnz": flops // (2 * h), "ms": min(ms, ms2), "ms_runs": [ms, ms2],
+                   "ms_without_longest_row": short_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes": nbytes, "flops": flops, "max_abs_err": err}
+            if name == "B1":
+                row["ms_by_max_tiles"] = {c: min(v) for c, v in by_c.items()}
+                row["ms_by_max_tiles_runs"] = by_c
+            print(f"{name} timing: " + json.dumps(row), flush=True)
+            rows.append(row)
     b1.launches, b1.stream_launches = saved
     return rows
 
@@ -711,22 +729,6 @@ def _rows_under(torch, blocks, size, n):
     return min(n, int(torch.unique(blocks).numel()) * size)
 
 
-def _without_longest_row(b):
-    """Tile set ``b`` with its longest block row's tiles taken out (that row
-    then owns none): the kernels' time on it shows how much of a launch that
-    row's CTAs set."""
-    import dataclasses
-
-    per_row = b.block_row_ptr[1:] - b.block_row_ptr[:-1]
-    r = int(per_row.argmax())
-    keep = b.block_rows != r
-    ptr = b.block_row_ptr.clone()
-    ptr[r + 1:] -= per_row[r]
-    return dataclasses.replace(b, data=b.data[keep].contiguous(),
-                               block_rows=b.block_rows[keep].contiguous(),
-                               block_cols=b.block_cols[keep].contiguous(), block_row_ptr=ptr)
-
-
 def time_gat(torch, graph, tiles_t, v2: bool):
     """B3, B5 and B6 and their stream modes B4, B5s and B6s (with ``v2``: B7,
     B8 and B9) at the GAT main path's tiles, for both layer shapes: kernel
@@ -734,6 +736,7 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     time without the longest block row (``ms_without_longest_row``, a
     diagnostic of the launch's tail), and for the stream kernels their
     merge's time and bound."""
+    from pygcn_tpu_torch.apps.time_spmm import F32_FLOPS, HBM_BYTES_PER_S, without_longest_row
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
     from pygcn_tpu_torch.utils.timing import cuda_ms
@@ -765,7 +768,7 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     def tile_bytes(b):
         return b.data.shape[0] * b.tm * b.tk * b.data.element_size()
 
-    short = {id(bcsr): _without_longest_row(bcsr), id(tiles_t): _without_longest_row(tiles_t)}
+    short = {id(bcsr): without_longest_row(bcsr), id(tiles_t): without_longest_row(tiles_t)}
 
     # one CTA per (head, block row) walks the row's tiles: the longest rows
     # set the kernels' tail
@@ -906,7 +909,7 @@ def spmm_kernel_entry(timing, name, launches, line):
     """The ``kernels`` line's entry of B1 or B2, from its H = 128 row."""
     mine = [r for r in timing if r["kernel"] == name]
     h128 = mine[0]
-    entry = {
+    return {
         "name": f"{name} bcsr_spmm",
         "route": "cuda",
         "source": "pygcn_tpu_torch/csrc/bcsr_spmm.cu",
@@ -919,9 +922,6 @@ def spmm_kernel_entry(timing, name, launches, line):
         "bound_by": h128["bound_by"],
         "library_ms": h128["library_ms"],
     }
-    if "merge_ms" in h128:
-        entry["merge_ms"] = h128["merge_ms"]
-    return entry
 
 
 # Epochs of each main path: enough for a step and an evaluation after the

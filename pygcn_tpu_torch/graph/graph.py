@@ -70,6 +70,11 @@ class BCSR:
     ``data[i]`` is the dense tile at block coordinates
     ``(block_rows[i], block_cols[i])``; tiles are sorted by block row, and
     ``block_row_ptr`` delimits each block row's tile run (CSR over tiles).
+
+    ``cache`` holds what a kernel derives once from this tile set (kernel
+    B1's work schedule). It is not a constructor argument, so every new tile
+    set (``dataclasses.replace``, :meth:`to`, the builders) starts empty and
+    never reads another set's entries.
     """
 
     data: torch.Tensor  # [T, tm, tk] float32 or bfloat16
@@ -80,6 +85,8 @@ class BCSR:
     tk: int
     n_block_rows: int
     n_block_cols: int
+    cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
 
     def to(self, device) -> "BCSR":
         return tree_to(self, device)

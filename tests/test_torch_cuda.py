@@ -14,6 +14,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from pygcn_tpu_torch.apps.time_spmm import long_row_tiles
 from pygcn_tpu_torch.graph.graph import Graph, _build_bcsr, drop_zero_tiles
 from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
 from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
@@ -51,8 +52,9 @@ def test_b1_kernel_matches_plain(dev, dtype, h):
 @pytest.mark.parametrize("h", [1, 40, 128, 200])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_b2_kernel_matches_plain(dev, dtype, h):
-    """B2's per-tile parts on B1's grid (a ragged last block column, the
-    block row without entries with its padding tile, ragged H)."""
+    """B2's fused output on B1's grid (a ragged last block column, the block
+    row without entries with its padding tile, ragged H) against the plain
+    per-tile parts merged by block row."""
     rng = np.random.default_rng(h + 7)
     m = sp.random(300, 270, density=0.05, random_state=rng, format="coo",
                   data_rvs=rng.standard_normal, dtype=np.float32)
@@ -62,11 +64,47 @@ def test_b2_kernel_matches_plain(dev, dtype, h):
     b = dataclasses.replace(b, data=b.data.to(dtype)).to(dev)
     x = torch.from_numpy(rng.standard_normal((270, h)).astype(np.float32)).to(dev)
     before = (b1.launches, b1.stream_launches)
-    got = b1.bcsr_spmm_stream(b, x)
+    got = b1.bcsr_spmm_stream(b, x, n_rows=300)
     torch.cuda.synchronize()
     assert (b1.launches, b1.stream_launches) == (before[0], before[1] + 1)
-    assert got.shape == (b.data.shape[0], 128, h)
-    torch.testing.assert_close(got, b1.bcsr_spmm_stream_plain(b, x), rtol=1e-4, atol=1e-4)
+    assert got.shape == (300, h)
+    ref = b1.sum_by_block_row(b1.bcsr_spmm_stream_plain(b, x), b, 300)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    assert not got[128:256].any()
+
+
+@pytest.mark.parametrize("h", [1, 40, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+def test_long_row_kernels_match_plain(dev, kernel, dtype, h):
+    """B1 (split rows, summed in item order by the last CTA to arrive) and
+    B2 on rows of 0, 1, C, C + 1 and 43 tiles (C = ``MAX_TILES``), a ragged
+    last block row and column, the row without tiles without a padding tile."""
+    b, n_rows, n_cols = long_row_tiles(b1.MAX_TILES, np.random.default_rng(h), dtype)
+    b = b.to(dev)
+    x = torch.randn(n_cols, h, device=dev, generator=torch.Generator(dev).manual_seed(h))
+    fn = b1.bcsr_spmm_cuda if kernel == "B1" else b1.bcsr_spmm_stream_cuda
+    got = fn(b, x, n_rows=n_rows)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, b1.bcsr_spmm_plain(b, x, n_rows=n_rows), rtol=1e-4,
+                               atol=1e-4)
+    assert not got[:128].any()
+
+
+@pytest.mark.parametrize("h", [1, 40, 128, 200])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_b1_is_bitwise_deterministic(dev, dtype, h):
+    """Two launches of B1 give the same bits, split rows included; the
+    arrival counters are back at zero after each."""
+    b, n_rows, n_cols = long_row_tiles(b1.MAX_TILES, np.random.default_rng(h + 1), dtype)
+    b = b.to(dev)
+    x = torch.randn(n_cols, h, device=dev, generator=torch.Generator(dev).manual_seed(h))
+    first = b1.bcsr_spmm_cuda(b, x, n_rows=n_rows)
+    second = b1.bcsr_spmm_cuda(b, x, n_rows=n_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ((sched, counters),) = b.cache.values()
+    assert sched.n_slots > 0 and not counters.any()
 
 
 def test_b1_gradient_on_asymmetric_graph(dev):

@@ -75,9 +75,9 @@ def test_b2_wrapper_never_runs_plain_for_a_non_cpu_request(monkeypatch):
     g = _tiny_graph()
     before = (b1.launches, b1.stream_launches)
     with pytest.raises(ValueError, match="CUDA"):
-        b1.bcsr_spmm_stream_cuda(g.bcsr, torch.ones(3, 4))
+        b1.bcsr_spmm_stream_cuda(g.bcsr, torch.ones(3, 4), n_rows=3)
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
-        b1.bcsr_spmm_stream(g.bcsr, torch.ones(3, 4, device="meta"))
+        b1.bcsr_spmm_stream(g.bcsr, torch.ones(3, 4, device="meta"), n_rows=3)
     monkeypatch.setattr(b1, "BCSR_STREAM", True)
     with pytest.raises(ValueError, match="cpu .plain. or cuda .kernel."):
         b1.bcsr_spmm(g.bcsr, torch.ones(3, 4, device="meta"), n_rows=3)

@@ -109,16 +109,19 @@ def test_stream_spmm_matches_jax(impl, h, tiles):
 @pytest.mark.parametrize("tiles", ["f32", "bf16"])
 def test_b2_parts_merge_to_b1_and_empty_rows(tiles):
     """B2's plain parts are one ``[128, H]`` block per tile; merged by block
-    row they equal B1's plain product, with and without the padding tile of
-    the block row that has no edges."""
+    row they equal B1's plain product, and so does the B2 dispatcher's merged
+    output, with and without the padding tile of the block row that has no
+    edges."""
     _, tg = spmm_graphs(tiles)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((tg.n_nodes, 40))
                          .astype(np.float32))
     ref = tb.bcsr_spmm_plain(tg.bcsr, x, n_rows=tg.n_nodes)
     for bcsr in (tg.bcsr, drop_zero_tiles(tg.bcsr)):
-        parts = tb.bcsr_spmm_stream(bcsr, x)
+        parts = tb.bcsr_spmm_stream_plain(bcsr, x)
         assert parts.shape == (bcsr.data.shape[0], 128, 40)
         torch.testing.assert_close(tb.sum_by_block_row(parts, bcsr, tg.n_nodes), ref,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(tb.bcsr_spmm_stream(bcsr, x, n_rows=tg.n_nodes), ref,
                                    rtol=0, atol=0)
     assert (drop_zero_tiles(tg.bcsr).block_rows != 1).all()
     with stream_mode(jax_too=False):
