@@ -21,6 +21,8 @@ hybrid layout) for a few epochs each through ``apps/train_fullgraph
   kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s and their
   merges;
 - ``--model gatv2 --hidden 8``: kernels B7/B8/B9;
+- ``--model gat`` and ``--model gatv2`` at the CLI's default ``--hidden 128``
+  (8 heads of 128): the same kernels on wide heads, for one epoch;
 - ``--model sage``, ``gin`` and ``appnp`` (128 -> 128 -> 40): kernel B1.
 
 It checks that each path launched its kernels exactly as often as it must
@@ -52,12 +54,18 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # relative.
 RTOL = ATOL = 1e-4
 
-# (heads, per-head width) of the GAT tile-kernel checks: both layers of the
-# main path (8x8, 1x40), two more compiled widths (2x4, 4x16) and one that
-# runs a wider kernel with its last columns masked (3x5, on the width-8 kernels).
-GAT_SHAPES = ((2, 4), (8, 8), (4, 16), (1, 40), (3, 5))
-# GATv2's add the widest compiled width, where B8 holds the most registers.
-GATV2_SHAPES = GAT_SHAPES + ((1, 64),)
+# (heads, per-head width) of the GAT tile-kernel checks: the layers of the
+# main paths (8x8 and 1x40 at --hidden 8; 8x128 at the CLI's default --hidden
+# 128, where B3 takes shared memory above 48 KB and B7-B9 their widest
+# configurations), two more compiled widths (2x4, 4x16), one that runs a wider
+# kernel with its last columns masked (3x5, on the width-8 kernels), and two
+# more wider than one 64-column slab (2x65: a full slab and a ragged one;
+# 1x128: two full slabs, one head).
+GAT_SHAPES = ((2, 4), (8, 8), (4, 16), (1, 40), (3, 5), (2, 65), (1, 128), (8, 128))
+# GATv2's add the widths B9's register kernels reach above B7's and B8's
+# (2x48: the width-64 kernel with its last columns masked; 1x64: exactly one
+# slab, where B7 and B8 read their own rows from shared memory).
+GATV2_SHAPES = GAT_SHAPES + ((2, 48), (1, 64))
 SLOPE = 0.2
 
 
@@ -228,7 +236,9 @@ def check_gat_tiles(torch, v2: bool):
     """Kernels B3, B5 and B6 (with ``v2``: B7, B8 and B9) against their plain
     versions on the card: the partials and their VJP through
     ``GATTilePartials`` (``dlsrc``, ``dldst``, ``ds``) or ``GATv2TilePartials``
-    (``dsl``, ``dsr``, ``da``)."""
+    (``dsl``, ``dsr``, ``da``). GATv2's ``a`` is drawn at unit scale; at
+    F >= 64 the kernels on that draw are held against the f64 plain versions
+    (:func:`_v2_unit_a_errors`), and ``a / sqrt(F)`` against the f32 ones."""
     import numpy as np
 
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
@@ -238,6 +248,7 @@ def check_gat_tiles(torch, v2: bool):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
     cases = 0
+    unit_a = dict.fromkeys(V2_OUTPUTS, (0.0, 0.0))  # largest (kernel, plain) relative errs
     for symmetric in (False, True):
         for dtype in (torch.float32, torch.bfloat16):
             for drop_padding in (False, True):
@@ -248,6 +259,13 @@ def check_gat_tiles(torch, v2: bool):
                     ops = [torch.randn(*shape, device="cuda", generator=gen)
                            for shape in op_shapes]
                     cot = [torch.randn(300, w, device="cuda", generator=gen) for w in (h * f, h)]
+                    label = (f"{names} {'sym' if symmetric else 'asym'} {dtype} "
+                             f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
+                    if v2 and f >= 64:
+                        for name, errs in _v2_unit_a_errors(torch, b, bt, ops, cot, h, f,
+                                                            label).items():
+                            unit_a[name] = tuple(map(max, unit_a[name], errs))
+                        ops[2] = ops[2] / f ** 0.5  # a for fan-in F: logits of unit scale
                     args = [o.clone().requires_grad_(True) for o in ops]
                     partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
                     got = partials((h, f, SLOPE), b, bt, *args)
@@ -263,8 +281,6 @@ def check_gat_tiles(torch, v2: bool):
                         ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
                         ref_grads = (dlsrc, gta.tile_bwd_dldst_plain(b, *bwd), ds)
                     torch.cuda.synchronize()
-                    label = (f"{names} {'sym' if symmetric else 'asym'} {dtype} "
-                             f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
                     for a, r in list(zip(got, ref)) + list(zip(grads, ref_grads)):
                         if a.shape != r.shape or not torch.isfinite(a).all():
                             fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
@@ -278,10 +294,112 @@ def check_gat_tiles(torch, v2: bool):
                     cases += 1
     vjp = ("dsl/dsr/da through GATv2TilePartials" if v2
            else "dlsrc/dldst/ds through GATTilePartials")
+    long_rows = check_long_rows(torch, v2)
     print(f"{names} vs plain on the card: {cases} cases (asymmetric and symmetric ragged "
           f"300-node tile sets, f32 and bf16 tiles, an empty block row with and without its "
           f"padding tile, (H, F) in {list(shapes)}; num/den/m and the VJP {vjp}) within "
-          f"rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
+          f"rtol=atol={RTOL}; max abs err {worst:.3e}; {long_rows}", flush=True)
+    if v2:
+        print("B7/B8/B9 at unit a and F >= 64 against the f64 plain versions (largest error "
+              "over the cases, relative to the largest f64 value: kernel / f32 plain): "
+              + ", ".join(f"{k} {ek:.2e} / {ep:.2e}" for k, (ek, ep) in unit_a.items()),
+              flush=True)
+
+
+V2_OUTPUTS = ("num", "den", "m", "dsl", "dsr", "da")
+
+
+def _v2_unit_a_errors(torch, b, bt, ops, cot, h, f, label):
+    """GATv2 with ``a`` of unit scale at F >= 64: logits of 64 or more terms
+    reach tens and gradients hundreds (``da`` sums them over every node, with
+    cancellation), so a few values of the kernels and of the f32 plain
+    versions lie more than 1e-4 apart. Both are held against the plain
+    versions in f64 on the same inputs (partials, and the VJP through
+    ``GATv2TilePartials``): each within 1e-4 of the largest f64 value, and the
+    kernels' error within 4x the f32 plain version's, so what parts them is
+    f32 rounding of the same order. Returns each output's (kernel, plain)
+    error relative to its largest f64 value."""
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    args = [o.clone().requires_grad_(True) for o in ops]
+    out = gta.gatv2_tile_partials((h, f, SLOPE), b, bt, *args)
+    got = [o.detach() for o in out] + list(torch.autograd.grad(out[:2], args, cot))
+
+    def plain(ops, cot):
+        num, den, m = gta.tile_v2_fwd_plain(b, *ops, h, f, SLOPE)
+        bwd = (*ops, m, *cot, h, f, SLOPE)
+        dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+        return [num, den, m, gta.tile_v2_bwd_send_plain(bt, *bwd), dsr,
+                dapart.sum(dim=0).view(h, f)]
+
+    p32 = plain(ops, cot)
+    p64 = plain([o.double() for o in ops], [c.double() for c in cot])
+    torch.cuda.synchronize()
+    live = p64[2] > gta.NEG / 2  # m of the rows with an edge
+    errs = {}
+    for name, k, p, r in zip(V2_OUTPUTS, got, p32, p64):
+        if name == "m":
+            k, p, r = k[live], p[live], r[live]
+        if k.shape != r.shape or not torch.isfinite(k).all():
+            fail(f"{label} unit a {name}: shape or non-finite values")
+        scale = float(r.abs().max())
+        ek, ep = float((k.double() - r).abs().max()), float((p.double() - r).abs().max())
+        if ek > RTOL * scale or ek > 4 * max(ep, 1e-7 * scale):
+            fail(f"{label} unit a {name}: kernel err {ek:.3e}, f32 plain err {ep:.3e} "
+                 f"against f64, largest value {scale:.3e}")
+        errs[name] = (ek / scale, ep / scale)
+    return errs
+
+
+def check_long_rows(torch, v2: bool):
+    """B3 (B7 with ``v2``) on the long-row tile set made square (block rows of
+    0, 1, C, C + 1, 43 and 2 tiles, then none; 5631 nodes): within the
+    tolerance of the plain version and the same bits in two launches."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from pygcn_tpu_torch.apps.time_spmm import long_row_counts, long_row_matrix
+    from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    name = "B7" if v2 else "B3"
+    kernel, plain = ((gta.tile_v2_fwd_cuda, gta.tile_v2_fwd_plain) if v2
+                     else (gta.tile_fwd_cuda, gta.tile_fwd_plain))
+    rng = np.random.default_rng(6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m = long_row_matrix(gta.MAX_TILES, rng)
+    n = m.shape[1]
+    m = sp.coo_matrix((np.ones(m.nnz, np.float32), (m.row, m.col)), shape=(n, n))
+    worst, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        b = drop_zero_tiles(_build_bcsr(m, (128, 128)))
+        b = dataclasses.replace(b, data=b.data.to(dtype)).to("cuda")
+        for h, f in ((8, 8), (1, 40), (2, 65), (8, 128)):
+            shapes = ((n, h * f), (n, h * f), (h, f)) if v2 else ((n, h), (n, h), (n, h * f))
+            ops = [torch.randn(*s, device="cuda", generator=gen) for s in shapes]
+            if v2 and f >= 64:
+                ops[2] = ops[2] / f ** 0.5
+            got, again = kernel(b, *ops, h, f, SLOPE), kernel(b, *ops, h, f, SLOPE)
+            ref = plain(b, *ops, h, f, SLOPE)
+            torch.cuda.synchronize()
+            label = f"{name} long rows {dtype} H={h} F={f}"
+            for a, r, a2 in zip(got, ref, again):
+                if a.shape != r.shape or not torch.isfinite(a).all():
+                    fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
+                torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+                if not torch.equal(a, a2):
+                    fail(f"{label}: two launches gave other bits")
+                worst = max(worst, float((a - r).abs().max()))
+            if not ((got[2][:128] == gta.NEG).all() and not got[0][:128].any()):
+                fail(f"{label}: the block row without tiles is not num = 0, m = NEG")
+            cases += 1
+        counters = b.cache[("gat_tile", gta.MAX_TILES)][1]
+        if counters.any():
+            fail(f"{name} long rows: arrival counters not back at zero")
+    return (f"{name} on block rows of {long_row_counts(gta.MAX_TILES)} tiles: {cases} cases "
+            f"bitwise equal in two launches, max abs err {worst:.3e}")
 
 
 def check_stream_kernels(torch):
@@ -496,10 +614,11 @@ def run_main_path(torch, epochs):
     return graph, launches
 
 
-def run_gat_main_path(torch, v2: bool, epochs):
-    """``--model gat`` (or ``gatv2``) at the arxiv flagship: every tile kernel
-    of the other version launched 0 times, this version's forward kernel
-    2 per step + 2 per evaluation and its two backward kernels 2 per step."""
+def run_gat_main_path(torch, v2: bool, epochs, hidden=8):
+    """``--model gat`` (or ``gatv2``) at the arxiv flagship with 8 heads of
+    ``hidden``: every tile kernel of the other version launched 0 times, this
+    version's forward kernel 2 per step + 2 per evaluation and its two
+    backward kernels 2 per step."""
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
@@ -507,7 +626,7 @@ def run_gat_main_path(torch, v2: bool, epochs):
                                 else ("gat", ("B3", "B5", "B6")))
     for k in gta.launches:
         gta.launches[k] = 0
-    result = train_fullgraph.main(["--clustered", "--model", model, "--hidden", "8",
+    result = train_fullgraph.main(["--clustered", "--model", model, "--hidden", str(hidden),
                                    "--max_epochs", str(epochs), "--memstats", "--device", "cuda"])
     torch.cuda.synchronize()
     launches = dict(gta.launches)
@@ -516,7 +635,7 @@ def run_gat_main_path(torch, v2: bool, epochs):
     expected = dict.fromkeys(launches, 0)
     expected.update({fwd: 2 * steps + 2 * evals, recv: 2 * steps, send: 2 * steps})
     tiles = graph.hybrid.bcsr.data.shape[0] if graph.hybrid.bcsr is not None else 0
-    print(f"{model} main path: {graph.n_nodes} nodes, {graph.n_edges} edges, tile_frac="
+    print(f"{model} --hidden {hidden} main path: {graph.n_nodes} nodes, {graph.n_edges} edges, tile_frac="
           f"{result['tile_frac']}, {tiles} tiles ({result['tiles_t'].data.shape[0]} "
           f"transpose tiles), {steps} steps + {evals} evals, launches {launches} (expected "
           f"{fwd} 2/step + 2/eval, {recv} and {send} 2/step: {expected}), ms/step "
@@ -654,6 +773,8 @@ def _tile_csr(torch, bcsr, n_rows, n_cols):
 
 # B1's work-item sizes C timed by time_b1 (B1's MAX_TILES was picked from them)
 SWEEP_MAX_TILES = (2, 4, 8)
+# B3's and B7's, timed by time_gat
+SWEEP_GAT_MAX_TILES = (1, 2, 4)
 
 
 def time_b1(torch, graph):
@@ -735,7 +856,9 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     and plain times (CUDA events), the bound of each function, the kernel's
     time without the longest block row (``ms_without_longest_row``, a
     diagnostic of the launch's tail), and for the stream kernels their
-    merge's time and bound."""
+    merge's time and bound. B3 and B7 also at each C of
+    :data:`SWEEP_GAT_MAX_TILES` (two runs in turns) and the same bits in two
+    launches."""
     from pygcn_tpu_torch.apps.time_spmm import F32_FLOPS, HBM_BYTES_PER_S, without_longest_row
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
@@ -770,8 +893,8 @@ def time_gat(torch, graph, tiles_t, v2: bool):
 
     short = {id(bcsr): without_longest_row(bcsr), id(tiles_t): without_longest_row(tiles_t)}
 
-    # one CTA per (head, block row) walks the row's tiles: the longest rows
-    # set the kernels' tail
+    # B5/B6/B8/B9: one CTA per (head, block row) walks the row's tiles, so the
+    # longest rows set their tail; B3 and B7 split them into work items
     for label, b in (("forward", bcsr), ("transpose", tiles_t)):
         per_row = torch.diff(b.block_row_ptr.long())
         print(f"GAT {label} tiles per block row: mean {float(per_row.float().mean()):.2f}, "
@@ -851,6 +974,12 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             for x, y in zip(a, r):
                 torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
                 err = max(err, float((x - y).abs().max()))
+            if name in ("B3", "B7"):
+                again = kernel()
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(a, again)):
+                    fail(f"{name} at H={h} F={f} gave other bits in a second launch")
+                del again
             ms = cuda_ms(kernel, iters=20)
             plain_ms = cuda_ms(plain, iters=5, warmup=1)
             ms2 = cuda_ms(kernel, iters=20)
@@ -863,6 +992,21 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                    "bytes": nbytes, "flops": flops, "max_abs_err": err}
+            if name in ("B3", "B7"):
+                by_c = {c: [] for c in SWEEP_GAT_MAX_TILES}
+                saved_c = gta.MAX_TILES
+                try:
+                    for _ in range(2):  # in turns, twice, to show the spread
+                        for c in SWEEP_GAT_MAX_TILES:
+                            gta.MAX_TILES = c
+                            by_c[c].append(cuda_ms(kernel, iters=20))
+                finally:
+                    gta.MAX_TILES = saved_c
+                sched = gta._item_schedule(tiles)[0]
+                row.update(ms_by_max_tiles={c: min(v) for c, v in by_c.items()},
+                           ms_by_max_tiles_runs=by_c, items=sched.items.shape[0],
+                           split_slots=sched.n_slots,
+                           workspace_bytes=sched.n_slots * tiles.tm * (hf + 2 * h) * 4)
             if merge is not None:
                 # the merge reads the blocks once and writes [n, W] once
                 merge_bytes = sum(x.numel() * 4 + n * x.shape[2] * 4 for x in a)
@@ -874,8 +1018,45 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     print(f"{'/'.join(runs)} library_ms: null; no single PyTorch call computes these "
           "attention partials or their gradients (a sparse softmax over the tile edges "
           "would need several)", flush=True)
+    time_wide_heads(torch, bcsr, tiles_t, n, v2)
     gta.launches.update(saved)
     return rows
+
+
+def time_wide_heads(torch, bcsr, tiles_t, n, v2: bool):
+    """Each tile kernel of the version at the CLI's default width, 8 heads of
+    128, on the main path's tiles: kernel times only (:func:`check_gat_tiles`
+    and :func:`check_stream_kernels` hold them against their plain versions at
+    8x128 on the small tile sets), the backward fed the forward kernel's m."""
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    h, f = 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (h * f, h))
+    if v2:
+        sl2, sr2 = (torch.randn(n, h * f, device="cuda", generator=gen) for _ in range(2))
+        a = torch.randn(h, f, device="cuda", generator=gen) / f ** 0.5
+        m = gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE)[2]
+        bwd = (sl2, sr2, a, m, dnum, dden, h, f, SLOPE)
+        runs = {"B7": lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE),
+                "B8": lambda: gta.tile_v2_bwd_recv_cuda(bcsr, *bwd),
+                "B9": lambda: gta.tile_v2_bwd_send_cuda(tiles_t, *bwd)}
+    else:
+        lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
+        s2 = torch.randn(n, h * f, device="cuda", generator=gen)
+        m = gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE)[2]
+        bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, SLOPE)
+        runs = {"B3": lambda: gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE),
+                "B5": lambda: gta.tile_bwd_dldst_cuda(bcsr, *bwd),
+                "B6": lambda: gta.tile_bwd_sender_cuda(tiles_t, *bwd),
+                "B4": lambda: gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE),
+                "B5s": lambda: gta.tile_bwd_dldst_stream_cuda(bcsr, *bwd),
+                "B6s": lambda: gta.tile_bwd_sender_stream_cuda(tiles_t, *bwd)}
+    wide = {name: cuda_ms(fn, iters=5) for name, fn in runs.items()}
+    torch.cuda.synchronize()
+    print(f"{'/'.join(runs)} at 8 heads of 128 (ms): " + json.dumps(wide), flush=True)
+    return wide
 
 
 def gat_kernel_entries(timing, launches, source, lines):
@@ -925,8 +1106,10 @@ def spmm_kernel_entry(timing, name, launches, line):
 
 
 # Epochs of each main path: enough for a step and an evaluation after the
-# warm-up pair; the launch checks hold at any count.
+# warm-up pair; the launch checks hold at any count. The runs at --hidden 128
+# take one.
 EPOCHS = 2
+WIDE_EPOCHS = 1
 
 
 def main() -> None:
@@ -966,6 +1149,9 @@ def main() -> None:
     gatv2_timing = phase("time_gatv2", time_gat, torch, gatv2_result["graph"],
                          gatv2_result["tiles_t"], True)
     del gatv2_result
+    # the CLI's default width, 8 heads of 128, one epoch each
+    phase("gat_main_path_hidden128", run_gat_main_path, torch, False, WIDE_EPOCHS, 128)
+    phase("gatv2_main_path_hidden128", run_gat_main_path, torch, True, WIDE_EPOCHS, 128)
     stream_launches = phase("stream_main_paths", run_stream_main_paths, torch, EPOCHS)
     phase("extension_main_paths", run_extension_main_paths, torch, EPOCHS)
     phase("ab_kernel_stream", run_ab_tool)

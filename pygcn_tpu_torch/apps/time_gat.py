@@ -1,0 +1,85 @@
+"""Times of the GAT tile kernels at head shapes other than the main path's,
+on the flagship's tiles (ogbn-arxiv scale, the ``--clustered`` hybrid
+layout), on one CUDA card.
+
+- ``WIDTH_SHAPES``: B7, B8 and B9 at per-head widths between 40 and one
+  64-column slab, which the main path never runs (``--hidden`` 8 and 128).
+- ``HEAD_SHAPES``: B3 and B7 from one head of width 1 up to eight heads: what
+  one more head, or a wider one, adds to a launch.
+
+Each kernel is timed twice, the mean of 20 launches after warm-up between
+two CUDA events; the backward kernels take the forward kernel's ``m``. One
+JSON line per kernel and shape, then the card's name and power limit. Run
+on the card from the root of a checkout::
+
+    PYTHONPATH=. python3 pygcn_tpu_torch/apps/time_gat.py [--label L]
+
+With ``PYTHONPATH=<an earlier checkout>`` the same script times that
+checkout's kernels (their wrappers take the same arguments), so two trees can
+be compared in one session on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import torch
+
+WIDTH_SHAPES = ((1, 48), (1, 64), (8, 64))
+HEAD_SHAPES = ((1, 1), (1, 8), (2, 8), (4, 8), (8, 8), (1, 40), (8, 16))
+SLOPE = 0.2
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--label", default="", help="a name printed in each row")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_gat times the CUDA device; none is available")
+
+    from pygcn_tpu_torch.apps.train_fullgraph import clustered_dataset
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+    from pygcn_tpu_torch.ops.gat import build_gat_tiles_t
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    graph = clustered_dataset(169_343, 13.3, 40, 128, 0, attention=True).graph
+    tiles_t = build_gat_tiles_t(graph).to("cuda")
+    bcsr = graph.hybrid.bcsr.to("cuda")
+    n = graph.n_nodes
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    def timed(name, h, f, fn):
+        runs = [cuda_ms(fn, iters=20) for _ in range(2)]
+        row = {"label": args.label, "kernel": name, "H": h, "F": f, "ms_runs": runs}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+
+    def v2_operands(h, f):
+        sl2, sr2 = (torch.randn(n, h * f, device="cuda", generator=gen) for _ in range(2))
+        return sl2, sr2, torch.randn(h, f, device="cuda", generator=gen) / f ** 0.5
+
+    for h, f in WIDTH_SHAPES:
+        sl2, sr2, a = v2_operands(h, f)
+        m = gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE)[2]
+        dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (h * f, h))
+        bwd = (sl2, sr2, a, m, dnum, dden, h, f, SLOPE)
+        timed("B7", h, f, lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE))
+        timed("B8", h, f, lambda: gta.tile_v2_bwd_recv_cuda(bcsr, *bwd))
+        timed("B9", h, f, lambda: gta.tile_v2_bwd_send_cuda(tiles_t, *bwd))
+    for h, f in HEAD_SHAPES:
+        lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
+        s2 = torch.randn(n, h * f, device="cuda", generator=gen)
+        timed("B3", h, f, lambda: gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE))
+        sl2, sr2, a = v2_operands(h, f)
+        timed("B7", h, f, lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    return rows
+
+
+if __name__ == "__main__":
+    main()

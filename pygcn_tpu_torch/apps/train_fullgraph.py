@@ -337,7 +337,7 @@ def _time_epochs(args, graph, run_step):
         loss = run_step()
     loss_val = float(loss)
     dt = (time.time() - t0) / args.epochs
-    spmm_equiv = args.layers * 2  # forward A@x and backward A^T@g per layer
+    spmm_equiv = args.layers * 3  # fwd + 2 per layer in bwd (dX via A^T, recompute)
     print(f"epoch time: {dt * 1e3:.1f} ms  loss={loss_val:.4f}  "
           f"~{graph.n_edges * spmm_equiv / dt / 1e6:.0f} Medge-traversals/s")
     return dt

@@ -1,14 +1,26 @@
-// What the GAT tile-attention kernels share (gat_tile_attn.cu: B3/B5/B6,
-// gatv2_tile_attn.cu: B7/B8/B9): the tile shape, the mask read by warp
-// ballots, the warp-uniform walk over a tile's needed columns, operand
-// staging, and the per-width kernel pick.
+// What the GAT tile-attention kernels share (gat_tile_attn.cu: B3-B6, B4,
+// B5s, B6s; gatv2_tile_attn.cu: B7/B8/B9): the tile shape, the mask read by
+// warp ballots, the two walks over a tile's edges, operand staging, the
+// per-width kernel pick, and the work items and split-row merge of the
+// item-scheduled forward kernels B3 and B7.
 //
-// The mask is never stored: warp w reads rows 32w..32w+31 of a tile, one
-// 16-byte (f32) or 8-byte (bf16) load a lane per row, and four ballots give
-// that row's 128 mask bits (bit l of word c is column 4l + c), which lane r
-// keeps for its own row. The warp then walks the columns that any of its 32
-// rows needs (the OR of its words) and evaluates every (row, column) slot
-// there; a kernel applies the mask by select, never by multiplying.
+// The mask is never stored in device memory: warp w reads rows 32w..32w+31 of
+// a tile, one 16-byte (f32) or 8-byte (bf16) load a lane per row, and four
+// ballots give that row's 128 mask bits (bit l of word c is column 4l + c),
+// which lane r keeps for its own row. Two walks use them:
+// - for_columns (B4-B6, B8, B9): the warp walks the columns that any of its
+//   32 rows needs (the OR of its words) and evaluates every (row, column)
+//   slot there, warp-uniformly; a kernel applies the mask by select, never
+//   by multiplying (exp(NEG - NEG) = 1 must not leak in).
+// - for_own_edges (B3, B7): each thread walks only its own row's set bits,
+//   8.5 of the 128 columns of a flagship tile on average, and reads the column side
+//   by per-lane gathers from a staged slab whose row stride is padded
+//   (slab_stride) so that eight lanes of a 16-byte access see eight banks.
+//
+// Per-head widths: a kernel compiled for width FP (4, 8, 16, 32, 40 or 64)
+// takes any F: F <= 64 runs on the smallest FP >= F, with the last columns
+// zero and never written; wider F runs FP = 64 over slabs of 64 columns (the
+// last one ragged).
 
 #pragma once
 
@@ -22,7 +34,8 @@ namespace gat_tile {
 constexpr int TM = 128;  // tile rows
 constexpr int TK = 128;  // tile columns
 constexpr int THREADS = 128;  // one thread per tile row
-constexpr int MAX_F = 64;
+constexpr int SLAB = 64;  // the widest compiled width: wider F loops over slabs of it
+constexpr int ITEM_INTS = 6;  // a work item: begin, end, block row, slot, first slot, parts
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -85,23 +98,123 @@ __device__ __forceinline__ void for_columns(const uint32_t w[4], Body body) {
   }
 }
 
-// Stage rows col0 .. col0 + TK - 1 of the head's F columns of x [n, H*F] into
-// xs [TK][FP], zero past n and past F.
-template <int FP>
-__device__ __forceinline__ void stage_feats(float* xs, const float* x, long long col0, int n,
-                                            int hf, int head, int f) {
-  for (int i = threadIdx.x; i < TK * FP; i += THREADS) {
-    const int j = i / FP, k = i % FP;
-    const long long row = col0 + j;
-    xs[i] = (row < n && k < f) ? x[row * hf + static_cast<long long>(head) * f + k] : 0.f;
+// Calls body(j) for every column j where this thread's row has an edge, in
+// the fixed order of its mask bits (word 0's bits first). Not warp-uniform:
+// each lane walks its own edges, and the warp as long as its busiest lane.
+template <typename Body>
+__device__ __forceinline__ void for_own_edges(uint4 w, Body body) {
+  unsigned long long lo = w.x | static_cast<unsigned long long>(w.y) << 32;
+  unsigned long long hi = w.z | static_cast<unsigned long long>(w.w) << 32;
+  while (lo | hi) {
+    int b;
+    if (lo) {
+      b = __ffsll(static_cast<long long>(lo)) - 1;
+      lo &= lo - 1;
+    } else {
+      b = 63 + __ffsll(static_cast<long long>(hi));
+      hi &= hi - 1;
+    }
+    body(4 * (b & 31) + (b >> 5));  // bit l of word c is column 4l + c
   }
+}
+
+// Stage `blocks` blocks of TK rows of x [n, ld], columns c0 .. c0 + fw - 1,
+// into xs [blocks][TK][stride] (width columns a row), zero past n and past
+// fw: block t holds rows row0(t) .. row0(t) + TK - 1. Each thread issues its
+// loads in batches before it stores any (16-byte loads when the columns and
+// the stride are 4-aligned), so a staging costs about one round trip to
+// memory rather than one per element.
+template <typename Row0>
+__device__ __forceinline__ void stage_blocks(float* __restrict__ xs, int stride, int width,
+                                             const float* __restrict__ x, int blocks, Row0 row0,
+                                             int n, int ld, int c0, int fw) {
+  constexpr int U = 4;  // batches of U loads a thread
+  if (((ld | c0 | width | stride) & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const int quads = width / 4, per_block = TK * quads, total = blocks * per_block;
+    for (int i0 = threadIdx.x; i0 < total; i0 += U * THREADS) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * THREADS, t = i / per_block, r = i % per_block;
+        const int j = r / quads, k = (r % quads) * 4;
+        v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < total && k < fw) {
+          const long long row = row0(t) + j;
+          if (row < n) {
+            const float* src = x + row * ld + c0 + k;
+            if (k + 4 <= fw) {
+              v[u] = __ldg(reinterpret_cast<const float4*>(src));
+            } else {  // the ragged last quad of the row
+              v[u].x = __ldg(src);
+              if (k + 1 < fw) v[u].y = __ldg(src + 1);
+              if (k + 2 < fw) v[u].z = __ldg(src + 2);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * THREADS, t = i / per_block, r = i % per_block;
+        if (i < total)
+          *reinterpret_cast<float4*>(xs + (t * TK + r / quads) * stride + (r % quads) * 4) = v[u];
+      }
+    }
+    return;
+  }
+  constexpr int US = 2 * U;  // scalar loads: twice as many in flight
+  const int per_block = TK * width, total = blocks * per_block;
+  for (int i0 = threadIdx.x; i0 < total; i0 += US * THREADS) {
+    float v[US];
+#pragma unroll
+    for (int u = 0; u < US; ++u) {
+      const int i = i0 + u * THREADS, t = i / per_block, r = i % per_block;
+      const int j = r / width, k = r % width;
+      v[u] = 0.f;
+      if (i < total && k < fw) {
+        const long long row = row0(t) + j;
+        if (row < n) v[u] = __ldg(x + row * ld + c0 + k);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < US; ++u) {
+      const int i = i0 + u * THREADS, t = i / per_block, r = i % per_block;
+      if (i < total) xs[(t * TK + r / width) * stride + r % width] = v[u];
+    }
+  }
+}
+
+// One block of rows row0 .. row0 + TK - 1 (stage_blocks).
+__device__ __forceinline__ void stage_rows(float* xs, int stride, int width, const float* x,
+                                           long long row0, int n, int ld, int c0, int fw) {
+  stage_blocks(xs, stride, width, x, 1, [=](int) { return row0; }, n, ld, c0, fw);
+}
+
+// The rows under `blocks` consecutive tiles, tile t's block column
+// block_cols[t] (stage_blocks).
+__device__ __forceinline__ void stage_tiles(float* xs, int stride, int width, const float* x,
+                                            const int* block_cols, int blocks, int n, int ld,
+                                            int c0, int fw) {
+  stage_blocks(xs, stride, width, x, blocks,
+               [=](int t) { return static_cast<long long>(block_cols[t]) * TK; }, n, ld, c0, fw);
+}
+
+// Row stride of a staged slab `width` floats wide (a multiple of 4): the
+// smallest stride >= width that is 4 mod 8 words, so eight consecutive rows
+// start in eight different 16-byte bank groups.
+__host__ __device__ constexpr int slab_stride(int width) {
+  return width % 8 ? width : width + 4;
 }
 
 __device__ __forceinline__ float node(const float* a, long long row, int n, int h, int head) {
   return row < n ? a[row * h + head] : 0.f;
 }
 
-// The kernel compiled for the smallest width FP >= f.
+// The compiled width for f: the smallest FP >= f, or SLAB for wider f.
+__host__ __device__ constexpr int width_of(int f) {
+  return f <= 4 ? 4 : f <= 8 ? 8 : f <= 16 ? 16 : f <= 32 ? 32 : f <= 40 ? 40 : SLAB;
+}
+
+// The kernel compiled for width_of(f).
 template <typename Kernel>
 Kernel pick_width(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k40,
                   Kernel k64) {
@@ -113,6 +226,171 @@ Kernel pick_width(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k4
 
 inline dim3 grid_of(int n_block_rows, int h) {
   return dim3(static_cast<unsigned>(n_block_rows) * h);
+}
+
+// `kernel` on `grid` with `smem` bytes of dynamic shared memory (above 48 KB
+// only after the opt-in), on `stream`; returns the launch's CUDA error.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many of an item's tiles B3 and B7 stage at once, given one tile's
+// staged bytes: all C while they fit in 48 KB, else fewer (at least one).
+inline int tile_group(size_t tile_bytes, int max_tiles) {
+  const int fit = static_cast<int>((48 * 1024) / tile_bytes);
+  return fit < 1 ? 1 : fit < max_tiles ? fit : max_tiles;
+}
+
+// ------------------------------------------------------------------------
+// Work items of B3 and B7 (the wrapper's spmm_schedule): tiles [begin, end)
+// of block row `row`. A row of one item (at most C tiles, or none) has
+// slot = -1 and writes its outputs itself; the `parts` items of a longer row
+// write partials (m, den, num) to workspace slots first .. first + parts - 1
+// (this item to `slot`), and the last of them to arrive merges them.
+// ------------------------------------------------------------------------
+
+struct Item {
+  int begin, end, row, slot, first, parts;
+};
+
+__device__ __forceinline__ Item load_item(const int* items) {
+  const int* it = items + static_cast<size_t>(blockIdx.x) * ITEM_INTS;
+  return Item{it[0], it[1], it[2], it[3], it[4], it[5]};
+}
+
+// The split-row workspace: n_slots partials of num [TM, hf], then of den
+// and m [TM, h].
+struct Partials {
+  float* num;
+  float* den;
+  float* m;
+  __device__ Partials(float* ws, int n_slots, int h, int hf)
+      : num(ws),
+        den(ws + static_cast<size_t>(n_slots) * TM * hf),
+        m(ws + static_cast<size_t>(n_slots) * TM * (hf + h)) {}
+};
+
+// Where thread i's row of an item writes head `head`'s F-slab s0 .. s0 + fw
+// (and, with s0 = 0, its den and m): the output row v (when v < n) of a row
+// of one item, else the item's workspace slot.
+template <int FP>
+__device__ __forceinline__ void put_softmax(const Item& it, const Partials& ws, float* num_out,
+                                            float* den_out, float* m_out, long long v, int n,
+                                            int h, int hf, int head, int f, int s0, int fw,
+                                            const float acc[FP], float den, float m) {
+  float *num_row, *den_at, *m_at;
+  if (it.slot < 0) {
+    if (v >= n) return;
+    num_row = num_out + v * hf;
+    den_at = den_out + v * h + head;
+    m_at = m_out + v * h + head;
+  } else {
+    const size_t r = static_cast<size_t>(it.slot) * TM + threadIdx.x;
+    num_row = ws.num + r * hf;
+    den_at = ws.den + r * h + head;
+    m_at = ws.m + r * h + head;
+  }
+  float* dst = num_row + static_cast<long long>(head) * f + s0;
+#pragma unroll
+  for (int k = 0; k < FP; ++k)
+    if (k < fw) dst[k] = acc[k];
+  if (s0 == 0) {
+    *den_at = den;
+    *m_at = m;
+  }
+}
+
+// After an item of a split row has written its partials: true in the CTA
+// that arrives last at its row's counter (which it resets for the next
+// launch), with every part's partials then visible to it.
+__device__ __forceinline__ bool arrive_last(int* counter, int parts) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int arrived = atomicAdd(counter, 1) + 1;
+    last = arrived == parts;
+    if (arrived == parts) *counter = 0;  // every part has arrived: ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  return true;
+}
+
+// The flash merge of a split row's parts, in item order, into its output
+// rows: m = max_i m_i, den = sum_i s_i den_i and num = sum_i s_i num_i with
+// s_i = exp(m_i - m), and s_i = 0 for a part still at NEG (it has no edge and
+// zero sums; exp(NEG - NEG) = 1 must not leak in). The scales overwrite the
+// parts' m in the workspace, which only this CTA reads now. The same bits
+// whichever part arrives last. The parts come from L2, so each thread keeps
+// several independent loads in flight: four parts at a time, and num in
+// 16-byte quads when F is a multiple of 4 (a quad then lies in one head).
+__device__ __forceinline__ void merge_parts(const Item& it, const Partials& ws, float* num_out,
+                                            float* den_out, float* m_out, int n, int h,
+                                            int hf) {
+  const long long row0 = static_cast<long long>(it.row) * TM;
+  const long long left = static_cast<long long>(n) - row0;
+  const int rows = left < TM ? static_cast<int>(left) : TM;
+  const size_t m_part = static_cast<size_t>(TM) * h, num_part = static_cast<size_t>(TM) * hf;
+  const size_t base = static_cast<size_t>(it.first) * TM;
+  const int parts = it.parts;
+  for (int idx = threadIdx.x; idx < rows * h; idx += THREADS) {
+    const int r = idx / h, head = idx % h;
+    const size_t at = (base + r) * h + head;
+    float m = NEG;
+#pragma unroll 4
+    for (int p = 0; p < parts; ++p) m = fmaxf(m, __ldcg(ws.m + at + p * m_part));
+    float den = 0.f;
+#pragma unroll 4
+    for (int p = 0; p < parts; ++p) {
+      const float mp = __ldcg(ws.m + at + p * m_part);
+      const float s = mp == NEG ? 0.f : expf(mp - m);
+      __stcg(ws.m + at + p * m_part, s);
+      den = fmaf(s, __ldcg(ws.den + at + p * m_part), den);
+    }
+    den_out[(row0 + r) * h + head] = den;
+    m_out[(row0 + r) * h + head] = m;
+  }
+  __syncthreads();  // the scales are in place
+  const int f = hf / h;
+  if (f % 4 == 0) {
+    const int quads = hf / 4;
+    for (int idx = threadIdx.x; idx < rows * quads; idx += THREADS) {
+      const int r = idx / quads, c = (idx % quads) * 4;
+      const float* num_at = ws.num + (base + r) * hf + c;
+      const float* s_at = ws.m + (base + r) * h + c / f;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p) {
+        const float s = __ldcg(s_at + p * m_part);
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(num_at + p * num_part));
+        acc.x = fmaf(s, v.x, acc.x);
+        acc.y = fmaf(s, v.y, acc.y);
+        acc.z = fmaf(s, v.z, acc.z);
+        acc.w = fmaf(s, v.w, acc.w);
+      }
+      *reinterpret_cast<float4*>(num_out + (row0 + r) * hf + c) = acc;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * hf; idx += THREADS) {
+      const int r = idx / hf, c = idx % hf;
+      const float* num_at = ws.num + (base + r) * hf + c;
+      const float* s_at = ws.m + (base + r) * h + c / f;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p)
+        acc = fmaf(__ldcg(s_at + p * m_part), __ldcg(num_at + p * num_part), acc);
+      num_out[(row0 + r) * hf + c] = acc;
+    }
+  }
 }
 
 }  // namespace gat_tile

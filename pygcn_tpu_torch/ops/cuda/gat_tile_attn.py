@@ -33,14 +33,22 @@ is ``e = Σ_f a[h,f]·leaky(sl[u,hF+f] + sr[v,hF+f])``:
   partial ``dapart [N, H·F]`` of ``da``, over the forward tiles;
 - **B9** ``_v2_bwd_send_kernel``: ``dsl [N, H·F]``, over the transpose tiles.
 
-The CUDA sources, ``pygcn_tpu_torch/csrc/gat_tile_attn.cu`` (B3/B5/B6 and
-B4/B5s/B6s) and ``gatv2_tile_attn.cu`` (B7/B8/B9), carry the design notes:
-one CTA per (head, block row) loops over the row's tiles, or in the stream
-modes one CTA per (head, tile) takes one; each thread owns one row of the
-block, and each output is written once, without atomics. At the ogbn-arxiv
-hybrid's shapes all nine are bound by bytes (the tiles as stored, about
-0.19 GB a launch); the kernels evaluate every (row, column) slot of a tile
-column that some row of the warp needs, so they sit above that bound.
+The CUDA sources, ``pygcn_tpu_torch/csrc/gat_tile_attn.cu`` (B3-B6,
+B4/B5s/B6s) and ``gatv2_tile_attn.cu`` (B7/B8/B9), carry the design notes.
+B3 and B7 run B1's balanced schedule (:func:`spmm_schedule` at
+:data:`MAX_TILES`, cached per tile set in ``bcsr.cache`` with arrival
+counters of its own): one CTA per work item of at most C tiles of a block
+row, for all heads; each tile's mask decoded once; each thread walking only
+its own row's edges; the items of a split row writing partials ``(m, den,
+num)`` that the last to arrive merges in item order by the flash merge
+(:func:`scheduled_merge` is that merge in plain PyTorch), so the result is
+the same bits every run. B5, B6, B8, B9 and the stream kernels keep one CTA
+per (head, block row), or per (head, tile), and each output is written
+once, without atomics. At the ogbn-arxiv hybrid's shapes all are bound by
+bytes (the tiles as stored, about 0.19 GB a launch). Every kernel takes any
+per-head width F: up to 64 in registers, wider in slabs of 64 columns;
+B7's and B8's shared memory grows with F above 40, B9's above 64 (up to
+F = 208 for B7, 144 for B8 and B9).
 
 Tile values only gate the mask (``tile != 0``); they are never multiplied in.
 Each kernel has a plain PyTorch version here (``*_plain``), the CPU path and
@@ -53,19 +61,25 @@ stream mode, in JAX or here: :data:`TILE_REVISIT` does not change B7/B8/B9.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
 
 from pygcn_tpu_torch.graph.graph import BCSR
-from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
+from pygcn_tpu_torch.ops.cuda.bcsr_spmm import SpMMSchedule, spmm_schedule, sum_by_block_row
 
 NEG = -1e30  # finite stand-in for -inf: max/exp algebra without NaNs
 
-# The tile shape the kernels are compiled for, and the per-head widths F they
-# take (each is padded up to the next compiled width).
+# The tile shape the kernels are compiled for, and the ints of one work item
+# of B3 and B7 (checked against the libraries).
 TILE = (128, 128)
-MAX_F = 64
+ITEM_INTS = 6
+
+# The most tiles one work item of B3 or B7 takes (C): B1's schedule, cached
+# per tile set apart from B1's. ``chip_smoke.py`` times B3 and B7 at C = 1, 2
+# and 4 (PERF.md).
+MAX_TILES = 2
 
 # The JAX package's A/B flag (``pygcn_tpu/ops/pallas/gat_tile_attn.py:115``),
 # with its default. :class:`GATTilePartials` reads it once in its forward
@@ -203,6 +217,61 @@ def softmax_merge(bcsr: BCSR, num_t, den_t, max_t, n: int):
     return num, den, m.view(-1, h)[:n]
 
 
+def scheduled_merge(bcsr: BCSR, num_t, den_t, max_t, n: int, max_tiles: int):
+    """B3's and B7's split-and-merge in plain PyTorch: per-tile partials
+    (B4's, or their v2 counterpart) merged into ``(num [n, H·F], den [n, H],
+    m [n, H])`` along the work items of :func:`spmm_schedule` at
+    ``max_tiles``, as the kernels merge them.
+
+    Each item's partial ``(m_i, den_i, num_i)`` is its tiles' partials
+    rescaled onto the item's max; a block row's result is the flash merge of
+    its items in item order: ``m = max_i m_i`` and each part scaled by
+    ``exp(m_i − m)``, the parts added one item after another. A part whose
+    ``m_i`` is still ``NEG`` (no edge) adds nothing; ``exp(NEG − NEG) = 1``
+    never leaks in. ``m`` is exactly the max over the row's tile edges.
+    """
+    t, tm, h = max_t.shape
+    hf = num_t.shape[2]
+    dev = max_t.device
+    items = spmm_schedule(bcsr, max_tiles).items.long().to(dev)
+    n_items = items.shape[0]
+    of_tile = torch.repeat_interleave(torch.arange(n_items, device=dev), items[:, 1] - items[:, 0])
+
+    def flash(m_parts, den_parts, num_parts, seg, n_seg, order=None):
+        """Merge parts into segments: the max, then the rescaled sums (in
+        ``order``'s steps when given: one part per segment a step)."""
+        m = m_parts.new_full((n_seg, tm, h), NEG).scatter_reduce(
+            0, seg[:, None, None].expand_as(m_parts), m_parts, "amax", include_self=True)
+        scale = torch.where(m_parts == NEG, 0.0, torch.exp(m_parts - m[seg]))
+        den = den_parts.new_zeros((n_seg, tm, h))
+        num = num_parts.new_zeros((n_seg, tm, hf))
+        d = den_parts * scale
+        nm = (num_parts.view(-1, tm, h, hf // h) * scale[..., None]).view(-1, tm, hf)
+        if order is None:
+            den.index_add_(0, seg, d)
+            num.index_add_(0, seg, nm)
+        else:
+            for step in range(int(order.max()) + 1 if order.numel() else 0):
+                sel = order == step
+                den[seg[sel]] += d[sel]
+                num[seg[sel]] += nm[sel]
+        return m, den, num
+
+    m_i, den_i, num_i = flash(max_t, den_t, num_t, of_tile, n_items)
+    row = items[:, 2].contiguous()
+    part = torch.arange(n_items, device=dev) - torch.searchsorted(row, row)  # place in its row
+    m, den, num = flash(m_i, den_i, num_i, row, bcsr.n_block_rows, order=part)
+    return num.view(-1, hf)[:n], den.view(-1, h)[:n], m.view(-1, h)[:n]
+
+
+def tile_fwd_scheduled_plain(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float,
+                             max_tiles: int):
+    """B3's function as B3 computes it: :func:`scheduled_merge` of the
+    per-tile partials at ``max_tiles``."""
+    parts = tile_fwd_stream_plain(bcsr, lsrc, ldst, s2, h, f, slope)
+    return scheduled_merge(bcsr, *parts, s2.shape[0], max_tiles)
+
+
 def tile_bwd_dldst_stream_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
                                 slope: float):
     """B5s's function: per tile ``dldst_t [T, tm, H]`` over the forward
@@ -283,14 +352,29 @@ def _v2_logit(a, rows, cols, hh: int, f: int, slope: float) -> torch.Tensor:
     return e
 
 
+def tile_v2_fwd_stream_plain(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float):
+    """B7's per-tile partials ``(num_t [T, tm, H·F], den_t, max_t [T, tm, H])``,
+    ``num_t`` aggregating ``sl2`` (:func:`_tile_partials`)."""
+    slv = _slabs(sl2, bcsr.block_cols, bcsr.n_block_cols, bcsr.tk)  # [T, tk(u), H·F]
+    srv = _slabs(sr2, bcsr.block_rows, bcsr.n_block_rows, bcsr.tm)  # [T, tm(v), H·F]
+    logits = (_v2_logit(a, srv, slv, hh, f, slope) for hh in range(h))
+    return _tile_partials(bcsr, logits, slv, f)
+
+
 def tile_v2_fwd_plain(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float):
     """B7's function with tensor ops: ``(num [N, H·F], den [N, H], m [N, H])``,
     ``num`` aggregating ``sl2``; per-tile partials and their merge as in
     :func:`tile_fwd_plain`."""
-    slv = _slabs(sl2, bcsr.block_cols, bcsr.n_block_cols, bcsr.tk)  # [T, tk(u), H·F]
-    srv = _slabs(sr2, bcsr.block_rows, bcsr.n_block_rows, bcsr.tm)  # [T, tm(v), H·F]
-    logits = (_v2_logit(a, srv, slv, hh, f, slope) for hh in range(h))
-    return softmax_merge(bcsr, *_tile_partials(bcsr, logits, slv, f), sl2.shape[0])
+    parts = tile_v2_fwd_stream_plain(bcsr, sl2, sr2, a, h, f, slope)
+    return softmax_merge(bcsr, *parts, sl2.shape[0])
+
+
+def tile_v2_fwd_scheduled_plain(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float,
+                                max_tiles: int):
+    """B7's function as B7 computes it: :func:`scheduled_merge` of the
+    per-tile partials at ``max_tiles``."""
+    parts = tile_v2_fwd_stream_plain(bcsr, sl2, sr2, a, h, f, slope)
+    return scheduled_merge(bcsr, *parts, sl2.shape[0], max_tiles)
 
 
 def tile_v2_bwd_recv_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
@@ -371,24 +455,30 @@ def _load(name: str):
         # tiles, block_cols, block_row_ptr, <operands>, <outputs>,
         # n_block_rows, n, h, f, tile_bf16, slope, stream; the stream modes
         # take block_rows and the tile count in place of the block rows'
-        entries = ((("gat_tile_fwd", 6), ("gat_tile_bwd_dldst", 7), ("gat_tile_bwd_sender", 8),
+        entries = ((("gat_tile_bwd_dldst", 7), ("gat_tile_bwd_sender", 8),
                     ("gat_tile_fwd_stream", 6), ("gat_tile_bwd_dldst_stream", 7),
                     ("gat_tile_bwd_sender_stream", 8))
                    if name == "gat_tile_attn" else
-                   (("gatv2_tile_fwd", 6), ("gatv2_tile_bwd_recv", 8),
-                    ("gatv2_tile_bwd_send", 7)))
+                   (("gatv2_tile_bwd_recv", 8), ("gatv2_tile_bwd_send", 7)))
         for fn_name, n_ptrs in entries:
             fn = getattr(lib, fn_name)
             fn.argtypes = [p] * (3 + n_ptrs) + [i] * 5 + [fl, p]
             fn.restype = ctypes.c_int
+        # the forward (B3, B7): tiles, block_cols, items, 3 operands, 3
+        # outputs, ws, counters; n_items, n_slots, n, h, f, max_tiles,
+        # tile_bf16; slope; stream
+        fwd = getattr(lib, "gat_tile_fwd" if name == "gat_tile_attn" else "gatv2_tile_fwd")
+        fwd.argtypes = [p] * 11 + [i] * 7 + [fl, p]
+        fwd.restype = ctypes.c_int
         config = getattr(lib, f"{name}_config")
         config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         config.restype = ctypes.c_int
-        tm, tk, max_f = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        config(ctypes.byref(tm), ctypes.byref(tk), ctypes.byref(max_f))
-        if (tm.value, tk.value, max_f.value) != (*TILE, MAX_F):
-            raise RuntimeError(f"{name} built for {(tm.value, tk.value)} tiles and F <= "
-                               f"{max_f.value}; wrapper expects {TILE} and {MAX_F}")
+        tm, tk, item = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        config(ctypes.byref(tm), ctypes.byref(tk), ctypes.byref(item))
+        if (tm.value, tk.value, item.value) != (*TILE, ITEM_INTS):
+            raise RuntimeError(f"{name} built for {(tm.value, tk.value)} tiles and "
+                               f"{item.value}-int work items; wrapper expects {TILE} and "
+                               f"{ITEM_INTS}")
         _libs[name] = lib
     return _libs[name]
 
@@ -429,8 +519,8 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
     if n > bcsr.n_block_rows * bcsr.tm or n > bcsr.n_block_cols * bcsr.tk:
         raise ValueError(f"{n} nodes exceed the tiles' {bcsr.n_block_rows * bcsr.tm} rows "
                          f"or {bcsr.n_block_cols * bcsr.tk} columns")
-    if not 1 <= f <= MAX_F:
-        raise ValueError(f"{name} takes 1 <= F <= {MAX_F} features per head, got {f}")
+    if f < 1:
+        raise ValueError(f"{name} takes F >= 1 features per head, got {f}")
     if bcsr.data.data_ptr() % 16:
         raise ValueError("tiles must be 16-byte aligned")
 
@@ -451,7 +541,48 @@ def _launch(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: in
             grid_rows, n, h, f, int(bcsr.data.dtype == torch.bfloat16),
             float(slope), torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} (H={h}, F={f})")
+    launches[name] += 1
+
+
+def _item_schedule(bcsr: BCSR) -> tuple[SpMMSchedule, torch.Tensor]:
+    """B3's and B7's work items at :data:`MAX_TILES` on the tiles' device and
+    their int32 arrival counters (one per split item, zero between launches),
+    built on the first launch over ``bcsr`` and kept in ``bcsr.cache`` under a
+    key of their own: B1's entry has counters of another size, and a launch
+    of B1 never shares counters with a launch of B3 or B7. Like B1's, they
+    assume one launch at a time over a tile set."""
+    key = ("gat_tile", MAX_TILES)
+    if key not in bcsr.cache:
+        dev = bcsr.block_row_ptr.device
+        sched = spmm_schedule(bcsr, MAX_TILES)
+        bcsr.cache[key] = (dataclasses.replace(sched, items=sched.items.to(dev)),
+                           torch.zeros(max(sched.n_slots, 1), dtype=torch.int32, device=dev))
+    return bcsr.cache[key]
+
+
+def _launch_items(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int,
+                  f: int, slope: float):
+    """Launch the forward ``fn_name`` (B3 or B7): one CTA per work item of
+    :func:`_item_schedule`, the split items' partials in a workspace of
+    ``n_slots * 128 * (H·F + 2H)`` floats."""
+    lib = _load(lib_name)
+    n = ins[0].shape[0]
+    dev = ins[0].device
+    sched, counters = _item_schedule(bcsr)
+    ws = (torch.empty(sched.n_slots * bcsr.tm * (h * f + 2 * h), dtype=torch.float32, device=dev)
+          if sched.n_slots else None)
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn_name)(
+            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), sched.items.data_ptr(),
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+            None if ws is None else ws.data_ptr(), counters.data_ptr(),
+            sched.items.shape[0], sched.n_slots, n, h, f, MAX_TILES,
+            int(bcsr.data.dtype == torch.bfloat16), float(slope),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} (H={h}, F={f}, "
+                           f"C={MAX_TILES})")
     launches[name] += 1
 
 
@@ -481,8 +612,8 @@ def tile_fwd_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
     _check_cuda("B3", bcsr, (lsrc, ldst, s2), _v1_shapes(n, h, f), n, f)
     num, den, m = _empty(n, h * f, s2), _empty(n, h, s2), _empty(n, h, s2)
     if n and h:
-        _launch("gat_tile_attn", "B3", "gat_tile_fwd", bcsr, (lsrc, ldst, s2), (num, den, m), h,
-                f, slope)
+        _launch_items("gat_tile_attn", "B3", "gat_tile_fwd", bcsr, (lsrc, ldst, s2),
+                      (num, den, m), h, f, slope)
     return num, den, m
 
 
@@ -554,7 +685,8 @@ def tile_v2_fwd_cuda(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float):
     _check_cuda("B7", bcsr, ins, _v2_shapes(n, h, f), n, f)
     num, den, m = _empty(n, h * f, sl2), _empty(n, h, sl2), _empty(n, h, sl2)
     if n and h:
-        _launch("gatv2_tile_attn", "B7", "gatv2_tile_fwd", bcsr, ins, (num, den, m), h, f, slope)
+        _launch_items("gatv2_tile_attn", "B7", "gatv2_tile_fwd", bcsr, ins, (num, den, m), h, f,
+                      slope)
     return num, den, m
 
 

@@ -232,6 +232,8 @@ def v2_operands(dev, h, f, seed, integer=False):
     else:
         sl2, sr2 = (torch.randn(300, h * f, device=dev, generator=gen) for _ in range(2))
     a = torch.randn(h, f, device=dev, generator=gen)
+    if f > 64:
+        a = a / f ** 0.5  # a for fan-in F: logits of unit scale however wide the head
     return sl2, sr2, a, torch.randn(300, h * f, device=dev, generator=gen), \
         torch.randn(300, h, device=dev, generator=gen)
 
@@ -249,14 +251,16 @@ def v2_kernel_and_plain(name, b, bt, ops, m, h, f):
     return (gta.tile_v2_bwd_send(bt, *args),), (gta.tile_v2_bwd_send_plain(bt, *args),)
 
 
-@pytest.mark.parametrize("hf", GAT_SHAPES + [(1, 64)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("hf", GAT_SHAPES + [(2, 48), (1, 64)], ids=lambda x: f"{x[0]}x{x[1]}")
 @pytest.mark.parametrize("drop_padding", [False, True], ids=["padding_tile", "no_tile"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
 @pytest.mark.parametrize("name", ["B7", "B8", "B9"])
 def test_gatv2_tile_kernel_matches_plain(dev, name, symmetric, dtype, drop_padding, hf):
     """Each GATv2 tile kernel on the grid of the v1 kernels' test, plus the
-    widest compiled width (F = 64, where B8 holds the most registers)."""
+    widths that B9's register kernel reaches above B7's and B8's (2x48, its
+    last columns masked; 1x64, one slab, B7 and B8 on their shared-memory
+    kernels)."""
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
     ops = v2_operands(dev, h, f, h * 100 + f)
@@ -285,3 +289,187 @@ def test_gatv2_tile_kernels_leaky_derivative_at_zero(dev):
         torch.cuda.synchronize()
         for x, r in zip(got, ref):
             torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+
+
+WIDE_SHAPES = [(2, 65), (1, 128)]
+
+
+@pytest.mark.parametrize("hf", WIDE_SHAPES, ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("family", ["B3/B5/B6", "B4/B5s/B6s", "B7/B8/B9"])
+def test_gat_tile_kernels_wide_heads(dev, family, symmetric, dtype, hf):
+    """Every GAT tile kernel at per-head widths above 64 (one full 64-column
+    slab and a ragged one, or two full ones) against its plain version; each
+    launch is counted."""
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, True))
+    gen = torch.Generator(device=dev).manual_seed(h * 1000 + f)
+    if family == "B7/B8/B9":
+        ops = v2_operands(dev, h, f, h * 1000 + f)
+        m = gta.tile_v2_fwd_plain(b, *ops[:3], h, f, 0.2)[2]
+        pairs = [v2_kernel_and_plain(name, b, bt, ops, m, h, f) for name in ("B7", "B8", "B9")]
+        names = ("B7", "B8", "B9")
+    else:
+        lsrc, ldst = (torch.randn(300, h, device=dev, generator=gen) for _ in range(2))
+        s2, dnum = (torch.randn(300, h * f, device=dev, generator=gen) for _ in range(2))
+        dden = torch.randn(300, h, device=dev, generator=gen)
+        stream = family == "B4/B5s/B6s"
+        fwd = (gta.tile_fwd_stream, gta.tile_fwd_stream_plain) if stream else (
+            gta.tile_fwd, gta.tile_fwd_plain)
+        before = dict(gta.launches)
+        m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
+        args = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+        dl = ((gta.tile_bwd_dldst_stream, gta.tile_bwd_dldst_stream_plain) if stream
+              else (gta.tile_bwd_dldst, gta.tile_bwd_dldst_plain))
+        snd = ((gta.tile_bwd_sender_stream, gta.tile_bwd_sender_stream_plain) if stream
+               else (gta.tile_bwd_sender, gta.tile_bwd_sender_plain))
+        pairs = [(fwd[0](b, *args[:3], h, f, 0.2), fwd[1](b, *args[:3], h, f, 0.2)),
+                 ((dl[0](b, *args),), (dl[1](b, *args),)),
+                 (snd[0](bt, *args), snd[1](bt, *args))]
+        names = ("B4", "B5s", "B6s") if stream else ("B3", "B5", "B6")
+        assert gta.launches == {k: before[k] + (k in names) for k in before}
+    torch.cuda.synchronize()
+    for name, (got, ref) in zip(names, pairs):
+        for x, r in zip(got, ref):
+            assert x.shape == r.shape, name
+            torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["gat", "gatv2"])
+def test_tile_partials_at_8_heads_of_128(dev, v2):
+    """``GATTilePartials``/``GATv2TilePartials`` at the CLI's default width
+    (8 heads of 128): values and gradients against the plain versions."""
+    h, f = 8, 128
+    b, bt = (x.to(dev) for x in gat_tiles(True, torch.float32, False))
+    gen = torch.Generator(device=dev).manual_seed(8128 + v2)
+    if v2:
+        shapes = ((300, h * f), (300, h * f), (h, f))
+    else:
+        shapes = ((300, h), (300, h), (300, h * f))
+    ops = [torch.randn(*s, device=dev, generator=gen) for s in shapes]
+    if v2:
+        ops[2] = ops[2] / f ** 0.5  # a for fan-in F: logits of unit scale
+    cot = [torch.randn(300, w, device=dev, generator=gen) for w in (h * f, h)]
+    args = [o.clone().requires_grad_(True) for o in ops]
+    partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
+    got = partials((h, f, 0.2), b, bt, *args)
+    grads = torch.autograd.grad(got[:2], args, cot)
+    ref = (gta.tile_v2_fwd_plain if v2 else gta.tile_fwd_plain)(b, *ops, h, f, 0.2)
+    bwd = (*ops, ref[2], *cot, h, f, 0.2)
+    if v2:
+        dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+        ref_grads = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr, dapart.sum(dim=0).view(h, f))
+    else:
+        ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
+        ref_grads = (dlsrc, gta.tile_bwd_dldst_plain(b, *bwd), ds)
+    torch.cuda.synchronize()
+    for x, r in list(zip(got, ref)) + list(zip(grads, ref_grads)):
+        torch.testing.assert_close(x.detach(), r, rtol=1e-4, atol=1e-4)
+
+
+def v2_plain_partials_and_grads(b, bt, ops, cot, h, f):
+    """``num, den, m, dsl, dsr, da`` of the plain GATv2 versions, in the
+    dtype of ``ops``."""
+    num, den, m = gta.tile_v2_fwd_plain(b, *ops, h, f, 0.2)
+    bwd = (*ops, m, *cot, h, f, 0.2)
+    dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+    return [num, den, m, gta.tile_v2_bwd_send_plain(bt, *bwd), dsr, dapart.sum(dim=0).view(h, f)]
+
+
+@pytest.mark.parametrize("hf", [(1, 128), (8, 128)], ids=["1x128", "8x128"])
+def test_gatv2_partials_at_unit_a_err_like_plain_f32(dev, hf):
+    """At 128-wide heads and ``a`` of unit scale (logits of tens, gradients of
+    hundreds) the kernels and the f32 plain versions part by more than 1e-4
+    in a few values. Against the plain versions in f64 on the same inputs,
+    each stays within 1e-4 of the largest value, and the kernels' error within
+    4x the f32 plain version's: f32 rounding of the same order."""
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, True))
+    gen = torch.Generator(device=dev).manual_seed(7 + h)
+    ops = [torch.randn(*s, device=dev, generator=gen)
+           for s in ((300, h * f), (300, h * f), (h, f))]
+    cot = [torch.randn(300, w, device=dev, generator=gen) for w in (h * f, h)]
+    args = [o.clone().requires_grad_(True) for o in ops]
+    out = gta.gatv2_tile_partials((h, f, 0.2), b, bt, *args)
+    got = [o.detach() for o in out] + list(torch.autograd.grad(out[:2], args, cot))
+    p32 = v2_plain_partials_and_grads(b, bt, ops, cot, h, f)
+    p64 = v2_plain_partials_and_grads(b, bt, [o.double() for o in ops],
+                                      [c.double() for c in cot], h, f)
+    torch.cuda.synchronize()
+    live = p64[2] > gta.NEG / 2
+    for i, (k, p, r) in enumerate(zip(got, p32, p64)):
+        if i == 2:  # m, where a row has an edge
+            k, p, r = k[live], p[live], r[live]
+        scale = float(r.abs().max())
+        err_k = float((k.double() - r).abs().max())
+        err_p = float((p.double() - r).abs().max())
+        assert err_k <= 1e-4 * scale and err_k <= 4 * max(err_p, 1e-7 * scale), (i, err_k, err_p)
+
+
+def long_row_gat_tiles(dtype=torch.float32):
+    """The long-row tile set (block rows of 0, 1, C, C + 1, 43 and 2 tiles at
+    C = ``gta.MAX_TILES``) made square: 5631 nodes, a ragged last block."""
+    from pygcn_tpu_torch.apps.time_spmm import long_row_matrix
+
+    m = long_row_matrix(gta.MAX_TILES, np.random.default_rng(5))
+    n = m.shape[1]
+    m = sp.coo_matrix((np.ones(m.nnz, np.float32), (m.row, m.col)), shape=(n, n))
+    b = drop_zero_tiles(_build_bcsr(m, (128, 128)))
+    return dataclasses.replace(b, data=b.data.to(dtype)), n
+
+
+@pytest.mark.parametrize("hf", [(8, 8), (1, 40), (2, 65)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("name", ["B3", "B7"])
+def test_b3_b7_long_rows_bitwise_and_plain(dev, name, hf):
+    """B3 and B7 on split rows (the 43-tile row is 22 items): the same bits in
+    two launches, the arrival counters back at zero, and the plain version's
+    values within 1e-4 (``m`` too)."""
+    h, f = hf
+    b, n = long_row_gat_tiles()
+    b = b.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(h + f)
+    if name == "B7":
+        ops = (torch.randn(n, h * f, device=dev, generator=gen),
+               torch.randn(n, h * f, device=dev, generator=gen),
+               torch.randn(h, f, device=dev, generator=gen))
+        kernel, plain = gta.tile_v2_fwd_cuda, gta.tile_v2_fwd_plain
+    else:
+        ops = (torch.randn(n, h, device=dev, generator=gen),
+               torch.randn(n, h, device=dev, generator=gen),
+               torch.randn(n, h * f, device=dev, generator=gen))
+        kernel, plain = gta.tile_fwd_cuda, gta.tile_fwd_plain
+    first = kernel(b, *ops, h, f, 0.2)
+    second = kernel(b, *ops, h, f, 0.2)
+    ref = plain(b, *ops, h, f, 0.2)
+    torch.cuda.synchronize()
+    for x, y, r in zip(first, second, ref):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+    assert (first[2][:128] == gta.NEG).all() and not first[0][:128].any()
+    sched, counters = b.cache[("gat_tile", gta.MAX_TILES)]
+    assert sched.n_slots > 0 and not counters.any()
+
+
+def test_wide_heads_never_reach_the_plain_versions(dev, monkeypatch):
+    """F > 64 on CUDA tensors launches the kernels (their counters rise) and
+    never calls a plain version."""
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version was called for CUDA tensors")
+
+    for name in dir(gta):
+        if name.endswith("_plain") and name.startswith("tile_"):
+            monkeypatch.setattr(gta, name, refuse)
+    monkeypatch.setattr(gta, "softmax_merge", refuse)
+    h, f = 2, 96
+    b, bt = (x.to(dev) for x in gat_tiles(True, torch.float32, False))
+    before = dict(gta.launches)
+    for v2 in (False, True):
+        shapes = ((300, h * f), (300, h * f), (h, f)) if v2 else ((300, h), (300, h), (300, h * f))
+        args = [torch.randn(*s, device=dev).requires_grad_(True) for s in shapes]
+        partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
+        num, den, _m = partials((h, f, 0.2), b, bt, *args)
+        (num.sum() + den.sum()).backward()
+    torch.cuda.synchronize()
+    assert {k: gta.launches[k] - before[k] for k in before} == {
+        "B3": 1, "B4": 0, "B5": 1, "B5s": 0, "B6": 1, "B6s": 0, "B7": 1, "B8": 1, "B9": 1}

@@ -1,0 +1,242 @@
+"""The work schedule of kernels B3 and B7 on the CPU, and wide heads.
+
+B3 and B7 cut each block row's tiles into work items of at most C tiles
+(B1's ``spmm_schedule``); the items of a split row write partials that the
+last to arrive merges in item order by the flash merge. ``scheduled_merge``
+is that split-and-merge in plain PyTorch. On the long-row tile set
+(``apps/time_spmm.long_row_matrix`` made square: block rows of 0, 1, C, C + 1,
+43 and 2 tiles, then 38 without tiles, a ragged last block) it is held
+against the plain versions and against the JAX package's
+``gat_tile_partials`` and ``gatv2_tile_partials`` (their Pallas bodies in
+interpret mode, as the JAX package's own tests run them): values to 1e-5,
+``m`` exactly against the plain versions and JAX's GAT. JAX's GATv2 logit
+sums its F terms as XLA compiles them (its own contraction of products and
+sums), so there ``m`` agrees to 1e-5 like the values, not bit for bit; both
+packages' ``m`` are then held against an f64 evaluation of the same edges,
+each within the bound of f32 summation, (F + 3) u sum_f |a_f leaky(pre_f)|
+(u = 2^-24), of the row's largest such sum.
+
+Wide heads (F = 65 and 128, above one 64-column slab): the port's partials
+and their gradients against JAX's, to 1e-4, on the 320-node graphs of
+``tests/test_torch_gat.py``. GATv2's attention vector ``a`` is scaled by
+1/sqrt(F), as a layer initialised for fan-in F holds it, so that the logits
+(sums of F terms) stay of unit scale at every F. At unit ``a`` and F = 128
+(logits of tens, gradients of hundreds) a few values of the two packages
+part by more than 1e-4; that case holds each package against the f64
+evaluation instead: within 1e-4 of the largest value, errors within 4x of
+each other, and ``m`` within the summation bound.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+from test_torch_gat import GRAD, N, graphs, np_of
+
+from pygcn_tpu.graph.graph import _build_bcsr as j_build_bcsr
+from pygcn_tpu.ops.pallas import gat_tile_attn as jtile
+
+from pygcn_tpu_torch.apps.time_spmm import long_row_counts, long_row_matrix
+from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
+from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+torch.set_num_threads(1)
+
+VAL = dict(rtol=1e-5, atol=1e-5)
+H, F, SLOPE = 2, 4, 0.2
+C = gta.MAX_TILES
+
+
+def square_long_rows(c, seed=0):
+    """The long-row matrix padded to a square node space (its columns)."""
+    m = long_row_matrix(c, np.random.default_rng(seed))
+    n = m.shape[1]
+    return sp.coo_matrix((np.ones(m.nnz, np.float32), (m.row, m.col)), shape=(n, n))
+
+
+def long_row_sets(c):
+    """The port's tiles (no padding tiles) and JAX's (with them), and n."""
+    m = square_long_rows(c)
+    b = drop_zero_tiles(_build_bcsr(m, (128, 128)))
+    assert tuple(np.diff(b.block_row_ptr.numpy()))[:6] == long_row_counts(c)
+    return b, j_build_bcsr(m, (128, 128)), m.shape[0]
+
+
+def operands(v2, n, h=H, f=F, seed=1):
+    rng = np.random.default_rng(seed)
+    if v2:
+        return (rng.normal(size=(n, h * f)).astype(np.float32),
+                rng.normal(size=(n, h * f)).astype(np.float32),
+                rng.normal(size=(h, f)).astype(np.float32))
+    return (rng.normal(size=(n, h)).astype(np.float32),
+            rng.normal(size=(n, h)).astype(np.float32),
+            rng.normal(size=(n, h * f)).astype(np.float32))
+
+
+def port_fns(v2):
+    """(plain, scheduled model, partials) of B7 with ``v2``, else of B3."""
+    if v2:
+        return gta.tile_v2_fwd_plain, gta.tile_v2_fwd_scheduled_plain, jtile.gatv2_tile_partials
+    return gta.tile_fwd_plain, gta.tile_fwd_scheduled_plain, jtile.gat_tile_partials
+
+
+def assert_partials(got, ref, exact_m=True):
+    """num and den to 1e-5, m bit for bit (or, without ``exact_m``, to 1e-5)."""
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(np_of(g), np_of(r), **VAL)
+    np.testing.assert_allclose(np_of(got[2]), np_of(ref[2]),
+                               **(dict(rtol=0, atol=0) if exact_m else VAL))
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["gat", "gatv2"])
+def test_scheduled_merge_matches_plain_and_jax(v2):
+    b, jb, n = long_row_sets(C)
+    ops = operands(v2, n)
+    plain, model, j_partials = port_fns(v2)
+    t_ops = [torch.from_numpy(x) for x in ops]
+    got = model(b, *t_ops, H, F, SLOPE, C)
+    assert_partials(got, plain(b, *t_ops, H, F, SLOPE))
+    j_out = j_partials((H, F, SLOPE), jb, jtile.transpose_bcsr(jb),
+                       *[jnp.asarray(x) for x in ops])
+    assert_partials(got, [np.asarray(x)[:n] for x in j_out], exact_m=not v2)
+    if v2:  # both m within f32 summation error of the f64 logits' max
+        (_, _, m64), _, bound = v2_f64(b, n, ops, None, H, F)
+        live = m64 > gta.NEG / 2
+        for m in (np_of(got[2]), np.asarray(j_out[2])[:n]):
+            assert (np.abs(m[live] - m64[live]) <= bound[live]).all()
+    # block row 0 has no tile; the split rows (C + 1 and 43 tiles) have rows
+    # that some of their items miss, whose parts are still at NEG there
+    assert (got[2][:128] == gta.NEG).all() and not got[0][:128].any() and not got[1][:128].any()
+    assert (got[2][128:768] > gta.NEG).any()
+
+
+@pytest.mark.parametrize("max_tiles", [1, 4, 8])
+@pytest.mark.parametrize("v2", [False, True], ids=["gat", "gatv2"])
+def test_scheduled_merge_at_any_c(v2, max_tiles):
+    """The model at other item sizes C, on the tile set made for C = 2: the
+    same function, ``m`` exactly."""
+    b, _, n = long_row_sets(C)
+    plain, model, _ = port_fns(v2)
+    t_ops = [torch.from_numpy(x) for x in operands(v2, n, seed=max_tiles)]
+    assert_partials(model(b, *t_ops, H, F, SLOPE, max_tiles), plain(b, *t_ops, H, F, SLOPE))
+
+
+def test_scheduled_merge_adds_nothing_from_parts_at_neg():
+    """Two items of one row, the second without an edge on row 0: the merge
+    equals the first item's partial there, whatever the second's sums hold
+    (a part at NEG is scaled by 0, never by exp(NEG - NEG) = 1)."""
+    t = 2
+    b = gta.BCSR(data=torch.zeros(t, 128, 128), block_rows=torch.zeros(t, dtype=torch.int32),
+                 block_cols=torch.arange(t, dtype=torch.int32),
+                 block_row_ptr=torch.tensor([0, t], dtype=torch.int32), tm=128, tk=128,
+                 n_block_rows=1, n_block_cols=t)
+    max_t = torch.full((t, 128, 1), gta.NEG)
+    max_t[0, 0] = 0.5
+    den_t, num_t = torch.ones(t, 128, 1), torch.full((t, 128, 3), 2.0)
+    num, den, m = gta.scheduled_merge(b, num_t, den_t, max_t, 128, 1)
+    assert m[0, 0] == 0.5 and den[0, 0] == 1.0 and (num[0] == 2.0).all()
+    assert (m[1:] == gta.NEG).all() and not den[1:].any() and not num[1:].any()
+
+
+def test_item_schedule_is_cached_apart_from_b1s(monkeypatch):
+    """B3/B7's schedule lives in ``bcsr.cache`` under its own key, with its own
+    counters (one per split item, zero), and is built once per tile set and C."""
+    b, _, _ = long_row_sets(C)
+    sched, counters = gta._item_schedule(b)
+    assert ("gat_tile", C) in b.cache and len(b.cache) == 1
+    assert torch.equal(sched.items, b1.spmm_schedule(b, C).items)
+    assert counters.numel() == sched.n_slots and not counters.any()
+    assert gta._item_schedule(b)[1] is counters
+    b1._device_schedule(b, 40)
+    assert len(b.cache) == 2 and gta._item_schedule(b)[1] is counters
+    monkeypatch.setattr(gta, "MAX_TILES", 4)
+    assert gta._item_schedule(b)[0].items.shape[0] < sched.items.shape[0]
+
+
+def v2_f64(b, n, ops, cot, h, f):
+    """GATv2's partials ``(num, den, m)`` over the tile edges of ``b`` in f64
+    from the f32 operands ``ops`` (numpy), one edge at a time, with ``m``
+    held fixed in the VJP as the kernels hold it; their gradients
+    ``(dsl, dsr, da)`` for the cotangents ``cot`` (None: none); and per row the
+    bound on f32 error in ``m``, ``(F + 3) u`` times the largest
+    ``sum_f |a_f leaky(pre_f)|`` over the row's edges."""
+    t, r, c = torch.nonzero(b.data, as_tuple=True)
+    v, u = b.block_rows.long()[t] * b.tm + r, b.block_cols.long()[t] * b.tk + c
+    keep = (v < n) & (u < n)
+    v, u = v[keep], u[keep]
+    sl, sr, a = (torch.from_numpy(x).double().requires_grad_(cot is not None) for x in ops)
+    pre = sl.view(n, h, f)[u] + sr.view(n, h, f)[v]  # [E, h, f]
+    terms = a * torch.where(pre >= 0, pre, SLOPE * pre)
+    e = terms.sum(-1)
+    rows = v[:, None].expand(-1, h)
+    m = torch.full((n, h), gta.NEG, dtype=torch.float64).scatter_reduce(0, rows, e.detach(), "amax")
+    p = torch.exp(e - m[v])
+    den = torch.zeros(n, h, dtype=torch.float64).index_add(0, v, p)
+    num = torch.zeros(n, h, f, dtype=torch.float64).index_add(
+        0, v, p[..., None] * sl.view(n, h, f)[u]).view(n, h * f)
+    grads = None
+    if cot is not None:
+        grads = [g.numpy() for g in torch.autograd.grad(
+            (num, den), (sl, sr, a), [torch.from_numpy(x).double() for x in cot])]
+    bound = torch.zeros(n, h, dtype=torch.float64).scatter_reduce(
+        0, rows, terms.detach().abs().sum(-1), "amax") * (f + 3) * 2.0 ** -24
+    return (num.detach().numpy(), den.detach().numpy(), m.numpy()), grads, bound.numpy()
+
+
+def wide_case(v2, symmetric, h, f, unit_a=False):
+    """Operands, cotangents, and outputs and VJPs of both packages' partials
+    at heads ``h`` of width ``f``; GATv2's ``a`` scaled by 1/sqrt(F) unless
+    ``unit_a``."""
+    jg, tg = graphs(symmetric)
+    jt, tt = jtile.transpose_bcsr(jg.hybrid.bcsr), gta.transpose_bcsr(tg.hybrid.bcsr)
+    ops = operands(v2, N, h, f, seed=f)
+    if v2 and not unit_a:
+        ops = (*ops[:2], ops[2] / np.float32(np.sqrt(f)))
+    rng = np.random.default_rng(f + 1)
+    cot = [rng.normal(size=(N, h * f)).astype(np.float32),
+           rng.normal(size=(N, h)).astype(np.float32)]
+    j_fn = jtile.gatv2_tile_partials if v2 else jtile.gat_tile_partials
+    t_fn = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
+    j_out, j_vjp = jax.vjp(lambda *x: j_fn((h, f, SLOPE), jg.hybrid.bcsr, jt, *x),
+                           *[jnp.asarray(x) for x in ops])
+    j_grads = j_vjp((jnp.asarray(cot[0]), jnp.asarray(cot[1]), jnp.zeros_like(j_out[2])))
+    t_args = [torch.from_numpy(x).requires_grad_(True) for x in ops]
+    t_out = t_fn((h, f, SLOPE), tg.hybrid.bcsr, tt, *t_args)
+    t_grads = torch.autograd.grad(t_out[:2], t_args, [torch.from_numpy(c) for c in cot])
+    return (ops, cot), (j_out, j_grads), (t_out, t_grads)
+
+
+@pytest.mark.parametrize("hf", [(2, 65), (1, 128)], ids=["2x65", "1x128"])
+@pytest.mark.parametrize("v2", [False, True], ids=["gat", "gatv2"])
+def test_wide_heads_match_jax(v2, hf):
+    """Per-head widths above 64: the partials and their gradients
+    (``dlsrc, dldst, ds`` or ``dsl, dsr, da``) against JAX's, to 1e-4."""
+    _, (j_out, j_grads), (t_out, t_grads) = wide_case(v2, True, *hf)
+    for t_o, j_o in zip(t_out, j_out):
+        np.testing.assert_allclose(np_of(t_o), np.asarray(j_o), **GRAD)
+    for t_g, j_g in zip(t_grads, j_grads):
+        np.testing.assert_allclose(np_of(t_g), np.asarray(j_g), **GRAD)
+
+
+def test_wide_gatv2_at_unit_a_is_f32_rounding():
+    """GATv2 at one head of 128 and unit ``a``: the port and JAX each against
+    the f64 evaluation, partials and gradients within 1e-4 of the largest
+    value with errors within 4x of each other, ``m`` within the bound of f32
+    summation."""
+    h, f = 1, 128
+    (ops, cot), (j_out, j_grads), (t_out, t_grads) = wide_case(True, True, h, f, unit_a=True)
+    ref, ref_grads, bound = v2_f64(graphs(True)[1].hybrid.bcsr, N, ops, cot, h, f)
+    live = ref[2] > gta.NEG / 2
+    for i, (t, j, r) in enumerate(zip([*t_out, *t_grads], [*j_out, *j_grads], [*ref, *ref_grads])):
+        t, j = np_of(t).astype(np.float64), np.asarray(j)[:r.shape[0]].astype(np.float64)
+        if i == 2:
+            t, j, r = t[live], j[live], r[live]
+            assert (np.abs(t - r) <= bound[live]).all() and (np.abs(j - r) <= bound[live]).all()
+        scale = np.abs(r).max()
+        err_t, err_j = np.abs(t - r).max(), np.abs(j - r).max()
+        assert max(err_t, err_j) <= 1e-4 * scale, (i, err_t, err_j, scale)
+        floor = 1e-7 * scale
+        assert err_t <= 4 * max(err_j, floor) and err_j <= 4 * max(err_t, floor), (i, err_t, err_j)

@@ -56,6 +56,17 @@ def test_ab_tool_default_device_raises_without_cuda(monkeypatch):
         ab_kernel_stream.main(["--n_nodes", "200"])
 
 
+@pytest.mark.parametrize("tool", ["time_spmm", "time_gat"])
+def test_timing_tools_raise_without_cuda(monkeypatch, tool):
+    """The kernel timing scripts time the card only, before building any graph."""
+    import importlib
+
+    app = importlib.import_module(f"pygcn_tpu_torch.apps.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="times the CUDA device"):
+        app.main([])
+
+
 def _tiny_graph():
     return Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=True,
                           build_dense=False, build_hybrid=False, build_ell=False)

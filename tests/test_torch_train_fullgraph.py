@@ -182,3 +182,27 @@ def test_cli_synthetic_timing():
 def test_cli_unported_options_exit(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         tapp.main(["--device", "cpu", *flags])
+
+
+def test_throughput_line_matches_jax(monkeypatch, capsys):
+    """The same epoch time prints the same Medge-traversals/s as the JAX CLI:
+    3 SpMM-equivalents per layer (the forward, and two in the backward)."""
+    import time
+    import types
+
+    from pygcn_tpu.apps import train_fullgraph as japp
+
+    args = types.SimpleNamespace(epochs=4, layers=3, clustered=False)
+    graph = types.SimpleNamespace(n_edges=4_451_813)
+    lines = []
+    for run in (lambda: tapp._time_epochs(args, graph, lambda: 0.5),
+                lambda: japp._time_and_report(args, graph, None, lambda s: (*s, 0.5), (0,),
+                                              None)):
+        clock = iter([10.0, 10.1])  # 4 epochs in 0.1 s: 25 ms each
+        monkeypatch.setattr(time, "time", lambda: next(clock))
+        run()
+        monkeypatch.undo()
+        (line,) = [ln for ln in capsys.readouterr().out.splitlines() if "Medge" in ln]
+        lines.append(line)
+    assert lines[0] == lines[1]
+    assert f"~{4_451_813 * 9 / 0.025 / 1e6:.0f} Medge-traversals/s" in lines[0]
