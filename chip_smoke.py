@@ -62,10 +62,17 @@ RTOL = ATOL = 1e-4
 # more wider than one 64-column slab (2x65: a full slab and a ragged one;
 # 1x128: two full slabs, one head).
 GAT_SHAPES = ((2, 4), (8, 8), (4, 16), (1, 40), (3, 5), (2, 65), (1, 128), (8, 128))
-# GATv2's add the widths B9's register kernels reach above B7's and B8's
-# (2x48: the width-64 kernel with its last columns masked; 1x64: exactly one
-# slab, where B7 and B8 read their own rows from shared memory).
-GATV2_SHAPES = GAT_SHAPES + ((2, 48), (1, 64))
+# GATv2's add 2x48 (B8 and B9 on their F-chunked kernels with a ragged
+# chunk, B7 on its width-64 kernel with its last columns masked), 1x64 (one
+# slab, where B7 reads its own rows from shared memory), 1x160 (B8 and B9
+# past the width whose whole rows would fit an H100's shared memory) and
+# 1x224 (B7 past it too: its chunked kernel).
+GATV2_SHAPES = GAT_SHAPES + ((2, 48), (1, 64), (1, 160), (1, 224))
+# GATv2's kernels on dense rows (tile sets of density DENSE: more own edges of
+# a row in one work item than a batch of the chunked kernels holds), at the
+# widths of those kernels: B8 and B9 at all four, B7 at 1x224.
+DENSE = 0.35
+DENSE_SHAPES = ((2, 48), (8, 128), (1, 160), (1, 224))
 SLOPE = 0.2
 
 
@@ -207,7 +214,7 @@ def check_b1(torch):
           f"within rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
 
 
-def _gat_tiles(rng, symmetric, dtype, drop_padding):
+def _gat_tiles(rng, symmetric, dtype, drop_padding, density=0.05):
     """Ragged 300-node tile sets whose block row 1 has no edge, with or
     without the builder's zero padding tile, and their exact transpose (which
     has that empty block row too when the set is symmetric)."""
@@ -219,7 +226,7 @@ def _gat_tiles(rng, symmetric, dtype, drop_padding):
     from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
-    m = sp.random(300, 300, density=0.05, random_state=rng, format="coo", dtype=np.float32)
+    m = sp.random(300, 300, density=density, random_state=rng, format="coo", dtype=np.float32)
     keep = (m.row // 128 != 1) & ((m.col // 128 != 1) | (not symmetric))
     m = sp.coo_matrix((rng.uniform(0.5, 2.0, int(keep.sum())).astype(np.float32),
                        (m.row[keep], m.col[keep])), shape=m.shape)
@@ -238,7 +245,12 @@ def check_gat_tiles(torch, v2: bool):
     ``GATTilePartials`` (``dlsrc``, ``dldst``, ``ds``) or ``GATv2TilePartials``
     (``dsl``, ``dsr``, ``da``). GATv2's ``a`` is drawn at unit scale; at
     F >= 64 the kernels on that draw are held against the f64 plain versions
-    (:func:`_v2_unit_a_errors`), and ``a / sqrt(F)`` against the f32 ones."""
+    (:func:`_v2_f64_errors`), and ``a / sqrt(F)`` against the f32 ones, but
+    for ``da`` above F = 128, which is held against f64 too. GATv2 also runs
+    on two dense tile sets (:data:`DENSE`), rows of more own edges in one
+    work item than a batch of the chunked kernels, at :data:`DENSE_SHAPES`
+    and ``a / sqrt(F)`` only; there ``da``, a sum over every node of
+    hundreds, is held against f64 at every F."""
     import numpy as np
 
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
@@ -249,67 +261,93 @@ def check_gat_tiles(torch, v2: bool):
     worst = 0.0
     cases = 0
     unit_a = dict.fromkeys(V2_OUTPUTS, (0.0, 0.0))  # largest (kernel, plain) relative errs
-    for symmetric in (False, True):
-        for dtype in (torch.float32, torch.bfloat16):
-            for drop_padding in (False, True):
-                b, bt = _gat_tiles(rng, symmetric, dtype, drop_padding)
-                for h, f in shapes:
-                    op_shapes = (((300, h * f), (300, h * f), (h, f)) if v2
-                                 else ((300, h), (300, h), (300, h * f)))
-                    ops = [torch.randn(*shape, device="cuda", generator=gen)
-                           for shape in op_shapes]
-                    cot = [torch.randn(300, w, device="cuda", generator=gen) for w in (h * f, h)]
-                    label = (f"{names} {'sym' if symmetric else 'asym'} {dtype} "
-                             f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
-                    if v2 and f >= 64:
-                        for name, errs in _v2_unit_a_errors(torch, b, bt, ops, cot, h, f,
-                                                            label).items():
-                            unit_a[name] = tuple(map(max, unit_a[name], errs))
-                        ops[2] = ops[2] / f ** 0.5  # a for fan-in F: logits of unit scale
-                    args = [o.clone().requires_grad_(True) for o in ops]
-                    partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
-                    got = partials((h, f, SLOPE), b, bt, *args)
-                    grads = torch.autograd.grad(got[:2], args, cot)
-                    ref = (gta.tile_v2_fwd_plain if v2 else gta.tile_fwd_plain)(
-                        b, *ops, h, f, SLOPE)
-                    bwd = (*ops, ref[2], *cot, h, f, SLOPE)
-                    if v2:
-                        dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
-                        ref_grads = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr,
-                                     dapart.sum(dim=0).view(h, f))
-                    else:
-                        ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
-                        ref_grads = (dlsrc, gta.tile_bwd_dldst_plain(b, *bwd), ds)
-                    torch.cuda.synchronize()
-                    for a, r in list(zip(got, ref)) + list(zip(grads, ref_grads)):
-                        if a.shape != r.shape or not torch.isfinite(a).all():
-                            fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
-                        torch.testing.assert_close(a.detach(), r, rtol=RTOL, atol=ATOL)
-                        worst = max(worst, float((a.detach() - r).abs().max()))
-                    # grads[1] is the receiver gradient: dldst, or dsr
-                    if not ((got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
-                            and not got[1][128:256].any() and not grads[1][128:256].any()):
-                        fail(f"{label}: the block row without edges is not num = den = 0, "
-                             f"m = NEG, {'dsr' if v2 else 'dldst'} = 0")
-                    cases += 1
+    wide_da = (0.0, 0.0)  # the same of da at F > 128 (or on dense rows), a / sqrt(F)
+    # (symmetric, tile dtype, drop the padding tile, dense, shapes)
+    sets = [(symmetric, dtype, drop_padding, False, shapes) for symmetric in (False, True)
+            for dtype in (torch.float32, torch.bfloat16) for drop_padding in (False, True)]
+    if v2:
+        sets += [(False, torch.float32, True, True, DENSE_SHAPES),
+                 (True, torch.bfloat16, False, True, DENSE_SHAPES)]
+    most_edges = 1 << 30  # a tile set's most own edges of a row in one work item, the
+    # fewest over the dense sets
+    for symmetric, dtype, drop_padding, dense, set_shapes in sets:
+        b, bt = _gat_tiles(rng, symmetric, dtype, drop_padding, DENSE if dense else 0.05)
+        if dense:
+            most_edges = min(most_edges, *(gta.most_own_edges(x) for x in (b, bt)))
+            if most_edges <= gta.CHUNK_EDGES:
+                fail(f"a dense tile set has rows of at most {most_edges} edges in a work "
+                     f"item, not more than a batch of {gta.CHUNK_EDGES}")
+        for h, f in set_shapes:
+            op_shapes = (((300, h * f), (300, h * f), (h, f)) if v2
+                         else ((300, h), (300, h), (300, h * f)))
+            ops = [torch.randn(*shape, device="cuda", generator=gen) for shape in op_shapes]
+            cot = [torch.randn(300, w, device="cuda", generator=gen) for w in (h * f, h)]
+            label = (f"{names} {'dense ' if dense else ''}{'sym' if symmetric else 'asym'} "
+                     f"{dtype} {'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
+            if dense:
+                ops[2] = ops[2] / f ** 0.5
+            elif v2 and f >= 64:
+                for name, errs in _v2_f64_errors(torch, b, bt, ops, cot, h, f, label).items():
+                    unit_a[name] = tuple(map(max, unit_a[name], errs))
+                ops[2] = ops[2] / f ** 0.5  # a for fan-in F: logits of unit scale
+            # da sums over every node; above F = 128, or on dense rows, it reaches
+            # hundreds and the f32 plain version's own error there about 5e-4: it
+            # is held against the f64 plain versions (as the unit-a draws), the
+            # rest at 1e-4
+            da_f64 = v2 and (f > 128 or dense)
+            if da_f64:
+                errs = _v2_f64_errors(torch, b, bt, ops, cot, h, f, label)["da"]
+                wide_da = tuple(map(max, wide_da, errs))
+            args = [o.clone().requires_grad_(True) for o in ops]
+            partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
+            got = partials((h, f, SLOPE), b, bt, *args)
+            grads = torch.autograd.grad(got[:2], args, cot)
+            ref = (gta.tile_v2_fwd_plain if v2 else gta.tile_fwd_plain)(b, *ops, h, f, SLOPE)
+            bwd = (*ops, ref[2], *cot, h, f, SLOPE)
+            if v2:
+                dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+                ref_grads = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr,
+                             dapart.sum(dim=0).view(h, f))
+            else:
+                ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
+                ref_grads = (dlsrc, gta.tile_bwd_dldst_plain(b, *bwd), ds)
+            torch.cuda.synchronize()
+            pairs = list(zip(got, ref)) + list(zip(grads, ref_grads))
+            for i, (a, r) in enumerate(pairs):
+                if a.shape != r.shape or not torch.isfinite(a).all():
+                    fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
+                if da_f64 and i == len(pairs) - 1:
+                    continue  # da, held against f64 above
+                torch.testing.assert_close(a.detach(), r, rtol=RTOL, atol=ATOL)
+                worst = max(worst, float((a.detach() - r).abs().max()))
+            # grads[1] is the receiver gradient: dldst, or dsr
+            if not ((got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
+                    and not got[1][128:256].any() and not grads[1][128:256].any()):
+                fail(f"{label}: the block row without edges is not num = den = 0, "
+                     f"m = NEG, {'dsr' if v2 else 'dldst'} = 0")
+            cases += 1
     vjp = ("dsl/dsr/da through GATv2TilePartials" if v2
            else "dlsrc/dldst/ds through GATTilePartials")
+    dense_note = (f"; two dense sets at (H, F) in {list(DENSE_SHAPES)}, at least "
+                  f"{most_edges} edges in one work item on some row, da against f64"
+                  if v2 else "")
     long_rows = check_long_rows(torch, v2)
     print(f"{names} vs plain on the card: {cases} cases (asymmetric and symmetric ragged "
           f"300-node tile sets, f32 and bf16 tiles, an empty block row with and without its "
-          f"padding tile, (H, F) in {list(shapes)}; num/den/m and the VJP {vjp}) within "
-          f"rtol=atol={RTOL}; max abs err {worst:.3e}; {long_rows}", flush=True)
+          f"padding tile, (H, F) in {list(shapes)}{dense_note}; num/den/m and the VJP {vjp}) "
+          f"within rtol=atol={RTOL}; max abs err {worst:.3e}; {long_rows}", flush=True)
     if v2:
         print("B7/B8/B9 at unit a and F >= 64 against the f64 plain versions (largest error "
               "over the cases, relative to the largest f64 value: kernel / f32 plain): "
-              + ", ".join(f"{k} {ek:.2e} / {ep:.2e}" for k, (ek, ep) in unit_a.items()),
-              flush=True)
+              + ", ".join(f"{k} {ek:.2e} / {ep:.2e}" for k, (ek, ep) in unit_a.items())
+              + f"; da at F > 128 or on dense rows, a / sqrt(F): {wide_da[0]:.2e} / "
+              f"{wide_da[1]:.2e}", flush=True)
 
 
 V2_OUTPUTS = ("num", "den", "m", "dsl", "dsr", "da")
 
 
-def _v2_unit_a_errors(torch, b, bt, ops, cot, h, f, label):
+def _v2_f64_errors(torch, b, bt, ops, cot, h, f, label):
     """GATv2 with ``a`` of unit scale at F >= 64: logits of 64 or more terms
     reach tens and gradients hundreds (``da`` sums them over every node, with
     cancellation), so a few values of the kernels and of the f32 plain
@@ -317,8 +355,9 @@ def _v2_unit_a_errors(torch, b, bt, ops, cot, h, f, label):
     versions in f64 on the same inputs (partials, and the VJP through
     ``GATv2TilePartials``): each within 1e-4 of the largest f64 value, and the
     kernels' error within 4x the f32 plain version's, so what parts them is
-    f32 rounding of the same order. Returns each output's (kernel, plain)
-    error relative to its largest f64 value."""
+    f32 rounding of the same order. Above F = 128 ``da`` reaches a thousand
+    even at ``a / sqrt(F)``, so that draw's ``da`` is held so too. Returns
+    each output's (kernel, plain) error relative to its largest f64 value."""
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
     args = [o.clone().requires_grad_(True) for o in ops]
@@ -352,9 +391,10 @@ def _v2_unit_a_errors(torch, b, bt, ops, cot, h, f, label):
 
 
 def check_long_rows(torch, v2: bool):
-    """B3 (B7 with ``v2``) on the long-row tile set made square (block rows of
-    0, 1, C, C + 1, 43 and 2 tiles, then none; 5631 nodes): within the
-    tolerance of the plain version and the same bits in two launches."""
+    """B3 (with ``v2``: B7, B8 and B9) on the long-row tile set made square
+    (block rows of 0, 1, C, C + 1, 43 and 2 tiles, then none; 5631 nodes),
+    B9 on its transpose: within the tolerance of the plain version and the
+    same bits in two launches, the arrival counters back at zero."""
     import dataclasses
 
     import numpy as np
@@ -364,9 +404,7 @@ def check_long_rows(torch, v2: bool):
     from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
-    name = "B7" if v2 else "B3"
-    kernel, plain = ((gta.tile_v2_fwd_cuda, gta.tile_v2_fwd_plain) if v2
-                     else (gta.tile_fwd_cuda, gta.tile_fwd_plain))
+    names = "B7/B8/B9" if v2 else "B3"
     rng = np.random.default_rng(6)
     gen = torch.Generator(device="cuda").manual_seed(6)
     m = long_row_matrix(gta.MAX_TILES, rng)
@@ -375,30 +413,49 @@ def check_long_rows(torch, v2: bool):
     worst, cases = 0.0, 0
     for dtype in (torch.float32, torch.bfloat16):
         b = drop_zero_tiles(_build_bcsr(m, (128, 128)))
-        b = dataclasses.replace(b, data=b.data.to(dtype)).to("cuda")
+        b = dataclasses.replace(b, data=b.data.to(dtype))
+        bt = gta.transpose_bcsr(b).to("cuda")
+        b = b.to("cuda")
         for h, f in ((8, 8), (1, 40), (2, 65), (8, 128)):
             shapes = ((n, h * f), (n, h * f), (h, f)) if v2 else ((n, h), (n, h), (n, h * f))
             ops = [torch.randn(*s, device="cuda", generator=gen) for s in shapes]
             if v2 and f >= 64:
                 ops[2] = ops[2] / f ** 0.5
-            got, again = kernel(b, *ops, h, f, SLOPE), kernel(b, *ops, h, f, SLOPE)
-            ref = plain(b, *ops, h, f, SLOPE)
-            torch.cuda.synchronize()
-            label = f"{name} long rows {dtype} H={h} F={f}"
-            for a, r, a2 in zip(got, ref, again):
-                if a.shape != r.shape or not torch.isfinite(a).all():
-                    fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
-                torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
-                if not torch.equal(a, a2):
-                    fail(f"{label}: two launches gave other bits")
-                worst = max(worst, float((a - r).abs().max()))
-            if not ((got[2][:128] == gta.NEG).all() and not got[0][:128].any()):
-                fail(f"{label}: the block row without tiles is not num = 0, m = NEG")
-            cases += 1
-        counters = b.cache[("gat_tile", gta.MAX_TILES)][1]
-        if counters.any():
-            fail(f"{name} long rows: arrival counters not back at zero")
-    return (f"{name} on block rows of {long_row_counts(gta.MAX_TILES)} tiles: {cases} cases "
+            if v2:
+                dnum = torch.randn(n, h * f, device="cuda", generator=gen)
+                dden = torch.randn(n, h, device="cuda", generator=gen)
+                mx = gta.tile_v2_fwd_plain(b, *ops, h, f, SLOPE)[2]
+                bwd = (*ops, mx, dnum, dden, h, f, SLOPE)
+                runs = {"B7": (lambda: gta.tile_v2_fwd_cuda(b, *ops, h, f, SLOPE),
+                               lambda: gta.tile_v2_fwd_plain(b, *ops, h, f, SLOPE)),
+                        "B8": (lambda: gta.tile_v2_bwd_recv_cuda(b, *bwd),
+                               lambda: gta.tile_v2_bwd_recv_plain(b, *bwd)),
+                        "B9": (lambda: (gta.tile_v2_bwd_send_cuda(bt, *bwd),),
+                               lambda: (gta.tile_v2_bwd_send_plain(bt, *bwd),))}
+            else:
+                runs = {"B3": (lambda: gta.tile_fwd_cuda(b, *ops, h, f, SLOPE),
+                               lambda: gta.tile_fwd_plain(b, *ops, h, f, SLOPE))}
+            for name, (kernel, plain) in runs.items():
+                got, again, ref = kernel(), kernel(), plain()
+                torch.cuda.synchronize()
+                label = f"{name} long rows {dtype} H={h} F={f}"
+                for a, r, a2 in zip(got, ref, again):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"{label}: shape {tuple(a.shape)} or non-finite values")
+                    torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+                    if not torch.equal(a, a2):
+                        fail(f"{label}: two launches gave other bits")
+                    worst = max(worst, float((a - r).abs().max()))
+                if name in ("B3", "B7") and not ((got[2][:128] == gta.NEG).all()
+                                                 and not got[0][:128].any()):
+                    fail(f"{label}: the block row without tiles is not num = 0, m = NEG")
+                if name == "B8" and (got[0][:128].any() or got[1][:128].any()):
+                    fail(f"{label}: the block row without tiles has a gradient")
+                cases += 1
+        for tiles in ((b, bt) if v2 else (b,)):
+            if tiles.cache[("gat_tile", gta.MAX_TILES)][1].any():
+                fail(f"{names} long rows: arrival counters not back at zero")
+    return (f"{names} on block rows of {long_row_counts(gta.MAX_TILES)} tiles: {cases} cases "
             f"bitwise equal in two launches, max abs err {worst:.3e}")
 
 
@@ -773,8 +830,13 @@ def _tile_csr(torch, bcsr, n_rows, n_cols):
 
 # B1's work-item sizes C timed by time_b1 (B1's MAX_TILES was picked from them)
 SWEEP_MAX_TILES = (2, 4, 8)
-# B3's and B7's, timed by time_gat
+# B3's, B7's, B8's and B9's, timed by time_gat
 SWEEP_GAT_MAX_TILES = (1, 2, 4)
+# The GAT kernels on work items, with their split-row workspace's floats a
+# row (given H and H·F): B3's and B7's (num, den, m), B8's (dsr, dapart),
+# B9's (dsl).
+ITEM_KERNELS = {"B3": lambda h, hf: hf + 2 * h, "B7": lambda h, hf: hf + 2 * h,
+                "B8": lambda h, hf: 2 * hf, "B9": lambda h, hf: hf}
 
 
 def time_b1(torch, graph):
@@ -856,9 +918,9 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     and plain times (CUDA events), the bound of each function, the kernel's
     time without the longest block row (``ms_without_longest_row``, a
     diagnostic of the launch's tail), and for the stream kernels their
-    merge's time and bound. B3 and B7 also at each C of
-    :data:`SWEEP_GAT_MAX_TILES` (two runs in turns) and the same bits in two
-    launches."""
+    merge's time and bound. The kernels on work items (:data:`ITEM_KERNELS`)
+    also at each C of :data:`SWEEP_GAT_MAX_TILES` (two runs in turns) and the
+    same bits in two launches."""
     from pygcn_tpu_torch.apps.time_spmm import F32_FLOPS, HBM_BYTES_PER_S, without_longest_row
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
@@ -891,10 +953,38 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     def tile_bytes(b):
         return b.data.shape[0] * b.tm * b.tk * b.data.element_size()
 
+    t_blocks = bcsr.data.shape[0] * bcsr.tm  # rows of the per-tile blocks
+    tt_blocks = tiles_t.data.shape[0] * tiles_t.tm
+
+    def gat_bytes(name, h, f):
+        """Bytes kernel ``name`` must move at H x F: the tiles, the operand
+        rows under them, and its outputs (for the stream kernels, per-tile
+        blocks), each read or written once."""
+        hf = h * f
+        fwd_t, bwd_t = tile_bytes(bcsr), tile_bytes(tiles_t)
+        return {
+            "B3": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + n * (hf + 2 * h)),
+            "B5": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + n * h),
+            "B6": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + n * (hf + h)),
+            "B4": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + t_blocks * (hf + 2 * h)),
+            "B5s": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + t_blocks * h),
+            "B6s": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + tt_blocks * (hf + h)),
+            "B7": fwd_t + 4 * (fwd_cols * hf + fwd_rows * hf + hf + n * (hf + 2 * h)),
+            "B8": fwd_t + 4 * (fwd_cols * hf + fwd_rows * (2 * hf + 2 * h) + hf + n * 2 * hf),
+            "B9": bwd_t + 4 * (t_rows * hf + t_cols * (2 * hf + 2 * h) + hf + n * hf),
+        }[name]
+
+    def bound(name, h, f):
+        """(bound ms, what bounds it, bytes, operations) of kernel ``name``."""
+        nbytes, flops = gat_bytes(name, h, f), nnz * h * ops_per_term[name](f)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes,
+                flops)
+
     short = {id(bcsr): without_longest_row(bcsr), id(tiles_t): without_longest_row(tiles_t)}
 
-    # B5/B6/B8/B9: one CTA per (head, block row) walks the row's tiles, so the
-    # longest rows set their tail; B3 and B7 split them into work items
+    # B5/B6: one CTA per (head, block row) walks the row's tiles, so the
+    # longest rows set their tail; B3, B7, B8 and B9 split them into work items
     for label, b in (("forward", bcsr), ("transpose", tiles_t)):
         per_row = torch.diff(b.block_row_ptr.long())
         print(f"GAT {label} tiles per block row: mean {float(per_row.float().mean()):.2f}, "
@@ -906,9 +996,8 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     for h, f in ((8, 8), (1, 40)):
         hf = h * f
         dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (hf, h))
-        # name: (kernel, plain, tiles, bytes: tiles + operand rows under the
-        #        tiles + outputs, each read or written once; for the stream
-        #        kernels, the merge of the kernel's blocks)
+        # name: (kernel, plain, tiles, for the stream kernels the merge of
+        #        the kernel's blocks)
         if v2:
             sl2, sr2 = (torch.randn(n, hf, device="cuda", generator=gen) for _ in range(2))
             a = torch.randn(h, f, device="cuda", generator=gen)
@@ -916,56 +1005,36 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             bwd = (sl2, sr2, a, gta.tile_v2_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
             runs = {
                 "B7": (lambda b: gta.tile_v2_fwd_cuda(b, *fwd[1:]),
-                       lambda b: gta.tile_v2_fwd_plain(b, *fwd[1:]), bcsr,
-                       tile_bytes(bcsr) + 4 * (fwd_cols * hf + fwd_rows * hf + hf
-                                               + n * (hf + 2 * h)), None),
+                       lambda b: gta.tile_v2_fwd_plain(b, *fwd[1:]), bcsr, None),
                 "B8": (lambda b: gta.tile_v2_bwd_recv_cuda(b, *bwd),
-                       lambda b: gta.tile_v2_bwd_recv_plain(b, *bwd), bcsr,
-                       tile_bytes(bcsr) + 4 * (fwd_cols * hf + fwd_rows * (2 * hf + 2 * h) + hf
-                                               + n * 2 * hf), None),
+                       lambda b: gta.tile_v2_bwd_recv_plain(b, *bwd), bcsr, None),
                 "B9": (lambda b: gta.tile_v2_bwd_send_cuda(b, *bwd),
-                       lambda b: gta.tile_v2_bwd_send_plain(b, *bwd), tiles_t,
-                       tile_bytes(tiles_t) + 4 * (t_rows * hf + t_cols * (2 * hf + 2 * h) + hf
-                                                  + n * hf), None),
+                       lambda b: gta.tile_v2_bwd_send_plain(b, *bwd), tiles_t, None),
             }
         else:
             lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
             s2 = torch.randn(n, hf, device="cuda", generator=gen)
             fwd = (bcsr, lsrc, ldst, s2, h, f, SLOPE)
             bwd = (lsrc, ldst, s2, gta.tile_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
-            t_blocks = bcsr.data.shape[0] * bcsr.tm  # rows of the per-tile blocks
-            tt_blocks = tiles_t.data.shape[0] * tiles_t.tm
             runs = {
                 "B3": (lambda b: gta.tile_fwd_cuda(b, *fwd[1:]),
-                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr,
-                       tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * h
-                                               + n * (hf + 2 * h)), None),
+                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr, None),
                 "B5": (lambda b: gta.tile_bwd_dldst_cuda(b, *bwd),
-                       lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr,
-                       tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf)
-                                               + n * h), None),
+                       lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr, None),
                 "B6": (lambda b: gta.tile_bwd_sender_cuda(b, *bwd),
-                       lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t,
-                       tile_bytes(tiles_t) + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
-                                                  + n * (hf + h)), None),
+                       lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t, None),
                 "B4": (lambda b: gta.tile_fwd_stream_cuda(b, *fwd[1:]),
                        lambda b: gta.tile_fwd_stream_plain(b, *fwd[1:]), bcsr,
-                       tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * h
-                                               + t_blocks * (hf + 2 * h)),
                        lambda out: gta.softmax_merge(bcsr, *out, n)),
                 "B5s": (lambda b: gta.tile_bwd_dldst_stream_cuda(b, *bwd),
                         lambda b: gta.tile_bwd_dldst_stream_plain(b, *bwd), bcsr,
-                        tile_bytes(bcsr) + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf)
-                                                + t_blocks * h),
                         lambda out: sum_by_block_row(out[0], bcsr, n)),
                 "B6s": (lambda b: gta.tile_bwd_sender_stream_cuda(b, *bwd),
                         lambda b: gta.tile_bwd_sender_stream_plain(b, *bwd), tiles_t,
-                        tile_bytes(tiles_t) + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
-                                                   + tt_blocks * (hf + h)),
                         lambda out: (sum_by_block_row(out[0], tiles_t, n),
                                      sum_by_block_row(out[1], tiles_t, n))),
             }
-        for name, (kernel_on, plain_on, tiles, nbytes, merge) in runs.items():
+        for name, (kernel_on, plain_on, tiles, merge) in runs.items():
             kernel, plain = (lambda: kernel_on(tiles)), (lambda: plain_on(tiles))
             a, r = kernel(), plain()
             torch.cuda.synchronize()
@@ -974,8 +1043,9 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             for x, y in zip(a, r):
                 torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
                 err = max(err, float((x - y).abs().max()))
-            if name in ("B3", "B7"):
+            if name in ITEM_KERNELS:
                 again = kernel()
+                again = again if isinstance(again, tuple) else (again,)
                 torch.cuda.synchronize()
                 if not all(torch.equal(x, y) for x, y in zip(a, again)):
                     fail(f"{name} at H={h} F={f} gave other bits in a second launch")
@@ -984,15 +1054,13 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             plain_ms = cuda_ms(plain, iters=5, warmup=1)
             ms2 = cuda_ms(kernel, iters=20)
             short_ms = cuda_ms(lambda: kernel_on(short[id(tiles)]), iters=20)
-            flops = nnz * h * ops_per_term[name](f)
-            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+            bound_ms, bound_by, nbytes, flops = bound(name, h, f)
             row = {"kernel": name, "H": h, "F": f, "tiles": tiles.data.shape[0],
                    "tile_nnz": nnz, "ms": min(ms, ms2), "ms_runs": [ms, ms2],
                    "ms_without_longest_row": short_ms, "plain_ms": plain_ms, "library_ms": None,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                   "bytes": nbytes, "flops": flops, "max_abs_err": err}
-            if name in ("B3", "B7"):
+                   "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                   "max_abs_err": err}
+            if name in ITEM_KERNELS:
                 by_c = {c: [] for c in SWEEP_GAT_MAX_TILES}
                 saved_c = gta.MAX_TILES
                 try:
@@ -1006,7 +1074,7 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                 row.update(ms_by_max_tiles={c: min(v) for c, v in by_c.items()},
                            ms_by_max_tiles_runs=by_c, items=sched.items.shape[0],
                            split_slots=sched.n_slots,
-                           workspace_bytes=sched.n_slots * tiles.tm * (hf + 2 * h) * 4)
+                           workspace_bytes=sched.n_slots * tiles.tm * ITEM_KERNELS[name](h, hf) * 4)
             if merge is not None:
                 # the merge reads the blocks once and writes [n, W] once
                 merge_bytes = sum(x.numel() * 4 + n * x.shape[2] * 4 for x in a)
@@ -1018,16 +1086,17 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     print(f"{'/'.join(runs)} library_ms: null; no single PyTorch call computes these "
           "attention partials or their gradients (a sparse softmax over the tile edges "
           "would need several)", flush=True)
-    time_wide_heads(torch, bcsr, tiles_t, n, v2)
+    time_wide_heads(torch, bcsr, tiles_t, n, v2, bound)
     gta.launches.update(saved)
     return rows
 
 
-def time_wide_heads(torch, bcsr, tiles_t, n, v2: bool):
+def time_wide_heads(torch, bcsr, tiles_t, n, v2: bool, bound):
     """Each tile kernel of the version at the CLI's default width, 8 heads of
-    128, on the main path's tiles: kernel times only (:func:`check_gat_tiles`
-    and :func:`check_stream_kernels` hold them against their plain versions at
-    8x128 on the small tile sets), the backward fed the forward kernel's m."""
+    128, on the main path's tiles: kernel times (:func:`check_gat_tiles` and
+    :func:`check_stream_kernels` hold them against their plain versions at
+    8x128 on the small tile sets), the backward fed the forward kernel's m,
+    each beside its bound (``bound(name, h, f)`` of :func:`time_gat`)."""
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.utils.timing import cuda_ms
 
@@ -1053,9 +1122,11 @@ def time_wide_heads(torch, bcsr, tiles_t, n, v2: bool):
                 "B4": lambda: gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE),
                 "B5s": lambda: gta.tile_bwd_dldst_stream_cuda(bcsr, *bwd),
                 "B6s": lambda: gta.tile_bwd_sender_stream_cuda(tiles_t, *bwd)}
-    wide = {name: cuda_ms(fn, iters=5) for name, fn in runs.items()}
+    wide = {name: {"ms": cuda_ms(fn, iters=5), "bound_ms": bound(name, h, f)[0],
+                   "bound_by": bound(name, h, f)[1]} for name, fn in runs.items()}
     torch.cuda.synchronize()
-    print(f"{'/'.join(runs)} at 8 heads of 128 (ms): " + json.dumps(wide), flush=True)
+    print(f"{'/'.join(runs)} at 8 heads of 128 (ms, beside the bound): " + json.dumps(wide),
+          flush=True)
     return wide
 
 

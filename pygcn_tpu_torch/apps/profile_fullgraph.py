@@ -4,7 +4,9 @@ Builds the same run as ``train_fullgraph`` (any of its flags; ``--clustered``
 for the flagship), warms up, then traces a few training steps with
 ``torch.profiler`` and prints one JSON line: the host wall time per step (without and with the
 profiler), the device time per step summed over kernels, the device's busy
-share of the profiled window, and the kernels by device time per step. Needs a CUDA card.
+share of the profiled window, the kernels by device time per step, and the
+device memory of one step read phase by phase (``memory_gib``: where its peak
+falls). Needs a CUDA card.
 ``--stream`` (read here, not by ``train_fullgraph``) runs the per-tile kernels:
 ``BCSR_STREAM = True`` and ``TILE_REVISIT = False`` for the run.
 
@@ -25,7 +27,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pygcn_tpu_torch.apps.train_fullgraph import parse_args, prepare, train_step
+from pygcn_tpu_torch.apps.train_fullgraph import masked_nll, parse_args, prepare, train_step
 
 STEPS = 5
 WARMUP = 3
@@ -75,6 +77,7 @@ def _profile(args, stream: bool) -> dict:
             step()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    memory = _memory_phases(run)
     kernels = [(e.key, _kernel_us(e) / STEPS / 1e3, e.count / STEPS)
                for e in prof.key_averages() if _kernel_us(e) > 0]
     kernels.sort(key=lambda k: -k[1])
@@ -90,10 +93,34 @@ def _profile(args, stream: bool) -> dict:
         "device_ms_per_step": device_ms,
         "busy_share": device_ms / step_ms if step_ms else None,
         "tile_frac": run.tile_frac,
+        "memory_gib": memory,
         "kernels": [{"name": n[:120], "ms_per_step": ms, "calls_per_step": c}
                     for n, ms, c in kernels[:25]],
     }
     print(json.dumps(out))
+    return out
+
+
+def _memory_phases(run) -> dict:
+    """One more training step, taken phase by phase as ``train_step`` runs it,
+    with the caching allocator's counts in GiB: allocated before it, the peak
+    of the forward up to the loss and what it leaves allocated, the peak of
+    the backward, and of the optimiser's update."""
+    gib = 2.0 ** -30
+    run.opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"before": torch.cuda.memory_allocated() * gib}
+    loss = masked_nll(run.model(run.x, run.graph, **run.fwd_kw), run.labels, run.mask)
+    out.update(forward_peak=torch.cuda.max_memory_allocated() * gib,
+               after_forward=torch.cuda.memory_allocated() * gib)
+    torch.cuda.reset_peak_memory_stats()
+    loss.backward()
+    out["backward_peak"] = torch.cuda.max_memory_allocated() * gib
+    torch.cuda.reset_peak_memory_stats()
+    run.opt.step()
+    torch.cuda.synchronize()
+    out["update_peak"] = torch.cuda.max_memory_allocated() * gib
     return out
 
 

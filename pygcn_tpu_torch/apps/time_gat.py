@@ -2,21 +2,28 @@
 on the flagship's tiles (ogbn-arxiv scale, the ``--clustered`` hybrid
 layout), on one CUDA card.
 
-- ``WIDTH_SHAPES``: B7, B8 and B9 at per-head widths between 40 and one
-  64-column slab, which the main path never runs (``--hidden`` 8 and 128).
+- ``WIDTH_SHAPES``: B7, B8 and B9 at the main path's layers (8x8 and 1x40
+  at ``--hidden 8``, 8x128 at ``--hidden 128``), at per-head widths between
+  40 and one 64-column slab, and above the widths whose rows an H100's shared
+  memory held before the chunked kernels (1x160, 1x224); B7's chunked
+  kernel (``B7c``) at each of them too, beside the staged one that B7 runs up
+  to F = 208.
 - ``HEAD_SHAPES``: B3 and B7 from one head of width 1 up to eight heads: what
   one more head, or a wider one, adds to a launch.
 
 Each kernel is timed twice, the mean of 20 launches after warm-up between
-two CUDA events; the backward kernels take the forward kernel's ``m``. One
-JSON line per kernel and shape, then the card's name and power limit. Run
-on the card from the root of a checkout::
+two CUDA events; the backward kernels take the plain forward's ``m``. One
+JSON line per kernel and shape, then the card's name and power limit. A
+launch that fails is recorded with its error, not timed, and the script then
+exits with 1 after the last row. Run on the card from the root of a
+checkout::
 
     PYTHONPATH=. python3 pygcn_tpu_torch/apps/time_gat.py [--label L]
 
 With ``PYTHONPATH=<an earlier checkout>`` the same script times that
-checkout's kernels (their wrappers take the same arguments), so two trees can
-be compared in one session on one card.
+checkout's kernels (their wrappers take the same arguments; an earlier B7
+without ``chunked`` gives ``B7c`` an error row), so two trees can be
+compared back to back on one card.
 """
 
 from __future__ import annotations
@@ -24,10 +31,11 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import sys
 
 import torch
 
-WIDTH_SHAPES = ((1, 48), (1, 64), (8, 64))
+WIDTH_SHAPES = ((8, 8), (1, 40), (1, 48), (1, 64), (8, 64), (8, 128), (1, 160), (1, 224))
 HEAD_SHAPES = ((1, 1), (1, 8), (2, 8), (4, 8), (8, 8), (1, 40), (8, 16))
 SLOPE = 0.2
 
@@ -53,8 +61,11 @@ def main(argv=None) -> list:
     rows = []
 
     def timed(name, h, f, fn):
-        runs = [cuda_ms(fn, iters=20) for _ in range(2)]
-        row = {"label": args.label, "kernel": name, "H": h, "F": f, "ms_runs": runs}
+        row = {"label": args.label, "kernel": name, "H": h, "F": f}
+        try:
+            row["ms_runs"] = [cuda_ms(fn, iters=20) for _ in range(2)]
+        except (RuntimeError, TypeError) as err:  # a launch refused, or no `chunked`
+            row["error"] = str(err)
         print(json.dumps(row), flush=True)
         rows.append(row)
 
@@ -64,10 +75,12 @@ def main(argv=None) -> list:
 
     for h, f in WIDTH_SHAPES:
         sl2, sr2, a = v2_operands(h, f)
-        m = gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE)[2]
+        m = gta.tile_v2_fwd_plain(bcsr, sl2, sr2, a, h, f, SLOPE)[2]
         dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (h * f, h))
         bwd = (sl2, sr2, a, m, dnum, dden, h, f, SLOPE)
         timed("B7", h, f, lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE))
+        timed("B7c", h, f,
+              lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE, chunked=True))
         timed("B8", h, f, lambda: gta.tile_v2_bwd_recv_cuda(bcsr, *bwd))
         timed("B9", h, f, lambda: gta.tile_v2_bwd_send_cuda(tiles_t, *bwd))
     for h, f in HEAD_SHAPES:
@@ -82,4 +95,6 @@ def main(argv=None) -> list:
 
 
 if __name__ == "__main__":
-    main()
+    failed = [f"{r['kernel']} {r['H']}x{r['F']}" for r in main() if "error" in r]
+    if failed:
+        sys.exit(f"time_gat: launches failed: {', '.join(failed)}")

@@ -2,17 +2,18 @@
 // B5s, B6s; gatv2_tile_attn.cu: B7/B8/B9): the tile shape, the mask read by
 // warp ballots, the two walks over a tile's edges, operand staging, the
 // per-width kernel pick, and the work items and split-row merge of the
-// item-scheduled forward kernels B3 and B7.
+// item-scheduled kernels B3 and B7 (B8 and B9 sum their split rows in
+// gatv2_tile_attn.cu).
 //
 // The mask is never stored in device memory: warp w reads rows 32w..32w+31 of
 // a tile, one 16-byte (f32) or 8-byte (bf16) load a lane per row, and four
 // ballots give that row's 128 mask bits (bit l of word c is column 4l + c),
 // which lane r keeps for its own row. Two walks use them:
-// - for_columns (B4-B6, B8, B9): the warp walks the columns that any of its
+// - for_columns (B4-B6): the warp walks the columns that any of its
 //   32 rows needs (the OR of its words) and evaluates every (row, column)
 //   slot there, warp-uniformly; a kernel applies the mask by select, never
 //   by multiplying (exp(NEG - NEG) = 1 must not leak in).
-// - for_own_edges (B3, B7): each thread walks only its own row's set bits,
+// - for_own_edges (B3, B7, B8, B9): each thread walks only its own row's set bits,
 //   8.5 of the 128 columns of a flagship tile on average, and reads the column side
 //   by per-lane gathers from a staged slab whose row stride is padded
 //   (slab_stride) so that eight lanes of a 16-byte access see eight banks.
@@ -229,19 +230,24 @@ inline dim3 grid_of(int n_block_rows, int h) {
 }
 
 // `kernel` on `grid` with `smem` bytes of dynamic shared memory (above 48 KB
-// only after the opt-in), on `stream`; returns the launch's CUDA error.
+// only after the opt-in), on `stream`; returns the launch's CUDA error. A
+// refused opt-in is also the runtime's last error: it is cleared here, or the
+// library's next launch would report it.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
   }
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many of an item's tiles B3 and B7 stage at once, given one tile's
+// How many of an item's tiles the item kernels stage at once, given one tile's
 // staged bytes: all C while they fit in 48 KB, else fewer (at least one).
 inline int tile_group(size_t tile_bytes, int max_tiles) {
   const int fit = static_cast<int>((48 * 1024) / tile_bytes);
@@ -249,11 +255,12 @@ inline int tile_group(size_t tile_bytes, int max_tiles) {
 }
 
 // ------------------------------------------------------------------------
-// Work items of B3 and B7 (the wrapper's spmm_schedule): tiles [begin, end)
-// of block row `row`. A row of one item (at most C tiles, or none) has
-// slot = -1 and writes its outputs itself; the `parts` items of a longer row
-// write partials (m, den, num) to workspace slots first .. first + parts - 1
-// (this item to `slot`), and the last of them to arrive merges them.
+// Work items of B3, B7, B8 and B9 (the wrapper's spmm_schedule): tiles
+// [begin, end) of block row `row`. A row of one item (at most C tiles, or
+// none) has slot = -1 and writes its outputs itself; the `parts` items of a
+// longer row write partials (B3, B7: m, den, num; B8, B9: their gradients)
+// to workspace slots first .. first + parts - 1 (this item to `slot`), and
+// the last of them to arrive merges them.
 // ------------------------------------------------------------------------
 
 struct Item {

@@ -34,31 +34,34 @@
 // once, and a row whose running max rises rescales den and num by
 // corr = exp(m_old - e) right there (0, with den and num still 0, for a row
 // at NEG). A head wider than 64 runs the walk once per 64-column slab of num,
-// recomputing the logits (the same bits each time).
+// recomputing the logits (the same bits each time). Its rows of all F
+// columns fit an H100's 227 KB up to F = 208 (MAX_STAGED_F); wider heads run
+// gatv2_fwd_chunk_kernel (below).
 //
-// B8 and B9 (not redesigned): one CTA of 128 threads owns one (head, block
-// row), blockIdx.x = block_row * H + head, and loops over the row's tiles;
-// thread i owns row i of the block; the warp walks the columns that any of its
-// rows needs (gat_tile_common.cuh: for_columns); every output is written once,
-// with no atomics. A block row without tiles writes zero gradients. Per tile
-// the CTA stages the column side's rows of its head: B8 the senders' sl; B9
-// the receivers' sr and dnum, with their m and dden. Heads up to 40 wide (B9:
-// up to 64) run the first design: the own row (B8: sr; B9: sl) and the
-// outputs (B8: dsr and dapart; B9: dsl) in registers, B8's own dnum transposed
-// in shared memory. Wider heads run one kernel for any F, whose outputs are
-// accumulated one 64-column slab at a time, the tile loop running once per
-// slab.
+// B8 and B9 (gatv2_bwd_{recv,send}_item_kernel) run on the same work items:
+// B8 over the forward tiles, sharing B7's schedule and arrival counters
+// (the wrapper launches B7 and B8 one after the other on one stream, never
+// together), B9 over the transpose tiles on their own. One CTA per item for
+// all heads; each tile's mask decoded once; each thread walks its own row's
+// edges (B8: the receiver v, holding sr_v and dnum_v; B9: the sender u,
+// holding sl_u) and evaluates e, p = exp(e - m_v), the dot product and de
+// once per edge, where a CTA per head and block row walking every column
+// that any row of its warp needs would evaluate about 13 times as many. The
+// column side's rows of `group` tiles are staged at once at the odd stride:
+// B8 the senders' sl, B9 the receivers' sr and dnum with their m and dden. A
+// row of one item writes its gradients; the items of a longer row write
+// partials to a workspace slot, and the last to arrive adds them in item
+// order (sum_parts): a plain sum, the same bits every run. A block row
+// without tiles writes zeros. Up to F = 40 the own row and the outputs sit in
+// registers (B8's own dnum in shared memory, transposed).
 //
-// Own rows in registers up to F = 40 (B7 and B8; B9 up to 64: at F = 48 and
-// 64 its register kernel ran 25-35% faster than the wide one, B7's and B8's
-// no faster, apps/time_gat.py on an H100); above it, in shared memory
-// (row-major at a padded stride, so the lanes' 16-byte reads of their own
-// rows hit distinct banks), every row staged with all F columns (the logit
-// and the dot products need every f) and the loops over F in chunks of 16.
-// Shared memory per CTA then grows with F, in rows of F rounded up to 16 plus
-// 4 floats: B7 256 rows and C x 2 KB of mask words, up to the card's 227 KB at
-// F = 208; B8 and B9 384 rows, up to F = 144. Wider heads fail to launch
-// there (an error, never a plain fallback).
+// Wider heads run the F-chunked kernels (whole staged rows of every operand
+// would outgrow an H100's 227 KB above F = 144), whose shared memory does
+// not grow with F: CW = 32 columns of the staged rows and EB floats a thread per own edge
+// (its logit and dot product carried from chunk to chunk, so the terms still
+// add in the order f = 0 .. F-1), each head's walk in two passes over the
+// chunks: the logits and weights, then the outputs. B7 above F = 208 does the
+// same, its second pass running the online softmax once per slab.
 //
 // Precision: expf (not __expf) and f32 FMA, no TF32; the logit's terms are
 // added in the order f = 0 .. F-1. Ragged shapes are masked in the kernel:
@@ -75,12 +78,11 @@ using namespace gat_tile;
 __device__ __forceinline__ float dleaky(float pre, float slope) { return pre >= 0.f ? 1.f : slope; }
 
 // Widths up to 40 keep the block's own row in registers (the loops over F
-// unrolled at the compiled width FP); wider heads, on the width-64 kernels,
-// read it from shared memory in chunks of CH columns. B9 keeps it in
-// registers up to SEND_REG_F.
+// unrolled at the compiled width FP); B7's wider heads, on its width-64
+// kernel, read it from shared memory in chunks of CH columns; B8's and B9's
+// run the chunked kernels.
 constexpr int CH = 16;
 constexpr int MAX_REG_F = 40;
-constexpr int SEND_REG_F = SLAB;
 // Rows of the block's own operand rows kept in shared memory: none when they
 // are in registers.
 __host__ __device__ constexpr int own_rows(int fp) { return fp <= MAX_REG_F ? 0 : TM; }
@@ -107,12 +109,12 @@ __device__ __forceinline__ float dot4(float d, float4 a, float4 b) {
 __device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
 // The v2 logit of one slot, sum_f a[f] leaky(own[f] + xj[f]) in the order
-// f = 0 .. F-1: with the own row in registers (FP columns) or in shared
-// memory (w columns, a multiple of CH).
+// f = 0 .. F-1 (added onto e: the chunked kernels carry it from chunk to
+// chunk): with the own row in registers (FP columns) or in shared memory
+// (w columns, a multiple of CH).
 template <int FP>
 __device__ __forceinline__ float logit_reg(const float* a_sh, const float own[FP],
-                                           const float* xj, float slope) {
-  float e = 0.f;
+                                           const float* xj, float slope, float e = 0.f) {
 #pragma unroll
   for (int q = 0; q < FP / 4; ++q)
     e = logit4(e, lds4(a_sh + 4 * q), make_float4(own[4 * q], own[4 * q + 1], own[4 * q + 2],
@@ -129,16 +131,6 @@ __device__ __forceinline__ float logit_sh(const float* a_sh, const float* own, c
       e = logit4(e, lds4(a_sh + c + 4 * q), lds4(own + c + 4 * q), lds4(xj + c + 4 * q), slope);
   }
   return e;
-}
-
-// sum_f x[f] y[f] over w columns (a multiple of CH), f in order.
-__device__ __forceinline__ float dot_sh(const float* x, const float* y, int w) {
-  float d = 0.f;
-  for (int c = 0; c < w; c += CH) {
-#pragma unroll
-    for (int q = 0; q < CH / 4; ++q) d = dot4(d, lds4(x + c + 4 * q), lds4(y + c + 4 * q));
-  }
-  return d;
 }
 
 // A compiler barrier: shared-memory values read before it are read again after
@@ -160,6 +152,21 @@ __device__ __forceinline__ void load_row(float dst[FP], const float* x, long lon
 // a[head, :f] into a_sh[0 .. len), zero past f.
 __device__ __forceinline__ void stage_a(float* a_sh, const float* a, int head, int f, int len) {
   for (int k = threadIdx.x; k < len; k += THREADS) a_sh[k] = k < f ? a[head * f + k] : 0.f;
+}
+
+// Decode the masks of an item's tiles once into mask_sh [C][TM] (this
+// thread's own words) and its block columns into cols_sh [C]; the caller's
+// first barrier publishes cols_sh.
+__device__ __forceinline__ void load_item_tiles(const Item& it, const void* tiles, int bf16,
+                                                const int* block_cols, uint4* mask_sh,
+                                                int* cols_sh) {
+  const int nt = it.end - it.begin, i = threadIdx.x;
+  if (i < nt) cols_sh[i] = block_cols[it.begin + i];
+  for (int t = 0; t < nt; ++t) {
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles, bf16, it.begin + t), bf16, w);
+    mask_sh[t * TM + i] = make_uint4(w[0], w[1], w[2], w[3]);  // read by this thread only
+  }
 }
 
 // B7. blockIdx.x is a work item; `max_tiles` (C) sizes the shared memory and
@@ -186,12 +193,7 @@ gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
   const long long row0 = static_cast<long long>(it.row) * TM, v = row0 + i;
   const Partials parts(ws, n_slots, h, hf);
 
-  if (i < nt) cols_sh[i] = block_cols[it.begin + i];
-  for (int t = 0; t < nt; ++t) {
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles, bf16, it.begin + t), bf16, w);
-    mask_sh[t * TM + i] = make_uint4(w[0], w[1], w[2], w[3]);  // read by this thread only
-  }
+  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
   const float* own = own_sh + i * S;
   for (int head = 0; head < h; ++head) {
     float srv[FP];
@@ -248,326 +250,670 @@ gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
     merge_parts(it, parts, num_out, den_out, m_out, n, h, hf);
 }
 
-// B8 and B9 for heads up to 40 wide (B9: up to 64): the own row and the
-// outputs in registers, the column side staged at stride FP, B8's
-// own dnum transposed in shared memory ([F][128], so the warp's 32 lanes read
-// 32 banks).
-template <int FP>
-__global__ void __launch_bounds__(THREADS)
-gatv2_bwd_recv_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
-                      const int* __restrict__ block_row_ptr, const float* __restrict__ sl,
-                      const float* __restrict__ sr, const float* __restrict__ a,
-                      const float* __restrict__ m_in, const float* __restrict__ dnum,
-                      const float* __restrict__ dden, float* __restrict__ dsr_out,
-                      float* __restrict__ dapart_out, int n, int h, int f, float slope) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sl_sh = reinterpret_cast<float*>(smem);  // [TK][FP]: the tile's senders
-  float* dn_sh = sl_sh + TK * FP;     // [FP][TM]: each thread's own dnum row, transposed
-  float* a_sh = dn_sh + FP * TM;      // [FP]
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
-  const int hf = h * f;
-  const int i = threadIdx.x;
-  const long long v = static_cast<long long>(br) * TM + i;
-  float srv[FP], gsr[FP], gap[FP];
-  load_row<FP>(srv, sr, v, n, hf, head, f);
-#pragma unroll
-  for (int k = 0; k < FP; ++k) {
-    dn_sh[k * TM + i] =
-        (v < n && k < f) ? dnum[v * hf + static_cast<long long>(head) * f + k] : 0.f;
-    gsr[k] = 0.f;
-    gap[k] = 0.f;
-  }
-  stage_a(a_sh, a, head, f, FP);
-  const float mv = node(m_in, v, n, h, head);
-  const float dd = node(dden, v, n, h, head);
 
-  const int t_end = block_row_ptr[br + 1];
-  for (int t = block_row_ptr[br]; t < t_end; ++t) {
-    const long long col0 = static_cast<long long>(block_cols[t]) * TK;
-    __syncthreads();
-    stage_rows(sl_sh, FP, FP, sl, col0, n, hf, head * f, f);
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles, bf16, t), bf16, w);
-    __syncthreads();
+// ------------------------------------------------------------------------
+// B8 and B9 on work items, and the F-chunked kernels (B8 and B9 above
+// F = 40, B7 above F = 208).
+// ------------------------------------------------------------------------
 
-    for_columns(w, [&](int j, bool on) {
-      const float4* s4 = reinterpret_cast<const float4*>(sl_sh + j * FP);
-      const float4* a4 = reinterpret_cast<const float4*>(a_sh);
-      const float e = logit_reg<FP>(a_sh, srv, sl_sh + j * FP, slope);
-      float gdot = 0.f;
+// Where thread i's row of an item writes gradient output o (0 or 1) of
+// width hf: the output row v (nullptr past n) of a row of one item, else the
+// item's workspace slot ([n_slots][TM][width], output o at column o * hf).
+__device__ __forceinline__ float* grad_row(const Item& it, float* ws, int width, float* out,
+                                           int o, long long v, int n, int hf) {
+  if (it.slot >= 0) return ws + (static_cast<size_t>(it.slot) * TM + threadIdx.x) * width + o * hf;
+  return v < n ? out + v * hf : nullptr;
+}
+
+// Columns c0 .. c0 + fw - 1 of a row: written from, or read back into, W
+// registers (zero past fw, or for a row that is not written).
+template <int W>
+__device__ __forceinline__ void put_cols(float* row, int c0, int fw, const float x[W]) {
+  if (row == nullptr) return;
 #pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 s = s4[q];
-        gdot = fmaf(dn_sh[(4 * q + 0) * TM + i], s.x, gdot);
-        gdot = fmaf(dn_sh[(4 * q + 1) * TM + i], s.y, gdot);
-        gdot = fmaf(dn_sh[(4 * q + 2) * TM + i], s.z, gdot);
-        gdot = fmaf(dn_sh[(4 * q + 3) * TM + i], s.w, gdot);
+  for (int k = 0; k < W; ++k)
+    if (k < fw) row[c0 + k] = x[k];
+}
+template <int W>
+__device__ __forceinline__ void get_cols(float x[W], const float* row, int c0, int fw) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) x[k] = (row != nullptr && k < fw) ? row[c0 + k] : 0.f;
+}
+
+// After the items of a split row have written their gradient partials: the
+// sum of the parts, in item order, into the row's outputs (width = hf: one
+// output; 2 hf: out0, then out1). The same bits whichever part arrives last.
+// Four parts at a time and 16-byte quads when hf is a multiple of 4 (a quad
+// then lies in one output), as merge_parts.
+__device__ __forceinline__ void sum_parts(const Item& it, const float* ws, int width,
+                                          float* out0, float* out1, int n, int hf) {
+  const long long row0 = static_cast<long long>(it.row) * TM;
+  const long long left = static_cast<long long>(n) - row0;
+  const int rows = left < TM ? static_cast<int>(left) : TM;
+  const size_t part = static_cast<size_t>(TM) * width;
+  const float* base = ws + static_cast<size_t>(it.first) * part;
+  const int parts = it.parts;
+  if (hf % 4 == 0) {
+    const int quads = width / 4;
+    for (int idx = threadIdx.x; idx < rows * quads; idx += THREADS) {
+      const int r = idx / quads, c = (idx % quads) * 4;
+      const float* at = base + static_cast<size_t>(r) * width + c;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(at + p * part));
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
       }
-      const float p = on ? expf(e - mv) : 0.f;
-      const float de = p * (gdot + dd);
-      reread_shared();
-#pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 s = s4[q], av = a4[q];
-        const float s_[4] = {s.x, s.y, s.z, s.w}, a_[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = 4 * q + c;
-          const float pre = srv[k] + s_[c];
-          gsr[k] = fmaf(de, a_[c] * dleaky(pre, slope), gsr[k]);
-          gap[k] = fmaf(de, leaky(pre, slope), gap[k]);
-        }
+      float* out = c < hf ? out0 + (row0 + r) * hf + c : out1 + (row0 + r) * hf + (c - hf);
+      *reinterpret_cast<float4*>(out) = acc;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * width; idx += THREADS) {
+      const int r = idx / width, c = idx % width;
+      const float* at = base + static_cast<size_t>(r) * width + c;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p) acc += __ldcg(at + p * part);
+      if (c < hf) {
+        out0[(row0 + r) * hf + c] = acc;
+      } else {
+        out1[(row0 + r) * hf + c - hf] = acc;
       }
-    });
-  }
-  if (v < n) {
-    const long long o = v * hf + static_cast<long long>(head) * f;
-#pragma unroll
-    for (int k = 0; k < FP; ++k)
-      if (k < f) {
-        dsr_out[o + k] = gsr[k];
-        dapart_out[o + k] = gap[k];
-      }
+    }
   }
 }
 
-template <int FP>
-__global__ void __launch_bounds__(THREADS)
-gatv2_bwd_send_kernel(const void* __restrict__ tiles_t, int bf16,
-                      const int* __restrict__ block_cols, const int* __restrict__ block_row_ptr,
-                      const float* __restrict__ sl, const float* __restrict__ sr,
-                      const float* __restrict__ a, const float* __restrict__ m_in,
-                      const float* __restrict__ dnum, const float* __restrict__ dden,
-                      float* __restrict__ dsl_out, int n, int h, int f, float slope) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* sr_sh = reinterpret_cast<float*>(smem);  // [TK][FP]: the tile's receivers
-  float* dn_sh = sr_sh + TK * FP;     // [TK][FP]
-  float* m_sh = dn_sh + TK * FP;      // [TK]
-  float* dd_sh = m_sh + TK;           // [TK]
-  float* a_sh = dd_sh + TK;           // [FP]
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
-  const int hf = h * f;
-  const long long u = static_cast<long long>(br) * TM + threadIdx.x;  // sender
-  float slu[FP], g[FP];
-  load_row<FP>(slu, sl, u, n, hf, head, f);
-#pragma unroll
-  for (int k = 0; k < FP; ++k) g[k] = 0.f;
-  stage_a(a_sh, a, head, f, FP);
-
-  const int t_end = block_row_ptr[br + 1];
-  for (int t = block_row_ptr[br]; t < t_end; ++t) {
-    const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
-    __syncthreads();
-    m_sh[threadIdx.x] = node(m_in, col0 + threadIdx.x, n, h, head);
-    dd_sh[threadIdx.x] = node(dden, col0 + threadIdx.x, n, h, head);
-    stage_rows(sr_sh, FP, FP, sr, col0, n, hf, head * f, f);
-    stage_rows(dn_sh, FP, FP, dnum, col0, n, hf, head * f, f);
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
-    __syncthreads();
-
-    for_columns(w, [&](int j, bool on) {
-      const float4* x4 = reinterpret_cast<const float4*>(sr_sh + j * FP);
-      const float4* d4 = reinterpret_cast<const float4*>(dn_sh + j * FP);
-      const float4* a4 = reinterpret_cast<const float4*>(a_sh);
-      const float e = logit_reg<FP>(a_sh, slu, sr_sh + j * FP, slope);
-      float gdot = 0.f;
-#pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 d = d4[q];
-        gdot = fmaf(slu[4 * q + 0], d.x, gdot);
-        gdot = fmaf(slu[4 * q + 1], d.y, gdot);
-        gdot = fmaf(slu[4 * q + 2], d.z, gdot);
-        gdot = fmaf(slu[4 * q + 3], d.w, gdot);
-      }
-      const float p = on ? expf(e - m_sh[j]) : 0.f;
-      const float de = p * (gdot + dd_sh[j]);
-      reread_shared();
-#pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 x = x4[q], d = d4[q], av = a4[q];
-        const float x_[4] = {x.x, x.y, x.z, x.w}, d_[4] = {d.x, d.y, d.z, d.w};
-        const float a_[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = 4 * q + c;
-          const float pre = slu[k] + x_[c];
-          g[k] = fmaf(p, d_[c], g[k]);
-          g[k] = fmaf(de, a_[c] * dleaky(pre, slope), g[k]);
-        }
-      }
-    });
-  }
-  if (u < n) {
-    float* dst = dsl_out + u * hf + static_cast<long long>(head) * f;
-#pragma unroll
-    for (int k = 0; k < FP; ++k)
-      if (k < f) dst[k] = g[k];
-  }
+// One column's update of B8 (dsr and dapart) and of B9 (dsl), for an edge
+// of weight p and gradient de; pre = own + x.
+__device__ __forceinline__ void recv_col(float& gsr, float& gap, float de, float a, float own,
+                                         float x, float slope) {
+  const float pre = own + x;
+  gsr = fmaf(de, a * dleaky(pre, slope), gsr);
+  gap = fmaf(de, leaky(pre, slope), gap);
+}
+__device__ __forceinline__ void send_col(float& g, float p, float de, float a, float own, float x,
+                                         float d, float slope) {
+  g = fmaf(p, d, g);
+  g = fmaf(de, a * dleaky(own + x, slope), g);
 }
 
-// B8 and B9 for wider heads, any F: every operand row in shared memory at a
-// padded stride, all F columns (the logit and dot product need every f), the
-// loops over F in chunks of CH, the outputs one 64-column slab at a time.
+// B8 for heads up to MAX_REG_F wide. blockIdx.x is a work item (B7's, on
+// the same tiles); per head the own sr row and the outputs dsr and dapart sit
+// in registers, the own dnum row in shared memory transposed ([FP][TM]: the
+// warp's lanes read 32 banks), and the senders' sl rows of `group` tiles are
+// staged at once at the odd stride.
+template <int FP>
 __global__ void __launch_bounds__(THREADS)
-gatv2_bwd_recv_wide_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
-                      const int* __restrict__ block_row_ptr, const float* __restrict__ sl,
-                      const float* __restrict__ sr, const float* __restrict__ a,
-                      const float* __restrict__ m_in, const float* __restrict__ dnum,
-                      const float* __restrict__ dden, float* __restrict__ dsr_out,
-                      float* __restrict__ dapart_out, int n, int h, int f, float slope) {
-  constexpr int FP = SLAB;
-  const int W = staged_width(f), S = slab_stride(W);
+gatv2_bwd_recv_item_kernel(const void* __restrict__ tiles, int bf16,
+                           const int* __restrict__ block_cols, const int* __restrict__ items,
+                           const float* __restrict__ sl, const float* __restrict__ sr,
+                           const float* __restrict__ a, const float* __restrict__ m_in,
+                           const float* __restrict__ dnum, const float* __restrict__ dden,
+                           float* __restrict__ dsr_out, float* __restrict__ dapart_out,
+                           float* __restrict__ ws, int* __restrict__ counters, int n, int h,
+                           int f, int max_tiles, int group, float slope) {
+  constexpr int S = slab_stride(FP);
   extern __shared__ __align__(16) unsigned char smem[];
-  float* a_sh = reinterpret_cast<float*>(smem);  // [W + FP]
-  float* sr_sh = a_sh + W + FP;                  // [TM][S]: own sr rows
-  float* dn_sh = sr_sh + TM * S;                 // [TM][S]: own dnum rows
-  float* sl_sh = dn_sh + TM * S;                 // [TK][S]: the tile's senders, then FP spare
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
-  const int hf = h * f, i = threadIdx.x;
-  const long long row0 = static_cast<long long>(br) * TM, v = row0 + i;
-  stage_a(a_sh, a, head, f, W + FP);
-  stage_rows(sr_sh, S, W, sr, row0, n, hf, head * f, f);
-  stage_rows(dn_sh, S, W, dnum, row0, n, hf, head * f, f);
-  const float mv = node(m_in, v, n, h, head);
-  const float dd = node(dden, v, n, h, head);
-  const float *own_sr = sr_sh + i * S, *own_dn = dn_sh + i * S;
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                   // [C][TM]: own words
+  float* a_sh = reinterpret_cast<float*>(mask_sh + max_tiles * TM);  // [FP]
+  float* dn_sh = a_sh + FP;                                          // [FP][TM]
+  float* sl_sh = dn_sh + FP * TM;                                    // [group][TK][S]
+  int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * S);     // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long v = static_cast<long long>(it.row) * TM + i;
+  float* const dst_sr = grad_row(it, ws, 2 * hf, dsr_out, 0, v, n, hf);
+  float* const dst_ap = grad_row(it, ws, 2 * hf, dapart_out, 1, v, n, hf);
+  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
 
-  const int t_begin = block_row_ptr[br], t_end = block_row_ptr[br + 1];
-  for (int s0 = 0; s0 < f; s0 += FP) {
-    const int fw = min(FP, f - s0);
-    float gsr[FP], gap[FP];
+  for (int head = 0; head < h; ++head) {
+    float srv[FP], gsr[FP], gap[FP];
+    load_row<FP>(srv, sr, v, n, hf, head, f);
 #pragma unroll
-    for (int k = 0; k < FP; ++k) gsr[k] = gap[k] = 0.f;
-    for (int t = t_begin; t < t_end; ++t) {
-      __syncthreads();  // the previous tile's senders are no longer read
-      stage_rows(sl_sh, S, W, sl, static_cast<long long>(block_cols[t]) * TK, n, hf, head * f, f);
-      uint32_t w[4];
-      mask_words(tile_ptr(tiles, bf16, t), bf16, w);
+    for (int k = 0; k < FP; ++k) {
+      dn_sh[k * TM + i] =
+          (v < n && k < f) ? dnum[v * hf + static_cast<long long>(head) * f + k] : 0.f;
+      gsr[k] = gap[k] = 0.f;
+    }
+    const float mv = node(m_in, v, n, h, head), dd = node(dden, v, n, h, head);
+    for (int g0 = 0; g0 < nt; g0 += group) {
+      const int gn = min(group, nt - g0);
+      __syncthreads();  // the previous senders and a are no longer read
+      if (g0 == 0) stage_a(a_sh, a, head, f, FP);
+      stage_tiles(sl_sh, S, FP, sl, cols_sh + g0, gn, n, hf, head * f, f);
       __syncthreads();
-
-      for_columns(w, [&](int j, bool on) {
-        const float* xj = sl_sh + j * S;
-        const float e = logit_sh(a_sh, own_sr, xj, W, slope);
-        const float gdot = dot_sh(own_dn, xj, W);
-        const float p = on ? expf(e - mv) : 0.f;
-        const float de = p * (gdot + dd);
+      for (int t = g0; t < g0 + gn; ++t) {
+        const float* st = sl_sh + (t - g0) * TK * S;
+        for_own_edges(mask_sh[t * TM + i], [&](int j) {
+          const float* xj = st + j * S;
+          const float e = logit_reg<FP>(a_sh, srv, xj, slope);
+          float gdot = 0.f;
 #pragma unroll
-        for (int q = 0; q < FP / 4; ++q) {
-          const float4 s = lds4(xj + s0 + 4 * q), av = lds4(a_sh + s0 + 4 * q);
-          const float s_[4] = {s.x, s.y, s.z, s.w}, a_[4] = {av.x, av.y, av.z, av.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int k = 4 * q + c;
-            const float pre = own_sr[s0 + k] + s_[c];
-            gsr[k] = fmaf(de, a_[c] * dleaky(pre, slope), gsr[k]);
-            gap[k] = fmaf(de, leaky(pre, slope), gap[k]);
+          for (int q = 0; q < FP / 4; ++q) {
+            const float4 s = lds4(xj + 4 * q);
+            gdot = fmaf(dn_sh[(4 * q + 0) * TM + i], s.x, gdot);
+            gdot = fmaf(dn_sh[(4 * q + 1) * TM + i], s.y, gdot);
+            gdot = fmaf(dn_sh[(4 * q + 2) * TM + i], s.z, gdot);
+            gdot = fmaf(dn_sh[(4 * q + 3) * TM + i], s.w, gdot);
           }
-        }
-      });
-    }
-    if (v < n) {
-      const long long o = v * hf + static_cast<long long>(head) * f + s0;
+          const float de = expf(e - mv) * (gdot + dd);
+          reread_shared();
 #pragma unroll
-      for (int k = 0; k < FP; ++k)
-        if (k < fw) {
-          dsr_out[o + k] = gsr[k];
-          dapart_out[o + k] = gap[k];
-        }
+          for (int q = 0; q < FP / 4; ++q) {
+            const float4 x = lds4(xj + 4 * q), av = lds4(a_sh + 4 * q);
+            const int k = 4 * q;
+            recv_col(gsr[k], gap[k], de, av.x, srv[k], x.x, slope);
+            recv_col(gsr[k + 1], gap[k + 1], de, av.y, srv[k + 1], x.y, slope);
+            recv_col(gsr[k + 2], gap[k + 2], de, av.z, srv[k + 2], x.z, slope);
+            recv_col(gsr[k + 3], gap[k + 3], de, av.w, srv[k + 3], x.w, slope);
+          }
+        });
+      }
     }
+    put_cols<FP>(dst_sr, head * f, f, gsr);
+    put_cols<FP>(dst_ap, head * f, f, gap);
   }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    sum_parts(it, ws, 2 * hf, dsr_out, dapart_out, n, hf);
 }
 
+// B9 for heads up to MAX_REG_F wide, over the transpose tiles (the item's
+// block row holds senders u): per head the own sl row and dsl in registers;
+// the receivers' sr and dnum rows, m and dden of `group` tiles staged at once.
+template <int FP>
 __global__ void __launch_bounds__(THREADS)
-gatv2_bwd_send_wide_kernel(const void* __restrict__ tiles_t, int bf16,
-                      const int* __restrict__ block_cols, const int* __restrict__ block_row_ptr,
-                      const float* __restrict__ sl, const float* __restrict__ sr,
-                      const float* __restrict__ a, const float* __restrict__ m_in,
-                      const float* __restrict__ dnum, const float* __restrict__ dden,
-                      float* __restrict__ dsl_out, int n, int h, int f, float slope) {
-  constexpr int FP = SLAB;
-  const int W = staged_width(f), S = slab_stride(W);
+gatv2_bwd_send_item_kernel(const void* __restrict__ tiles_t, int bf16,
+                           const int* __restrict__ block_cols, const int* __restrict__ items,
+                           const float* __restrict__ sl, const float* __restrict__ sr,
+                           const float* __restrict__ a, const float* __restrict__ m_in,
+                           const float* __restrict__ dnum, const float* __restrict__ dden,
+                           float* __restrict__ dsl_out, float* __restrict__ ws,
+                           int* __restrict__ counters, int n, int h, int f, int max_tiles,
+                           int group, float slope) {
+  constexpr int S = slab_stride(FP);
   extern __shared__ __align__(16) unsigned char smem[];
-  float* a_sh = reinterpret_cast<float*>(smem);  // [W + FP]
-  float* sl_sh = a_sh + W + FP;                  // [TM][S]: own sl rows
-  float* sr_sh = sl_sh + TM * S;                 // [TK][S]: the tile's receivers
-  float* dn_sh = sr_sh + TK * S;                 // [TK][S], then FP spare
-  float* m_sh = dn_sh + TK * S + FP;             // [TK]
-  float* dd_sh = m_sh + TK;                      // [TK]
-  const int head = blockIdx.x % h, br = blockIdx.x / h;
-  const int hf = h * f, i = threadIdx.x;
-  const long long row0 = static_cast<long long>(br) * TM, u = row0 + i;  // sender
-  stage_a(a_sh, a, head, f, W + FP);
-  stage_rows(sl_sh, S, W, sl, row0, n, hf, head * f, f);
-  const float* own = sl_sh + i * S;
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                   // [C][TM]: own words
+  float* a_sh = reinterpret_cast<float*>(mask_sh + max_tiles * TM);  // [FP]
+  float* sr_sh = a_sh + FP;                                          // [group][TK][S]
+  float* dn_sh = sr_sh + group * TK * S;                             // [group][TK][S]
+  float* m_sh = dn_sh + group * TK * S;                              // [group][TK]
+  float* dd_sh = m_sh + group * TK;                                  // [group][TK]
+  int* cols_sh = reinterpret_cast<int*>(dd_sh + group * TK);         // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long u = static_cast<long long>(it.row) * TM + i;  // sender
+  float* const dst_sl = grad_row(it, ws, hf, dsl_out, 0, u, n, hf);
+  load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
 
-  const int t_begin = block_row_ptr[br], t_end = block_row_ptr[br + 1];
-  for (int s0 = 0; s0 < f; s0 += FP) {
-    const int fw = min(FP, f - s0);
-    float g[FP];
+  for (int head = 0; head < h; ++head) {
+    float slu[FP], g[FP];
+    load_row<FP>(slu, sl, u, n, hf, head, f);
 #pragma unroll
     for (int k = 0; k < FP; ++k) g[k] = 0.f;
-    for (int t = t_begin; t < t_end; ++t) {
-      const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
-      __syncthreads();  // the previous tile's receivers are no longer read
-      m_sh[i] = node(m_in, col0 + i, n, h, head);
-      dd_sh[i] = node(dden, col0 + i, n, h, head);
-      stage_rows(sr_sh, S, W, sr, col0, n, hf, head * f, f);
-      stage_rows(dn_sh, S, W, dnum, col0, n, hf, head * f, f);
-      uint32_t w[4];
-      mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
+    for (int g0 = 0; g0 < nt; g0 += group) {
+      const int gn = min(group, nt - g0);
+      __syncthreads();  // the previous receivers and a are no longer read
+      if (g0 == 0) stage_a(a_sh, a, head, f, FP);
+      stage_tiles(sr_sh, S, FP, sr, cols_sh + g0, gn, n, hf, head * f, f);
+      stage_tiles(dn_sh, S, FP, dnum, cols_sh + g0, gn, n, hf, head * f, f);
+      stage_tiles(m_sh, 1, 1, m_in, cols_sh + g0, gn, n, h, head, 1);
+      stage_tiles(dd_sh, 1, 1, dden, cols_sh + g0, gn, n, h, head, 1);
       __syncthreads();
-
-      for_columns(w, [&](int j, bool on) {
-        const float *xj = sr_sh + j * S, *dj = dn_sh + j * S;
-        const float e = logit_sh(a_sh, own, xj, W, slope);
-        const float gdot = dot_sh(own, dj, W);
-        const float p = on ? expf(e - m_sh[j]) : 0.f;
-        const float de = p * (gdot + dd_sh[j]);
+      for (int t = g0; t < g0 + gn; ++t) {
+        const int tb = (t - g0) * TK;
+        for_own_edges(mask_sh[t * TM + i], [&](int j) {
+          const float *xj = sr_sh + (tb + j) * S, *dj = dn_sh + (tb + j) * S;
+          const float e = logit_reg<FP>(a_sh, slu, xj, slope);
+          float gdot = 0.f;
 #pragma unroll
-        for (int q = 0; q < FP / 4; ++q) {
-          const float4 x = lds4(xj + s0 + 4 * q), d = lds4(dj + s0 + 4 * q);
-          const float4 av = lds4(a_sh + s0 + 4 * q);
-          const float x_[4] = {x.x, x.y, x.z, x.w}, d_[4] = {d.x, d.y, d.z, d.w};
-          const float a_[4] = {av.x, av.y, av.z, av.w};
+          for (int q = 0; q < FP / 4; ++q)
+            gdot = dot4(gdot, make_float4(slu[4 * q], slu[4 * q + 1], slu[4 * q + 2], slu[4 * q + 3]),
+                        lds4(dj + 4 * q));
+          const float p = expf(e - m_sh[tb + j]);
+          const float de = p * (gdot + dd_sh[tb + j]);
+          reread_shared();
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int k = 4 * q + c;
-            const float pre = own[s0 + k] + x_[c];
-            g[k] = fmaf(p, d_[c], g[k]);
-            g[k] = fmaf(de, a_[c] * dleaky(pre, slope), g[k]);
+          for (int q = 0; q < FP / 4; ++q) {
+            const float4 x = lds4(xj + 4 * q), d = lds4(dj + 4 * q), av = lds4(a_sh + 4 * q);
+            const int k = 4 * q;
+            send_col(g[k], p, de, av.x, slu[k], x.x, d.x, slope);
+            send_col(g[k + 1], p, de, av.y, slu[k + 1], x.y, d.y, slope);
+            send_col(g[k + 2], p, de, av.z, slu[k + 2], x.z, d.z, slope);
+            send_col(g[k + 3], p, de, av.w, slu[k + 3], x.w, d.w, slope);
           }
-        }
+        });
+      }
+    }
+    put_cols<FP>(dst_sl, head * f, f, g);
+  }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    sum_parts(it, ws, hf, dsl_out, nullptr, n, hf);
+}
+
+// The F-chunked kernels: B8 and B9 above MAX_REG_F, B7 above the staged
+// kernel's reach. Shared memory holds CW columns of the staged rows and EB
+// values a thread per own edge, whatever F. A thread's own edges of the item
+// are numbered in walk order (tiles in order, each tile's bits in order) and
+// taken EB at a time (a batch; rarely more than one). Per head and batch,
+// pass 1 walks the edges once per chunk of CW columns, carrying each edge's
+// logit (and B8's and B9's dot product) in shared memory from chunk to chunk,
+// so the terms are added in the order f = 0 .. F-1 as in the other kernels;
+// after the last chunk it turns them into the edge's weights. Pass 2 walks
+// them once per chunk again and accumulates that chunk's outputs in
+// registers. A later batch reads back the outputs the earlier one wrote.
+constexpr int CW = 32;  // columns of a chunk
+constexpr int EB = 32;  // own edges of a batch, a thread
+constexpr int CS = slab_stride(CW);
+
+__device__ __forceinline__ int block_max(int x) {
+  __shared__ int warp_max[THREADS / 32];
+  x = __reduce_max_sync(FULL, x);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = x;
+  __syncthreads();
+  int r = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < THREADS / 32; ++w) r = max(r, warp_max[w]);
+  return r;
+}
+
+// Batches of EB own edges that the CTA walks: at least one, so that a row
+// without edges writes its zeros (or m = NEG).
+__device__ __forceinline__ int own_batches(const uint4* mask_sh, int nt) {
+  int count = 0;
+  for (int t = 0; t < nt; ++t) {
+    const uint4 w = mask_sh[t * TM + threadIdx.x];
+    count += __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+  }
+  return max(1, (block_max(count) + EB - 1) / EB);
+}
+
+// body(t, j, slot) for this thread's own edges in tiles [t0, t1) whose
+// number, counted on from k, lies in lo .. lo + EB - 1 (slot = number - lo).
+template <typename Body>
+__device__ __forceinline__ void for_batch_edges(const uint4* mask_sh, int t0, int t1, int& k,
+                                                int lo, Body body) {
+  for (int t = t0; t < t1; ++t) {
+    const uint4 w = mask_sh[t * TM + threadIdx.x];
+    const int c = __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+    if (k + c > lo && k < lo + EB) {
+      int kk = k;
+      for_own_edges(w, [&](int j) {
+        if (kk >= lo && kk < lo + EB) body(t, j, kk - lo);
+        ++kk;
       });
     }
-    if (u < n) {
-      float* dst = dsl_out + u * hf + static_cast<long long>(head) * f + s0;
+    k += c;
+  }
+}
+
+// Columns c0 .. c0 + fw - 1 of row `row` of x [n, ld] into W registers, zero
+// past n and fw.
+template <int W>
+__device__ __forceinline__ void load_cols(float dst[W], const float* x, long long row, int n,
+                                          int ld, int c0, int fw) {
 #pragma unroll
-      for (int k = 0; k < FP; ++k)
-        if (k < fw) dst[k] = g[k];
+  for (int k = 0; k < W; ++k) dst[k] = (row < n && k < fw) ? __ldg(x + row * ld + c0 + k) : 0.f;
+}
+
+// a[head, c0 .. c0 + CW) into a_sh, zero past f.
+__device__ __forceinline__ void stage_a_chunk(float* a_sh, const float* a, int head, int f,
+                                              int c0) {
+  for (int k = threadIdx.x; k < CW; k += THREADS)
+    a_sh[k] = c0 + k < f ? a[static_cast<long long>(head) * f + c0 + k] : 0.f;
+}
+
+// sum_f x[f] y[f] over W columns from d on, f in order; y in shared memory.
+template <int W>
+__device__ __forceinline__ float dot_reg(const float x[W], const float* y, float d) {
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q)
+    d = dot4(d, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]), lds4(y + 4 * q));
+  return d;
+}
+
+// Stage chunk c0 of a and of the column side's rows under tiles
+// g0 .. g0 + gn (x_sh: x's rows; with y, y_sh: y's rows too; with m_in, m and
+// dden of those columns into m_sh and dd_sh), between the barriers that keep
+// the previous chunk's readers and this chunk's apart.
+__device__ __forceinline__ void stage_chunk(float* a_sh, const float* a, float* x_sh,
+                                            const float* x, float* y_sh, const float* y,
+                                            float* m_sh, const float* m_in, float* dd_sh,
+                                            const float* dden, const int* cols_sh, int g0,
+                                            int gn, int n, int h, int f, int head, int c0) {
+  const int hf = h * f, fw = min(CW, f - c0);
+  __syncthreads();  // the previous chunk is no longer read
+  if (g0 == 0) stage_a_chunk(a_sh, a, head, f, c0);
+  stage_tiles(x_sh, CS, CW, x, cols_sh + g0, gn, n, hf, head * f + c0, fw);
+  if (y != nullptr) stage_tiles(y_sh, CS, CW, y, cols_sh + g0, gn, n, hf, head * f + c0, fw);
+  if (m_in != nullptr) {
+    stage_tiles(m_sh, 1, 1, m_in, cols_sh + g0, gn, n, h, head, 1);
+    stage_tiles(dd_sh, 1, 1, dden, cols_sh + g0, gn, n, h, head, 1);
+  }
+  __syncthreads();
+}
+
+// B8, any F. Per edge: pass 1 the logit and sl_u . dnum_v, then
+// de = exp(e - m_v) (gdot + dden_v); pass 2 dsr and dapart, CW columns at a time.
+__global__ void __launch_bounds__(THREADS)
+gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
+                            const int* __restrict__ block_cols, const int* __restrict__ items,
+                            const float* __restrict__ sl, const float* __restrict__ sr,
+                            const float* __restrict__ a, const float* __restrict__ m_in,
+                            const float* __restrict__ dnum, const float* __restrict__ dden,
+                            float* __restrict__ dsr_out, float* __restrict__ dapart_out,
+                            float* __restrict__ ws, int* __restrict__ counters, int n, int h,
+                            int f, int max_tiles, int group, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                  // [C][TM]: own words
+  float* ebuf = reinterpret_cast<float*>(mask_sh + max_tiles * TM);  // [EB][TM]: e, then de
+  float* gbuf = ebuf + EB * TM;                                      // [EB][TM]: gdot
+  float* a_sh = gbuf + EB * TM;                                      // [CW]
+  float* sl_sh = a_sh + CW;                                          // [group][TK][CS]
+  int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * CS);    // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long v = static_cast<long long>(it.row) * TM + i;
+  float* const dst_sr = grad_row(it, ws, 2 * hf, dsr_out, 0, v, n, hf);
+  float* const dst_ap = grad_row(it, ws, 2 * hf, dapart_out, 1, v, n, hf);
+  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  __syncthreads();
+  const int batches = own_batches(mask_sh, nt);
+
+  for (int head = 0; head < h; ++head) {
+    const float mv = node(m_in, v, n, h, head), dd = node(dden, v, n, h, head);
+    for (int b = 0; b < batches; ++b) {
+      const int lo = b * EB;
+      for (int c0 = 0; c0 < f; c0 += CW) {  // pass 1
+        const int fw = min(CW, f - c0);
+        const bool last = c0 + CW >= f;
+        float osr[CW], odn[CW];
+        load_cols<CW>(osr, sr, v, n, hf, head * f + c0, fw);
+        load_cols<CW>(odn, dnum, v, n, hf, head * f + c0, fw);
+        int k = 0;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      cols_sh, g0, gn, n, h, f, head, c0);
+          for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
+            const float* xj = sl_sh + ((t - g0) * TK + j) * CS;
+            float *eb = ebuf + s * TM + i, *gb = gbuf + s * TM + i;
+            const float e = logit_reg<CW>(a_sh, osr, xj, slope, c0 ? *eb : 0.f);
+            const float gdot = dot_reg<CW>(odn, xj, c0 ? *gb : 0.f);
+            if (last) {
+              *eb = expf(e - mv) * (gdot + dd);
+            } else {
+              *eb = e;
+              *gb = gdot;
+            }
+          });
+        }
+      }
+      for (int c0 = 0; c0 < f; c0 += CW) {  // pass 2
+        const int fw = min(CW, f - c0);
+        float osr[CW], gsr[CW], gap[CW];
+        load_cols<CW>(osr, sr, v, n, hf, head * f + c0, fw);
+        get_cols<CW>(gsr, b ? dst_sr : nullptr, head * f + c0, fw);
+        get_cols<CW>(gap, b ? dst_ap : nullptr, head * f + c0, fw);
+        int k = 0;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      cols_sh, g0, gn, n, h, f, head, c0);
+          for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
+            const float* xj = sl_sh + ((t - g0) * TK + j) * CS;
+            const float de = ebuf[s * TM + i];
+#pragma unroll
+            for (int q = 0; q < CW / 4; ++q) {
+              const float4 x = lds4(xj + 4 * q), av = lds4(a_sh + 4 * q);
+              const int k = 4 * q;
+              recv_col(gsr[k], gap[k], de, av.x, osr[k], x.x, slope);
+              recv_col(gsr[k + 1], gap[k + 1], de, av.y, osr[k + 1], x.y, slope);
+              recv_col(gsr[k + 2], gap[k + 2], de, av.z, osr[k + 2], x.z, slope);
+              recv_col(gsr[k + 3], gap[k + 3], de, av.w, osr[k + 3], x.w, slope);
+            }
+          });
+        }
+        put_cols<CW>(dst_sr, head * f + c0, fw, gsr);
+        put_cols<CW>(dst_ap, head * f + c0, fw, gap);
+      }
     }
   }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    sum_parts(it, ws, 2 * hf, dsr_out, dapart_out, n, hf);
+}
+
+// B9, any F. Per edge: pass 1 the logit and sl_u . dnum_v, then
+// p = exp(e - m_v) and de = p (gdot + dden_v); pass 2 dsl, CW columns at a time.
+__global__ void __launch_bounds__(THREADS)
+gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
+                            const int* __restrict__ block_cols, const int* __restrict__ items,
+                            const float* __restrict__ sl, const float* __restrict__ sr,
+                            const float* __restrict__ a, const float* __restrict__ m_in,
+                            const float* __restrict__ dnum, const float* __restrict__ dden,
+                            float* __restrict__ dsl_out, float* __restrict__ ws,
+                            int* __restrict__ counters, int n, int h, int f, int max_tiles,
+                            int group, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                  // [C][TM]: own words
+  float* ebuf = reinterpret_cast<float*>(mask_sh + max_tiles * TM);  // [EB][TM]: e, then p
+  float* gbuf = ebuf + EB * TM;                                      // [EB][TM]: gdot, then de
+  float* a_sh = gbuf + EB * TM;                                      // [CW]
+  float* sr_sh = a_sh + CW;                                          // [group][TK][CS]
+  float* dn_sh = sr_sh + group * TK * CS;                            // [group][TK][CS]
+  float* m_sh = dn_sh + group * TK * CS;                             // [group][TK]
+  float* dd_sh = m_sh + group * TK;                                  // [group][TK]
+  int* cols_sh = reinterpret_cast<int*>(dd_sh + group * TK);         // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long u = static_cast<long long>(it.row) * TM + i;  // sender
+  float* const dst_sl = grad_row(it, ws, hf, dsl_out, 0, u, n, hf);
+  load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
+  __syncthreads();
+  const int batches = own_batches(mask_sh, nt);
+
+  for (int head = 0; head < h; ++head) {
+    for (int b = 0; b < batches; ++b) {
+      const int lo = b * EB;
+      for (int c0 = 0; c0 < f; c0 += CW) {  // pass 1
+        const bool last = c0 + CW >= f;
+        float osl[CW];
+        load_cols<CW>(osl, sl, u, n, hf, head * f + c0, min(CW, f - c0));
+        int k = 0;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          stage_chunk(a_sh, a, sr_sh, sr, dn_sh, dnum, m_sh, last ? m_in : nullptr, dd_sh, dden,
+                      cols_sh, g0, gn, n, h, f, head, c0);
+          for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
+            const int at = (t - g0) * TK + j;
+            float *eb = ebuf + s * TM + i, *gb = gbuf + s * TM + i;
+            const float e = logit_reg<CW>(a_sh, osl, sr_sh + at * CS, slope, c0 ? *eb : 0.f);
+            const float gdot = dot_reg<CW>(osl, dn_sh + at * CS, c0 ? *gb : 0.f);
+            if (last) {
+              const float p = expf(e - m_sh[at]);
+              *eb = p;
+              *gb = p * (gdot + dd_sh[at]);
+            } else {
+              *eb = e;
+              *gb = gdot;
+            }
+          });
+        }
+      }
+      for (int c0 = 0; c0 < f; c0 += CW) {  // pass 2
+        const int fw = min(CW, f - c0);
+        float osl[CW], g[CW];
+        load_cols<CW>(osl, sl, u, n, hf, head * f + c0, fw);
+        get_cols<CW>(g, b ? dst_sl : nullptr, head * f + c0, fw);
+        int k = 0;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          stage_chunk(a_sh, a, sr_sh, sr, dn_sh, dnum, m_sh, nullptr, dd_sh, dden, cols_sh, g0,
+                      gn, n, h, f, head, c0);
+          for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
+            const int at = (t - g0) * TK + j;
+            const float p = ebuf[s * TM + i], de = gbuf[s * TM + i];
+#pragma unroll
+            for (int q = 0; q < CW / 4; ++q) {
+              const float4 x = lds4(sr_sh + at * CS + 4 * q), d = lds4(dn_sh + at * CS + 4 * q);
+              const float4 av = lds4(a_sh + 4 * q);
+              const int k = 4 * q;
+              send_col(g[k], p, de, av.x, osl[k], x.x, d.x, slope);
+              send_col(g[k + 1], p, de, av.y, osl[k + 1], x.y, d.y, slope);
+              send_col(g[k + 2], p, de, av.z, osl[k + 2], x.z, d.z, slope);
+              send_col(g[k + 3], p, de, av.w, osl[k + 3], x.w, d.w, slope);
+            }
+          });
+        }
+        put_cols<CW>(dst_sl, head * f + c0, fw, g);
+      }
+    }
+  }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    sum_parts(it, ws, hf, dsl_out, nullptr, n, hf);
+}
+
+// B7 above the staged kernel's reach (its rows of all F columns would
+// outgrow the card's shared memory). Pass 1 as above carries each own edge's
+// logit through the chunks; pass 2 runs B7's online softmax over the logits
+// once per CW-column slab of num, each slab from the batch's starting state
+// (the same m and den every slab), the split rows' partials merged as B7's.
+__global__ void __launch_bounds__(THREADS)
+gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
+                       const int* __restrict__ block_cols, const int* __restrict__ items,
+                       const float* __restrict__ sl, const float* __restrict__ sr,
+                       const float* __restrict__ a, float* __restrict__ num_out,
+                       float* __restrict__ den_out, float* __restrict__ m_out,
+                       float* __restrict__ ws, int* __restrict__ counters, int n_slots, int n,
+                       int h, int f, int max_tiles, int group, float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                  // [C][TM]: own words
+  float* ebuf = reinterpret_cast<float*>(mask_sh + max_tiles * TM);  // [EB][TM]: e
+  float* a_sh = ebuf + EB * TM;                                      // [CW]
+  float* sl_sh = a_sh + CW;                                          // [group][TK][CS]
+  int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * CS);    // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long v = static_cast<long long>(it.row) * TM + i;
+  const Partials parts(ws, n_slots, h, hf);
+  // this thread's num row (nullptr past n), as put_softmax writes it
+  float* num_row = it.slot < 0 ? (v < n ? num_out + v * hf : nullptr)
+                               : parts.num + (static_cast<size_t>(it.slot) * TM + i) * hf;
+  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  __syncthreads();
+  const int batches = own_batches(mask_sh, nt);
+
+  for (int head = 0; head < h; ++head) {
+    float m_run = NEG, den_run = 0.f;
+    for (int b = 0; b < batches; ++b) {
+      const int lo = b * EB;
+      for (int c0 = 0; c0 < f; c0 += CW) {  // pass 1: the logits
+        float osr[CW];
+        load_cols<CW>(osr, sr, v, n, hf, head * f + c0, min(CW, f - c0));
+        int k = 0;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      cols_sh, g0, gn, n, h, f, head, c0);
+          for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
+            float* eb = ebuf + s * TM + i;
+            *eb = logit_reg<CW>(a_sh, osr, sl_sh + ((t - g0) * TK + j) * CS, slope,
+                                c0 ? *eb : 0.f);
+          });
+        }
+      }
+      float m = m_run, den = den_run;
+      for (int s0 = 0; s0 < f; s0 += CW) {  // pass 2: the softmax, one slab of num at a time
+        const int fw = min(CW, f - s0);
+        float acc[CW];
+        get_cols<CW>(acc, b ? num_row : nullptr, head * f + s0, fw);
+        m = m_run;
+        den = den_run;
+        int k = 0;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      cols_sh, g0, gn, n, h, f, head, s0);
+          for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
+            const float e = ebuf[s * TM + i];
+            if (e > m) {
+              const float corr = expf(m - e);  // from NEG: 0, with den and num still 0
+              den *= corr;
+#pragma unroll
+              for (int kk = 0; kk < CW; ++kk) acc[kk] *= corr;
+              m = e;
+            }
+            const float p = expf(e - m);
+            den += p;
+            const float* xj = sl_sh + ((t - g0) * TK + j) * CS;
+#pragma unroll
+            for (int q = 0; q < CW / 4; ++q) {
+              const float4 x = lds4(xj + 4 * q);
+              acc[4 * q + 0] = fmaf(p, x.x, acc[4 * q + 0]);
+              acc[4 * q + 1] = fmaf(p, x.y, acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(p, x.z, acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(p, x.w, acc[4 * q + 3]);
+            }
+          });
+        }
+        put_softmax<CW>(it, parts, num_out, den_out, m_out, v, n, h, hf, head, f, s0, fw, acc,
+                        den, m);
+      }
+      m_run = m;
+      den_run = den;
+    }
+  }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    merge_parts(it, parts, num_out, den_out, m_out, n, h, hf);
 }
 
 // Each kernel's dynamic shared memory at per-head width f (compiled width
-// fp) and, for B7, C = max_tiles.
+// fp) and C = max_tiles, and how many of an item's tiles it stages at once.
+// Above F = MAX_REG_F (B8, B9) and past the staged B7's reach it depends on
+// C but not on F.
+constexpr size_t MAX_SMEM = 232448;  // what an H100 grants one CTA
+constexpr int MAX_STAGED_F = 208;    // the widest F of the staged B7
+size_t item_bytes(int max_tiles) {
+  return static_cast<size_t>(max_tiles) * (TM * sizeof(uint4) + sizeof(int));
+}
 int fwd_group(int f, int max_tiles) {
   return tile_group(sizeof(float) * TK * slab_stride(staged_width(f)), max_tiles);
 }
 size_t fwd_smem(int f, int fp, int max_tiles) {
   const int w = staged_width(f);
-  return static_cast<size_t>(max_tiles) * (TM * sizeof(uint4) + sizeof(int)) +
+  return item_bytes(max_tiles) +
          sizeof(float) * (w + (own_rows(fp) + static_cast<size_t>(fwd_group(f, max_tiles)) * TK) *
                                   slab_stride(w) +
                           fp);
 }
-size_t recv_smem(int fp) { return sizeof(float) * (TK * fp + fp * TM + fp); }
-size_t send_smem(int fp) { return sizeof(float) * (2 * TK * fp + 2 * TK + fp); }
-size_t recv_wide_smem(int f) {
-  const int w = staged_width(f);
-  return sizeof(float) * (w + 2 * SLAB + 3 * TM * slab_stride(w));
+// B8: the senders' rows of a tile; B9: the receivers' sr and dnum rows, m and dden.
+size_t recv_tile_bytes(int stride) { return sizeof(float) * TK * stride; }
+size_t send_tile_bytes(int stride) { return sizeof(float) * 2 * TK * (stride + 1); }
+int recv_group(int stride, int max_tiles) { return tile_group(recv_tile_bytes(stride), max_tiles); }
+int send_group(int stride, int max_tiles) { return tile_group(send_tile_bytes(stride), max_tiles); }
+size_t recv_item_smem(int fp, int max_tiles) {
+  return item_bytes(max_tiles) + sizeof(float) * (fp + fp * TM) +
+         recv_group(slab_stride(fp), max_tiles) * recv_tile_bytes(slab_stride(fp));
 }
-size_t send_wide_smem(int f) { return recv_wide_smem(f) + sizeof(float) * 2 * TK; }
+size_t send_item_smem(int fp, int max_tiles) {
+  return item_bytes(max_tiles) + sizeof(float) * fp +
+         send_group(slab_stride(fp), max_tiles) * send_tile_bytes(slab_stride(fp));
+}
+// The chunked kernels: the masks, `bufs` edge buffers [EB][TM] and a's chunk.
+size_t chunk_base(int bufs, int max_tiles) {
+  return item_bytes(max_tiles) + sizeof(float) * (bufs * EB * TM + CW);
+}
+size_t recv_chunk_smem(int max_tiles) {
+  return chunk_base(2, max_tiles) + recv_group(CS, max_tiles) * recv_tile_bytes(CS);
+}
+size_t send_chunk_smem(int max_tiles) {
+  return chunk_base(2, max_tiles) + send_group(CS, max_tiles) * send_tile_bytes(CS);
+}
+size_t fwd_chunk_smem(int max_tiles) {
+  return chunk_base(1, max_tiles) + recv_group(CS, max_tiles) * recv_tile_bytes(CS);
+}
 
 // The narrow widths' pick.
 template <typename Kernel>
@@ -575,11 +921,33 @@ Kernel pick_narrow(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k
   return f <= 4 ? k4 : f <= 8 ? k8 : f <= 16 ? k16 : f <= 32 ? k32 : k40;
 }
 
+// B7, on B3's schedule and workspace (gat_tile_attn.cu: gat_tile_fwd): the
+// staged kernel while its rows fit, else (or with `chunked`) the chunked one.
+int v2_fwd(const void* tiles, const void* block_cols, const void* items, const void* sl,
+           const void* sr, const void* a, void* num, void* den, void* m, void* ws,
+           void* counters, int n_items, int n_slots, int n, int h, int f, int max_tiles,
+           int tile_bf16, float slope, void* stream, bool chunked) {
+  if (f < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](auto kernel, size_t smem, int group) {
+    return launch(kernel, dim3(n_items), smem, stream, tiles, tile_bf16,
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items),
+                  static_cast<const float*>(sl), static_cast<const float*>(sr),
+                  static_cast<const float*>(a), static_cast<float*>(num), static_cast<float*>(den),
+                  static_cast<float*>(m), static_cast<float*>(ws), static_cast<int*>(counters),
+                  n_slots, n, h, f, max_tiles, group, slope);
+  };
+  const size_t staged = fwd_smem(f, width_of(f), max_tiles);
+  if (chunked || f > MAX_STAGED_F || staged > MAX_SMEM)
+    return go(gatv2_fwd_chunk_kernel, fwd_chunk_smem(max_tiles), recv_group(CS, max_tiles));
+  return go(pick_width(f, GAT_TILE_WIDTHS(gatv2_fwd_item_kernel)), staged,
+            fwd_group(f, max_tiles));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Tile shape and the ints of one work item of B7.
+// Tile shape and the ints of one work item of B7, B8 and B9.
 int gatv2_tile_attn_config(int* tm, int* tk, int* item_ints) {
   *tm = TM;
   *tk = TK;
@@ -587,64 +955,77 @@ int gatv2_tile_attn_config(int* tm, int* tk, int* item_ints) {
   return 0;
 }
 
-// B7, on B3's schedule and workspace (gat_tile_attn.cu: gat_tile_fwd).
+// B7: the staged kernel while its rows fit, else the chunked one.
 // Returns the CUDA error of the launch (0 on success).
 int gatv2_tile_fwd(const void* tiles, const void* block_cols, const void* items, const void* sl,
                    const void* sr, const void* a, void* num, void* den, void* m, void* ws,
                    void* counters, int n_items, int n_slots, int n, int h, int f, int max_tiles,
                    int tile_bf16, float slope, void* stream) {
-  if (f < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gatv2_fwd_item_kernel)), dim3(n_items),
-                fwd_smem(f, width_of(f), max_tiles), stream, tiles, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(items),
-                static_cast<const float*>(sl), static_cast<const float*>(sr),
-                static_cast<const float*>(a), static_cast<float*>(num), static_cast<float*>(den),
-                static_cast<float*>(m), static_cast<float*>(ws), static_cast<int*>(counters),
-                n_slots, n, h, f, max_tiles, fwd_group(f, max_tiles), slope);
+  return v2_fwd(tiles, block_cols, items, sl, sr, a, num, den, m, ws, counters, n_items, n_slots,
+                n, h, f, max_tiles, tile_bf16, slope, stream, false);
 }
 
-// B8 over the forward tiles.
-int gatv2_tile_bwd_recv(const void* tiles, const void* block_cols, const void* block_row_ptr,
+// B7 on its chunked kernel at any F, to time and test it against the staged one.
+int gatv2_tile_fwd_chunked(const void* tiles, const void* block_cols, const void* items,
+                           const void* sl, const void* sr, const void* a, void* num, void* den,
+                           void* m, void* ws, void* counters, int n_items, int n_slots, int n,
+                           int h, int f, int max_tiles, int tile_bf16, float slope,
+                           void* stream) {
+  return v2_fwd(tiles, block_cols, items, sl, sr, a, num, den, m, ws, counters, n_items, n_slots,
+                n, h, f, max_tiles, tile_bf16, slope, stream, true);
+}
+
+// B8 over the forward tiles, on B7's work items (the same schedule and
+// counters: the wrapper launches the two one after the other on one stream);
+// the split rows' partials in ws [n_slots][TM][2 h f] (dsr, then dapart).
+int gatv2_tile_bwd_recv(const void* tiles, const void* block_cols, const void* items,
                         const void* sl, const void* sr, const void* a, const void* m,
-                        const void* dnum, const void* dden, void* dsr, void* dapart,
-                        int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
-                        void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto go = [&](auto kernel, size_t smem) {
-    return launch(kernel, grid_of(n_block_rows, h), smem, stream, tiles, tile_bf16,
-                  static_cast<const int*>(block_cols), static_cast<const int*>(block_row_ptr),
+                        const void* dnum, const void* dden, void* dsr, void* dapart, void* ws,
+                        void* counters, int n_items, int n_slots, int n, int h, int f,
+                        int max_tiles, int tile_bf16, float slope, void* stream) {
+  if (f < 1 || max_tiles < 1 || n_slots < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](auto kernel, size_t smem, int group) {
+    return launch(kernel, dim3(n_items), smem, stream, tiles, tile_bf16,
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items),
                   static_cast<const float*>(sl), static_cast<const float*>(sr),
                   static_cast<const float*>(a), static_cast<const float*>(m),
                   static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                  static_cast<float*>(dsr), static_cast<float*>(dapart), n, h, f, slope);
+                  static_cast<float*>(dsr), static_cast<float*>(dapart), static_cast<float*>(ws),
+                  static_cast<int*>(counters), n, h, f, max_tiles, group, slope);
   };
-  if (f > MAX_REG_F) return go(gatv2_bwd_recv_wide_kernel, recv_wide_smem(f));
-  return go(pick_narrow(f, gatv2_bwd_recv_kernel<4>, gatv2_bwd_recv_kernel<8>,
-                        gatv2_bwd_recv_kernel<16>, gatv2_bwd_recv_kernel<32>,
-                        gatv2_bwd_recv_kernel<40>),
-            recv_smem(width_of(f)));
+  if (f > MAX_REG_F)
+    return go(gatv2_bwd_recv_chunk_kernel, recv_chunk_smem(max_tiles), recv_group(CS, max_tiles));
+  const int fp = width_of(f);
+  return go(pick_narrow(f, gatv2_bwd_recv_item_kernel<4>, gatv2_bwd_recv_item_kernel<8>,
+                        gatv2_bwd_recv_item_kernel<16>, gatv2_bwd_recv_item_kernel<32>,
+                        gatv2_bwd_recv_item_kernel<40>),
+            recv_item_smem(fp, max_tiles), recv_group(slab_stride(fp), max_tiles));
 }
 
-// B9 over the transpose tiles (block rows are senders).
-int gatv2_tile_bwd_send(const void* tiles_t, const void* block_cols, const void* block_row_ptr,
+// B9 over the transpose tiles (block rows are senders), on their own work
+// items; the split rows' partials in ws [n_slots][TM][h f].
+int gatv2_tile_bwd_send(const void* tiles_t, const void* block_cols, const void* items,
                         const void* sl, const void* sr, const void* a, const void* m,
-                        const void* dnum, const void* dden, void* dsl, int n_block_rows, int n,
-                        int h, int f, int tile_bf16, float slope, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto go = [&](auto kernel, size_t smem) {
-    return launch(kernel, grid_of(n_block_rows, h), smem, stream, tiles_t, tile_bf16,
-                  static_cast<const int*>(block_cols), static_cast<const int*>(block_row_ptr),
+                        const void* dnum, const void* dden, void* dsl, void* ws, void* counters,
+                        int n_items, int n_slots, int n, int h, int f, int max_tiles,
+                        int tile_bf16, float slope, void* stream) {
+  if (f < 1 || max_tiles < 1 || n_slots < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](auto kernel, size_t smem, int group) {
+    return launch(kernel, dim3(n_items), smem, stream, tiles_t, tile_bf16,
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items),
                   static_cast<const float*>(sl), static_cast<const float*>(sr),
                   static_cast<const float*>(a), static_cast<const float*>(m),
                   static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                  static_cast<float*>(dsl), n, h, f, slope);
+                  static_cast<float*>(dsl), static_cast<float*>(ws), static_cast<int*>(counters),
+                  n, h, f, max_tiles, group, slope);
   };
-  if (f > SEND_REG_F) return go(gatv2_bwd_send_wide_kernel, send_wide_smem(f));
-  if (f > MAX_REG_F) return go(gatv2_bwd_send_kernel<SLAB>, send_smem(SLAB));
-  return go(pick_narrow(f, gatv2_bwd_send_kernel<4>, gatv2_bwd_send_kernel<8>,
-                        gatv2_bwd_send_kernel<16>, gatv2_bwd_send_kernel<32>,
-                        gatv2_bwd_send_kernel<40>),
-            send_smem(width_of(f)));
+  if (f > MAX_REG_F)
+    return go(gatv2_bwd_send_chunk_kernel, send_chunk_smem(max_tiles), send_group(CS, max_tiles));
+  const int fp = width_of(f);
+  return go(pick_narrow(f, gatv2_bwd_send_item_kernel<4>, gatv2_bwd_send_item_kernel<8>,
+                        gatv2_bwd_send_item_kernel<16>, gatv2_bwd_send_item_kernel<32>,
+                        gatv2_bwd_send_item_kernel<40>),
+            send_item_smem(fp, max_tiles), send_group(slab_stride(fp), max_tiles));
 }
 
 }  // extern "C"

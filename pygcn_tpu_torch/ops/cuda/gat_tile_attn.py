@@ -35,20 +35,23 @@ is ``e = Σ_f a[h,f]·leaky(sl[u,hF+f] + sr[v,hF+f])``:
 
 The CUDA sources, ``pygcn_tpu_torch/csrc/gat_tile_attn.cu`` (B3-B6,
 B4/B5s/B6s) and ``gatv2_tile_attn.cu`` (B7/B8/B9), carry the design notes.
-B3 and B7 run B1's balanced schedule (:func:`spmm_schedule` at
+B3, B7, B8 and B9 run B1's balanced schedule (:func:`spmm_schedule` at
 :data:`MAX_TILES`, cached per tile set in ``bcsr.cache`` with arrival
-counters of its own): one CTA per work item of at most C tiles of a block
-row, for all heads; each tile's mask decoded once; each thread walking only
-its own row's edges; the items of a split row writing partials ``(m, den,
-num)`` that the last to arrive merges in item order by the flash merge
-(:func:`scheduled_merge` is that merge in plain PyTorch), so the result is
-the same bits every run. B5, B6, B8, B9 and the stream kernels keep one CTA
-per (head, block row), or per (head, tile), and each output is written
-once, without atomics. At the ogbn-arxiv hybrid's shapes all are bound by
-bytes (the tiles as stored, about 0.19 GB a launch). Every kernel takes any
-per-head width F: up to 64 in registers, wider in slabs of 64 columns;
-B7's and B8's shared memory grows with F above 40, B9's above 64 (up to
-F = 208 for B7, 144 for B8 and B9).
+counters of its own; B7 and B8 share the forward tiles' entry, B9 has the
+transpose tiles'): one CTA per work item of at most C tiles of a block row,
+for all heads; each tile's mask decoded once; each thread walking only its
+own row's edges; the items of a split row writing partials that the last to
+arrive merges in item order, so the result is the same bits every run: B3's
+and B7's ``(m, den, num)`` by the flash merge (:func:`scheduled_merge` in
+plain PyTorch), B8's and B9's gradients by a plain sum
+(:func:`scheduled_sum`). B5, B6 and the stream kernels keep one CTA per
+(head, block row), or per (head, tile), and each output is written once,
+without atomics. At the ogbn-arxiv hybrid's shapes all are bound by bytes
+(the tiles as stored, about 0.19 GB a launch). Every kernel takes any
+per-head width F, with shared memory that fits the card whatever F: B3-B6
+in slabs of 64 columns; B7 with whole rows staged up to F = 208, B8 and B9
+with own rows in registers up to F = 40, and above those the F-chunked
+kernels (32 columns at a time).
 
 Tile values only gate the mask (``tile != 0``); they are never multiplied in.
 Each kernel has a plain PyTorch version here (``*_plain``), the CPU path and
@@ -80,6 +83,11 @@ ITEM_INTS = 6
 # per tile set apart from B1's. ``chip_smoke.py`` times B3 and B7 at C = 1, 2
 # and 4 (PERF.md).
 MAX_TILES = 2
+
+# Own edges that a thread of the F-chunked GATv2 kernels (B7 above the staged
+# kernel's reach, B8 and B9 above F = 40) carries through one batch (EB in
+# gatv2_tile_attn.cu): a row with more in one work item takes more batches.
+CHUNK_EDGES = 32
 
 # The JAX package's A/B flag (``pygcn_tpu/ops/pallas/gat_tile_attn.py:115``),
 # with its default. :class:`GATTilePartials` reads it once in its forward
@@ -377,12 +385,11 @@ def tile_v2_fwd_scheduled_plain(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: 
     return scheduled_merge(bcsr, *parts, sl2.shape[0], max_tiles)
 
 
-def tile_v2_bwd_recv_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
-                           slope: float):
-    """B8's function: ``(dsr [N, H·F], dapart [N, H·F])`` over the forward
-    tiles, with ``p = mask·exp(e − m_v)`` (``m`` as B7 returned it) and
-    ``de = p·(sl_u·dnum_v + dden_v)``; ``da`` is ``dapart`` summed over nodes."""
-    n = sl2.shape[0]
+def tile_v2_bwd_recv_stream_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
+                                  slope: float):
+    """B8's per-tile partials ``(dsr_t [T, tm, H·F], dapart_t [T, tm, H·F])``
+    over the forward tiles, with ``p = mask·exp(e − m_v)`` (``m`` as B7
+    returned it) and ``de = p·(sl_u·dnum_v + dden_v)``."""
     tm, tk = bcsr.tm, bcsr.tk
     mask = bcsr.data != 0
     slv = _slabs(sl2, bcsr.block_cols, bcsr.n_block_cols, tk)
@@ -397,23 +404,29 @@ def tile_v2_bwd_recv_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: in
         p = torch.where(mask, torch.exp(e - mv[:, :, hh, None]), 0.0)
         gdot = torch.bmm(dnv[:, :, fs], slv[:, :, fs].transpose(1, 2))
         de = p * (gdot + ddv[:, :, hh, None])
-        g_sr, g_ap = [], []
         for ff in range(f):
             idx = hh * f + ff
             pre = srv[:, :, idx, None] + slv[:, None, :, idx]
-            g_sr.append((de * (a[hh, ff] * torch.where(pre >= 0, 1.0, slope))).sum(dim=2))
-            g_ap.append((de * _leaky(pre, slope)).sum(dim=2))
-        dsr.append(sum_by_block_row(torch.stack(g_sr, 2), bcsr, n))
-        dap.append(sum_by_block_row(torch.stack(g_ap, 2), bcsr, n))
-    return torch.cat(dsr, 1), torch.cat(dap, 1)
+            dsr.append((de * (a[hh, ff] * torch.where(pre >= 0, 1.0, slope))).sum(dim=2))
+            dap.append((de * _leaky(pre, slope)).sum(dim=2))
+    return torch.stack(dsr, 2), torch.stack(dap, 2)
 
 
-def tile_v2_bwd_send_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
+def tile_v2_bwd_recv_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
                            slope: float):
-    """B9's function: ``dsl [N, H·F]`` over the transpose tiles, whose rows are
-    senders ``u`` and columns receivers ``v``: the aggregation term
-    ``Σ_v p·dnum_v`` plus the logit term through ``leaky'``."""
+    """B8's function: ``(dsr [N, H·F], dapart [N, H·F])`` over the forward
+    tiles, the per-tile partials summed by block row; ``da`` is ``dapart``
+    summed over nodes."""
     n = sl2.shape[0]
+    parts = tile_v2_bwd_recv_stream_plain(bcsr, sl2, sr2, a, m, dnum, dden, h, f, slope)
+    return tuple(sum_by_block_row(x, bcsr, n) for x in parts)
+
+
+def tile_v2_bwd_send_stream_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
+                                  slope: float):
+    """B9's per-tile partials ``dsl_t [Tt, tm, H·F]`` over the transpose
+    tiles, whose rows are senders ``u`` and columns receivers ``v``: the
+    aggregation term ``Σ_v p·dnum_v`` plus the logit term through ``leaky'``."""
     tm, tk = bcsr_t.tm, bcsr_t.tk
     mask = bcsr_t.data != 0
     slu = _slabs(sl2, bcsr_t.block_rows, bcsr_t.n_block_rows, tm)
@@ -434,8 +447,59 @@ def tile_v2_bwd_send_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: 
             idx = hh * f + ff
             pre = slu[:, :, idx, None] + srv[:, None, :, idx]
             logit.append((de * (a[hh, ff] * torch.where(pre >= 0, 1.0, slope))).sum(dim=2))
-        dsl.append(sum_by_block_row(agg + torch.stack(logit, 2), bcsr_t, n))
-    return torch.cat(dsl, 1)
+        dsl.append(agg + torch.stack(logit, 2))
+    return torch.cat(dsl, 2)
+
+
+def tile_v2_bwd_send_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
+                           slope: float):
+    """B9's function: ``dsl [N, H·F]`` over the transpose tiles, the per-tile
+    partials summed by block row."""
+    parts = tile_v2_bwd_send_stream_plain(bcsr_t, sl2, sr2, a, m, dnum, dden, h, f, slope)
+    return sum_by_block_row(parts, bcsr_t, sl2.shape[0])
+
+
+def scheduled_sum(bcsr: BCSR, parts, n: int, max_tiles: int):
+    """B8's and B9's split-row sum in plain PyTorch: per-tile partials
+    ``[T, tm, W]`` summed along the work items of :func:`spmm_schedule` at
+    ``max_tiles`` as the kernels sum them: each item's tiles one after another,
+    then a block row's items in item order. ``[n, W]``; rows of block rows
+    without tiles are zero."""
+    t, tm, w = parts.shape
+    dev = parts.device
+    items = spmm_schedule(bcsr, max_tiles).items.long().to(dev)
+    n_items = items.shape[0]
+    counts = items[:, 1] - items[:, 0]
+    of_tile = torch.repeat_interleave(torch.arange(n_items, device=dev), counts)
+    place = torch.arange(t, device=dev) - items[of_tile, 0]  # place of a tile in its item
+    item_sum = parts.new_zeros((n_items, tm, w))
+    for step in range(int(counts.max()) if n_items else 0):
+        sel = place == step
+        item_sum[of_tile[sel]] += parts[sel]
+    row = items[:, 2].contiguous()
+    part = torch.arange(n_items, device=dev) - torch.searchsorted(row, row)  # place in its row
+    out = parts.new_zeros((bcsr.n_block_rows, tm, w))
+    for step in range(int(part.max()) + 1 if n_items else 0):
+        sel = part == step
+        out[row[sel]] += item_sum[sel]
+    return out.view(-1, w)[:n]
+
+
+def tile_v2_bwd_recv_scheduled_plain(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
+                                     slope: float, max_tiles: int):
+    """B8's function as B8 computes it: :func:`scheduled_sum` of the per-tile
+    partials at ``max_tiles``."""
+    n = sl2.shape[0]
+    parts = tile_v2_bwd_recv_stream_plain(bcsr, sl2, sr2, a, m, dnum, dden, h, f, slope)
+    return tuple(scheduled_sum(bcsr, x, n, max_tiles) for x in parts)
+
+
+def tile_v2_bwd_send_scheduled_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int,
+                                     slope: float, max_tiles: int):
+    """B9's function as B9 computes it: :func:`scheduled_sum` of the per-tile
+    partials at ``max_tiles``."""
+    parts = tile_v2_bwd_send_stream_plain(bcsr_t, sl2, sr2, a, m, dnum, dden, h, f, slope)
+    return scheduled_sum(bcsr_t, parts, sl2.shape[0], max_tiles)
 
 
 # --------------------------------------------------------------------- #
@@ -458,18 +522,21 @@ def _load(name: str):
         entries = ((("gat_tile_bwd_dldst", 7), ("gat_tile_bwd_sender", 8),
                     ("gat_tile_fwd_stream", 6), ("gat_tile_bwd_dldst_stream", 7),
                     ("gat_tile_bwd_sender_stream", 8))
-                   if name == "gat_tile_attn" else
-                   (("gatv2_tile_bwd_recv", 8), ("gatv2_tile_bwd_send", 7)))
+                   if name == "gat_tile_attn" else ())
         for fn_name, n_ptrs in entries:
             fn = getattr(lib, fn_name)
             fn.argtypes = [p] * (3 + n_ptrs) + [i] * 5 + [fl, p]
             fn.restype = ctypes.c_int
-        # the forward (B3, B7): tiles, block_cols, items, 3 operands, 3
-        # outputs, ws, counters; n_items, n_slots, n, h, f, max_tiles,
-        # tile_bf16; slope; stream
-        fwd = getattr(lib, "gat_tile_fwd" if name == "gat_tile_attn" else "gatv2_tile_fwd")
-        fwd.argtypes = [p] * 11 + [i] * 7 + [fl, p]
-        fwd.restype = ctypes.c_int
+        # on work items (B3, B7, B8, B9): tiles, block_cols, items, the
+        # operands, the outputs, ws, counters; n_items, n_slots, n, h, f,
+        # max_tiles, tile_bf16; slope; stream
+        items = ((("gat_tile_fwd", 3, 3),) if name == "gat_tile_attn" else
+                 (("gatv2_tile_fwd", 3, 3), ("gatv2_tile_fwd_chunked", 3, 3),
+                  ("gatv2_tile_bwd_recv", 6, 2), ("gatv2_tile_bwd_send", 6, 1)))
+        for fn_name, n_ins, n_outs in items:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [p] * (5 + n_ins + n_outs) + [i] * 7 + [fl, p]
+            fn.restype = ctypes.c_int
         config = getattr(lib, f"{name}_config")
         config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         config.restype = ctypes.c_int
@@ -546,12 +613,16 @@ def _launch(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: in
 
 
 def _item_schedule(bcsr: BCSR) -> tuple[SpMMSchedule, torch.Tensor]:
-    """B3's and B7's work items at :data:`MAX_TILES` on the tiles' device and
-    their int32 arrival counters (one per split item, zero between launches),
-    built on the first launch over ``bcsr`` and kept in ``bcsr.cache`` under a
-    key of their own: B1's entry has counters of another size, and a launch
-    of B1 never shares counters with a launch of B3 or B7. Like B1's, they
-    assume one launch at a time over a tile set."""
+    """The work items at :data:`MAX_TILES` of B3, B7 and B8 over a forward
+    tile set, or of B9 over a transpose one, on the tiles' device, and their
+    int32 arrival counters (one per split item, zero between launches), built
+    on the first launch over ``bcsr`` and kept in ``bcsr.cache`` under a key
+    of their own: B1's entry has counters of another size, and a launch of B1
+    never shares counters with a launch of a GAT kernel. B7 and B8 share one
+    entry, counters included: a GATv2 step launches B7, then B8, on one
+    stream, and the last item of a split row resets its counter before the
+    next launch starts. Like B1's, they assume one launch at a time over a
+    tile set."""
     key = ("gat_tile", MAX_TILES)
     if key not in bcsr.cache:
         dev = bcsr.block_row_ptr.device
@@ -561,16 +632,24 @@ def _item_schedule(bcsr: BCSR) -> tuple[SpMMSchedule, torch.Tensor]:
     return bcsr.cache[key]
 
 
+def most_own_edges(bcsr: BCSR) -> int:
+    """The most edges one row has in one work item at :data:`MAX_TILES`: above
+    :data:`CHUNK_EDGES` the chunked kernels walk that row in several batches."""
+    counts = (bcsr.data != 0).sum(dim=2).cpu().numpy()  # [T, tm]
+    items = spmm_schedule(bcsr, MAX_TILES).items.cpu().numpy()
+    return max((int(counts[b:e].sum(0).max()) for b, e in items[:, :2] if e > b), default=0)
+
+
 def _launch_items(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int,
-                  f: int, slope: float):
-    """Launch the forward ``fn_name`` (B3 or B7): one CTA per work item of
+                  f: int, slope: float, ws_width: int):
+    """Launch ``fn_name`` (B3, B7, B8 or B9): one CTA per work item of
     :func:`_item_schedule`, the split items' partials in a workspace of
-    ``n_slots * 128 * (H·F + 2H)`` floats."""
+    ``n_slots * 128 * ws_width`` floats."""
     lib = _load(lib_name)
     n = ins[0].shape[0]
     dev = ins[0].device
     sched, counters = _item_schedule(bcsr)
-    ws = (torch.empty(sched.n_slots * bcsr.tm * (h * f + 2 * h), dtype=torch.float32, device=dev)
+    ws = (torch.empty(sched.n_slots * bcsr.tm * ws_width, dtype=torch.float32, device=dev)
           if sched.n_slots else None)
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
@@ -613,7 +692,7 @@ def tile_fwd_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
     num, den, m = _empty(n, h * f, s2), _empty(n, h, s2), _empty(n, h, s2)
     if n and h:
         _launch_items("gat_tile_attn", "B3", "gat_tile_fwd", bcsr, (lsrc, ldst, s2),
-                      (num, den, m), h, f, slope)
+                      (num, den, m), h, f, slope, h * f + 2 * h)
     return num, den, m
 
 
@@ -678,15 +757,19 @@ def tile_bwd_sender_stream_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: 
     return ds_t, dlsrc_t
 
 
-def tile_v2_fwd_cuda(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float):
-    """Launch B7 on the current stream; raises on anything it does not take."""
+def tile_v2_fwd_cuda(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float,
+                     chunked: bool = False):
+    """Launch B7 on the current stream; raises on anything it does not take.
+    ``chunked`` runs its F-chunked kernel at any F (the main path takes it
+    only above the staged kernel's reach), to test and time the two."""
     n = sl2.shape[0]
     ins = (sl2, sr2, a)
     _check_cuda("B7", bcsr, ins, _v2_shapes(n, h, f), n, f)
     num, den, m = _empty(n, h * f, sl2), _empty(n, h, sl2), _empty(n, h, sl2)
     if n and h:
-        _launch_items("gatv2_tile_attn", "B7", "gatv2_tile_fwd", bcsr, ins, (num, den, m), h, f,
-                      slope)
+        _launch_items("gatv2_tile_attn", "B7",
+                      "gatv2_tile_fwd_chunked" if chunked else "gatv2_tile_fwd", bcsr, ins,
+                      (num, den, m), h, f, slope, h * f + 2 * h)
     return num, den, m
 
 
@@ -698,8 +781,8 @@ def tile_v2_bwd_recv_cuda(bcsr: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: int
     _check_cuda("B8", bcsr, ins, _v2_shapes(n, h, f), n, f)
     dsr, dapart = _empty(n, h * f, sl2), _empty(n, h * f, sl2)
     if n and h:
-        _launch("gatv2_tile_attn", "B8", "gatv2_tile_bwd_recv", bcsr, ins, (dsr, dapart), h, f,
-                slope)
+        _launch_items("gatv2_tile_attn", "B8", "gatv2_tile_bwd_recv", bcsr, ins, (dsr, dapart),
+                      h, f, slope, 2 * h * f)
     return dsr, dapart
 
 
@@ -711,7 +794,8 @@ def tile_v2_bwd_send_cuda(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: i
     _check_cuda("B9", bcsr_t, ins, _v2_shapes(n, h, f), n, f)
     dsl = _empty(n, h * f, sl2)
     if n and h:
-        _launch("gatv2_tile_attn", "B9", "gatv2_tile_bwd_send", bcsr_t, ins, (dsl,), h, f, slope)
+        _launch_items("gatv2_tile_attn", "B9", "gatv2_tile_bwd_send", bcsr_t, ins, (dsl,), h, f,
+                      slope, h * f)
     return dsl
 
 

@@ -122,12 +122,12 @@ def test_b1_gradient_on_asymmetric_graph(dev):
                                rtol=1e-4, atol=1e-4)
 
 
-def gat_tiles(symmetric, dtype, drop_padding, seed=0):
+def gat_tiles(symmetric, dtype, drop_padding, seed=0, density=0.05):
     """Ragged 300-node tile sets whose block row 1 has no edge (with or
     without the builder's zero padding tile) and their exact transpose; the
     symmetric set's transpose has that empty block row too."""
     rng = np.random.default_rng(seed)
-    m = sp.random(300, 300, density=0.05, random_state=rng, format="coo", dtype=np.float32)
+    m = sp.random(300, 300, density=density, random_state=rng, format="coo", dtype=np.float32)
     keep = (m.row // 128 != 1) & ((m.col // 128 != 1) | (not symmetric))
     m = sp.coo_matrix((np.ones(int(keep.sum()), np.float32), (m.row[keep], m.col[keep])),
                       shape=m.shape)
@@ -222,9 +222,10 @@ def test_gat_tile_kernels_leaky_derivative_at_zero(dev):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
 
 
-def v2_operands(dev, h, f, seed, integer=False):
+def v2_operands(dev, h, f, seed, integer=False, scale_a=False):
     """``sl2``, ``sr2``, ``a``, then ``dnum`` and ``dden`` on the card;
-    ``integer`` puts many pre-activations ``sl + sr`` at exactly 0."""
+    ``integer`` puts many pre-activations ``sl + sr`` at exactly 0. ``a`` is
+    scaled by 1/sqrt(F) above F = 64, or with ``scale_a`` at any F."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     if integer:
         sl2, sr2 = (torch.randint(-1, 2, (300, h * f), device=dev, generator=gen).float()
@@ -232,7 +233,7 @@ def v2_operands(dev, h, f, seed, integer=False):
     else:
         sl2, sr2 = (torch.randn(300, h * f, device=dev, generator=gen) for _ in range(2))
     a = torch.randn(h, f, device=dev, generator=gen)
-    if f > 64:
+    if f > 64 or scale_a:
         a = a / f ** 0.5  # a for fan-in F: logits of unit scale however wide the head
     return sl2, sr2, a, torch.randn(300, h * f, device=dev, generator=gen), \
         torch.randn(300, h, device=dev, generator=gen)
@@ -240,27 +241,33 @@ def v2_operands(dev, h, f, seed, integer=False):
 
 def v2_kernel_and_plain(name, b, bt, ops, m, h, f):
     """The outputs of kernel ``name`` (through its dispatcher, on CUDA
-    tensors) and of its plain version on the same operands."""
+    tensors; ``B7c``: B7 on its chunked kernel) and of its plain version on
+    the same operands."""
     sl2, sr2, a, dnum, dden = ops
-    if name == "B7":
+    if name in ("B7", "B7c"):
         args = (sl2, sr2, a, h, f, 0.2)
-        return gta.tile_v2_fwd(b, *args), gta.tile_v2_fwd_plain(b, *args)
+        kernel = gta.tile_v2_fwd_cuda(b, *args, chunked=True) if name == "B7c" else \
+            gta.tile_v2_fwd(b, *args)
+        return kernel, gta.tile_v2_fwd_plain(b, *args)
     args = (sl2, sr2, a, m, dnum, dden, h, f, 0.2)
     if name == "B8":
         return gta.tile_v2_bwd_recv(b, *args), gta.tile_v2_bwd_recv_plain(b, *args)
     return (gta.tile_v2_bwd_send(bt, *args),), (gta.tile_v2_bwd_send_plain(bt, *args),)
 
 
-@pytest.mark.parametrize("hf", GAT_SHAPES + [(2, 48), (1, 64)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("hf", GAT_SHAPES + [(2, 48), (1, 64), (1, 160), (1, 224)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
 @pytest.mark.parametrize("drop_padding", [False, True], ids=["padding_tile", "no_tile"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
-@pytest.mark.parametrize("name", ["B7", "B8", "B9"])
+@pytest.mark.parametrize("name", ["B7", "B8", "B9", "B7c"])
 def test_gatv2_tile_kernel_matches_plain(dev, name, symmetric, dtype, drop_padding, hf):
-    """Each GATv2 tile kernel on the grid of the v1 kernels' test, plus the
-    widths that B9's register kernel reaches above B7's and B8's (2x48, its
-    last columns masked; 1x64, one slab, B7 and B8 on their shared-memory
-    kernels)."""
+    """Each GATv2 tile kernel on the grid of the v1 kernels' test, plus wider
+    heads: 2x48 and 1x64 (B8 and B9 on their chunked kernels, 2x48 with a
+    ragged chunk; B7 on its shared-memory one), 1x160 (B8 and B9 past the
+    width whose whole rows would fit an H100's shared memory) and 1x224 (B7
+    past it too: its chunked kernel). ``B7c`` is B7's chunked kernel at every
+    width."""
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
     ops = v2_operands(dev, h, f, h * 100 + f)
@@ -268,14 +275,55 @@ def test_gatv2_tile_kernel_matches_plain(dev, name, symmetric, dtype, drop_paddi
     before = dict(gta.launches)
     got, ref = v2_kernel_and_plain(name, b, bt, ops, m, h, f)
     torch.cuda.synchronize()
-    assert gta.launches == {k: before[k] + (k == name) for k in before}
+    assert gta.launches == {k: before[k] + (k == name[:2]) for k in before}
     for x, r in zip(got, ref):
         torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
-    if name == "B7":
+    if name in ("B7", "B7c"):
         assert (got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
         assert not got[1][128:256].any()
     elif name == "B8" or symmetric:
         assert not got[0][128:256].any()
+
+
+@pytest.mark.parametrize("hf", [(2, 48), (1, 64), (8, 128), (1, 160), (1, 224)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("name", ["B7", "B8", "B9", "B7c"])
+def test_gatv2_tile_kernel_on_dense_rows(dev, name, symmetric, dtype, hf):
+    """The chunked kernels on rows of more own edges in one work item than a
+    batch holds (``gta.CHUNK_EDGES``): the 300-node sets at density 0.35, up to
+    114 edges a row in an item, walked in up to four batches, each after the
+    first reading back what the earlier ones wrote (B8's and B9's partial
+    gradients, B7's running max, sum and num). ``a`` is scaled by 1/sqrt(F).
+    Each output against its plain version within 1e-4, but B8's ``dapart``,
+    per receiver a sum of up to 114 edges' products that reaches hundreds
+    and cancels, whose f32 plain version already lies up to 0.7 of that
+    tolerance from the f64 one: it is held against the plain version in f64,
+    within 1e-4 of the largest value and within 4x the f32 plain version's
+    error."""
+    h, f = hf
+    b, bt = gat_tiles(symmetric, dtype, True, density=0.35)
+    assert min(gta.most_own_edges(b), gta.most_own_edges(bt)) > 2 * gta.CHUNK_EDGES
+    b, bt = b.to(dev), bt.to(dev)
+    ops = v2_operands(dev, h, f, h * 10 + f, scale_a=True)
+    m = gta.tile_v2_fwd_plain(b, *ops[:3], h, f, 0.2)[2]
+    before = dict(gta.launches)
+    got, ref = v2_kernel_and_plain(name, b, bt, ops, m, h, f)
+    torch.cuda.synchronize()
+    assert gta.launches == {k: before[k] + (k == name[:2]) for k in before}
+    for i, (x, r) in enumerate(zip(got, ref)):
+        assert x.shape == r.shape and torch.isfinite(x).all()
+        if name == "B8" and i == 1:
+            args = [o.double() for o in (*ops[:3], m, *ops[3:])]
+            r64 = gta.tile_v2_bwd_recv_plain(b, *args, h, f, 0.2)[1]
+            scale = float(r64.abs().max())
+            err_k, err_p = (float((y.double() - r64).abs().max()) for y in (x, r))
+            assert err_k <= 1e-4 * scale and err_k <= 4 * max(err_p, 1e-7 * scale), (err_k, err_p)
+        else:
+            torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+    if name in ("B7", "B7c"):
+        assert (got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
 
 
 def test_gatv2_tile_kernels_leaky_derivative_at_zero(dev):
@@ -451,9 +499,47 @@ def test_b3_b7_long_rows_bitwise_and_plain(dev, name, hf):
     assert sched.n_slots > 0 and not counters.any()
 
 
+@pytest.mark.parametrize("hf", [(8, 8), (1, 40), (2, 65), (1, 224)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("name", ["B8", "B9"])
+def test_b8_b9_long_rows_bitwise_and_plain(dev, name, hf):
+    """B8 and B9 on split rows (the 43-tile row is 22 items, its partials summed
+    in item order): the same bits in two launches, the arrival counters back at
+    zero, the plain version's values within 1e-4, and the block row without
+    tiles zero. B8 runs on B7's schedule entry of the forward tiles; B9 on one
+    of its own, of the transpose tiles."""
+    h, f = hf
+    b, n = long_row_gat_tiles()
+    bt = gta.transpose_bcsr(b)
+    b, bt = b.to(dev), bt.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(h * 7 + f)
+    sl2, sr2, dnum = (torch.randn(n, h * f, device=dev, generator=gen) for _ in range(3))
+    dden = torch.randn(n, h, device=dev, generator=gen)
+    a = torch.randn(h, f, device=dev, generator=gen) / (f ** 0.5 if f > 64 else 1.0)
+    m = gta.tile_v2_fwd_cuda(b, sl2, sr2, a, h, f, 0.2)[2]
+    bwd = (sl2, sr2, a, m, dnum, dden, h, f, 0.2)
+    if name == "B8":
+        kernel, plain, tiles = gta.tile_v2_bwd_recv_cuda, gta.tile_v2_bwd_recv_plain, b
+    else:
+        kernel, plain, tiles = gta.tile_v2_bwd_send_cuda, gta.tile_v2_bwd_send_plain, bt
+    first, second = kernel(tiles, *bwd), kernel(tiles, *bwd)
+    ref = plain(tiles, *bwd)
+    torch.cuda.synchronize()
+    first, second, ref = ((x,) if torch.is_tensor(x) else x for x in (first, second, ref))
+    for x, y, r in zip(first, second, ref):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+        if name == "B8":
+            assert not x[:128].any()
+    assert list(b.cache) == [("gat_tile", gta.MAX_TILES)]
+    assert list(bt.cache) == ([("gat_tile", gta.MAX_TILES)] if name == "B9" else [])
+    sched, counters = tiles.cache[("gat_tile", gta.MAX_TILES)]
+    assert sched.n_slots > 0 and not counters.any()
+
+
 def test_wide_heads_never_reach_the_plain_versions(dev, monkeypatch):
-    """F > 64 on CUDA tensors launches the kernels (their counters rise) and
-    never calls a plain version."""
+    """F > 64 on CUDA tensors (F = 96, and 224, above the widths whose whole
+    rows B7 stages) launches the kernels (their counters rise) and never calls
+    a plain version."""
     def refuse(*_args, **_kw):
         raise AssertionError("a plain version was called for CUDA tensors")
 
@@ -461,15 +547,37 @@ def test_wide_heads_never_reach_the_plain_versions(dev, monkeypatch):
         if name.endswith("_plain") and name.startswith("tile_"):
             monkeypatch.setattr(gta, name, refuse)
     monkeypatch.setattr(gta, "softmax_merge", refuse)
-    h, f = 2, 96
     b, bt = (x.to(dev) for x in gat_tiles(True, torch.float32, False))
     before = dict(gta.launches)
-    for v2 in (False, True):
-        shapes = ((300, h * f), (300, h * f), (h, f)) if v2 else ((300, h), (300, h), (300, h * f))
-        args = [torch.randn(*s, device=dev).requires_grad_(True) for s in shapes]
-        partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
-        num, den, _m = partials((h, f, 0.2), b, bt, *args)
-        (num.sum() + den.sum()).backward()
+    for h, f in ((2, 96), (1, 224)):
+        for v2 in (False, True):
+            shapes = (((300, h * f), (300, h * f), (h, f)) if v2
+                      else ((300, h), (300, h), (300, h * f)))
+            args = [torch.randn(*s, device=dev).requires_grad_(True) for s in shapes]
+            partials = gta.gatv2_tile_partials if v2 else gta.gat_tile_partials
+            num, den, _m = partials((h, f, 0.2), b, bt, *args)
+            (num.sum() + den.sum()).backward()
     torch.cuda.synchronize()
     assert {k: gta.launches[k] - before[k] for k in before} == {
-        "B3": 1, "B4": 0, "B5": 1, "B5s": 0, "B6": 1, "B6s": 0, "B7": 1, "B8": 1, "B9": 1}
+        "B3": 2, "B4": 0, "B5": 2, "B5s": 0, "B6": 2, "B6s": 0, "B7": 2, "B8": 2, "B9": 2}
+
+
+def test_refused_launch_leaves_no_stale_error(dev, monkeypatch):
+    """A launch the card refuses raises, and the library's next launch runs:
+    work items of C = 200 tiles need more shared memory for their mask words
+    than a CTA gets, so B7, B8 and B9 refuse them; at C = 2 each then matches
+    its plain version (a refused opt-in once stayed the runtime's last error
+    and failed the next launch of the library)."""
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False))
+    h, f = 2, 4
+    ops = v2_operands(dev, h, f, 11)
+    m = gta.tile_v2_fwd_plain(b, *ops[:3], h, f, 0.2)[2]
+    for name in ("B7", "B8", "B9"):
+        monkeypatch.setattr(gta, "MAX_TILES", 200)
+        with pytest.raises(RuntimeError, match=f"{name} kernel launch failed"):
+            v2_kernel_and_plain(name, b, bt, ops, m, h, f)
+        monkeypatch.setattr(gta, "MAX_TILES", 2)
+        got, ref = v2_kernel_and_plain(name, b, bt, ops, m, h, f)
+        torch.cuda.synchronize()
+        for x, r in zip(got, ref):
+            torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)

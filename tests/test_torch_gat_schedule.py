@@ -1,4 +1,4 @@
-"""The work schedule of kernels B3 and B7 on the CPU, and wide heads.
+"""The work schedule of kernels B3, B7, B8 and B9 on the CPU, and wide heads.
 
 B3 and B7 cut each block row's tiles into work items of at most C tiles
 (B1's ``spmm_schedule``); the items of a split row write partials that the
@@ -25,6 +25,17 @@ and their gradients against JAX's, to 1e-4, on the 320-node graphs of
 part by more than 1e-4; that case holds each package against the f64
 evaluation instead: within 1e-4 of the largest value, errors within 4x of
 each other, and ``m`` within the summation bound.
+
+B8 and B9 sum a split row's gradient partials in item order (``scheduled_sum``:
+each item's tiles, then the row's items): held against the plain versions
+and JAX's VJP of ``gatv2_tile_partials`` on the long-row set at C = 1, 2, 4
+and 8, and at one head of 224 (past every width whose whole rows would fit
+an H100's shared memory). On rows of more own edges in one work item than a
+batch of the chunked kernels holds (a 300-node set at density 0.35), the
+scheduled B7, B8 and B9 are held against the plain versions and JAX. B8
+shares B7's work items on the forward tiles and
+B9 has its own on the transpose tiles: checked by driving the wrappers with a
+stand-in library.
 """
 
 import jax
@@ -240,3 +251,192 @@ def test_wide_gatv2_at_unit_a_is_f32_rounding():
         assert max(err_t, err_j) <= 1e-4 * scale, (i, err_t, err_j, scale)
         floor = 1e-7 * scale
         assert err_t <= 4 * max(err_j, floor) and err_j <= 4 * max(err_t, floor), (i, err_t, err_j)
+
+
+def v2_backward_case(b, jb, n, h, f, seed=3):
+    """GATv2 operands at heads ``h`` of width ``f`` (``a`` scaled by
+    1/sqrt(F)), the port's forward ``m`` and cotangents, and JAX's VJP of
+    ``gatv2_tile_partials`` on its tiles ``jb`` (``dsl, dsr, da``)."""
+    sl2, sr2, a = operands(True, n, h, f, seed=seed)
+    a = a / np.float32(np.sqrt(f))
+    rng = np.random.default_rng(seed + 1)
+    dnum = rng.normal(size=(n, h * f)).astype(np.float32)
+    dden = rng.normal(size=(n, h)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *x: jtile.gatv2_tile_partials((h, f, SLOPE), jb,
+                                                          jtile.transpose_bcsr(jb), *x),
+                     jnp.asarray(sl2), jnp.asarray(sr2), jnp.asarray(a))
+    j_grads = vjp((jnp.asarray(dnum), jnp.asarray(dden), jnp.zeros((n, h), jnp.float32)))
+    t = [torch.from_numpy(x) for x in (sl2, sr2, a)]
+    m = gta.tile_v2_fwd_plain(b, *t, h, f, SLOPE)[2]
+    bwd = (*t, m, torch.from_numpy(dnum), torch.from_numpy(dden), h, f, SLOPE)
+    return bwd, [np.asarray(g) for g in j_grads]
+
+
+def scheduled_grads(b, bt, bwd, h, f, max_tiles):
+    """``dsl, dsr, da`` as B9 and B8 compute them at ``max_tiles``."""
+    dsr, dapart = gta.tile_v2_bwd_recv_scheduled_plain(b, *bwd, max_tiles)
+    dsl = gta.tile_v2_bwd_send_scheduled_plain(bt, *bwd, max_tiles)
+    return dsl, dsr, dapart.sum(dim=0).view(h, f)
+
+
+def test_b8_b9_scheduled_sums_match_plain_and_jax():
+    """B8's and B9's split-row sums (per-tile partials summed per item, then a
+    row's items in item order) on the long-row tile set, at C = MAX_TILES:
+    against the plain versions (one sum by block row) and the JAX package's
+    VJP of ``gatv2_tile_partials``. Gradients, to 1e-4: sums over a row's
+    edges of products of the operands, taken in other orders (and ``m`` from
+    another logit order in JAX), whose values reach tens."""
+    b, jb, n = long_row_sets(C)
+    bt = gta.transpose_bcsr(b)
+    bwd, j_grads = v2_backward_case(b, jb, n, H, F)
+    got = scheduled_grads(b, bt, bwd, H, F, C)
+    dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+    plain = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr, dapart.sum(dim=0).view(H, F))
+    for g, p, j in zip(got, plain, j_grads):
+        np.testing.assert_allclose(np_of(g), np_of(p), **GRAD)
+        np.testing.assert_allclose(np_of(g), j[:g.shape[0]], **GRAD)
+    # the block row without tiles has no gradient through its receivers
+    assert not got[1][:128].any()
+
+
+@pytest.mark.parametrize("max_tiles", [1, 4, 8])
+def test_b8_b9_scheduled_sums_at_any_c(max_tiles):
+    """The split-row sums at other item sizes C on the tile set made for
+    C = 2 (one item a tile at C = 1; the 43-tile row in 11 or 6 items): the
+    plain versions' gradients and the JAX package's VJP of
+    ``gatv2_tile_partials``, to 1e-4, as at C = 2."""
+    b, jb, n = long_row_sets(C)
+    bt = gta.transpose_bcsr(b)
+    bwd, j_grads = v2_backward_case(b, jb, n, H, F, seed=max_tiles)
+    got = scheduled_grads(b, bt, bwd, H, F, max_tiles)
+    dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+    plain = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr, dapart.sum(dim=0).view(H, F))
+    for g, p, j in zip(got, plain, j_grads):
+        np.testing.assert_allclose(np_of(g), np_of(p), **GRAD)
+        np.testing.assert_allclose(np_of(g), j[:g.shape[0]], **GRAD)
+
+
+def test_scheduled_on_dense_rows_match_plain_and_jax():
+    """Rows of more own edges in one work item than a batch of the chunked
+    kernels holds (``gta.CHUNK_EDGES``): a ragged 300-node set at density
+    0.35, block row 1 without edges, at two heads of 48 (a ragged chunk) and
+    ``a`` scaled by 1/sqrt(F). B7's, B8's and B9's functions as they compute
+    them (scheduled, at C = MAX_TILES) against the plain versions and JAX's
+    ``gatv2_tile_partials`` and its VJP: values to 1e-5, gradients to 1e-4."""
+    h, f = 2, 48
+    rng = np.random.default_rng(35)
+    m = sp.random(300, 300, density=0.35, random_state=rng, format="coo", dtype=np.float32)
+    keep = m.row // 128 != 1
+    m = sp.coo_matrix((np.ones(int(keep.sum()), np.float32), (m.row[keep], m.col[keep])),
+                      shape=m.shape)
+    b, jb = _build_bcsr(m, (128, 128)), j_build_bcsr(m, (128, 128))
+    bt = gta.transpose_bcsr(b)
+    assert min(gta.most_own_edges(b), gta.most_own_edges(bt)) > 2 * gta.CHUNK_EDGES
+    bwd, j_grads = v2_backward_case(b, jb, 300, h, f)
+    got = gta.tile_v2_fwd_scheduled_plain(b, *bwd[:3], h, f, SLOPE, C)
+    assert_partials(got, gta.tile_v2_fwd_plain(b, *bwd[:3], h, f, SLOPE))
+    j_out = jtile.gatv2_tile_partials((h, f, SLOPE), jb, jtile.transpose_bcsr(jb),
+                                      *[jnp.asarray(np_of(x)) for x in bwd[:3]])
+    assert_partials(got, [np.asarray(x)[:300] for x in j_out], exact_m=False)
+    grads = scheduled_grads(b, bt, bwd, h, f, C)
+    dsr, dapart = gta.tile_v2_bwd_recv_plain(b, *bwd)
+    plain = (gta.tile_v2_bwd_send_plain(bt, *bwd), dsr, dapart.sum(dim=0).view(h, f))
+    for g, p, j in zip(grads, plain, j_grads):
+        np.testing.assert_allclose(np_of(g), np_of(p), **GRAD)
+        np.testing.assert_allclose(np_of(g), j[:g.shape[0]], **GRAD)
+    assert not grads[1][128:256].any() and (got[2][128:256] == gta.NEG).all()
+
+
+def test_scheduled_sum_orders_items():
+    """A row of three one-tile items sums its parts as ((p0 + p1) + p2), a row
+    of one item keeps its part, a row without tiles is zero."""
+    b = gta.BCSR(data=torch.ones(4, 128, 128),
+                 block_rows=torch.tensor([0, 0, 0, 2], dtype=torch.int32),
+                 block_cols=torch.arange(4, dtype=torch.int32) % 3,
+                 block_row_ptr=torch.tensor([0, 3, 3, 4], dtype=torch.int32), tm=128, tk=128,
+                 n_block_rows=3, n_block_cols=3)
+    parts = torch.tensor([1e8, -1e8, 1.0, 5.0]).view(4, 1, 1).expand(4, 128, 2).contiguous()
+    out = gta.scheduled_sum(b, parts, 384, 1)
+    assert (out[:128] == 1.0).all() and not out[128:256].any() and (out[256:] == 5.0).all()
+    swapped = gta.scheduled_sum(b, parts[[2, 1, 0, 3]], 384, 1)
+    assert (swapped[:128] == 0.0).all()  # (1 - 1e8) + 1e8 rounds the 1 away
+
+
+def test_gatv2_at_224_matches_jax():
+    """One head of 224, past the widths whose whole rows would fit an H100's
+    shared memory (B8, B9: 144; B7: 208), ``a`` scaled by 1/sqrt(F): the
+    port's partials
+    against JAX's to 1e-5, ``dsl`` and ``dsr`` (each a sum over a node's
+    edges) to 1e-4, and B8's and B9's scheduled sums likewise. ``da`` sums
+    over every node, values of hundreds that cancel to tenths in places, so
+    each package's ``da`` (and the scheduled one) is held against the f64
+    evaluation: within 1e-4 of its largest value, the port's error within 4x
+    JAX's."""
+    h, f = 1, 224
+    (ops, cot), (j_out, j_grads), (t_out, t_grads) = wide_case(True, True, h, f)
+    for t_o, j_o in zip(t_out, j_out):
+        np.testing.assert_allclose(np_of(t_o), np.asarray(j_o), **VAL)
+    tg = graphs(True)[1]
+    b, bt = tg.hybrid.bcsr, gta.transpose_bcsr(tg.hybrid.bcsr)
+    t = [torch.from_numpy(x) for x in ops]
+    bwd = (*t, t_out[2].detach(), *(torch.from_numpy(c) for c in cot), h, f, SLOPE)
+    sched = scheduled_grads(b, bt, bwd, h, f, C)
+    for got in (t_grads, sched):
+        for g, j_g in zip(got[:2], j_grads[:2]):
+            np.testing.assert_allclose(np_of(g), np.asarray(j_g), **GRAD)
+    da64 = v2_f64(b, N, ops, cot, h, f)[1][2]
+    scale = np.abs(da64).max()
+    err_j = np.abs(np.asarray(j_grads[2], np.float64) - da64).max()
+    for da in (t_grads[2], sched[2]):
+        err = np.abs(np_of(da).astype(np.float64) - da64).max()
+        assert err <= 1e-4 * scale and err <= 4 * max(err_j, 1e-7 * scale), (err, err_j, scale)
+
+
+class _FakeLib:
+    """Stands in for the built GATv2 library: records each entry point's
+    work-item and counter pointers and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args[2], args[-10]))  # items, counters
+            return 0
+        return entry
+
+
+def test_b8_shares_b7s_schedule_and_b9_has_its_own(monkeypatch):
+    """B8 runs on B7's work items over the forward tiles, the same
+    ``("gat_tile", C)`` cache entry, items and counters; B9 on an entry of the
+    transpose tiles' own. The wrappers are driven with a stand-in library on
+    the CPU (no card here), which records what each launch was given."""
+    import contextlib
+    import types
+
+    b, _, n = long_row_sets(C)
+    bt = gta.transpose_bcsr(b)
+    lib = _FakeLib()
+    monkeypatch.setattr(gta, "_load", lambda name: lib)
+    monkeypatch.setattr(gta, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    t = [torch.from_numpy(x) for x in operands(True, n)]
+    m, dden = torch.zeros(n, H), torch.zeros(n, H)
+    bwd = (*t, m, torch.zeros(n, H * F), dden, H, F, SLOPE)
+    before = dict(gta.launches)
+    gta.tile_v2_fwd_cuda(b, *t, H, F, SLOPE)
+    gta.tile_v2_bwd_recv_cuda(b, *bwd)
+    gta.tile_v2_bwd_send_cuda(bt, *bwd)
+    assert [c[0] for c in lib.calls] == ["gatv2_tile_fwd", "gatv2_tile_bwd_recv",
+                                         "gatv2_tile_bwd_send"]
+    key = ("gat_tile", C)
+    assert list(b.cache) == [key] and list(bt.cache) == [key]
+    (sched, counters), (sched_t, counters_t) = b.cache[key], bt.cache[key]
+    fwd, recv, send = lib.calls
+    assert fwd[1:] == recv[1:] == (sched.items.data_ptr(), counters.data_ptr())
+    assert send[1:] == (sched_t.items.data_ptr(), counters_t.data_ptr())
+    assert torch.equal(sched_t.items, b1.spmm_schedule(bt, C).items)
+    assert {k: gta.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "B7": 1, "B8": 1, "B9": 1}
