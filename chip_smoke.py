@@ -391,10 +391,11 @@ def _v2_f64_errors(torch, b, bt, ops, cot, h, f, label):
 
 
 def check_long_rows(torch, v2: bool):
-    """B3 (with ``v2``: B7, B8 and B9) on the long-row tile set made square
-    (block rows of 0, 1, C, C + 1, 43 and 2 tiles, then none; 5631 nodes),
-    B9 on its transpose: within the tolerance of the plain version and the
-    same bits in two launches, the arrival counters back at zero."""
+    """B3, B5 and B6 (with ``v2``: B7, B8 and B9) on the long-row tile set
+    made square (block rows of 0, 1, C, C + 1, 43 and 2 tiles, then none;
+    5631 nodes), B6 and B9 on its transpose: within the tolerance of the
+    plain version and the same bits in two launches, the arrival counters
+    back at zero."""
     import dataclasses
 
     import numpy as np
@@ -404,7 +405,7 @@ def check_long_rows(torch, v2: bool):
     from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
-    names = "B7/B8/B9" if v2 else "B3"
+    names = "B7/B8/B9" if v2 else "B3/B5/B6"
     rng = np.random.default_rng(6)
     gen = torch.Generator(device="cuda").manual_seed(6)
     m = long_row_matrix(gta.MAX_TILES, rng)
@@ -433,8 +434,16 @@ def check_long_rows(torch, v2: bool):
                         "B9": (lambda: (gta.tile_v2_bwd_send_cuda(bt, *bwd),),
                                lambda: (gta.tile_v2_bwd_send_plain(bt, *bwd),))}
             else:
+                dnum = torch.randn(n, h * f, device="cuda", generator=gen)
+                dden = torch.randn(n, h, device="cuda", generator=gen)
+                mx = gta.tile_fwd_plain(b, *ops, h, f, SLOPE)[2]
+                bwd = (*ops, mx, dnum, dden, h, f, SLOPE)
                 runs = {"B3": (lambda: gta.tile_fwd_cuda(b, *ops, h, f, SLOPE),
-                               lambda: gta.tile_fwd_plain(b, *ops, h, f, SLOPE))}
+                               lambda: gta.tile_fwd_plain(b, *ops, h, f, SLOPE)),
+                        "B5": (lambda: (gta.tile_bwd_dldst_cuda(b, *bwd),),
+                               lambda: (gta.tile_bwd_dldst_plain(b, *bwd),)),
+                        "B6": (lambda: gta.tile_bwd_sender_cuda(bt, *bwd),
+                               lambda: gta.tile_bwd_sender_plain(bt, *bwd))}
             for name, (kernel, plain) in runs.items():
                 got, again, ref = kernel(), kernel(), plain()
                 torch.cuda.synchronize()
@@ -449,10 +458,10 @@ def check_long_rows(torch, v2: bool):
                 if name in ("B3", "B7") and not ((got[2][:128] == gta.NEG).all()
                                                  and not got[0][:128].any()):
                     fail(f"{label}: the block row without tiles is not num = 0, m = NEG")
-                if name == "B8" and (got[0][:128].any() or got[1][:128].any()):
+                if name in ("B5", "B8") and any(x[:128].any() for x in got):
                     fail(f"{label}: the block row without tiles has a gradient")
                 cases += 1
-        for tiles in ((b, bt) if v2 else (b,)):
+        for tiles in (b, bt):
             if tiles.cache[("gat_tile", gta.MAX_TILES)][1].any():
                 fail(f"{names} long rows: arrival counters not back at zero")
     return (f"{names} on block rows of {long_row_counts(gta.MAX_TILES)} tiles: {cases} cases "
@@ -833,9 +842,10 @@ SWEEP_MAX_TILES = (2, 4, 8)
 # B3's, B7's, B8's and B9's, timed by time_gat
 SWEEP_GAT_MAX_TILES = (1, 2, 4)
 # The GAT kernels on work items, with their split-row workspace's floats a
-# row (given H and H·F): B3's and B7's (num, den, m), B8's (dsr, dapart),
-# B9's (dsl).
-ITEM_KERNELS = {"B3": lambda h, hf: hf + 2 * h, "B7": lambda h, hf: hf + 2 * h,
+# row (given H and H·F): B3's and B7's (num, den, m), B5's (dldst), B6's
+# (ds, dlsrc), B8's (dsr, dapart), B9's (dsl).
+ITEM_KERNELS = {"B3": lambda h, hf: hf + 2 * h, "B5": lambda h, hf: h,
+                "B6": lambda h, hf: hf + h, "B7": lambda h, hf: hf + 2 * h,
                 "B8": lambda h, hf: 2 * hf, "B9": lambda h, hf: hf}
 
 
@@ -983,8 +993,8 @@ def time_gat(torch, graph, tiles_t, v2: bool):
 
     short = {id(bcsr): without_longest_row(bcsr), id(tiles_t): without_longest_row(tiles_t)}
 
-    # B5/B6: one CTA per (head, block row) walks the row's tiles, so the
-    # longest rows set their tail; B3, B7, B8 and B9 split them into work items
+    # the tiles per block row: the item kernels (B3, B5-B9) split the long
+    # rows into work items; the stream kernels take one CTA per tile
     for label, b in (("forward", bcsr), ("transpose", tiles_t)):
         per_row = torch.diff(b.block_row_ptr.long())
         print(f"GAT {label} tiles per block row: mean {float(per_row.float().mean()):.2f}, "

@@ -7,7 +7,9 @@ layout), on one CUDA card.
   40 and one 64-column slab, and above the widths whose rows an H100's shared
   memory held before the chunked kernels (1x160, 1x224); B7's chunked
   kernel (``B7c``) at each of them too, beside the staged one that B7 runs up
-  to F = 208.
+  to F = 208; and GAT's backward kernels B5 and B6 at each of them, also
+  without the longest block row (``ms_without_longest_row_runs``: how much
+  of a launch the 43-tile row's tail holds).
 - ``HEAD_SHAPES``: B3 and B7 from one head of width 1 up to eight heads: what
   one more head, or a wider one, adds to a launch.
 
@@ -48,6 +50,7 @@ def main(argv=None) -> list:
     if not torch.cuda.is_available():
         raise RuntimeError("time_gat times the CUDA device; none is available")
 
+    from pygcn_tpu_torch.apps.time_spmm import without_longest_row
     from pygcn_tpu_torch.apps.train_fullgraph import clustered_dataset
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.ops.gat import build_gat_tiles_t
@@ -56,14 +59,18 @@ def main(argv=None) -> list:
     graph = clustered_dataset(169_343, 13.3, 40, 128, 0, attention=True).graph
     tiles_t = build_gat_tiles_t(graph).to("cuda")
     bcsr = graph.hybrid.bcsr.to("cuda")
+    short, short_t = without_longest_row(bcsr), without_longest_row(tiles_t)
     n = graph.n_nodes
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
-    def timed(name, h, f, fn):
+    def timed(name, h, f, fn, short_fn=None):
         row = {"label": args.label, "kernel": name, "H": h, "F": f}
         try:
             row["ms_runs"] = [cuda_ms(fn, iters=20) for _ in range(2)]
+            if short_fn is not None:
+                row["ms_without_longest_row_runs"] = [cuda_ms(short_fn, iters=20)
+                                                      for _ in range(2)]
         except (RuntimeError, TypeError) as err:  # a launch refused, or no `chunked`
             row["error"] = str(err)
         print(json.dumps(row), flush=True)
@@ -83,6 +90,14 @@ def main(argv=None) -> list:
               lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE, chunked=True))
         timed("B8", h, f, lambda: gta.tile_v2_bwd_recv_cuda(bcsr, *bwd))
         timed("B9", h, f, lambda: gta.tile_v2_bwd_send_cuda(tiles_t, *bwd))
+        lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
+        s2 = torch.randn(n, h * f, device="cuda", generator=gen)
+        m = gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE)[2]
+        bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, SLOPE)
+        timed("B5", h, f, lambda: gta.tile_bwd_dldst_cuda(bcsr, *bwd),
+              lambda: gta.tile_bwd_dldst_cuda(short, *bwd))
+        timed("B6", h, f, lambda: gta.tile_bwd_sender_cuda(tiles_t, *bwd),
+              lambda: gta.tile_bwd_sender_cuda(short_t, *bwd))
     for h, f in HEAD_SHAPES:
         lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
         s2 = torch.randn(n, h * f, device="cuda", generator=gen)

@@ -50,29 +50,41 @@
 //   on the arrival counters. A block row without tiles writes num = den = 0
 //   and m = NEG.
 //
-// B5 and B6 (not redesigned): one CTA of 128 threads owns one (head, block
-// row), blockIdx.x = block_row * H + head, so the H CTAs of a block row are
-// scheduled together and read its tiles once from device memory and H - 1
-// times from L2. It loops over the row's tiles; thread i keeps its row's
-// state (dnum_v[F] and the sum for B5; s2_u[F], ds[F] and the sum for B6) in
-// registers. Per tile the CTA stages the column side's operands for its head
-// in shared memory (B5: lsrc and s2 of the 128 senders; B6: ldst, m, dden and
-// dnum of the 128 receivers); the warp walks the columns that any of its 32
-// rows needs (for_columns), selecting by the mask, never multiplying. Each
-// output is written once, with no atomics. Both sums are linear in the
-// F-wide dot products, so a wide head runs the tile loop once per 64-column
-// slab, adding dden's term in the first.
+// B5 and B6 (gat_bwd_dldst_item_kernel, gat_bwd_sender_item_kernel) run on
+// the same kind of work items: B5 over the forward tiles on B3's schedule and
+// arrival counters (the wrapper launches B3 and B5 one after the other on
+// one stream, never together), B6 over the transpose tiles on their own. One
+// CTA per item for all heads, each tile's mask decoded once; each thread
+// walks its own row's edges (B5: the receiver v, holding dnum_v's slab; B6:
+// the sender u, holding s2_u's slab and ds) and evaluates p, the F-wide dot
+// product and the accumulations once per edge, where a CTA per (head, block
+// row) walking every column that any row of its warp needs (for_columns, as
+// the stream kernels do) evaluates about 12 times as many. The column side's
+// node values of all heads (of as many as fit, in turn, where the card's
+// shared memory forbids all) are staged once per item at the odd stride
+// H | 1 (B5: the senders' lsrc; B6: the receivers' ldst, m and dden), and
+// per head the column side's slab of `group` tiles in one batch (B5: s2;
+// B6: dnum). Both sums are linear in the F-wide dot products, so a head
+// wider than 64 runs the walk once per 64-column slab, adding dden's term in
+// the first. A row of one item writes its gradients; the items of a longer
+// row write partials (B5: [TM, H]; B6: [TM, H F + H], ds then dlsrc) to a
+// workspace slot, and the last to arrive adds them in item order
+// (sum_parts): the same bits every run, atomics only on the counters. A
+// block row without tiles writes zeros.
 //
-// Per-tile ("stream") modes, the kernels' STREAM template parameter (B4 its
-// own kernel). They replace the TILE_REVISIT = False path of the TPU file: B4
-// is _fwd_kernel_stream, B5s and B6s are _bwd_dldst_kernel and
-// _bwd_sender_kernel with stream=True. One CTA owns one (head, tile):
-// blockIdx.x = tile * H + head, its block row is block_rows[tile], and it runs
-// the body above over that one tile and writes the tile's block of TM rows
-// (all of them, rows past n included) into per-tile outputs [T, TM, W], which
-// the caller merges. B4's max is the tile's own row max (NEG where the row has
-// no edge there, with num = den = 0 then); the merge rescales the tiles onto
-// the block row's max. B5s and B6s read the merged max m.
+// Per-tile ("stream") modes, kernels of their own. They replace the
+// TILE_REVISIT = False path of the TPU file: B4 is _fwd_kernel_stream, B5s
+// and B6s are _bwd_dldst_kernel and _bwd_sender_kernel with stream=True. One
+// CTA owns one (head, tile): blockIdx.x = tile * H + head, its block row is
+// block_rows[tile]. Per 64-column slab it stages the column side's operands
+// of its head (B4, B5s: lsrc and s2 of the 128 senders; B6s: ldst, m, dden
+// and dnum of the 128 receivers), and the warp walks the columns that any of
+// its 32 rows needs (for_columns), selecting by the mask, never multiplying.
+// It writes the tile's block of TM rows (all of them, rows past n included)
+// into per-tile outputs [T, TM, W], which the caller merges. B4's max is the
+// tile's own row max (NEG where the row has no edge there, with num = den = 0
+// then); the merge rescales the tiles onto the block row's max. B5s and B6s
+// read the merged max m.
 //
 // Precision: expf (not __expf) and f32 FMA, no TF32, so the kernels match their
 // plain PyTorch versions to rounding. Ragged shapes are masked in the kernel:
@@ -225,45 +237,184 @@ gat_fwd_stream_kernel(const void* __restrict__ tiles, int bf16,
   }
 }
 
-// The tiles CTA blk walks, [*t_begin, *t_end), and the block row they share:
-// with STREAM, blk is a tile and `rows` the tiles' block_rows [T]; else blk is
-// a block row and `rows` its block_row_ptr [n_block_rows + 1].
-template <bool STREAM>
-__device__ __forceinline__ int tile_run(const int* __restrict__ rows, int blk, int* t_begin,
-                                        int* t_end) {
-  if (STREAM) {
-    *t_begin = blk;
-    *t_end = blk + 1;
-    return rows[blk];
-  }
-  *t_begin = rows[blk];
-  *t_end = rows[blk + 1];
-  return blk;
-}
-
-// The row of the output this thread writes, or -1 for none: its row v of the
-// node space (v < n) or, with STREAM, row threadIdx.x of tile blk's block.
-template <bool STREAM>
-__device__ __forceinline__ long long out_row(int blk, long long v, int n) {
-  if (STREAM) return static_cast<long long>(blk) * TM + threadIdx.x;
-  return v < n ? v : -1;
-}
-
-template <int FP, bool STREAM>
+// B5. blockIdx.x is a work item of B3's schedule over the same tiles; thread
+// i owns receiver v. The senders' lsrc of `hc` heads at a time (all of them
+// unless the card's shared memory forbids it) are staged once per item, each
+// head's s2 slab of `group` tiles in one batch; dnum_v's slab sits in
+// registers.
+template <int FP>
 __global__ void __launch_bounds__(THREADS)
-gat_bwd_dldst_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
-                     const int* __restrict__ rows, const float* __restrict__ lsrc,
-                     const float* __restrict__ ldst, const float* __restrict__ s2,
-                     const float* __restrict__ m_in, const float* __restrict__ dnum,
-                     const float* __restrict__ dden, float* __restrict__ dldst_out, int n,
-                     int h, int f, float slope) {
+gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
+                          const int* __restrict__ block_cols, const int* __restrict__ items,
+                          const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                          const float* __restrict__ s2, const float* __restrict__ m_in,
+                          const float* __restrict__ dnum, const float* __restrict__ dden,
+                          float* __restrict__ dldst_out, float* __restrict__ ws,
+                          int* __restrict__ counters, int n, int h, int f, int max_tiles,
+                          int group, int hc, float slope) {
+  constexpr int S = slab_stride(FP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                         // [C][TM]: own words
+  float* s_sh = reinterpret_cast<float*>(mask_sh + max_tiles * TM);         // [group][TK][S]
+  float* ls_sh = s_sh + group * TK * S;                                     // [C][TK][hc | 1]
+  int* cols_sh = reinterpret_cast<int*>(ls_sh + max_tiles * TK * (hc | 1));  // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long v = static_cast<long long>(it.row) * TM + i;
+  float* const dst = grad_row(it, ws, h, 0, dldst_out, h, v, n);
+  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
+    __syncthreads();  // cols_sh; the previous heads' logits are no longer read
+    stage_tiles(ls_sh, HS, hn, lsrc, cols_sh, nt, n, h, h0, hn);
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float ld = node(ldst, v, n, h, head), mv = node(m_in, v, n, h, head);
+      float acc = 0.f;
+      for (int s0 = 0; s0 < f; s0 += FP) {
+        const int fw = min(FP, f - s0);
+        const float dd = s0 == 0 ? node(dden, v, n, h, head) : 0.f;  // its term once
+        float dn[FP];
+        load_cols<FP>(dn, dnum, v, n, hf, head * f + s0, fw);
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          __syncthreads();  // the logits are staged; the previous slabs are no longer read
+          stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw);
+          __syncthreads();
+          for (int t = g0; t < g0 + gn; ++t) {
+            const float* ls = ls_sh + t * TK * HS + (head - h0);
+            const float* st = s_sh + (t - g0) * TK * S;
+            for_own_edges(mask_sh[t * TM + i], [&](int j) {
+              const float pre = ld + ls[j * HS];
+              const float p = expf(leaky(pre, slope) - mv);
+              const float4* sj = reinterpret_cast<const float4*>(st + j * S);
+              float gdot = 0.f;
+#pragma unroll
+              for (int q = 0; q < FP / 4; ++q) {
+                const float4 x = sj[q];
+                gdot = fmaf(dn[4 * q + 0], x.x, gdot);
+                gdot = fmaf(dn[4 * q + 1], x.y, gdot);
+                gdot = fmaf(dn[4 * q + 2], x.z, gdot);
+                gdot = fmaf(dn[4 * q + 3], x.w, gdot);
+              }
+              acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
+            });
+          }
+        }
+      }
+      if (dst != nullptr) dst[head] = acc;
+    }
+  }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    sum_parts(it, ws, h, dldst_out, nullptr, n, h);
+}
+
+// B6, over the transpose tiles: blockIdx.x is a work item of their own
+// schedule; thread i owns sender u and keeps s2_u's slab and ds in
+// registers. The receivers' ldst, m and dden of `hc` heads at a time are
+// staged once per item, each head's dnum slab of `group` tiles in one batch.
+// A part of a split row is [TM][H F + H]: ds, then dlsrc.
+template <int FP>
+__global__ void __launch_bounds__(THREADS)
+gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
+                           const int* __restrict__ block_cols, const int* __restrict__ items,
+                           const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                           const float* __restrict__ s2, const float* __restrict__ m_in,
+                           const float* __restrict__ dnum, const float* __restrict__ dden,
+                           float* __restrict__ ds_out, float* __restrict__ dlsrc_out,
+                           float* __restrict__ ws, int* __restrict__ counters, int n, int h,
+                           int f, int max_tiles, int group, int hc, float slope) {
+  constexpr int S = slab_stride(FP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int node_floats = max_tiles * TK * (hc | 1);
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                   // [C][TM]: own words
+  float* dn_sh = reinterpret_cast<float*>(mask_sh + max_tiles * TM);  // [group][TK][S]
+  float* ld_sh = dn_sh + group * TK * S;                              // [C][TK][hc | 1]
+  float* m_sh = ld_sh + node_floats;                                  // [C][TK][hc | 1]
+  float* dd_sh = m_sh + node_floats;                                  // [C][TK][hc | 1]
+  int* cols_sh = reinterpret_cast<int*>(dd_sh + node_floats);         // [C]
+  const Item it = load_item(items);
+  const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
+  const long long u = static_cast<long long>(it.row) * TM + i;  // sender
+  float* const dst_ds = grad_row(it, ws, hf + h, 0, ds_out, hf, u, n);
+  float* const dst_dl = grad_row(it, ws, hf + h, hf, dlsrc_out, h, u, n);
+  load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
+
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering random receivers hit distinct banks
+    __syncthreads();  // cols_sh; the previous heads' receivers are no longer read
+    stage_tiles(ld_sh, HS, hn, ldst, cols_sh, nt, n, h, h0, hn);
+    stage_tiles(m_sh, HS, hn, m_in, cols_sh, nt, n, h, h0, hn);
+    stage_tiles(dd_sh, HS, hn, dden, cols_sh, nt, n, h, h0, hn);
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float lu = node(lsrc, u, n, h, head);
+      float dl = 0.f;
+      for (int s0 = 0; s0 < f; s0 += FP) {
+        const int fw = min(FP, f - s0);
+        const bool first = s0 == 0;  // dden's term once
+        float su[FP], ds[FP];
+        load_cols<FP>(su, s2, u, n, hf, head * f + s0, fw);
+#pragma unroll
+        for (int k = 0; k < FP; ++k) ds[k] = 0.f;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          __syncthreads();  // the receivers are staged; the previous slabs are no longer read
+          stage_tiles(dn_sh, S, FP, dnum, cols_sh + g0, gn, n, hf, head * f + s0, fw);
+          __syncthreads();
+          for (int t = g0; t < g0 + gn; ++t) {
+            const int base = t * TK * HS + (head - h0);
+            const float* dt = dn_sh + (t - g0) * TK * S;
+            for_own_edges(mask_sh[t * TM + i], [&](int j) {
+              const int at = base + j * HS;
+              const float pre = lu + ld_sh[at];
+              const float p = expf(leaky(pre, slope) - m_sh[at]);
+              const float4* dj = reinterpret_cast<const float4*>(dt + j * S);
+              float gdot = 0.f;
+#pragma unroll
+              for (int q = 0; q < FP / 4; ++q) {
+                const float4 d = dj[q];
+                ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
+                ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
+                ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
+                ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
+                gdot = fmaf(su[4 * q + 0], d.x, gdot);
+                gdot = fmaf(su[4 * q + 1], d.y, gdot);
+                gdot = fmaf(su[4 * q + 2], d.z, gdot);
+                gdot = fmaf(su[4 * q + 3], d.w, gdot);
+              }
+              dl += p * (gdot + (first ? dd_sh[at] : 0.f)) * (pre >= 0.f ? 1.f : slope);
+            });
+          }
+        }
+        put_cols<FP>(dst_ds, head * f + s0, fw, ds);
+      }
+      if (dst_dl != nullptr) dst_dl[head] = dl;
+    }
+  }
+  if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
+    sum_parts(it, ws, hf + h, ds_out, dlsrc_out, n, hf);
+}
+
+// B5s: one CTA per (head, tile), blockIdx.x = tile * H + head; B5's sum over
+// that one tile's columns (for_columns), written into the tile's block of
+// dldst_t [T, TM, H].
+template <int FP>
+__global__ void __launch_bounds__(THREADS)
+gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
+                            const int* __restrict__ block_cols,
+                            const int* __restrict__ block_rows, const float* __restrict__ lsrc,
+                            const float* __restrict__ ldst, const float* __restrict__ s2,
+                            const float* __restrict__ m_in, const float* __restrict__ dnum,
+                            const float* __restrict__ dden, float* __restrict__ dldst_out, int n,
+                            int h, int f, float slope) {
   __shared__ __align__(16) float s_sh[TK * FP];
   __shared__ float ls_sh[TK];
-  const int head = blockIdx.x % h, blk = blockIdx.x / h;
-  int t_begin, t_end;
-  const int br = tile_run<STREAM>(rows, blk, &t_begin, &t_end);
+  const int head = blockIdx.x % h, t = blockIdx.x / h;
   const int hf = h * f;
-  const long long v = static_cast<long long>(br) * TM + threadIdx.x;
+  const long long v = static_cast<long long>(block_rows[t]) * TM + threadIdx.x;
+  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
   const float ld = node(ldst, v, n, h, head);
   const float mv = node(m_in, v, n, h, head);
   float acc = 0.f;
@@ -275,54 +426,53 @@ gat_bwd_dldst_kernel(const void* __restrict__ tiles, int bf16, const int* __rest
 #pragma unroll
     for (int k = 0; k < FP; ++k)
       dn[k] = (v < n && k < fw) ? dnum[v * hf + static_cast<long long>(head) * f + s0 + k] : 0.f;
-    for (int t = t_begin; t < t_end; ++t) {
-      const long long col0 = static_cast<long long>(block_cols[t]) * TK;
-      __syncthreads();
-      ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
-      stage_rows(s_sh, FP, FP, s2, col0, n, hf, head * f + s0, fw);
-      uint32_t w[4];
-      mask_words(tile_ptr(tiles, bf16, t), bf16, w);
-      __syncthreads();
+    __syncthreads();
+    ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
+    stage_rows(s_sh, FP, FP, s2, col0, n, hf, head * f + s0, fw);
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles, bf16, t), bf16, w);
+    __syncthreads();
 
-      for_columns(w, [&](int j, bool on) {
-        const float pre = ld + ls_sh[j];
-        const float p = on ? expf(leaky(pre, slope) - mv) : 0.f;
-        const float4* sj = reinterpret_cast<const float4*>(s_sh + j * FP);
-        float gdot = 0.f;
+    for_columns(w, [&](int j, bool on) {
+      const float pre = ld + ls_sh[j];
+      const float p = on ? expf(leaky(pre, slope) - mv) : 0.f;
+      const float4* sj = reinterpret_cast<const float4*>(s_sh + j * FP);
+      float gdot = 0.f;
 #pragma unroll
-        for (int q = 0; q < FP / 4; ++q) {
-          const float4 s = sj[q];
-          gdot = fmaf(dn[4 * q + 0], s.x, gdot);
-          gdot = fmaf(dn[4 * q + 1], s.y, gdot);
-          gdot = fmaf(dn[4 * q + 2], s.z, gdot);
-          gdot = fmaf(dn[4 * q + 3], s.w, gdot);
-        }
-        acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
-      });
-    }
+      for (int q = 0; q < FP / 4; ++q) {
+        const float4 s = sj[q];
+        gdot = fmaf(dn[4 * q + 0], s.x, gdot);
+        gdot = fmaf(dn[4 * q + 1], s.y, gdot);
+        gdot = fmaf(dn[4 * q + 2], s.z, gdot);
+        gdot = fmaf(dn[4 * q + 3], s.w, gdot);
+      }
+      acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
+    });
   }
-  const long long o = out_row<STREAM>(blk, v, n);
-  if (o >= 0) dldst_out[o * h + head] = acc;
+  const long long o = static_cast<long long>(t) * TM + threadIdx.x;
+  dldst_out[o * h + head] = acc;
 }
 
-template <int FP, bool STREAM>
+// B6s: one CTA per (head, transpose tile); B6's sums over that one tile's
+// columns, written into the tile's blocks of ds_t [Tt, TM, H F] and
+// dlsrc_t [Tt, TM, H].
+template <int FP>
 __global__ void __launch_bounds__(THREADS)
-gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
-                      const int* __restrict__ block_cols, const int* __restrict__ rows,
-                      const float* __restrict__ lsrc, const float* __restrict__ ldst,
-                      const float* __restrict__ s2, const float* __restrict__ m_in,
-                      const float* __restrict__ dnum, const float* __restrict__ dden,
-                      float* __restrict__ ds_out, float* __restrict__ dlsrc_out, int n, int h,
-                      int f, float slope) {
+gat_bwd_sender_stream_kernel(const void* __restrict__ tiles_t, int bf16,
+                             const int* __restrict__ block_cols,
+                             const int* __restrict__ block_rows, const float* __restrict__ lsrc,
+                             const float* __restrict__ ldst, const float* __restrict__ s2,
+                             const float* __restrict__ m_in, const float* __restrict__ dnum,
+                             const float* __restrict__ dden, float* __restrict__ ds_out,
+                             float* __restrict__ dlsrc_out, int n, int h, int f, float slope) {
   __shared__ __align__(16) float dn_sh[TK * FP];
   __shared__ float ld_sh[TK], m_sh[TK], dd_sh[TK];
-  const int head = blockIdx.x % h, blk = blockIdx.x / h;
-  int t_begin, t_end;
-  const int br = tile_run<STREAM>(rows, blk, &t_begin, &t_end);
+  const int head = blockIdx.x % h, t = blockIdx.x / h;
   const int hf = h * f;
-  const long long u = static_cast<long long>(br) * TM + threadIdx.x;  // sender
+  const long long u = static_cast<long long>(block_rows[t]) * TM + threadIdx.x;  // sender
+  const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
   const float lu = node(lsrc, u, n, h, head);
-  const long long o = out_row<STREAM>(blk, u, n);
+  const long long o = static_cast<long long>(t) * TM + threadIdx.x;
   float dl = 0.f;
 
   for (int s0 = 0; s0 < f; s0 += FP) {
@@ -333,98 +483,69 @@ gat_bwd_sender_kernel(const void* __restrict__ tiles_t, int bf16,
       su[k] = (u < n && k < fw) ? s2[u * hf + static_cast<long long>(head) * f + s0 + k] : 0.f;
       ds[k] = 0.f;
     }
-    for (int t = t_begin; t < t_end; ++t) {
-      const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
-      __syncthreads();
-      ld_sh[threadIdx.x] = node(ldst, col0 + threadIdx.x, n, h, head);
-      m_sh[threadIdx.x] = node(m_in, col0 + threadIdx.x, n, h, head);
-      dd_sh[threadIdx.x] = s0 == 0 ? node(dden, col0 + threadIdx.x, n, h, head) : 0.f;
-      stage_rows(dn_sh, FP, FP, dnum, col0, n, hf, head * f + s0, fw);
-      uint32_t w[4];
-      mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
-      __syncthreads();
+    __syncthreads();
+    ld_sh[threadIdx.x] = node(ldst, col0 + threadIdx.x, n, h, head);
+    m_sh[threadIdx.x] = node(m_in, col0 + threadIdx.x, n, h, head);
+    dd_sh[threadIdx.x] = s0 == 0 ? node(dden, col0 + threadIdx.x, n, h, head) : 0.f;
+    stage_rows(dn_sh, FP, FP, dnum, col0, n, hf, head * f + s0, fw);
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
+    __syncthreads();
 
-      for_columns(w, [&](int j, bool on) {
-        const float pre = lu + ld_sh[j];
-        const float p = on ? expf(leaky(pre, slope) - m_sh[j]) : 0.f;
-        const float4* dj = reinterpret_cast<const float4*>(dn_sh + j * FP);
-        float gdot = 0.f;
+    for_columns(w, [&](int j, bool on) {
+      const float pre = lu + ld_sh[j];
+      const float p = on ? expf(leaky(pre, slope) - m_sh[j]) : 0.f;
+      const float4* dj = reinterpret_cast<const float4*>(dn_sh + j * FP);
+      float gdot = 0.f;
 #pragma unroll
-        for (int q = 0; q < FP / 4; ++q) {
-          const float4 d = dj[q];
-          ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
-          ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
-          ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
-          ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
-          gdot = fmaf(su[4 * q + 0], d.x, gdot);
-          gdot = fmaf(su[4 * q + 1], d.y, gdot);
-          gdot = fmaf(su[4 * q + 2], d.z, gdot);
-          gdot = fmaf(su[4 * q + 3], d.w, gdot);
-        }
-        dl += p * (gdot + dd_sh[j]) * (pre >= 0.f ? 1.f : slope);
-      });
-    }
-    if (o >= 0) {
-      float* dst = ds_out + o * hf + static_cast<long long>(head) * f + s0;
+      for (int q = 0; q < FP / 4; ++q) {
+        const float4 d = dj[q];
+        ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
+        ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
+        ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
+        ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
+        gdot = fmaf(su[4 * q + 0], d.x, gdot);
+        gdot = fmaf(su[4 * q + 1], d.y, gdot);
+        gdot = fmaf(su[4 * q + 2], d.z, gdot);
+        gdot = fmaf(su[4 * q + 3], d.w, gdot);
+      }
+      dl += p * (gdot + dd_sh[j]) * (pre >= 0.f ? 1.f : slope);
+    });
+    float* dst = ds_out + o * hf + static_cast<long long>(head) * f + s0;
 #pragma unroll
-      for (int k = 0; k < FP; ++k)
-        if (k < fw) dst[k] = ds[k];
-    }
+    for (int k = 0; k < FP; ++k)
+      if (k < fw) dst[k] = ds[k];
   }
-  if (o >= 0) dlsrc_out[o * h + head] = dl;
+  dlsrc_out[o * h + head] = dl;
 }
 
-// GAT_TILE_WIDTHS for kernels that also take the mode S.
-#define GAT_WIDTHS_OF_MODE(kernel, S) \
-  kernel<4, S>, kernel<8, S>, kernel<16, S>, kernel<32, S>, kernel<40, S>, kernel<64, S>
-
-// B3's tile group and dynamic shared memory at width fp, h heads and C = max_tiles.
+// The item kernels' tile group (the s2 or dnum slabs staged at once) at
+// width fp and C = max_tiles, and their dynamic shared memory with the
+// `arrays` node arrays (B3, B5: lsrc; B6: ldst, m, dden) of hc heads staged.
 int item_group(int fp, int max_tiles) {
   return tile_group(sizeof(float) * TK * slab_stride(fp), max_tiles);
 }
-size_t item_smem(int fp, int h, int max_tiles) {
+size_t item_smem(int fp, int hc, int max_tiles, int arrays) {
   return static_cast<size_t>(max_tiles) * (TM * sizeof(uint4) + sizeof(int)) +
          sizeof(float) * TK *
              (static_cast<size_t>(item_group(fp, max_tiles)) * slab_stride(fp) +
-              static_cast<size_t>(max_tiles) * (h | 1));
+              static_cast<size_t>(arrays) * max_tiles * (hc | 1));
 }
 
-// The launches of B5/B6 by mode: `rows` is block_row_ptr and `grid_rows` the
-// block row count, or with S (stream) block_rows and the tile count.
-template <bool S>
-int launch_dldst(const void* tiles, const void* block_cols, const void* rows, const void* lsrc,
-                 const void* ldst, const void* s2, const void* m, const void* dnum,
-                 const void* dden, void* dldst, int grid_rows, int n, int h, int f,
-                 int tile_bf16, float slope, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick_width(f, GAT_WIDTHS_OF_MODE(gat_bwd_dldst_kernel, S)), grid_of(grid_rows, h),
-                0, stream, tiles, tile_bf16, static_cast<const int*>(block_cols),
-                static_cast<const int*>(rows), static_cast<const float*>(lsrc),
-                static_cast<const float*>(ldst), static_cast<const float*>(s2),
-                static_cast<const float*>(m), static_cast<const float*>(dnum),
-                static_cast<const float*>(dden), static_cast<float*>(dldst), n, h, f, slope);
-}
-
-template <bool S>
-int launch_sender(const void* tiles_t, const void* block_cols, const void* rows,
-                  const void* lsrc, const void* ldst, const void* s2, const void* m,
-                  const void* dnum, const void* dden, void* ds, void* dlsrc, int grid_rows, int n,
-                  int h, int f, int tile_bf16, float slope, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick_width(f, GAT_WIDTHS_OF_MODE(gat_bwd_sender_kernel, S)),
-                grid_of(grid_rows, h), 0, stream, tiles_t, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(rows),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<const float*>(m),
-                static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(ds), static_cast<float*>(dlsrc), n, h, f, slope);
+// The heads whose node arrays B5 and B6 stage at once: all h unless that
+// would outgrow the card's shared memory (then the item walks them in
+// groups of hc, restaging between).
+int staged_heads(int fp, int h, int max_tiles, int arrays) {
+  int hc = h;
+  while (hc > 1 && item_smem(fp, hc, max_tiles, arrays) > MAX_SMEM) --hc;
+  return hc;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile shape and the ints of one work item of B3.
+// Tile shape and the ints of one work item of B3, B5 and B6.
 int gat_tile_attn_config(int* tm, int* tk, int* item_ints) {
   *tm = TM;
   *tk = TK;
@@ -445,7 +566,7 @@ int gat_tile_fwd(const void* tiles, const void* block_cols, const void* items, c
   if (f < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_item_kernel)), dim3(n_items),
-                item_smem(fp, h, max_tiles), stream, tiles, tile_bf16,
+                item_smem(fp, h, max_tiles, 1), stream, tiles, tile_bf16,
                 static_cast<const int*>(block_cols), static_cast<const int*>(items),
                 static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
                 static_cast<const float*>(s2), static_cast<float*>(num), static_cast<float*>(den),
@@ -467,13 +588,25 @@ int gat_tile_fwd_stream(const void* tiles, const void* block_cols, const void* b
                 static_cast<float*>(max_t), n, h, f, slope);
 }
 
-// B5 over the forward tiles: dldst [n, H].
-int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* block_row_ptr,
+// B5 over the forward tiles, on B3's work items (the same schedule and
+// counters: the wrapper launches the two one after the other on one stream):
+// dldst [n, H]; the split rows' partials in ws [n_slots][TM][H].
+int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* items,
                        const void* lsrc, const void* ldst, const void* s2, const void* m,
-                       const void* dnum, const void* dden, void* dldst, int n_block_rows,
-                       int n, int h, int f, int tile_bf16, float slope, void* stream) {
-  return launch_dldst<false>(tiles, block_cols, block_row_ptr, lsrc, ldst, s2, m, dnum, dden,
-                             dldst, n_block_rows, n, h, f, tile_bf16, slope, stream);
+                       const void* dnum, const void* dden, void* dldst, void* ws, void* counters,
+                       int n_items, int n_slots, int n, int h, int f, int max_tiles,
+                       int tile_bf16, float slope, void* stream) {
+  if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int fp = width_of(f), hc = staged_heads(fp, h, max_tiles, 1);
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_item_kernel)), dim3(n_items),
+                item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
+                static_cast<const int*>(block_cols), static_cast<const int*>(items),
+                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                static_cast<const float*>(s2), static_cast<const float*>(m),
+                static_cast<const float*>(dnum), static_cast<const float*>(dden),
+                static_cast<float*>(dldst), static_cast<float*>(ws), static_cast<int*>(counters),
+                n, h, f, max_tiles, item_group(fp, max_tiles), hc, slope);
 }
 
 // B5s over the forward tiles: dldst_t [T, TM, H].
@@ -481,18 +614,36 @@ int gat_tile_bwd_dldst_stream(const void* tiles, const void* block_cols, const v
                               const void* lsrc, const void* ldst, const void* s2, const void* m,
                               const void* dnum, const void* dden, void* dldst_t, int n_tiles,
                               int n, int h, int f, int tile_bf16, float slope, void* stream) {
-  return launch_dldst<true>(tiles, block_cols, block_rows, lsrc, ldst, s2, m, dnum, dden,
-                            dldst_t, n_tiles, n, h, f, tile_bf16, slope, stream);
+  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_stream_kernel)),
+                grid_of(n_tiles, h), 0, stream, tiles, tile_bf16,
+                static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
+                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                static_cast<const float*>(s2), static_cast<const float*>(m),
+                static_cast<const float*>(dnum), static_cast<const float*>(dden),
+                static_cast<float*>(dldst_t), n, h, f, slope);
 }
 
-// B6 over the transpose tiles (block rows are senders): ds [n, H*F], dlsrc [n, H].
-int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void* block_row_ptr,
+// B6 over the transpose tiles (block rows are senders), on their own work
+// items: ds [n, H*F], dlsrc [n, H]; the split rows' partials in
+// ws [n_slots][TM][H*F + H].
+int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void* items,
                         const void* lsrc, const void* ldst, const void* s2, const void* m,
-                        const void* dnum, const void* dden, void* ds, void* dlsrc,
-                        int n_block_rows, int n, int h, int f, int tile_bf16, float slope,
-                        void* stream) {
-  return launch_sender<false>(tiles_t, block_cols, block_row_ptr, lsrc, ldst, s2, m, dnum,
-                              dden, ds, dlsrc, n_block_rows, n, h, f, tile_bf16, slope, stream);
+                        const void* dnum, const void* dden, void* ds, void* dlsrc, void* ws,
+                        void* counters, int n_items, int n_slots, int n, int h, int f,
+                        int max_tiles, int tile_bf16, float slope, void* stream) {
+  if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int fp = width_of(f), hc = staged_heads(fp, h, max_tiles, 3);
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_item_kernel)), dim3(n_items),
+                item_smem(fp, hc, max_tiles, 3), stream, tiles_t, tile_bf16,
+                static_cast<const int*>(block_cols), static_cast<const int*>(items),
+                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                static_cast<const float*>(s2), static_cast<const float*>(m),
+                static_cast<const float*>(dnum), static_cast<const float*>(dden),
+                static_cast<float*>(ds), static_cast<float*>(dlsrc), static_cast<float*>(ws),
+                static_cast<int*>(counters), n, h, f, max_tiles, item_group(fp, max_tiles), hc,
+                slope);
 }
 
 // B6s over the transpose tiles: ds_t [Tt, TM, H*F], dlsrc_t [Tt, TM, H].
@@ -501,8 +652,14 @@ int gat_tile_bwd_sender_stream(const void* tiles_t, const void* block_cols,
                                const void* s2, const void* m, const void* dnum, const void* dden,
                                void* ds_t, void* dlsrc_t, int n_tiles, int n, int h, int f,
                                int tile_bf16, float slope, void* stream) {
-  return launch_sender<true>(tiles_t, block_cols, block_rows, lsrc, ldst, s2, m, dnum, dden,
-                             ds_t, dlsrc_t, n_tiles, n, h, f, tile_bf16, slope, stream);
+  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_stream_kernel)),
+                grid_of(n_tiles, h), 0, stream, tiles_t, tile_bf16,
+                static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
+                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                static_cast<const float*>(s2), static_cast<const float*>(m),
+                static_cast<const float*>(dnum), static_cast<const float*>(dden),
+                static_cast<float*>(ds_t), static_cast<float*>(dlsrc_t), n, h, f, slope);
 }
 
 }  // extern "C"

@@ -1,19 +1,20 @@
 // What the GAT tile-attention kernels share (gat_tile_attn.cu: B3-B6, B4,
 // B5s, B6s; gatv2_tile_attn.cu: B7/B8/B9): the tile shape, the mask read by
 // warp ballots, the two walks over a tile's edges, operand staging, the
-// per-width kernel pick, and the work items and split-row merge of the
-// item-scheduled kernels B3 and B7 (B8 and B9 sum their split rows in
-// gatv2_tile_attn.cu).
+// per-width kernel pick, and the work items of the item-scheduled kernels
+// (B3, B5, B6, B7, B8, B9): their masks decoded once per item, the flash
+// merge of B3's and B7's split rows, and the in-order sum of the backward
+// kernels' split rows.
 //
 // The mask is never stored in device memory: warp w reads rows 32w..32w+31 of
 // a tile, one 16-byte (f32) or 8-byte (bf16) load a lane per row, and four
 // ballots give that row's 128 mask bits (bit l of word c is column 4l + c),
 // which lane r keeps for its own row. Two walks use them:
-// - for_columns (B4-B6): the warp walks the columns that any of its
+// - for_columns (B4, B5s, B6s): the warp walks the columns that any of its
 //   32 rows needs (the OR of its words) and evaluates every (row, column)
 //   slot there, warp-uniformly; a kernel applies the mask by select, never
 //   by multiplying (exp(NEG - NEG) = 1 must not leak in).
-// - for_own_edges (B3, B7, B8, B9): each thread walks only its own row's set bits,
+// - for_own_edges (B3, B5-B9): each thread walks only its own row's set bits,
 //   8.5 of the 128 columns of a flagship tile on average, and reads the column side
 //   by per-lane gathers from a staged slab whose row stride is padded
 //   (slab_stride) so that eight lanes of a 16-byte access see eight banks.
@@ -39,6 +40,7 @@ constexpr int SLAB = 64;  // the widest compiled width: wider F loops over slabs
 constexpr int ITEM_INTS = 6;  // a work item: begin, end, block row, slot, first slot, parts
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t MAX_SMEM = 232448;  // what an H100 grants one CTA
 
 static_assert(THREADS == TM, "one thread per tile row");
 
@@ -255,12 +257,12 @@ inline int tile_group(size_t tile_bytes, int max_tiles) {
 }
 
 // ------------------------------------------------------------------------
-// Work items of B3, B7, B8 and B9 (the wrapper's spmm_schedule): tiles
-// [begin, end) of block row `row`. A row of one item (at most C tiles, or
-// none) has slot = -1 and writes its outputs itself; the `parts` items of a
-// longer row write partials (B3, B7: m, den, num; B8, B9: their gradients)
-// to workspace slots first .. first + parts - 1 (this item to `slot`), and
-// the last of them to arrive merges them.
+// Work items of B3, B5-B9 (the wrapper's spmm_schedule): tiles [begin, end)
+// of block row `row`. A row of one item (at most C tiles, or none) has
+// slot = -1 and writes its outputs itself; the `parts` items of a longer row
+// write partials (B3, B7: m, den, num; B5, B6, B8, B9: their gradients) to
+// workspace slots first .. first + parts - 1 (this item to `slot`), and the
+// last of them to arrive merges them.
 // ------------------------------------------------------------------------
 
 struct Item {
@@ -270,6 +272,30 @@ struct Item {
 __device__ __forceinline__ Item load_item(const int* items) {
   const int* it = items + static_cast<size_t>(blockIdx.x) * ITEM_INTS;
   return Item{it[0], it[1], it[2], it[3], it[4], it[5]};
+}
+
+// Decode the masks of an item's tiles once into mask_sh [C][TM] (this
+// thread's own words) and its block columns into cols_sh [C]; the caller's
+// first barrier publishes cols_sh.
+__device__ __forceinline__ void load_item_tiles(const Item& it, const void* tiles, int bf16,
+                                                const int* block_cols, uint4* mask_sh,
+                                                int* cols_sh) {
+  const int nt = it.end - it.begin, i = threadIdx.x;
+  if (i < nt) cols_sh[i] = block_cols[it.begin + i];
+  for (int t = 0; t < nt; ++t) {
+    uint32_t w[4];
+    mask_words(tile_ptr(tiles, bf16, it.begin + t), bf16, w);
+    mask_sh[t * TM + i] = make_uint4(w[0], w[1], w[2], w[3]);  // read by this thread only
+  }
+}
+
+// Columns c0 .. c0 + fw - 1 of row `row` of x [n, ld] into W registers, zero
+// past n and fw.
+template <int W>
+__device__ __forceinline__ void load_cols(float dst[W], const float* x, long long row, int n,
+                                          int ld, int c0, int fw) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) dst[k] = (row < n && k < fw) ? __ldg(x + row * ld + c0 + k) : 0.f;
 }
 
 // The split-row workspace: n_slots partials of num [TM, hf], then of den
@@ -396,6 +422,85 @@ __device__ __forceinline__ void merge_parts(const Item& it, const Partials& ws, 
       for (int p = 0; p < parts; ++p)
         acc = fmaf(__ldcg(s_at + p * m_part), __ldcg(num_at + p * num_part), acc);
       num_out[(row0 + r) * hf + c] = acc;
+    }
+  }
+}
+
+// ------------------------------------------------------------------------
+// The split rows of the backward kernels (B5, B6, B8, B9): each item writes
+// its rows' gradients, a row of one item into the outputs, the items of a
+// longer row into their workspace slots [n_slots][TM][width], and the last
+// to arrive adds the parts in item order (sum_parts).
+// ------------------------------------------------------------------------
+
+// Where thread i's row of an item writes an output `out` [n, ld]: row v of
+// it (nullptr past n) for a row of one item, else the item's workspace slot
+// row, from column `col` (an output's place in the part).
+__device__ __forceinline__ float* grad_row(const Item& it, float* ws, int width, int col,
+                                           float* out, int ld, long long v, int n) {
+  if (it.slot >= 0) return ws + (static_cast<size_t>(it.slot) * TM + threadIdx.x) * width + col;
+  return v < n ? out + v * ld : nullptr;
+}
+
+// Columns c0 .. c0 + fw - 1 of a row: written from, or read back into, W
+// registers (zero past fw, or for a row that is not written).
+template <int W>
+__device__ __forceinline__ void put_cols(float* row, int c0, int fw, const float x[W]) {
+  if (row == nullptr) return;
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    if (k < fw) row[c0 + k] = x[k];
+}
+template <int W>
+__device__ __forceinline__ void get_cols(float x[W], const float* row, int c0, int fw) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) x[k] = (row != nullptr && k < fw) ? row[c0 + k] : 0.f;
+}
+
+// After the items of a split row have written their gradient partials: the
+// sum of the parts, in item order, into the row's outputs: columns 0 .. hf
+// of a part into out0 [n, hf], the rest (width - hf, none when out1 is
+// null) into out1 [n, width - hf]. The same bits whichever part arrives
+// last. Four parts at a time and 16-byte quads when both outputs' widths are
+// multiples of 4 (a quad then lies in one output), as merge_parts.
+__device__ __forceinline__ void sum_parts(const Item& it, const float* ws, int width,
+                                          float* out0, float* out1, int n, int hf) {
+  const long long row0 = static_cast<long long>(it.row) * TM;
+  const long long left = static_cast<long long>(n) - row0;
+  const int rows = left < TM ? static_cast<int>(left) : TM;
+  const int w1 = width - hf;
+  const size_t part = static_cast<size_t>(TM) * width;
+  const float* base = ws + static_cast<size_t>(it.first) * part;
+  const int parts = it.parts;
+  if (hf % 4 == 0 && w1 % 4 == 0) {
+    const int quads = width / 4;
+    for (int idx = threadIdx.x; idx < rows * quads; idx += THREADS) {
+      const int r = idx / quads, c = (idx % quads) * 4;
+      const float* at = base + static_cast<size_t>(r) * width + c;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p) {
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(at + p * part));
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
+      }
+      float* out = c < hf ? out0 + (row0 + r) * hf + c : out1 + (row0 + r) * w1 + (c - hf);
+      *reinterpret_cast<float4*>(out) = acc;
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * width; idx += THREADS) {
+      const int r = idx / width, c = idx % width;
+      const float* at = base + static_cast<size_t>(r) * width + c;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int p = 0; p < parts; ++p) acc += __ldcg(at + p * part);
+      if (c < hf) {
+        out0[(row0 + r) * hf + c] = acc;
+      } else {
+        out1[(row0 + r) * w1 + c - hf] = acc;
+      }
     }
   }
 }

@@ -154,21 +154,6 @@ __device__ __forceinline__ void stage_a(float* a_sh, const float* a, int head, i
   for (int k = threadIdx.x; k < len; k += THREADS) a_sh[k] = k < f ? a[head * f + k] : 0.f;
 }
 
-// Decode the masks of an item's tiles once into mask_sh [C][TM] (this
-// thread's own words) and its block columns into cols_sh [C]; the caller's
-// first barrier publishes cols_sh.
-__device__ __forceinline__ void load_item_tiles(const Item& it, const void* tiles, int bf16,
-                                                const int* block_cols, uint4* mask_sh,
-                                                int* cols_sh) {
-  const int nt = it.end - it.begin, i = threadIdx.x;
-  if (i < nt) cols_sh[i] = block_cols[it.begin + i];
-  for (int t = 0; t < nt; ++t) {
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles, bf16, it.begin + t), bf16, w);
-    mask_sh[t * TM + i] = make_uint4(w[0], w[1], w[2], w[3]);  // read by this thread only
-  }
-}
-
 // B7. blockIdx.x is a work item; `max_tiles` (C) sizes the shared memory and
 // `group` tiles' sl rows are staged at once.
 template <int FP>
@@ -256,76 +241,6 @@ gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
 // F = 40, B7 above F = 208).
 // ------------------------------------------------------------------------
 
-// Where thread i's row of an item writes gradient output o (0 or 1) of
-// width hf: the output row v (nullptr past n) of a row of one item, else the
-// item's workspace slot ([n_slots][TM][width], output o at column o * hf).
-__device__ __forceinline__ float* grad_row(const Item& it, float* ws, int width, float* out,
-                                           int o, long long v, int n, int hf) {
-  if (it.slot >= 0) return ws + (static_cast<size_t>(it.slot) * TM + threadIdx.x) * width + o * hf;
-  return v < n ? out + v * hf : nullptr;
-}
-
-// Columns c0 .. c0 + fw - 1 of a row: written from, or read back into, W
-// registers (zero past fw, or for a row that is not written).
-template <int W>
-__device__ __forceinline__ void put_cols(float* row, int c0, int fw, const float x[W]) {
-  if (row == nullptr) return;
-#pragma unroll
-  for (int k = 0; k < W; ++k)
-    if (k < fw) row[c0 + k] = x[k];
-}
-template <int W>
-__device__ __forceinline__ void get_cols(float x[W], const float* row, int c0, int fw) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) x[k] = (row != nullptr && k < fw) ? row[c0 + k] : 0.f;
-}
-
-// After the items of a split row have written their gradient partials: the
-// sum of the parts, in item order, into the row's outputs (width = hf: one
-// output; 2 hf: out0, then out1). The same bits whichever part arrives last.
-// Four parts at a time and 16-byte quads when hf is a multiple of 4 (a quad
-// then lies in one output), as merge_parts.
-__device__ __forceinline__ void sum_parts(const Item& it, const float* ws, int width,
-                                          float* out0, float* out1, int n, int hf) {
-  const long long row0 = static_cast<long long>(it.row) * TM;
-  const long long left = static_cast<long long>(n) - row0;
-  const int rows = left < TM ? static_cast<int>(left) : TM;
-  const size_t part = static_cast<size_t>(TM) * width;
-  const float* base = ws + static_cast<size_t>(it.first) * part;
-  const int parts = it.parts;
-  if (hf % 4 == 0) {
-    const int quads = width / 4;
-    for (int idx = threadIdx.x; idx < rows * quads; idx += THREADS) {
-      const int r = idx / quads, c = (idx % quads) * 4;
-      const float* at = base + static_cast<size_t>(r) * width + c;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-      for (int p = 0; p < parts; ++p) {
-        const float4 x = __ldcg(reinterpret_cast<const float4*>(at + p * part));
-        acc.x += x.x;
-        acc.y += x.y;
-        acc.z += x.z;
-        acc.w += x.w;
-      }
-      float* out = c < hf ? out0 + (row0 + r) * hf + c : out1 + (row0 + r) * hf + (c - hf);
-      *reinterpret_cast<float4*>(out) = acc;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * width; idx += THREADS) {
-      const int r = idx / width, c = idx % width;
-      const float* at = base + static_cast<size_t>(r) * width + c;
-      float acc = 0.f;
-#pragma unroll 4
-      for (int p = 0; p < parts; ++p) acc += __ldcg(at + p * part);
-      if (c < hf) {
-        out0[(row0 + r) * hf + c] = acc;
-      } else {
-        out1[(row0 + r) * hf + c - hf] = acc;
-      }
-    }
-  }
-}
-
 // One column's update of B8 (dsr and dapart) and of B9 (dsl), for an edge
 // of weight p and gradient de; pre = own + x.
 __device__ __forceinline__ void recv_col(float& gsr, float& gap, float de, float a, float own,
@@ -365,8 +280,8 @@ gatv2_bwd_recv_item_kernel(const void* __restrict__ tiles, int bf16,
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
   const long long v = static_cast<long long>(it.row) * TM + i;
-  float* const dst_sr = grad_row(it, ws, 2 * hf, dsr_out, 0, v, n, hf);
-  float* const dst_ap = grad_row(it, ws, 2 * hf, dapart_out, 1, v, n, hf);
+  float* const dst_sr = grad_row(it, ws, 2 * hf, 0, dsr_out, hf, v, n);
+  float* const dst_ap = grad_row(it, ws, 2 * hf, hf, dapart_out, hf, v, n);
   load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
 
   for (int head = 0; head < h; ++head) {
@@ -445,7 +360,7 @@ gatv2_bwd_send_item_kernel(const void* __restrict__ tiles_t, int bf16,
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
   const long long u = static_cast<long long>(it.row) * TM + i;  // sender
-  float* const dst_sl = grad_row(it, ws, hf, dsl_out, 0, u, n, hf);
+  float* const dst_sl = grad_row(it, ws, hf, 0, dsl_out, hf, u, n);
   load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
 
   for (int head = 0; head < h; ++head) {
@@ -549,15 +464,6 @@ __device__ __forceinline__ void for_batch_edges(const uint4* mask_sh, int t0, in
   }
 }
 
-// Columns c0 .. c0 + fw - 1 of row `row` of x [n, ld] into W registers, zero
-// past n and fw.
-template <int W>
-__device__ __forceinline__ void load_cols(float dst[W], const float* x, long long row, int n,
-                                          int ld, int c0, int fw) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) dst[k] = (row < n && k < fw) ? __ldg(x + row * ld + c0 + k) : 0.f;
-}
-
 // a[head, c0 .. c0 + CW) into a_sh, zero past f.
 __device__ __forceinline__ void stage_a_chunk(float* a_sh, const float* a, int head, int f,
                                               int c0) {
@@ -616,8 +522,8 @@ gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
   const long long v = static_cast<long long>(it.row) * TM + i;
-  float* const dst_sr = grad_row(it, ws, 2 * hf, dsr_out, 0, v, n, hf);
-  float* const dst_ap = grad_row(it, ws, 2 * hf, dapart_out, 1, v, n, hf);
+  float* const dst_sr = grad_row(it, ws, 2 * hf, 0, dsr_out, hf, v, n);
+  float* const dst_ap = grad_row(it, ws, 2 * hf, hf, dapart_out, hf, v, n);
   load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
   __syncthreads();
   const int batches = own_batches(mask_sh, nt);
@@ -709,7 +615,7 @@ gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
   const long long u = static_cast<long long>(it.row) * TM + i;  // sender
-  float* const dst_sl = grad_row(it, ws, hf, dsl_out, 0, u, n, hf);
+  float* const dst_sl = grad_row(it, ws, hf, 0, dsl_out, hf, u, n);
   load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
   __syncthreads();
   const int batches = own_batches(mask_sh, nt);
@@ -873,7 +779,6 @@ gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
 // fp) and C = max_tiles, and how many of an item's tiles it stages at once.
 // Above F = MAX_REG_F (B8, B9) and past the staged B7's reach it depends on
 // C but not on F.
-constexpr size_t MAX_SMEM = 232448;  // what an H100 grants one CTA
 constexpr int MAX_STAGED_F = 208;    // the widest F of the staged B7
 size_t item_bytes(int max_tiles) {
   return static_cast<size_t>(max_tiles) * (TM * sizeof(uint4) + sizeof(int));

@@ -35,23 +35,23 @@ is ``e = Σ_f a[h,f]·leaky(sl[u,hF+f] + sr[v,hF+f])``:
 
 The CUDA sources, ``pygcn_tpu_torch/csrc/gat_tile_attn.cu`` (B3-B6,
 B4/B5s/B6s) and ``gatv2_tile_attn.cu`` (B7/B8/B9), carry the design notes.
-B3, B7, B8 and B9 run B1's balanced schedule (:func:`spmm_schedule` at
-:data:`MAX_TILES`, cached per tile set in ``bcsr.cache`` with arrival
-counters of its own; B7 and B8 share the forward tiles' entry, B9 has the
-transpose tiles'): one CTA per work item of at most C tiles of a block row,
-for all heads; each tile's mask decoded once; each thread walking only its
-own row's edges; the items of a split row writing partials that the last to
-arrive merges in item order, so the result is the same bits every run: B3's
-and B7's ``(m, den, num)`` by the flash merge (:func:`scheduled_merge` in
-plain PyTorch), B8's and B9's gradients by a plain sum
-(:func:`scheduled_sum`). B5, B6 and the stream kernels keep one CTA per
-(head, block row), or per (head, tile), and each output is written once,
-without atomics. At the ogbn-arxiv hybrid's shapes all are bound by bytes
-(the tiles as stored, about 0.19 GB a launch). Every kernel takes any
-per-head width F, with shared memory that fits the card whatever F: B3-B6
-in slabs of 64 columns; B7 with whole rows staged up to F = 208, B8 and B9
-with own rows in registers up to F = 40, and above those the F-chunked
-kernels (32 columns at a time).
+B3, B5, B6, B7, B8 and B9 run B1's balanced schedule (:func:`spmm_schedule`
+at :data:`MAX_TILES`, cached per tile set in ``bcsr.cache`` with arrival
+counters of its own; B3, B5, B7 and B8 share the forward tiles' entry, B6
+and B9 the transpose tiles'): one CTA per work item of at most C tiles of a
+block row, for all heads; each tile's mask decoded once; each thread walking
+only its own row's edges; the items of a split row writing partials that
+the last to arrive merges in item order, so the result is the same bits
+every run: B3's and B7's ``(m, den, num)`` by the flash merge
+(:func:`scheduled_merge` in plain PyTorch), the backward kernels' gradients
+by a plain sum (:func:`scheduled_sum`). The stream kernels keep one CTA per
+(head, tile), and each output block is written once, without atomics. At
+the ogbn-arxiv hybrid's shapes all are bound by bytes (the tiles as stored,
+about 0.19 GB a launch). Every kernel takes any per-head width F, with
+shared memory that fits the card whatever F: B3-B6 in slabs of 64 columns;
+B7 with whole rows staged up to F = 208, B8 and B9 with own rows in
+registers up to F = 40, and above those the F-chunked kernels (32 columns
+at a time).
 
 Tile values only gate the mask (``tile != 0``); they are never multiplied in.
 Each kernel has a plain PyTorch version here (``*_plain``), the CPU path and
@@ -75,13 +75,13 @@ from pygcn_tpu_torch.ops.cuda.bcsr_spmm import SpMMSchedule, spmm_schedule, sum_
 NEG = -1e30  # finite stand-in for -inf: max/exp algebra without NaNs
 
 # The tile shape the kernels are compiled for, and the ints of one work item
-# of B3 and B7 (checked against the libraries).
+# (checked against the libraries).
 TILE = (128, 128)
 ITEM_INTS = 6
 
-# The most tiles one work item of B3 or B7 takes (C): B1's schedule, cached
-# per tile set apart from B1's. ``chip_smoke.py`` times B3 and B7 at C = 1, 2
-# and 4 (PERF.md).
+# The most tiles one work item of the item-scheduled kernels (B3, B5-B9)
+# takes (C): B1's schedule, cached per tile set apart from B1's.
+# ``chip_smoke.py`` times each at C = 1, 2 and 4 (PERF.md).
 MAX_TILES = 2
 
 # Own edges that a thread of the F-chunked GATv2 kernels (B7 above the staged
@@ -346,6 +346,23 @@ def tile_bwd_sender_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f
     return sum_by_block_row(ds_t, bcsr_t, n), sum_by_block_row(dl_t, bcsr_t, n)
 
 
+def tile_bwd_dldst_scheduled_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
+                                   slope: float, max_tiles: int):
+    """B5's function as B5 computes it: :func:`scheduled_sum` of the per-tile
+    partials at ``max_tiles``."""
+    parts = tile_bwd_dldst_stream_plain(bcsr, lsrc, ldst, s2, m, dnum, dden, h, f, slope)
+    return scheduled_sum(bcsr, parts, s2.shape[0], max_tiles)
+
+
+def tile_bwd_sender_scheduled_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int,
+                                    f: int, slope: float, max_tiles: int):
+    """B6's function as B6 computes it: :func:`scheduled_sum` of the per-tile
+    partials ``(ds_t, dlsrc_t)`` at ``max_tiles``."""
+    n = s2.shape[0]
+    parts = tile_bwd_sender_stream_plain(bcsr_t, lsrc, ldst, s2, m, dnum, dden, h, f, slope)
+    return tuple(scheduled_sum(bcsr_t, x, n, max_tiles) for x in parts)
+
+
 def _v2_logit(a, rows, cols, hh: int, f: int, slope: float) -> torch.Tensor:
     """``[T, tm, tk]`` v2 logit of head ``hh`` between the row side's
     ``rows [T, tm, H·F]`` and the column side's ``cols [T, tk, H·F]``: the
@@ -460,10 +477,10 @@ def tile_v2_bwd_send_plain(bcsr_t: BCSR, sl2, sr2, a, m, dnum, dden, h: int, f: 
 
 
 def scheduled_sum(bcsr: BCSR, parts, n: int, max_tiles: int):
-    """B8's and B9's split-row sum in plain PyTorch: per-tile partials
-    ``[T, tm, W]`` summed along the work items of :func:`spmm_schedule` at
-    ``max_tiles`` as the kernels sum them: each item's tiles one after another,
-    then a block row's items in item order. ``[n, W]``; rows of block rows
+    """The backward kernels' (B5, B6, B8, B9) split-row sum in plain PyTorch:
+    per-tile partials ``[T, tm, W]`` summed along the work items of
+    :func:`spmm_schedule` at ``max_tiles`` as the kernels sum them: each
+    item's tiles one after another, then a block row's items in item order. ``[n, W]``; rows of block rows
     without tiles are zero."""
     t, tm, w = parts.shape
     dev = parts.device
@@ -516,21 +533,20 @@ def _load(name: str):
         build.build([name])
         lib = ctypes.CDLL(str(build.library_path(name)))
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # tiles, block_cols, block_row_ptr, <operands>, <outputs>,
-        # n_block_rows, n, h, f, tile_bf16, slope, stream; the stream modes
-        # take block_rows and the tile count in place of the block rows'
-        entries = ((("gat_tile_bwd_dldst", 7), ("gat_tile_bwd_sender", 8),
-                    ("gat_tile_fwd_stream", 6), ("gat_tile_bwd_dldst_stream", 7),
+        # the stream modes: tiles, block_cols, block_rows, <operands>,
+        # <outputs>, n_tiles, n, h, f, tile_bf16, slope, stream
+        entries = ((("gat_tile_fwd_stream", 6), ("gat_tile_bwd_dldst_stream", 7),
                     ("gat_tile_bwd_sender_stream", 8))
                    if name == "gat_tile_attn" else ())
         for fn_name, n_ptrs in entries:
             fn = getattr(lib, fn_name)
             fn.argtypes = [p] * (3 + n_ptrs) + [i] * 5 + [fl, p]
             fn.restype = ctypes.c_int
-        # on work items (B3, B7, B8, B9): tiles, block_cols, items, the
-        # operands, the outputs, ws, counters; n_items, n_slots, n, h, f,
-        # max_tiles, tile_bf16; slope; stream
-        items = ((("gat_tile_fwd", 3, 3),) if name == "gat_tile_attn" else
+        # on work items (B3, B5-B9): tiles, block_cols, items, the operands,
+        # the outputs, ws, counters; n_items, n_slots, n, h, f, max_tiles,
+        # tile_bf16; slope; stream
+        items = ((("gat_tile_fwd", 3, 3), ("gat_tile_bwd_dldst", 6, 1),
+                  ("gat_tile_bwd_sender", 6, 2)) if name == "gat_tile_attn" else
                  (("gatv2_tile_fwd", 3, 3), ("gatv2_tile_fwd_chunked", 3, 3),
                   ("gatv2_tile_bwd_recv", 6, 2), ("gatv2_tile_bwd_send", 6, 1)))
         for fn_name, n_ins, n_outs in items:
@@ -592,20 +608,17 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
         raise ValueError("tiles must be 16-byte aligned")
 
 
-def _launch(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int, f: int,
-            slope: float, stream: bool = False):
-    """Launch ``fn_name``: one CTA per (head, block row), or with ``stream``
-    one per (head, tile)."""
-    lib = _load(lib_name)
+def _launch_stream(name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int, f: int,
+                   slope: float):
+    """Launch stream kernel ``fn_name`` (B4, B5s, B6s): one CTA per (head, tile)."""
+    lib = _load("gat_tile_attn")
     n = ins[0].shape[0]
     dev = ins[0].device
-    rows, grid_rows = ((bcsr.block_rows, bcsr.data.shape[0]) if stream
-                       else (bcsr.block_row_ptr, bcsr.n_block_rows))
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
-            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), rows.data_ptr(),
+            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), bcsr.block_rows.data_ptr(),
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-            grid_rows, n, h, f, int(bcsr.data.dtype == torch.bfloat16),
+            bcsr.data.shape[0], n, h, f, int(bcsr.data.dtype == torch.bfloat16),
             float(slope), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} (H={h}, F={f})")
@@ -613,16 +626,17 @@ def _launch(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: in
 
 
 def _item_schedule(bcsr: BCSR) -> tuple[SpMMSchedule, torch.Tensor]:
-    """The work items at :data:`MAX_TILES` of B3, B7 and B8 over a forward
-    tile set, or of B9 over a transpose one, on the tiles' device, and their
-    int32 arrival counters (one per split item, zero between launches), built
-    on the first launch over ``bcsr`` and kept in ``bcsr.cache`` under a key
-    of their own: B1's entry has counters of another size, and a launch of B1
-    never shares counters with a launch of a GAT kernel. B7 and B8 share one
-    entry, counters included: a GATv2 step launches B7, then B8, on one
-    stream, and the last item of a split row resets its counter before the
-    next launch starts. Like B1's, they assume one launch at a time over a
-    tile set."""
+    """The work items at :data:`MAX_TILES` of B3, B5, B7 and B8 over a
+    forward tile set, or of B6 and B9 over a transpose one, on the tiles'
+    device, and their int32 arrival counters (one per split item, zero
+    between launches), built on the first launch over ``bcsr`` and kept in
+    ``bcsr.cache`` under a key of their own: B1's entry has counters of
+    another size, and a launch of B1 never shares counters with a launch of a
+    GAT kernel. The kernels over one tile set share its entry, counters
+    included (B3 and B5, B7 and B8; B6 and B9): a step launches them one
+    after the other on one stream, and the last item of a split row resets
+    its counter before the next launch starts. Like B1's, they assume one
+    launch at a time over a tile set."""
     key = ("gat_tile", MAX_TILES)
     if key not in bcsr.cache:
         dev = bcsr.block_row_ptr.device
@@ -642,7 +656,7 @@ def most_own_edges(bcsr: BCSR) -> int:
 
 def _launch_items(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int,
                   f: int, slope: float, ws_width: int):
-    """Launch ``fn_name`` (B3, B7, B8 or B9): one CTA per work item of
+    """Launch ``fn_name`` (B3, B5-B9): one CTA per work item of
     :func:`_item_schedule`, the split items' partials in a workspace of
     ``n_slots * 128 * ws_width`` floats."""
     lib = _load(lib_name)
@@ -704,7 +718,8 @@ def tile_bwd_dldst_cuda(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: in
     _check_cuda("B5", bcsr, ins, _v1_shapes(n, h, f), n, f)
     dldst = _empty(n, h, s2)
     if n and h:
-        _launch("gat_tile_attn", "B5", "gat_tile_bwd_dldst", bcsr, ins, (dldst,), h, f, slope)
+        _launch_items("gat_tile_attn", "B5", "gat_tile_bwd_dldst", bcsr, ins, (dldst,), h, f,
+                      slope, h)
     return dldst
 
 
@@ -716,7 +731,8 @@ def tile_bwd_sender_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f:
     _check_cuda("B6", bcsr_t, ins, _v1_shapes(n, h, f), n, f)
     ds, dlsrc = _empty(n, h * f, s2), _empty(n, h, s2)
     if n and h:
-        _launch("gat_tile_attn", "B6", "gat_tile_bwd_sender", bcsr_t, ins, (ds, dlsrc), h, f, slope)
+        _launch_items("gat_tile_attn", "B6", "gat_tile_bwd_sender", bcsr_t, ins, (ds, dlsrc), h,
+                      f, slope, h * f + h)
     return ds, dlsrc
 
 
@@ -726,8 +742,8 @@ def tile_fwd_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: floa
     _check_cuda("B4", bcsr, (lsrc, ldst, s2), _v1_shapes(n, h, f), n, f)
     num_t, den_t, max_t = _blocks(bcsr, h * f, s2), _blocks(bcsr, h, s2), _blocks(bcsr, h, s2)
     if bcsr.data.shape[0] and h:
-        _launch("gat_tile_attn", "B4", "gat_tile_fwd_stream", bcsr, (lsrc, ldst, s2),
-                (num_t, den_t, max_t), h, f, slope, stream=True)
+        _launch_stream("B4", "gat_tile_fwd_stream", bcsr, (lsrc, ldst, s2),
+                       (num_t, den_t, max_t), h, f, slope)
     return num_t, den_t, max_t
 
 
@@ -739,8 +755,7 @@ def tile_bwd_dldst_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int
     _check_cuda("B5s", bcsr, ins, _v1_shapes(n, h, f), n, f)
     dldst_t = _blocks(bcsr, h, s2)
     if bcsr.data.shape[0] and h:
-        _launch("gat_tile_attn", "B5s", "gat_tile_bwd_dldst_stream", bcsr, ins, (dldst_t,), h,
-                f, slope, stream=True)
+        _launch_stream("B5s", "gat_tile_bwd_dldst_stream", bcsr, ins, (dldst_t,), h, f, slope)
     return dldst_t
 
 
@@ -752,8 +767,8 @@ def tile_bwd_sender_stream_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: 
     _check_cuda("B6s", bcsr_t, ins, _v1_shapes(n, h, f), n, f)
     ds_t, dlsrc_t = _blocks(bcsr_t, h * f, s2), _blocks(bcsr_t, h, s2)
     if bcsr_t.data.shape[0] and h:
-        _launch("gat_tile_attn", "B6s", "gat_tile_bwd_sender_stream", bcsr_t, ins,
-                (ds_t, dlsrc_t), h, f, slope, stream=True)
+        _launch_stream("B6s", "gat_tile_bwd_sender_stream", bcsr_t, ins, (ds_t, dlsrc_t), h,
+                       f, slope)
     return ds_t, dlsrc_t
 
 

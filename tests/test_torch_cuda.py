@@ -536,6 +536,133 @@ def test_b8_b9_long_rows_bitwise_and_plain(dev, name, hf):
     assert sched.n_slots > 0 and not counters.any()
 
 
+def v1_operands(dev, n, h, f, seed):
+    """GAT operands ``lsrc, ldst, s2`` and cotangents ``dnum, dden``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lsrc, ldst = (torch.randn(n, h, device=dev, generator=gen) for _ in range(2))
+    s2, dnum = (torch.randn(n, h * f, device=dev, generator=gen) for _ in range(2))
+    return lsrc, ldst, s2, dnum, torch.randn(n, h, device=dev, generator=gen)
+
+
+def b5_b6_runs(name, b, bt, bwd):
+    """(kernel, scheduled plain, plain) of B5 over ``b`` or B6 over ``bt``,
+    each returning a tuple."""
+    c = gta.MAX_TILES
+    if name == "B5":
+        return ((lambda: (gta.tile_bwd_dldst_cuda(b, *bwd),)),
+                (lambda: (gta.tile_bwd_dldst_scheduled_plain(b, *bwd, c),)),
+                (lambda: (gta.tile_bwd_dldst_plain(b, *bwd),)))
+    return ((lambda: gta.tile_bwd_sender_cuda(bt, *bwd)),
+            (lambda: gta.tile_bwd_sender_scheduled_plain(bt, *bwd, c)),
+            (lambda: gta.tile_bwd_sender_plain(bt, *bwd)))
+
+
+@pytest.mark.parametrize("hf", GAT_SHAPES + [(2, 65), (1, 128), (8, 128)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("name", ["B5", "B6"])
+def test_b5_b6_match_scheduled_and_plain(dev, name, symmetric, dtype, hf):
+    """B5 (``dldst``) and B6 (``ds``, ``dlsrc``) on their work items against
+    their scheduled plain versions (the per-tile partials summed as the
+    kernels sum them) and their plain versions, to 1e-4, the 8x128 of the
+    CLI's default width included; each launch counted once, and the block row
+    without edges zero."""
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, True))
+    lsrc, ldst, s2, dnum, dden = v1_operands(dev, 300, h, f, h * 10 + f)
+    m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
+    bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    kernel, scheduled, plain = b5_b6_runs(name, b, bt, bwd)
+    before = dict(gta.launches)
+    got = kernel()
+    torch.cuda.synchronize()
+    assert gta.launches == {k: before[k] + (k == name) for k in before}
+    for x, s_, p_ in zip(got, scheduled(), plain()):
+        assert x.shape == p_.shape
+        torch.testing.assert_close(x, s_, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(x, p_, rtol=1e-4, atol=1e-4)
+        if name == "B5" or symmetric:
+            assert not x[128:256].any()
+
+
+@pytest.mark.parametrize("hf", [(8, 8), (1, 40), (2, 65), (8, 128)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["B5", "B6"])
+def test_b5_b6_long_rows_bitwise_and_plain(dev, name, dtype, hf):
+    """B5 and B6 on split rows (the 43-tile row is 22 items, its partials
+    summed in item order): the same bits in two launches, the arrival
+    counters back at zero, the scheduled plain and plain versions' values
+    within 1e-4, and the block row without tiles zero in ``dldst``. B5 runs
+    on B3's schedule entry of the forward tiles; B6 on one of its own, of the
+    transpose tiles."""
+    h, f = hf
+    b, n = long_row_gat_tiles(dtype)
+    bt = gta.transpose_bcsr(b)
+    b, bt = b.to(dev), bt.to(dev)
+    lsrc, ldst, s2, dnum, dden = v1_operands(dev, n, h, f, h * 7 + f)
+    m = gta.tile_fwd_cuda(b, lsrc, ldst, s2, h, f, 0.2)[2]
+    bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    kernel, scheduled, plain = b5_b6_runs(name, b, bt, bwd)
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    for x, y, s_, p_ in zip(first, second, scheduled(), plain()):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, s_, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(x, p_, rtol=1e-4, atol=1e-4)
+        if name == "B5":
+            assert not x[:128].any()
+    key = ("gat_tile", gta.MAX_TILES)
+    assert list(b.cache) == [key] and list(bt.cache) == ([key] if name == "B6" else [])
+    sched, counters = (b if name == "B5" else bt).cache[key]
+    assert sched.n_slots > 0 and not counters.any()
+
+
+@pytest.mark.parametrize("name,h", [("B5", 230), ("B6", 80)])
+def test_b5_b6_many_heads_match_plain(dev, name, h):
+    """More heads than the node arrays of all heads fit in a CTA's shared
+    memory (B5 above 217 heads of F <= 4, B6 above 71): the item walks its
+    heads in groups, restaging between; against the scheduled plain and plain
+    versions, on the long-row tile set (split rows) at one feature a head."""
+    f = 1
+    b, n = long_row_gat_tiles()
+    bt = gta.transpose_bcsr(b)
+    b, bt = b.to(dev), bt.to(dev)
+    lsrc, ldst, s2, dnum, dden = v1_operands(dev, n, h, f, h)
+    m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
+    bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    kernel, scheduled, plain = b5_b6_runs(name, b, bt, bwd)
+    got = kernel()
+    torch.cuda.synchronize()
+    for x, s_, p_ in zip(got, scheduled(), plain()):
+        torch.testing.assert_close(x, s_, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(x, p_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["B5", "B6"])
+def test_b5_b6_refused_launch_raises(dev, monkeypatch, name):
+    """Work items of C = 200 tiles need more shared memory for their mask
+    words than a CTA gets: B5 and B6 refuse the launch and raise (no plain
+    fallback, no count); at C = 2 the next launch matches the plain version."""
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False))
+    h, f = 2, 4
+    lsrc, ldst, s2, dnum, dden = v1_operands(dev, 300, h, f, 12)
+    m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
+    bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    kernel, _, plain = b5_b6_runs(name, b, bt, bwd)
+    before = gta.launches[name]
+    monkeypatch.setattr(gta, "MAX_TILES", 200)
+    with pytest.raises(RuntimeError, match=f"{name} kernel launch failed"):
+        kernel()
+    assert gta.launches[name] == before
+    monkeypatch.setattr(gta, "MAX_TILES", 2)
+    got = kernel()
+    torch.cuda.synchronize()
+    for x, r in zip(got, plain()):
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+
+
 def test_wide_heads_never_reach_the_plain_versions(dev, monkeypatch):
     """F > 64 on CUDA tensors (F = 96, and 224, above the widths whose whole
     rows B7 stages) launches the kernels (their counters rise) and never calls

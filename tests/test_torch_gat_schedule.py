@@ -1,4 +1,4 @@
-"""The work schedule of kernels B3, B7, B8 and B9 on the CPU, and wide heads.
+"""The work schedule of kernels B3, B5-B9 on the CPU, and wide heads.
 
 B3 and B7 cut each block row's tiles into work items of at most C tiles
 (B1's ``spmm_schedule``); the items of a split row write partials that the
@@ -36,6 +36,13 @@ scheduled B7, B8 and B9 are held against the plain versions and JAX. B8
 shares B7's work items on the forward tiles and
 B9 has its own on the transpose tiles: checked by driving the wrappers with a
 stand-in library.
+
+B5 and B6 sum their split rows the same way (``scheduled_sum`` of B5s's and
+B6s's per-tile partials): held against the plain versions and JAX's VJP of
+``gat_tile_partials`` on the long-row set at C = 1, 2, 4 and 8, and at
+F = 65 and 128 on the 320-node graphs. B5 runs on B3's work items and
+counters over the forward tiles, B6 on the transpose tiles' own: checked with
+the stand-in library too.
 """
 
 import jax
@@ -393,7 +400,7 @@ def test_gatv2_at_224_matches_jax():
 
 
 class _FakeLib:
-    """Stands in for the built GATv2 library: records each entry point's
+    """Stands in for a built GAT library: records each entry point's
     work-item and counter pointers and returns success."""
 
     def __init__(self):
@@ -440,3 +447,102 @@ def test_b8_shares_b7s_schedule_and_b9_has_its_own(monkeypatch):
     assert torch.equal(sched_t.items, b1.spmm_schedule(bt, C).items)
     assert {k: gta.launches[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0), "B7": 1, "B8": 1, "B9": 1}
+
+
+def v1_backward_case(b, jb, n, h, f, seed):
+    """GAT operands at heads ``h`` of width ``f``, the port's forward ``m`` and
+    cotangents, and JAX's VJP of ``gat_tile_partials`` on its tiles ``jb``
+    (``dlsrc, dldst, ds``)."""
+    lsrc, ldst, s2 = operands(False, n, h, f, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    dnum = rng.normal(size=(n, h * f)).astype(np.float32)
+    dden = rng.normal(size=(n, h)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *x: jtile.gat_tile_partials((h, f, SLOPE), jb,
+                                                        jtile.transpose_bcsr(jb), *x),
+                     jnp.asarray(lsrc), jnp.asarray(ldst), jnp.asarray(s2))
+    j_grads = vjp((jnp.asarray(dnum), jnp.asarray(dden), jnp.zeros((n, h), jnp.float32)))
+    t = [torch.from_numpy(x) for x in (lsrc, ldst, s2)]
+    m = gta.tile_fwd_plain(b, *t, h, f, SLOPE)[2]
+    bwd = (*t, m, torch.from_numpy(dnum), torch.from_numpy(dden), h, f, SLOPE)
+    return bwd, [np.asarray(g) for g in j_grads]
+
+
+def v1_grads(b, bt, bwd, max_tiles=None):
+    """``dlsrc, dldst, ds``: as B6 and B5 compute them at ``max_tiles``, or
+    (None) by the plain versions."""
+    if max_tiles is None:
+        ds, dlsrc = gta.tile_bwd_sender_plain(bt, *bwd)
+        return dlsrc, gta.tile_bwd_dldst_plain(b, *bwd), ds
+    ds, dlsrc = gta.tile_bwd_sender_scheduled_plain(bt, *bwd, max_tiles)
+    return dlsrc, gta.tile_bwd_dldst_scheduled_plain(b, *bwd, max_tiles), ds
+
+
+@pytest.mark.parametrize("max_tiles", [1, 2, 4, 8])
+def test_b5_b6_scheduled_sums_match_plain_and_jax(max_tiles):
+    """B5's and B6's split-row sums (per-tile partials summed per item, then a
+    row's items in item order) on the long-row tile set and its transpose, at
+    C = 1, 2, 4 and 8: against the plain versions (one sum by block row) and
+    the JAX package's VJP of ``gat_tile_partials``, to 1e-4 (sums over a row's
+    edges of products of the operands, in other orders). The block row
+    without tiles has no ``dldst``."""
+    b, jb, n = long_row_sets(C)
+    bt = gta.transpose_bcsr(b)
+    bwd, j_grads = v1_backward_case(b, jb, n, H, F, seed=10 + max_tiles)
+    got = v1_grads(b, bt, bwd, max_tiles)
+    for g, p, j in zip(got, v1_grads(b, bt, bwd), j_grads):
+        np.testing.assert_allclose(np_of(g), np_of(p), **GRAD)
+        np.testing.assert_allclose(np_of(g), j[:g.shape[0]], **GRAD)
+    assert not got[1][:128].any()
+
+
+@pytest.mark.parametrize("hf", [(2, 65), (1, 128)], ids=["2x65", "1x128"])
+def test_b5_b6_scheduled_wide_heads_match_plain_and_jax(hf):
+    """B5's and B6's split-row sums at C = MAX_TILES on heads wider than one
+    64-column slab, on the asymmetric 320-node graph: against the plain
+    versions and JAX's VJP of ``gat_tile_partials``, to 1e-4."""
+    h, f = hf
+    (ops, cot), (_, j_grads), (t_out, _) = wide_case(False, False, h, f)
+    tg = graphs(False)[1]
+    b, bt = tg.hybrid.bcsr, gta.transpose_bcsr(tg.hybrid.bcsr)
+    t = [torch.from_numpy(x) for x in ops]
+    bwd = (*t, t_out[2].detach(), *(torch.from_numpy(c) for c in cot), h, f, SLOPE)
+    got = v1_grads(b, bt, bwd, C)
+    for g, p, j in zip(got, v1_grads(b, bt, bwd), j_grads):
+        np.testing.assert_allclose(np_of(g), np_of(p), **GRAD)
+        np.testing.assert_allclose(np_of(g), np.asarray(j), **GRAD)
+
+
+def test_b5_shares_b3s_schedule_and_b6_has_its_own(monkeypatch):
+    """B5 runs on B3's work items over the forward tiles, the same
+    ``("gat_tile", C)`` cache entry, items and counters; B6 on an entry of the
+    transpose tiles' own. The wrappers are driven with a stand-in library on
+    the CPU, which records what each launch was given; each launch is counted
+    once."""
+    import contextlib
+    import types
+
+    b, _, n = long_row_sets(C)
+    bt = gta.transpose_bcsr(b)
+    lib = _FakeLib()
+    monkeypatch.setattr(gta, "_load", lambda name: lib)
+    monkeypatch.setattr(gta, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    t = [torch.from_numpy(x) for x in operands(False, n)]
+    bwd = (*t, torch.zeros(n, H), torch.zeros(n, H * F), torch.zeros(n, H), H, F, SLOPE)
+    before = dict(gta.launches)
+    gta.tile_fwd_cuda(b, *t, H, F, SLOPE)
+    gta.tile_bwd_dldst_cuda(b, *bwd)
+    gta.tile_bwd_sender_cuda(bt, *bwd)
+    assert [c[0] for c in lib.calls] == ["gat_tile_fwd", "gat_tile_bwd_dldst",
+                                         "gat_tile_bwd_sender"]
+    key = ("gat_tile", C)
+    assert list(b.cache) == [key] and list(bt.cache) == [key]
+    (sched, counters), (sched_t, counters_t) = b.cache[key], bt.cache[key]
+    fwd, dldst, sender = lib.calls
+    assert fwd[1:] == dldst[1:] == (sched.items.data_ptr(), counters.data_ptr())
+    assert sender[1:] == (sched_t.items.data_ptr(), counters_t.data_ptr())
+    assert torch.equal(sched_t.items, b1.spmm_schedule(bt, C).items)
+    assert {k: gta.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "B3": 1, "B5": 1, "B6": 1}
