@@ -8,8 +8,8 @@ Run from the root of a checkout, with no arguments::
 It builds every CUDA kernel of the port from ``pygcn_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version on the card (the per-tile "stream" kernels also against the revisit
-kernels: B2, whose merge is fused, against B1, and B4, B5s and B6s, once
-merged, against B3, B5 and B6), holds a small GCN, a small GAT and a small
+kernels: B2, B4 and B6s, whose merges are fused, against B1, B3 and B6, and
+B5s, once merged, against B5), holds a small GCN, a small GAT and a small
 GATv2 on the card against the same models on the CPU, and drives the port's
 main paths at the ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the
 hybrid layout) for a few epochs each through ``apps/train_fullgraph
@@ -18,8 +18,8 @@ hybrid layout) for a few epochs each through ``apps/train_fullgraph
 - the 3-layer GCN (widths 128/128/40): kernel B1, and with ``BCSR_STREAM``
   kernel B2;
 - ``--model gat --hidden 8`` (2-layer GAT, 8 heads of 8 then 1 head of 40):
-  kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s and their
-  merges;
+  kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s and B5s's
+  merge;
 - ``--model gatv2 --hidden 8``: kernels B7/B8/B9;
 - ``--model gat`` and ``--model gatv2`` at the CLI's default ``--hidden 128``
   (8 heads of 128): the same kernels on wide heads, for one epoch;
@@ -48,10 +48,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Tolerances of the kernels against their plain versions on the card. Both
 # sum the same f32 terms (bf16 tiles: for B1, x rounded to bf16 in both,
 # products exact in f32; for B3-B9 the tiles only gate the mask) in another
-# order, and B3 and B7 rescale their running sums as the max rises where the
-# plain versions exponentiate once against the final max; with unit-normal
-# inputs and sums of up to a few thousand terms the error stays below 1e-4
-# relative.
+# order (B2, B4 and B6s by atomic reductions, in an order that changes from
+# run to run), and B3 and B7 rescale their running sums as the max rises
+# where the plain versions exponentiate once against the final max (B4's
+# plain version rescales each tile's sums onto the merged max); with
+# unit-normal inputs and sums of up to a few thousand terms the error stays
+# below 1e-4 relative.
 RTOL = ATOL = 1e-4
 
 # (heads, per-head width) of the GAT tile-kernel checks: the layers of the
@@ -390,33 +392,46 @@ def _v2_f64_errors(torch, b, bt, ops, cot, h, f, label):
     return errs
 
 
+def _long_row_gat_tiles(torch, rng):
+    """The long-row tile set (block rows of 0, 1, C, C + 1, 43 and 2 tiles at
+    C = ``MAX_TILES``, then none) made square, 5631 nodes, without padding
+    tiles: ``(dtype, tiles, transpose, n)`` on the card for f32 and bf16
+    tiles of one draw from ``rng``."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from pygcn_tpu_torch.apps.time_spmm import long_row_matrix
+    from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    m = long_row_matrix(gta.MAX_TILES, rng)
+    n = m.shape[1]
+    m = sp.coo_matrix((np.ones(m.nnz, np.float32), (m.row, m.col)), shape=(n, n))
+    sets = []
+    for dtype in (torch.float32, torch.bfloat16):
+        b = drop_zero_tiles(_build_bcsr(m, (128, 128)))
+        b = dataclasses.replace(b, data=b.data.to(dtype))
+        sets.append((dtype, b.to("cuda"), gta.transpose_bcsr(b).to("cuda"), n))
+    return sets
+
+
 def check_long_rows(torch, v2: bool):
     """B3, B5 and B6 (with ``v2``: B7, B8 and B9) on the long-row tile set
     made square (block rows of 0, 1, C, C + 1, 43 and 2 tiles, then none;
     5631 nodes), B6 and B9 on its transpose: within the tolerance of the
     plain version and the same bits in two launches, the arrival counters
     back at zero."""
-    import dataclasses
-
     import numpy as np
-    import scipy.sparse as sp
 
-    from pygcn_tpu_torch.apps.time_spmm import long_row_counts, long_row_matrix
-    from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
+    from pygcn_tpu_torch.apps.time_spmm import long_row_counts
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
     names = "B7/B8/B9" if v2 else "B3/B5/B6"
-    rng = np.random.default_rng(6)
     gen = torch.Generator(device="cuda").manual_seed(6)
-    m = long_row_matrix(gta.MAX_TILES, rng)
-    n = m.shape[1]
-    m = sp.coo_matrix((np.ones(m.nnz, np.float32), (m.row, m.col)), shape=(n, n))
     worst, cases = 0.0, 0
-    for dtype in (torch.float32, torch.bfloat16):
-        b = drop_zero_tiles(_build_bcsr(m, (128, 128)))
-        b = dataclasses.replace(b, data=b.data.to(dtype))
-        bt = gta.transpose_bcsr(b).to("cuda")
-        b = b.to("cuda")
+    for dtype, b, bt, n in _long_row_gat_tiles(torch, np.random.default_rng(6)):
         for h, f in ((8, 8), (1, 40), (2, 65), (8, 128)):
             shapes = ((n, h * f), (n, h * f), (h, f)) if v2 else ((n, h), (n, h), (n, h * f))
             ops = [torch.randn(*s, device="cuda", generator=gen) for s in shapes]
@@ -471,14 +486,15 @@ def check_long_rows(torch, v2: bool):
 def check_stream_kernels(torch):
     """B2 (its merge fused: it writes ``[n_rows, H]``) against the plain
     per-tile parts merged by block row and against B1, over the grids of
-    :func:`check_b1` and its long-row tile set; B4, B5s and B6s against
-    their plain per-tile blocks over the grids of :func:`check_gat_tiles`,
-    each merged output against the revisit kernel's (B3, B5, B6); and the
-    stream mode of ``GATTilePartials`` (values and VJP) against its revisit
-    mode."""
+    :func:`check_b1` and its long-row tile set; B4 and B6s (their merges
+    fused) against their merged plain versions and B5s against its plain
+    per-tile blocks, over the grids of :func:`check_gat_tiles` and the
+    long-row tile set made square, each merged output against the revisit
+    kernel's (B3, B5, B6); and the stream mode of ``GATTilePartials``
+    (values and VJP) against its revisit mode."""
     import numpy as np
 
-    from pygcn_tpu_torch.apps.time_spmm import long_row_tiles
+    from pygcn_tpu_torch.apps.time_spmm import long_row_counts, long_row_tiles
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
@@ -515,62 +531,72 @@ def check_stream_kernels(torch):
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     saved = gta.TILE_REVISIT
-    try:
-        for symmetric in (False, True):
-            for dtype in (torch.float32, torch.bfloat16):
-                for drop_padding in (False, True):
-                    b, bt = _gat_tiles(rng, symmetric, dtype, drop_padding)
-                    for h, f in GAT_SHAPES:
-                        label = (f"B4/B5s/B6s {'sym' if symmetric else 'asym'} {dtype} "
-                                 f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
-                        ops = [torch.randn(300, w, device="cuda", generator=gen)
-                               for w in (h, h, h * f)]
-                        cot = [torch.randn(300, w, device="cuda", generator=gen)
-                               for w in (h * f, h)]
-                        blocks = gta.tile_fwd_stream(b, *ops, h, f, SLOPE)
-                        merged = gta.softmax_merge(b, *blocks, 300)
-                        bwd = (*ops, merged[2], *cot, h, f, SLOPE)
-                        dl_t = gta.tile_bwd_dldst_stream(b, *bwd)
-                        ds_t, dls_t = gta.tile_bwd_sender_stream(bt, *bwd)
-                        got = (*blocks, dl_t, ds_t, dls_t)
-                        ref = (*gta.tile_fwd_stream_plain(b, *ops, h, f, SLOPE),
-                               gta.tile_bwd_dldst_stream_plain(b, *bwd),
-                               *gta.tile_bwd_sender_stream_plain(bt, *bwd))
-                        rev = gta.tile_fwd_cuda(b, *ops, h, f, SLOPE)
-                        rev_bwd = (gta.tile_bwd_dldst_cuda(b, *bwd),
-                                   *gta.tile_bwd_sender_cuda(bt, *bwd))
-                        mer_bwd = (b1.sum_by_block_row(dl_t, b, 300),
-                                   b1.sum_by_block_row(ds_t, bt, 300),
-                                   b1.sum_by_block_row(dls_t, bt, 300))
-                        modes = {}
-                        for revisit in (True, False):
-                            gta.TILE_REVISIT = revisit
-                            args = [o.clone().requires_grad_(True) for o in ops]
-                            out = gta.gat_tile_partials((h, f, SLOPE), b, bt, *args)
-                            modes[revisit] = [o.detach() for o in out] + list(
-                                torch.autograd.grad(out[:2], args, cot))
-                        gta.TILE_REVISIT = saved
-                        torch.cuda.synchronize()
-                        for a, r in zip(got, ref):
-                            close(a, r, label)
-                        for a, r in zip((*merged, *mer_bwd), (*rev, *rev_bwd)):
-                            close(a, r, label + " merged vs B3/B5/B6")
-                        for a, r in zip(modes[False], modes[True]):
-                            close(a, r, label + " GATTilePartials stream vs revisit")
-                        if not ((merged[2][128:256] == gta.NEG).all()
-                                and not merged[0][128:256].any()
-                                and not merged[1][128:256].any()
-                                and not mer_bwd[0][128:256].any()):
-                            fail(f"{label}: the block row without edges is not num = den = 0, "
-                                 f"m = NEG, dldst = 0")
-                        cases += 1
-    finally:
-        gta.TILE_REVISIT = saved
+
+    def gat_stream_case(b, bt, n, h, f, label, empty, transpose_empty):
+        """B4 and B6s (merged) and B5s (blocks) against their plain versions,
+        B4's m bit for bit, the merged outputs against B3/B5/B6, and
+        GATTilePartials' stream mode against its revisit mode."""
+        ops = [torch.randn(n, w, device="cuda", generator=gen) for w in (h, h, h * f)]
+        cot = [torch.randn(n, w, device="cuda", generator=gen) for w in (h * f, h)]
+        fused = gta.tile_fwd_stream(b, *ops, h, f, SLOPE)
+        bwd = (*ops, fused[2], *cot, h, f, SLOPE)
+        dl_t = gta.tile_bwd_dldst_stream(b, *bwd)
+        snd = gta.tile_bwd_sender_stream(bt, *bwd)
+        ref = gta.tile_fwd_plain(b, *ops, h, f, SLOPE)
+        ref_bwd = (gta.tile_bwd_dldst_stream_plain(b, *bwd), *gta.tile_bwd_sender_plain(bt, *bwd))
+        rev = gta.tile_fwd_cuda(b, *ops, h, f, SLOPE)
+        rev_bwd = (gta.tile_bwd_dldst_cuda(b, *bwd), *gta.tile_bwd_sender_cuda(bt, *bwd))
+        mer_bwd = (b1.sum_by_block_row(dl_t, b, n), *snd)
+        modes = {}
+        try:
+            for revisit in (True, False):
+                gta.TILE_REVISIT = revisit
+                args = [o.clone().requires_grad_(True) for o in ops]
+                out = gta.gat_tile_partials((h, f, SLOPE), b, bt, *args)
+                modes[revisit] = [o.detach() for o in out] + list(
+                    torch.autograd.grad(out[:2], args, cot))
+        finally:
+            gta.TILE_REVISIT = saved
+        torch.cuda.synchronize()
+        for a, r in zip((*fused, dl_t, *snd), (*ref, *ref_bwd)):
+            close(a, r, label + " vs plain")
+        if not torch.equal(fused[2], ref[2]):
+            fail(f"{label}: B4's m is not the plain version's bit for bit")
+        for a, r in zip((*fused, *mer_bwd), (*rev, *rev_bwd)):
+            close(a, r, label + " merged vs B3/B5/B6")
+        for a, r in zip(modes[False], modes[True]):
+            close(a, r, label + " GATTilePartials stream vs revisit")
+        rows = slice(empty, empty + 128)
+        if not ((fused[2][rows] == gta.NEG).all() and not fused[0][rows].any()
+                and not fused[1][rows].any() and not mer_bwd[0][rows].any()):
+            fail(f"{label}: the block row without edges is not num = den = 0, m = NEG, "
+                 f"dldst = 0")
+        if transpose_empty and (snd[0][rows].any() or snd[1][rows].any()):
+            fail(f"{label}: the senders without edges have ds or dlsrc")
+
+    for symmetric in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            for drop_padding in (False, True):
+                b, bt = _gat_tiles(rng, symmetric, dtype, drop_padding)
+                for h, f in GAT_SHAPES:
+                    label = (f"B4/B5s/B6s {'sym' if symmetric else 'asym'} {dtype} "
+                             f"{'no tile' if drop_padding else 'padding tile'} H={h} F={f}")
+                    gat_stream_case(b, bt, 300, h, f, label, 128, symmetric)
+                    cases += 1
+    # the long-row tile set made square: the 43-tile block row puts 43 CTAs'
+    # reductions onto the same 128 rows; block row 0 has no tile
+    for dtype, b, bt, n_long in _long_row_gat_tiles(torch, np.random.default_rng(7)):
+        for h, f in ((8, 8), (1, 40), (2, 65), (8, 128)):
+            gat_stream_case(b, bt, n_long, h, f, f"B4/B5s/B6s long rows {dtype} H={h} F={f}",
+                            0, False)
+            cases += 1
     print(f"B2/B4/B5s/B6s vs plain on the card: {cases} cases (B2 on B1's grids, its fused "
           f"output vs the plain parts merged and vs B1; B4/B5s/B6s on the GAT grid, (H, F) in "
-          f"{list(GAT_SHAPES)}: per-tile blocks vs plain, merged outputs vs B3/B5/B6, "
-          f"GATTilePartials stream vs revisit (values and VJP)), within rtol=atol={RTOL}; "
-          f"max abs err {worst:.3e}", flush=True)
+          f"{list(GAT_SHAPES)}, and on block rows of {long_row_counts(gta.MAX_TILES)} tiles: "
+          f"B4's and B6s's fused outputs vs the merged plain versions (B4's m bit for bit), "
+          f"B5s's blocks vs plain, merged outputs vs B3/B5/B6, GATTilePartials stream vs "
+          f"revisit (values and VJP)), within rtol=atol={RTOL}; max abs err {worst:.3e}",
+          flush=True)
 
 
 def check_small_reference(torch):
@@ -927,8 +953,12 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     B8 and B9) at the GAT main path's tiles, for both layer shapes: kernel
     and plain times (CUDA events), the bound of each function, the kernel's
     time without the longest block row (``ms_without_longest_row``, a
-    diagnostic of the launch's tail), and for the stream kernels their
-    merge's time and bound. The kernels on work items (:data:`ITEM_KERNELS`)
+    diagnostic of the launch's tail); B4's and B6s's times include their
+    outputs' fills, and their rows give the per-tile design's bound beside
+    the fused one (``bound_ms_per_tile``), B4's also its bits buffer's
+    traffic, which the bound does not count (``bits_bytes``, ``bits_ms``);
+    B5s's its merge's time and bound.
+    The kernels on work items (:data:`ITEM_KERNELS`)
     also at each C of :data:`SWEEP_GAT_MAX_TILES` (two runs in turns) and the
     same bits in two launches."""
     from pygcn_tpu_torch.apps.time_spmm import F32_FLOPS, HBM_BYTES_PER_S, without_longest_row
@@ -954,7 +984,8 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     ops_per_term = {"B3": lambda f: 2 * f + 6, "B5": lambda f: 2 * f + 8,
                     "B6": lambda f: 4 * f + 8, "B7": lambda f: 7 * f + 4,
                     "B8": lambda f: 13 * f + 4, "B9": lambda f: 13 * f + 4}
-    ops_per_term.update(B4=ops_per_term["B3"], B5s=ops_per_term["B5"], B6s=ops_per_term["B6"])
+    ops_per_term.update(B4=ops_per_term["B3"], B5s=ops_per_term["B5"], B6s=ops_per_term["B6"],
+                        B4_tiles=ops_per_term["B3"], B6s_tiles=ops_per_term["B6"])
     fwd_rows = _rows_under(torch, bcsr.block_rows, bcsr.tm, n)
     fwd_cols = _rows_under(torch, bcsr.block_cols, bcsr.tk, n)
     t_rows = _rows_under(torch, tiles_t.block_rows, tiles_t.tm, n)
@@ -965,20 +996,29 @@ def time_gat(torch, graph, tiles_t, v2: bool):
 
     t_blocks = bcsr.data.shape[0] * bcsr.tm  # rows of the per-tile blocks
     tt_blocks = tiles_t.data.shape[0] * tiles_t.tm
+    bits_bytes = 2 * 16 * t_blocks  # B4's mask words, written by B4a and read by B4b
 
     def gat_bytes(name, h, f):
         """Bytes kernel ``name`` must move at H x F: the tiles, the operand
-        rows under them, and its outputs (for the stream kernels, per-tile
-        blocks), each read or written once."""
+        rows under them, and its outputs, each read or written once. B4's
+        and B6s's outputs are merged ``[N, ·]``, so their bounds are B3's and
+        B6's (B4's bits buffer is its design's own traffic, not counted; its
+        row gives it beside the bound); B5s's, and ``B4_tiles``'s and ``B6s_tiles``'
+        (the per-tile design before their merges were fused), per-tile
+        blocks."""
         hf = h * f
         fwd_t, bwd_t = tile_bytes(bcsr), tile_bytes(tiles_t)
         return {
             "B3": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + n * (hf + 2 * h)),
             "B5": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + n * h),
             "B6": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + n * (hf + h)),
-            "B4": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + t_blocks * (hf + 2 * h)),
+            "B4": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + n * (hf + 2 * h)),
+            "B4_tiles": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h
+                                     + t_blocks * (hf + 2 * h)),
             "B5s": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + t_blocks * h),
-            "B6s": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + tt_blocks * (hf + h)),
+            "B6s": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + n * (hf + h)),
+            "B6s_tiles": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
+                                      + tt_blocks * (hf + h)),
             "B7": fwd_t + 4 * (fwd_cols * hf + fwd_rows * hf + hf + n * (hf + 2 * h)),
             "B8": fwd_t + 4 * (fwd_cols * hf + fwd_rows * (2 * hf + 2 * h) + hf + n * 2 * hf),
             "B9": bwd_t + 4 * (t_rows * hf + t_cols * (2 * hf + 2 * h) + hf + n * hf),
@@ -1006,7 +1046,7 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     for h, f in ((8, 8), (1, 40)):
         hf = h * f
         dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (hf, h))
-        # name: (kernel, plain, tiles, for the stream kernels the merge of
+        # name: (kernel, plain, tiles, for B5s the merge of
         #        the kernel's blocks)
         if v2:
             sl2, sr2 = (torch.randn(n, hf, device="cuda", generator=gen) for _ in range(2))
@@ -1034,15 +1074,12 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                 "B6": (lambda b: gta.tile_bwd_sender_cuda(b, *bwd),
                        lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t, None),
                 "B4": (lambda b: gta.tile_fwd_stream_cuda(b, *fwd[1:]),
-                       lambda b: gta.tile_fwd_stream_plain(b, *fwd[1:]), bcsr,
-                       lambda out: gta.softmax_merge(bcsr, *out, n)),
+                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr, None),
                 "B5s": (lambda b: gta.tile_bwd_dldst_stream_cuda(b, *bwd),
                         lambda b: gta.tile_bwd_dldst_stream_plain(b, *bwd), bcsr,
                         lambda out: sum_by_block_row(out[0], bcsr, n)),
                 "B6s": (lambda b: gta.tile_bwd_sender_stream_cuda(b, *bwd),
-                        lambda b: gta.tile_bwd_sender_stream_plain(b, *bwd), tiles_t,
-                        lambda out: (sum_by_block_row(out[0], tiles_t, n),
-                                     sum_by_block_row(out[1], tiles_t, n))),
+                        lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t, None),
             }
         for name, (kernel_on, plain_on, tiles, merge) in runs.items():
             kernel, plain = (lambda: kernel_on(tiles)), (lambda: plain_on(tiles))
@@ -1053,6 +1090,8 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             for x, y in zip(a, r):
                 torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
                 err = max(err, float((x - y).abs().max()))
+            if name == "B4" and not torch.equal(a[2], r[2]):
+                fail(f"B4 at H={h} F={f}: m is not the plain version's bit for bit")
             if name in ITEM_KERNELS:
                 again = kernel()
                 again = again if isinstance(again, tuple) else (again,)
@@ -1085,6 +1124,11 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                            ms_by_max_tiles_runs=by_c, items=sched.items.shape[0],
                            split_slots=sched.n_slots,
                            workspace_bytes=sched.n_slots * tiles.tm * ITEM_KERNELS[name](h, hf) * 4)
+            if name + "_tiles" in ops_per_term:
+                # the bound of the per-tile design, before the merge was fused
+                row["bound_ms_per_tile"] = bound(name + "_tiles", h, f)[0]
+            if name == "B4":  # beside the bound: the bits buffer's traffic, at the card's rate
+                row.update(bits_bytes=bits_bytes, bits_ms=bits_bytes / HBM_BYTES_PER_S * 1e3)
             if merge is not None:
                 # the merge reads the blocks once and writes [n, W] once
                 merge_bytes = sum(x.numel() * 4 + n * x.shape[2] * 4 for x in a)
@@ -1142,8 +1186,8 @@ def time_wide_heads(torch, bcsr, tiles_t, n, v2: bool, bound):
 
 def gat_kernel_entries(timing, launches, source, lines):
     """The ``kernels`` line's entries of the tile-attention kernels named in
-    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row; a
-    stream kernel's entry also has its merge's time."""
+    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row; B5s's
+    entry also has its merge's time."""
     out = []
     for name, line in lines.items():
         mine = [r for r in timing if r["kernel"] == name]

@@ -7,9 +7,14 @@ layout), on one CUDA card.
   40 and one 64-column slab, and above the widths whose rows an H100's shared
   memory held before the chunked kernels (1x160, 1x224); B7's chunked
   kernel (``B7c``) at each of them too, beside the staged one that B7 runs up
-  to F = 208; and GAT's backward kernels B5 and B6 at each of them, also
-  without the longest block row (``ms_without_longest_row_runs``: how much
-  of a launch the 43-tile row's tail holds).
+  to F = 208; and GAT's backward kernels B5 and B6 and the stream kernels
+  B4, B5s and B6s at each of them, also without the longest block row
+  (``ms_without_longest_row_runs``: how much of a launch the 43-tile row's
+  tail holds). A stream kernel's row times what gives the merged outputs:
+  the kernel, and its merge (``softmax_merge``, ``sum_by_block_row``) after it
+  where the kernel leaves per-tile blocks, so that a tree whose B4 and B6s
+  leave blocks and one whose kernels merge compare like with like; its
+  ``<name> kernel`` row times the kernel alone.
 - ``HEAD_SHAPES``: B3 and B7 from one head of width 1 up to eight heads: what
   one more head, or a wider one, adds to a launch.
 
@@ -52,6 +57,7 @@ def main(argv=None) -> list:
 
     from pygcn_tpu_torch.apps.time_spmm import without_longest_row
     from pygcn_tpu_torch.apps.train_fullgraph import clustered_dataset
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.ops.gat import build_gat_tiles_t
     from pygcn_tpu_torch.utils.timing import cuda_ms
@@ -76,6 +82,25 @@ def main(argv=None) -> list:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
+    def timed_stream(name, h, f, kernel_on, tiles, short_tiles, merge):
+        """A stream kernel's rows: ``name``, what gives the merged outputs (the
+        kernel, and ``merge`` after it where it leaves per-tile blocks), with
+        and without the longest block row; ``name kernel``, the kernel alone."""
+        def run(b):
+            out = kernel_on(b)
+            first = out[0] if isinstance(out, tuple) else out
+            return merge(out, b) if first.dim() == 3 else out  # per-tile blocks: merged
+
+        timed(name, h, f, lambda: run(tiles), lambda: run(short_tiles))
+        timed(name + " kernel", h, f, lambda: kernel_on(tiles))
+
+    def softmax_merge(out, tiles):
+        return gta.softmax_merge(tiles, *out, n)
+
+    def sum_by_block_row(out, tiles):
+        out = out if isinstance(out, tuple) else (out,)
+        return tuple(b1.sum_by_block_row(x, tiles, n) for x in out)
+
     def v2_operands(h, f):
         sl2, sr2 = (torch.randn(n, h * f, device="cuda", generator=gen) for _ in range(2))
         return sl2, sr2, torch.randn(h, f, device="cuda", generator=gen) / f ** 0.5
@@ -98,6 +123,13 @@ def main(argv=None) -> list:
               lambda: gta.tile_bwd_dldst_cuda(short, *bwd))
         timed("B6", h, f, lambda: gta.tile_bwd_sender_cuda(tiles_t, *bwd),
               lambda: gta.tile_bwd_sender_cuda(short_t, *bwd))
+        timed_stream("B4", h, f, lambda b: gta.tile_fwd_stream_cuda(b, lsrc, ldst, s2, h, f,
+                                                                    SLOPE),
+                     bcsr, short, softmax_merge)
+        timed_stream("B5s", h, f, lambda b: gta.tile_bwd_dldst_stream_cuda(b, *bwd), bcsr, short,
+                     sum_by_block_row)
+        timed_stream("B6s", h, f, lambda b: gta.tile_bwd_sender_stream_cuda(b, *bwd), tiles_t,
+                     short_t, sum_by_block_row)
     for h, f in HEAD_SHAPES:
         lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
         s2 = torch.randn(n, h * f, device="cuda", generator=gen)

@@ -59,7 +59,7 @@
 // the sender u, holding s2_u's slab and ds) and evaluates p, the F-wide dot
 // product and the accumulations once per edge, where a CTA per (head, block
 // row) walking every column that any row of its warp needs (for_columns, as
-// the stream kernels do) evaluates about 12 times as many. The column side's
+// B5s does) evaluates about 12 times as many. The column side's
 // node values of all heads (of as many as fit, in turn, where the card's
 // shared memory forbids all) are staged once per item at the odd stride
 // H | 1 (B5: the senders' lsrc; B6: the receivers' ldst, m and dden), and
@@ -74,17 +74,35 @@
 //
 // Per-tile ("stream") modes, kernels of their own. They replace the
 // TILE_REVISIT = False path of the TPU file: B4 is _fwd_kernel_stream, B5s
-// and B6s are _bwd_dldst_kernel and _bwd_sender_kernel with stream=True. One
-// CTA owns one (head, tile): blockIdx.x = tile * H + head, its block row is
-// block_rows[tile]. Per 64-column slab it stages the column side's operands
-// of its head (B4, B5s: lsrc and s2 of the 128 senders; B6s: ldst, m, dden
-// and dnum of the 128 receivers), and the warp walks the columns that any of
-// its 32 rows needs (for_columns), selecting by the mask, never multiplying.
-// It writes the tile's block of TM rows (all of them, rows past n included)
-// into per-tile outputs [T, TM, W], which the caller merges. B4's max is the
-// tile's own row max (NEG where the row has no edge there, with num = den = 0
-// then); the merge rescales the tiles onto the block row's max. B5s and B6s
-// read the merged max m.
+// and B6s are _bwd_dldst_kernel and _bwd_sender_kernel with stream=True,
+// each with the merge that JAX runs after it (segment_max/segment_sum over the
+// tiles' block rows). Every tile is independent: no work items, no arrival
+// counters, no workspace; only the sum order is free (not the same bits
+// every run), as for B2.
+// - B4 (B4a then B4b, one launch as the wrapper counts it) computes the
+//   merged (num, den, m). One CTA per tile for all heads, thread i on the
+//   tile's row i. B4a decodes each row's mask once (the 64 KB tile is read
+//   once a launch), keeps the words in a bits buffer [T][TM] (5.9 MB at the
+//   flagship), and merges each row's max over its own edges into m by a float
+//   atomic max: m is the plain version's bit for bit. B4b reads the bits and
+//   walks the own edges again with p = exp(e - m) against the final max (no
+//   running rescale), adding den and num per (row, head, slab) into
+//   zero-filled outputs (red.global.add.v4.f32; scalar on ragged widths). It
+//   equals the JAX merge, which rescales each tile's partials by exp(max_t
+//   - m), to rounding. A receiver without a tile edge keeps num = den = 0 and
+//   m = NEG.
+// - B6s computes the merged (ds, dlsrc): one CTA per transpose tile for all
+//   heads, B6's per-edge walk (sender_walk) on each sender's own edges, the
+//   receivers' node values staged for as many heads as fit, and each row's
+//   ds slab and dlsrc added into zero-filled outputs.
+// - B5s keeps one CTA per (head, tile), the column walk (for_columns) and
+//   per-tile blocks dldst_t [T, TM, H], which the caller sums by block row.
+// Bound of B4 and B6s: B3's and B6's, the same functions of the same inputs
+// (the tiles read once, the operand rows under them and the [N, .] outputs
+// once), 0.09 and 0.10 ms at the flagship's 8x8. B4's bits buffer (11.7 MB
+// written and read at the flagship) and the reductions (about 3 per row,
+// head and tile at 8x8; 33 at 8x128) are the design's own traffic, the
+// price of independent tiles.
 //
 // Precision: expf (not __expf) and f32 FMA, no TF32, so the kernels match their
 // plain PyTorch versions to rounding. Ragged shapes are masked in the kernel:
@@ -177,62 +195,88 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
     merge_parts(it, parts, num_out, den_out, m_out, n, h, hf);
 }
 
-// B4: one CTA per (head, tile); writes the tile's block of num_t [T, TM, H*F],
-// den_t and max_t [T, TM, H].
-template <int FP>
+// B4a, the max: one CTA per tile for all heads, thread i on the tile's row i
+// (receiver v). Decodes the row's mask once and keeps its words in
+// bits [T][TM] for B4b; stages the 128 senders' lsrc of all heads at the odd
+// stride H | 1; per head takes the max of e over its own edges and merges it
+// into m (prefilled with NEG) by a float atomic max. A row without an edge in
+// the tile (or past n) does no atomic.
 __global__ void __launch_bounds__(THREADS)
-gat_fwd_stream_kernel(const void* __restrict__ tiles, int bf16,
-                      const int* __restrict__ block_cols, const int* __restrict__ block_rows,
-                      const float* __restrict__ lsrc, const float* __restrict__ ldst,
-                      const float* __restrict__ s2, float* __restrict__ num_out,
-                      float* __restrict__ den_out, float* __restrict__ m_out, int n, int h,
-                      int f, float slope) {
-  __shared__ __align__(16) float s_sh[TK * FP];
-  __shared__ float ls_sh[TK];
-  const int head = blockIdx.x % h, t = blockIdx.x / h;
-  const int hf = h * f;
-  const long long v = static_cast<long long>(block_rows[t]) * TM + threadIdx.x;
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
-  const float ld = node(ldst, v, n, h, head);
-  ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
+gat_fwd_stream_max_kernel(const void* __restrict__ tiles, int bf16,
+                          const int* __restrict__ block_cols, const int* __restrict__ block_rows,
+                          const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                          float* __restrict__ m_out, uint4* __restrict__ bits, int n, int h,
+                          float slope) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ls_sh = reinterpret_cast<float*>(smem);  // [TK][H | 1]
+  const int t = blockIdx.x, i = threadIdx.x, HS = h | 1;
+  const long long v = static_cast<long long>(block_rows[t]) * TM + i;
   uint32_t w[4];
   mask_words(tile_ptr(tiles, bf16, t), bf16, w);
+  const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
+  bits[static_cast<size_t>(t) * TM + i] = own;
+  stage_rows(ls_sh, HS, h, lsrc, static_cast<long long>(block_cols[t]) * TK, n, h, 0, h);
   __syncthreads();
-  float m = NEG;
-  for_columns(w, [&](int j, bool on) {
-    const float e = leaky(ld + ls_sh[j], slope);
-    if (on) m = fmaxf(m, e);
-  });
-  const long long o = static_cast<long long>(t) * TM + threadIdx.x;
-  for (int s0 = 0; s0 < f; s0 += FP) {
-    const int fw = min(FP, f - s0);
-    __syncthreads();  // the previous slab is no longer read
-    stage_rows(s_sh, FP, FP, s2, col0, n, hf, head * f + s0, fw);
-    __syncthreads();
-    float den = 0.f, acc[FP];
+  if (v >= n || (own.x | own.y | own.z | own.w) == 0) return;
+  for (int head = 0; head < h; ++head) {
+    const float ld = ldst[v * h + head];
+    float m = NEG;
+    for_own_edges(own, [&](int j) { m = fmaxf(m, leaky(ld + ls_sh[j * HS + head], slope)); });
+    atomic_max_float(m_out + v * h + head, m);
+  }
+}
+
+// B4b, the sums: one CTA per tile for all heads, thread i on row i with its
+// mask words from B4a's bits. Stages lsrc as B4a does and per head the
+// tile's s2 slab of FP columns (64-column slabs above F = 64); walks its own
+// edges with p = exp(e - m_v) against the final max, and adds den and the
+// num slab, once per (row, head, slab) that has an edge, into the zero-filled
+// num and den by f32 reductions.
+template <int FP>
+__global__ void __launch_bounds__(THREADS)
+gat_fwd_stream_sum_kernel(const int* __restrict__ block_cols, const int* __restrict__ block_rows,
+                          const uint4* __restrict__ bits, const float* __restrict__ lsrc,
+                          const float* __restrict__ ldst, const float* __restrict__ s2,
+                          const float* __restrict__ m_in, float* __restrict__ num_out,
+                          float* __restrict__ den_out, int n, int h, int f, float slope) {
+  constexpr int S = slab_stride(FP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_sh = reinterpret_cast<float*>(smem);  // [TK][S]
+  float* ls_sh = s_sh + TK * S;                  // [TK][H | 1]
+  const int t = blockIdx.x, i = threadIdx.x, HS = h | 1, hf = h * f;
+  const long long v = static_cast<long long>(block_rows[t]) * TM + i;
+  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
+  const uint4 own = bits[static_cast<size_t>(t) * TM + i];
+  const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
+  const bool quads = f % 4 == 0;
+  stage_rows(ls_sh, HS, h, lsrc, col0, n, h, 0, h);
+  for (int head = 0; head < h; ++head) {
+    const float ld = live ? ldst[v * h + head] : 0.f;
+    const float mv = live ? m_in[v * h + head] : 0.f;
+    for (int s0 = 0; s0 < f; s0 += FP) {
+      const int fw = min(FP, f - s0);
+      __syncthreads();  // the logits are staged; the previous slab is no longer read
+      stage_rows(s_sh, S, FP, s2, col0, n, hf, head * f + s0, fw);
+      __syncthreads();
+      if (!live) continue;
+      float den = 0.f, acc[FP];
 #pragma unroll
-    for (int k = 0; k < FP; ++k) acc[k] = 0.f;
-    for_columns(w, [&](int j, bool on) {
-      const float e = leaky(ld + ls_sh[j], slope);
-      const float p = on ? expf(e - m) : 0.f;
-      den += p;
-      const float4* sj = reinterpret_cast<const float4*>(s_sh + j * FP);
+      for (int k = 0; k < FP; ++k) acc[k] = 0.f;
+      for_own_edges(own, [&](int j) {
+        const float p = expf(leaky(ld + ls_sh[j * HS + head], slope) - mv);
+        den += p;
+        const float4* sj = reinterpret_cast<const float4*>(s_sh + j * S);
 #pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 s = sj[q];
-        acc[4 * q + 0] = fmaf(p, s.x, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(p, s.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(p, s.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(p, s.w, acc[4 * q + 3]);
-      }
-    });
-    float* dst = num_out + o * hf + static_cast<long long>(head) * f + s0;
-#pragma unroll
-    for (int k = 0; k < FP; ++k)
-      if (k < fw) dst[k] = acc[k];
-    if (s0 == 0) {
-      den_out[o * h + head] = den;
-      m_out[o * h + head] = m;
+        for (int q = 0; q < FP / 4; ++q) {
+          const float4 x = sj[q];
+          acc[4 * q + 0] = fmaf(p, x.x, acc[4 * q + 0]);
+          acc[4 * q + 1] = fmaf(p, x.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(p, x.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(p, x.w, acc[4 * q + 3]);
+        }
+      });
+      add_cols<FP>(num_out + v * hf + static_cast<long long>(head) * f + s0, fw, acc, quads);
+      if (s0 == 0) atomicAdd(den_out + v * h + head, den);
     }
   }
 }
@@ -365,27 +409,8 @@ gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
           __syncthreads();
           for (int t = g0; t < g0 + gn; ++t) {
             const int base = t * TK * HS + (head - h0);
-            const float* dt = dn_sh + (t - g0) * TK * S;
-            for_own_edges(mask_sh[t * TM + i], [&](int j) {
-              const int at = base + j * HS;
-              const float pre = lu + ld_sh[at];
-              const float p = expf(leaky(pre, slope) - m_sh[at]);
-              const float4* dj = reinterpret_cast<const float4*>(dt + j * S);
-              float gdot = 0.f;
-#pragma unroll
-              for (int q = 0; q < FP / 4; ++q) {
-                const float4 d = dj[q];
-                ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
-                ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
-                ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
-                ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
-                gdot = fmaf(su[4 * q + 0], d.x, gdot);
-                gdot = fmaf(su[4 * q + 1], d.y, gdot);
-                gdot = fmaf(su[4 * q + 2], d.z, gdot);
-                gdot = fmaf(su[4 * q + 3], d.w, gdot);
-              }
-              dl += p * (gdot + (first ? dd_sh[at] : 0.f)) * (pre >= 0.f ? 1.f : slope);
-            });
+            sender_walk<FP>(mask_sh[t * TM + i], ld_sh + base, m_sh + base, dd_sh + base, HS,
+                            dn_sh + (t - g0) * TK * S, lu, su, first, slope, ds, dl);
           }
         }
         put_cols<FP>(dst_ds, head * f + s0, fw, ds);
@@ -453,9 +478,12 @@ gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
   dldst_out[o * h + head] = acc;
 }
 
-// B6s: one CTA per (head, transpose tile); B6's sums over that one tile's
-// columns, written into the tile's blocks of ds_t [Tt, TM, H F] and
-// dlsrc_t [Tt, TM, H].
+// B6s: one CTA per transpose tile for all heads, thread i on sender u; the
+// mask decoded once into registers. The receivers' ldst, m and dden of `hc`
+// heads at a time (all unless the card's shared memory forbids it) are staged
+// at the odd stride hc | 1, per head the tile's dnum slab; B6's walk
+// (sender_walk) per slab, then ds's slab and, after the last, dlsrc added
+// into the zero-filled outputs by f32 reductions, by rows with an own edge.
 template <int FP>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_sender_stream_kernel(const void* __restrict__ tiles_t, int bf16,
@@ -464,59 +492,52 @@ gat_bwd_sender_stream_kernel(const void* __restrict__ tiles_t, int bf16,
                              const float* __restrict__ ldst, const float* __restrict__ s2,
                              const float* __restrict__ m_in, const float* __restrict__ dnum,
                              const float* __restrict__ dden, float* __restrict__ ds_out,
-                             float* __restrict__ dlsrc_out, int n, int h, int f, float slope) {
-  __shared__ __align__(16) float dn_sh[TK * FP];
-  __shared__ float ld_sh[TK], m_sh[TK], dd_sh[TK];
-  const int head = blockIdx.x % h, t = blockIdx.x / h;
-  const int hf = h * f;
-  const long long u = static_cast<long long>(block_rows[t]) * TM + threadIdx.x;  // sender
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;  // receivers
-  const float lu = node(lsrc, u, n, h, head);
-  const long long o = static_cast<long long>(t) * TM + threadIdx.x;
-  float dl = 0.f;
+                             float* __restrict__ dlsrc_out, int n, int h, int f, int hc,
+                             float slope) {
+  constexpr int S = slab_stride(FP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int node_floats = TK * (hc | 1);
+  float* dn_sh = reinterpret_cast<float*>(smem);  // [TK][S]
+  float* ld_sh = dn_sh + TK * S;                  // [TK][hc | 1]
+  float* m_sh = ld_sh + node_floats;              // [TK][hc | 1]
+  float* dd_sh = m_sh + node_floats;              // [TK][hc | 1]
+  const int t = blockIdx.x, i = threadIdx.x, hf = h * f;
+  const long long u = static_cast<long long>(block_rows[t]) * TM + i;  // sender
+  const long long col0 = static_cast<long long>(block_cols[t]) * TK;    // receivers
+  uint32_t w[4];
+  mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
+  const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
+  const bool live = u < n && (own.x | own.y | own.z | own.w) != 0;
+  const bool quads = f % 4 == 0;
 
-  for (int s0 = 0; s0 < f; s0 += FP) {
-    const int fw = min(FP, f - s0);
-    float su[FP], ds[FP];
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering random receivers hit distinct banks
+    __syncthreads();  // the previous heads' receivers are no longer read
+    stage_rows(ld_sh, HS, hn, ldst, col0, n, h, h0, hn);
+    stage_rows(m_sh, HS, hn, m_in, col0, n, h, h0, hn);
+    stage_rows(dd_sh, HS, hn, dden, col0, n, h, h0, hn);
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float lu = node(lsrc, u, n, h, head);
+      float dl = 0.f;
+      for (int s0 = 0; s0 < f; s0 += FP) {
+        const int fw = min(FP, f - s0);
+        float su[FP], ds[FP];
+        load_cols<FP>(su, s2, u, n, hf, head * f + s0, fw);
 #pragma unroll
-    for (int k = 0; k < FP; ++k) {
-      su[k] = (u < n && k < fw) ? s2[u * hf + static_cast<long long>(head) * f + s0 + k] : 0.f;
-      ds[k] = 0.f;
-    }
-    __syncthreads();
-    ld_sh[threadIdx.x] = node(ldst, col0 + threadIdx.x, n, h, head);
-    m_sh[threadIdx.x] = node(m_in, col0 + threadIdx.x, n, h, head);
-    dd_sh[threadIdx.x] = s0 == 0 ? node(dden, col0 + threadIdx.x, n, h, head) : 0.f;
-    stage_rows(dn_sh, FP, FP, dnum, col0, n, hf, head * f + s0, fw);
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
-    __syncthreads();
-
-    for_columns(w, [&](int j, bool on) {
-      const float pre = lu + ld_sh[j];
-      const float p = on ? expf(leaky(pre, slope) - m_sh[j]) : 0.f;
-      const float4* dj = reinterpret_cast<const float4*>(dn_sh + j * FP);
-      float gdot = 0.f;
-#pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 d = dj[q];
-        ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
-        ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
-        ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
-        ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
-        gdot = fmaf(su[4 * q + 0], d.x, gdot);
-        gdot = fmaf(su[4 * q + 1], d.y, gdot);
-        gdot = fmaf(su[4 * q + 2], d.z, gdot);
-        gdot = fmaf(su[4 * q + 3], d.w, gdot);
+        for (int k = 0; k < FP; ++k) ds[k] = 0.f;
+        __syncthreads();  // the receivers are staged; the previous slab is no longer read
+        stage_rows(dn_sh, S, FP, dnum, col0, n, hf, head * f + s0, fw);
+        __syncthreads();
+        if (!live) continue;
+        const int at = head - h0;
+        sender_walk<FP>(own, ld_sh + at, m_sh + at, dd_sh + at, HS, dn_sh, lu, su, s0 == 0,
+                        slope, ds, dl);
+        add_cols<FP>(ds_out + u * hf + static_cast<long long>(head) * f + s0, fw, ds, quads);
       }
-      dl += p * (gdot + dd_sh[j]) * (pre >= 0.f ? 1.f : slope);
-    });
-    float* dst = ds_out + o * hf + static_cast<long long>(head) * f + s0;
-#pragma unroll
-    for (int k = 0; k < FP; ++k)
-      if (k < fw) dst[k] = ds[k];
+      if (live) atomicAdd(dlsrc_out + u * h + head, dl);
+    }
   }
-  dlsrc_out[o * h + head] = dl;
 }
 
 // The item kernels' tile group (the s2 or dnum slabs staged at once) at
@@ -532,12 +553,20 @@ size_t item_smem(int fp, int hc, int max_tiles, int arrays) {
               static_cast<size_t>(arrays) * max_tiles * (hc | 1));
 }
 
-// The heads whose node arrays B5 and B6 stage at once: all h unless that
-// would outgrow the card's shared memory (then the item walks them in
-// groups of hc, restaging between).
-int staged_heads(int fp, int h, int max_tiles, int arrays) {
+// B6s's dynamic shared memory: dnum's slab and the `arrays` node arrays of
+// hc heads (ldst, m, dden).
+size_t stream_smem(int fp, int hc, int arrays) {
+  return sizeof(float) * TK * (slab_stride(fp) + static_cast<size_t>(arrays) * (hc | 1));
+}
+
+// The heads whose node arrays B5, B6 and B6s stage at once, given the shared
+// memory `smem(hc)` a kernel takes with hc of them: all h unless that would
+// outgrow the card's (then the kernel walks them in groups of hc, restaging
+// between).
+template <typename Smem>
+int staged_heads(int h, Smem smem) {
   int hc = h;
-  while (hc > 1 && item_smem(fp, hc, max_tiles, arrays) > MAX_SMEM) --hc;
+  while (hc > 1 && smem(hc) > MAX_SMEM) --hc;
   return hc;
 }
 
@@ -574,18 +603,28 @@ int gat_tile_fwd(const void* tiles, const void* block_cols, const void* items, c
                 n_slots, n, h, f, max_tiles, item_group(fp, max_tiles), slope);
 }
 
-// B4: num_t [T, TM, H*F], den_t, max_t [T, TM, H].
+// B4, merged: num [n, H*F] and den [n, H] zero-filled and m [n, H] filled
+// with NEG by the caller; bits: [T][TM] 16-byte mask words, written by B4a
+// and read by B4b, the two kernels launched one after the other on `stream`.
 int gat_tile_fwd_stream(const void* tiles, const void* block_cols, const void* block_rows,
-                        const void* lsrc, const void* ldst, const void* s2, void* num_t,
-                        void* den_t, void* max_t, int n_tiles, int n, int h, int f,
-                        int tile_bf16, float slope, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_stream_kernel)), grid_of(n_tiles, h), 0,
-                stream, tiles, tile_bf16, static_cast<const int*>(block_cols),
-                static_cast<const int*>(block_rows), static_cast<const float*>(lsrc),
+                        const void* lsrc, const void* ldst, const void* s2, void* num, void* den,
+                        void* m, void* bits, int n_tiles, int n, int h, int f, int tile_bf16,
+                        float slope, void* stream) {
+  if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t logits = sizeof(float) * TK * (h | 1);
+  const int err = launch(gat_fwd_stream_max_kernel, dim3(n_tiles), logits, stream, tiles,
+                         tile_bf16, static_cast<const int*>(block_cols),
+                         static_cast<const int*>(block_rows), static_cast<const float*>(lsrc),
+                         static_cast<const float*>(ldst), static_cast<float*>(m),
+                         static_cast<uint4*>(bits), n, h, slope);
+  if (err) return err;
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_stream_sum_kernel)), dim3(n_tiles),
+                logits + sizeof(float) * TK * slab_stride(width_of(f)), stream,
+                static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
+                static_cast<const uint4*>(bits), static_cast<const float*>(lsrc),
                 static_cast<const float*>(ldst), static_cast<const float*>(s2),
-                static_cast<float*>(num_t), static_cast<float*>(den_t),
-                static_cast<float*>(max_t), n, h, f, slope);
+                static_cast<const float*>(m), static_cast<float*>(num), static_cast<float*>(den),
+                n, h, f, slope);
 }
 
 // B5 over the forward tiles, on B3's work items (the same schedule and
@@ -598,7 +637,8 @@ int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* it
                        int tile_bf16, float slope, void* stream) {
   if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int fp = width_of(f), hc = staged_heads(fp, h, max_tiles, 1);
+  const int fp = width_of(f);
+  const int hc = staged_heads(h, [&](int c) { return item_smem(fp, c, max_tiles, 1); });
   return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_item_kernel)), dim3(n_items),
                 item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
                 static_cast<const int*>(block_cols), static_cast<const int*>(items),
@@ -634,7 +674,8 @@ int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void*
                         int max_tiles, int tile_bf16, float slope, void* stream) {
   if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int fp = width_of(f), hc = staged_heads(fp, h, max_tiles, 3);
+  const int fp = width_of(f);
+  const int hc = staged_heads(h, [&](int c) { return item_smem(fp, c, max_tiles, 3); });
   return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_item_kernel)), dim3(n_items),
                 item_smem(fp, hc, max_tiles, 3), stream, tiles_t, tile_bf16,
                 static_cast<const int*>(block_cols), static_cast<const int*>(items),
@@ -646,20 +687,23 @@ int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void*
                 slope);
 }
 
-// B6s over the transpose tiles: ds_t [Tt, TM, H*F], dlsrc_t [Tt, TM, H].
+// B6s over the transpose tiles, merged: ds [n, H*F] and dlsrc [n, H],
+// zero-filled by the caller.
 int gat_tile_bwd_sender_stream(const void* tiles_t, const void* block_cols,
                                const void* block_rows, const void* lsrc, const void* ldst,
                                const void* s2, const void* m, const void* dnum, const void* dden,
-                               void* ds_t, void* dlsrc_t, int n_tiles, int n, int h, int f,
+                               void* ds, void* dlsrc, int n_tiles, int n, int h, int f,
                                int tile_bf16, float slope, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_stream_kernel)),
-                grid_of(n_tiles, h), 0, stream, tiles_t, tile_bf16,
+  if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int fp = width_of(f);
+  const int hc = staged_heads(h, [&](int c) { return stream_smem(fp, c, 3); });
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_stream_kernel)), dim3(n_tiles),
+                stream_smem(fp, hc, 3), stream, tiles_t, tile_bf16,
                 static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
                 static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
                 static_cast<const float*>(s2), static_cast<const float*>(m),
                 static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(ds_t), static_cast<float*>(dlsrc_t), n, h, f, slope);
+                static_cast<float*>(ds), static_cast<float*>(dlsrc), n, h, f, hc, slope);
 }
 
 }  // extern "C"

@@ -1,20 +1,22 @@
 // What the GAT tile-attention kernels share (gat_tile_attn.cu: B3-B6, B4,
 // B5s, B6s; gatv2_tile_attn.cu: B7/B8/B9): the tile shape, the mask read by
 // warp ballots, the two walks over a tile's edges, operand staging, the
-// per-width kernel pick, and the work items of the item-scheduled kernels
-// (B3, B5, B6, B7, B8, B9): their masks decoded once per item, the flash
-// merge of B3's and B7's split rows, and the in-order sum of the backward
-// kernels' split rows.
+// per-width kernel pick, the work items of the item-scheduled kernels (B3,
+// B5, B6, B7, B8, B9): their masks decoded once per item, the flash merge of
+// B3's and B7's split rows, and the in-order sum of the backward kernels'
+// split rows; B6's per-edge walk, which B6s shares; and the reductions that
+// merge the stream kernels' tiles (B4, B6s).
 //
-// The mask is never stored in device memory: warp w reads rows 32w..32w+31 of
-// a tile, one 16-byte (f32) or 8-byte (bf16) load a lane per row, and four
-// ballots give that row's 128 mask bits (bit l of word c is column 4l + c),
-// which lane r keeps for its own row. Two walks use them:
-// - for_columns (B4, B5s, B6s): the warp walks the columns that any of its
-//   32 rows needs (the OR of its words) and evaluates every (row, column)
-//   slot there, warp-uniformly; a kernel applies the mask by select, never
-//   by multiplying (exp(NEG - NEG) = 1 must not leak in).
-// - for_own_edges (B3, B5-B9): each thread walks only its own row's set bits,
+// The mask is decoded from the tile itself (only B4 keeps its words in device
+// memory, a bits buffer its first kernel writes for its second): warp w reads
+// rows 32w..32w+31 of a tile, one 16-byte (f32) or 8-byte (bf16) load a lane
+// per row, and four ballots give that row's 128 mask bits (bit l of word c is
+// column 4l + c), which lane r keeps for its own row. Two walks use them:
+// - for_columns (B5s): the warp walks the columns that any of its 32 rows
+//   needs (the OR of its words) and evaluates every (row, column) slot
+//   there, warp-uniformly; the kernel applies the mask by select, never by
+//   multiplying (exp(NEG - NEG) = 1 must not leak in).
+// - for_own_edges (B3-B9, B6s): each thread walks only its own row's set bits,
 //   8.5 of the 128 columns of a flagship tile on average, and reads the column side
 //   by per-lane gathers from a staged slab whose row stride is padded
 //   (slab_stride) so that eight lanes of a 16-byte access see eight banks.
@@ -296,6 +298,74 @@ __device__ __forceinline__ void load_cols(float dst[W], const float* x, long lon
                                           int ld, int c0, int fw) {
 #pragma unroll
   for (int k = 0; k < W; ++k) dst[k] = (row < n && k < fw) ? __ldg(x + row * ld + c0 + k) : 0.f;
+}
+
+// B6's and B6s's walk of one tile's own edges u -> v for sender u (this
+// thread), one head and one F-slab: ds += p dnum_v and dl += p (s2_u . dnum_v
+// + dden_v) leaky'(pre), with pre = lsrc_u + ldst_v and p = exp(leaky(pre) -
+// m_v); dden's term only on the first slab. ld, m and dd point at the
+// tile's receivers' staged values of this head (receiver j at j * hs), dn at
+// their dnum slab [TK][slab_stride(FP)]; su holds s2_u's slab.
+template <int FP>
+__device__ __forceinline__ void sender_walk(uint4 own, const float* ld, const float* m,
+                                            const float* dd, int hs, const float* dn, float lu,
+                                            const float su[FP], bool first, float slope,
+                                            float ds[FP], float& dl) {
+  constexpr int S = slab_stride(FP);
+  for_own_edges(own, [&](int j) {
+    const int at = j * hs;
+    const float pre = lu + ld[at];
+    const float p = expf(leaky(pre, slope) - m[at]);
+    const float4* dj = reinterpret_cast<const float4*>(dn + j * S);
+    float gdot = 0.f;
+#pragma unroll
+    for (int q = 0; q < FP / 4; ++q) {
+      const float4 d = dj[q];
+      ds[4 * q + 0] = fmaf(p, d.x, ds[4 * q + 0]);
+      ds[4 * q + 1] = fmaf(p, d.y, ds[4 * q + 1]);
+      ds[4 * q + 2] = fmaf(p, d.z, ds[4 * q + 2]);
+      ds[4 * q + 3] = fmaf(p, d.w, ds[4 * q + 3]);
+      gdot = fmaf(su[4 * q + 0], d.x, gdot);
+      gdot = fmaf(su[4 * q + 1], d.y, gdot);
+      gdot = fmaf(su[4 * q + 2], d.z, gdot);
+      gdot = fmaf(su[4 * q + 3], d.w, gdot);
+    }
+    dl += p * (gdot + (first ? dd[at] : 0.f)) * (pre >= 0.f ? 1.f : slope);
+  });
+}
+
+// ------------------------------------------------------------------------
+// The per-tile ("stream") kernels' merges (B4, B6s): each tile adds its rows
+// into zero-filled outputs with f32 reductions, and B4 takes the row max
+// with a float atomic max; the sum order is free.
+// ------------------------------------------------------------------------
+
+// Adds W registers into columns 0 .. fw - 1 of `dst`: four at a time
+// (red.global.add.v4.f32; `quads`: dst is 16-byte aligned and fw a multiple
+// of 4), else one column at a time.
+template <int W>
+__device__ __forceinline__ void add_cols(float* dst, int fw, const float x[W], bool quads) {
+  if (quads) {
+#pragma unroll
+    for (int q = 0; q < W / 4; ++q)
+      if (4 * q < fw)
+        atomicAdd(reinterpret_cast<float4*>(dst) + q,
+                  make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (k < fw) atomicAdd(dst + k, x[k]);
+  }
+}
+
+// *at = max(*at, x) for floats without NaNs: non-negative floats order as
+// signed ints, negative ones (-0 included) inversely as unsigned ints.
+__device__ __forceinline__ void atomic_max_float(float* at, float x) {
+  if (__float_as_int(x) >= 0) {
+    atomicMax(reinterpret_cast<int*>(at), __float_as_int(x));
+  } else {
+    atomicMin(reinterpret_cast<unsigned*>(at), __float_as_uint(x));
+  }
 }
 
 // The split-row workspace: n_slots partials of num [TM, hf], then of den

@@ -15,14 +15,17 @@ default (``TILE_REVISIT = True``) path of its ``gat_tile_partials``:
   ``ds`` and ``dlsrc``, over the exact transpose tiles (:func:`transpose_bcsr`);
 
 their per-tile ("stream") modes, on its ``TILE_REVISIT = False`` path, where
-each tile writes its own block ``[T, tm, W]`` and plain-PyTorch merges join
-the blocks by block row (:func:`softmax_merge`, :func:`sum_by_block_row`):
+every tile is computed on its own and the tiles are merged by block row (JAX:
+``segment_max``/``segment_sum`` after the kernel):
 
-- **B4** ``_fwd_kernel_stream``: per tile, the row max over the tile's own
-  edges ``max_t`` (``NEG`` where a row has none there), and ``num_t``/``den_t``
-  relative to it;
-- **B5s**, **B6s**: B5's and B6's bodies over one tile (``stream=True``),
-  writing ``dldst_t``, and ``ds_t``/``dlsrc_t``, per tile;
+- **B4** ``_fwd_kernel_stream``, its merge fused: the merged ``(num, den,
+  m)``, each tile's rows added into zero-filled outputs and its row maxima
+  merged by an atomic max (the plain version: per-tile partials merged by
+  :func:`softmax_merge`);
+- **B5s** (``_bwd_dldst_kernel``, ``stream=True``): B5's body over one tile,
+  per-tile blocks ``dldst_t [T, tm, H]`` that :func:`sum_by_block_row` merges;
+- **B6s** (``_bwd_sender_kernel``, ``stream=True``), its merge fused: the
+  merged ``(ds, dlsrc)``, each tile's rows added into zero-filled outputs;
 
 and of its ``gatv2_tile_partials``, where the logit of a tile edge ``u -> v``
 is ``e = Σ_f a[h,f]·leaky(sl[u,hF+f] + sr[v,hF+f])``:
@@ -44,8 +47,10 @@ only its own row's edges; the items of a split row writing partials that
 the last to arrive merges in item order, so the result is the same bits
 every run: B3's and B7's ``(m, den, num)`` by the flash merge
 (:func:`scheduled_merge` in plain PyTorch), the backward kernels' gradients
-by a plain sum (:func:`scheduled_sum`). The stream kernels keep one CTA per
-(head, tile), and each output block is written once, without atomics. At
+by a plain sum (:func:`scheduled_sum`). B4 and B6s take one CTA per tile for
+all heads, each thread walking its own row's edges, and add into their
+outputs with f32 reductions, so their sums come in no fixed order; B5s keeps
+one CTA per (head, tile) and writes each block once. At
 the ogbn-arxiv hybrid's shapes all are bound by bytes (the tiles as stored,
 about 0.19 GB a launch). Every kernel takes any per-head width F, with
 shared memory that fits the card whatever F: B3-B6 in slabs of 64 columns;
@@ -91,8 +96,8 @@ CHUNK_EDGES = 32
 
 # The JAX package's A/B flag (``pygcn_tpu/ops/pallas/gat_tile_attn.py:115``),
 # with its default. :class:`GATTilePartials` reads it once in its forward
-# and runs its backward in the same mode: False runs B4, then B5s and B6s,
-# with the merges, in place of B3, B5 and B6.
+# and runs its backward in the same mode: False runs B4, then B5s (and its
+# merge) and B6s, in place of B3, B5 and B6.
 TILE_REVISIT = True
 
 # Kernel launches since import (or since a caller reset them to 0).
@@ -168,8 +173,9 @@ def tile_fwd_plain(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
 
 
 def tile_fwd_stream_plain(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
-    """B4's function: per tile ``(num_t [T, tm, H·F], den_t [T, tm, H],
-    max_t [T, tm, H])`` (:func:`_tile_partials`)."""
+    """B4's per-tile partials, as the JAX kernel emits them before its merge:
+    per tile ``(num_t [T, tm, H·F], den_t [T, tm, H], max_t [T, tm, H])``
+    (:func:`_tile_partials`)."""
     tm, tk = bcsr.tm, bcsr.tk
     ls = _slabs(lsrc, bcsr.block_cols, bcsr.n_block_cols, tk)  # [T, tk, H]
     ld = _slabs(ldst, bcsr.block_rows, bcsr.n_block_rows, tm)  # [T, tm, H]
@@ -198,7 +204,8 @@ def _tile_partials(bcsr: BCSR, logits, sv, f: int):
 
 
 def softmax_merge(bcsr: BCSR, num_t, den_t, max_t, n: int):
-    """Merge per-tile partials (B4's) into ``(num [n, H·F], den [n, H], m [n, H])``,
+    """Merge per-tile partials (:func:`tile_fwd_stream_plain`'s) into
+    ``(num [n, H·F], den [n, H], m [n, H])``,
     as the JAX package's stream path does (``gat_tile_attn.py:246-257``):
     ``m`` is the max of ``max_t`` over each block row's tiles, every tile is
     rescaled by ``exp(max_t − m)`` (``m`` taken as 0 where it is ``NEG``), and
@@ -314,9 +321,9 @@ def tile_bwd_dldst_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: i
 
 def tile_bwd_sender_stream_plain(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
                                  slope: float):
-    """B6s's function: per transpose tile ``(ds_t [Tt, tm, H·F],
-    dlsrc_t [Tt, tm, H])``; the tiles' rows are senders ``u`` and their
-    columns receivers ``v``."""
+    """B6s's per-tile blocks, as the JAX kernel emits them before its merge:
+    per transpose tile ``(ds_t [Tt, tm, H·F], dlsrc_t [Tt, tm, H])``; the
+    tiles' rows are senders ``u`` and their columns receivers ``v``."""
     tm, tk = bcsr_t.tm, bcsr_t.tk
     mask = bcsr_t.data != 0
     lu = _slabs(lsrc, bcsr_t.block_rows, bcsr_t.n_block_rows, tm)
@@ -534,8 +541,9 @@ def _load(name: str):
         lib = ctypes.CDLL(str(build.library_path(name)))
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # the stream modes: tiles, block_cols, block_rows, <operands>,
-        # <outputs>, n_tiles, n, h, f, tile_bf16, slope, stream
-        entries = ((("gat_tile_fwd_stream", 6), ("gat_tile_bwd_dldst_stream", 7),
+        # <outputs> (B4: and its bits buffer), n_tiles, n, h, f, tile_bf16,
+        # slope, stream
+        entries = ((("gat_tile_fwd_stream", 7), ("gat_tile_bwd_dldst_stream", 7),
                     ("gat_tile_bwd_sender_stream", 8))
                    if name == "gat_tile_attn" else ())
         for fn_name, n_ptrs in entries:
@@ -610,7 +618,7 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
 
 def _launch_stream(name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int, f: int,
                    slope: float):
-    """Launch stream kernel ``fn_name`` (B4, B5s, B6s): one CTA per (head, tile)."""
+    """Launch stream kernel ``fn_name`` (B4, B5s, B6s) over every tile."""
     lib = _load("gat_tile_attn")
     n = ins[0].shape[0]
     dev = ins[0].device
@@ -736,15 +744,26 @@ def tile_bwd_sender_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f:
     return ds, dlsrc
 
 
+def _zeros(n, w, like):
+    return torch.zeros((n, w), dtype=torch.float32, device=like.device)
+
+
 def tile_fwd_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: float):
-    """Launch B4 on the current stream; raises on anything it does not take."""
+    """Launch B4 on the current stream → the merged ``(num [n, H·F], den
+    [n, H], m [n, H])``: ``num`` and ``den`` zero-filled and ``m`` filled with
+    ``NEG``, then every tile's row maxima and sums merged in, through a bits
+    buffer of the tiles' mask words ``[T, tm, 4]``. Raises on anything it does
+    not take."""
     n = s2.shape[0]
     _check_cuda("B4", bcsr, (lsrc, ldst, s2), _v1_shapes(n, h, f), n, f)
-    num_t, den_t, max_t = _blocks(bcsr, h * f, s2), _blocks(bcsr, h, s2), _blocks(bcsr, h, s2)
-    if bcsr.data.shape[0] and h:
+    num, den = _zeros(n, h * f, s2), _zeros(n, h, s2)
+    m = torch.full((n, h), NEG, dtype=torch.float32, device=s2.device)
+    t = bcsr.data.shape[0]
+    if t and n and h:
+        bits = torch.empty((t, bcsr.tm, 4), dtype=torch.int32, device=s2.device)
         _launch_stream("B4", "gat_tile_fwd_stream", bcsr, (lsrc, ldst, s2),
-                       (num_t, den_t, max_t), h, f, slope)
-    return num_t, den_t, max_t
+                       (num, den, m, bits), h, f, slope)
+    return num, den, m
 
 
 def tile_bwd_dldst_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
@@ -761,15 +780,17 @@ def tile_bwd_dldst_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int
 
 def tile_bwd_sender_stream_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
                                 slope: float):
-    """Launch B6s on the current stream; raises on anything it does not take."""
+    """Launch B6s on the current stream → the merged ``(ds [n, H·F],
+    dlsrc [n, H])``, zero-filled, then every transpose tile's rows added in.
+    Raises on anything it does not take."""
     n = s2.shape[0]
     ins = (lsrc, ldst, s2, m, dnum, dden)
     _check_cuda("B6s", bcsr_t, ins, _v1_shapes(n, h, f), n, f)
-    ds_t, dlsrc_t = _blocks(bcsr_t, h * f, s2), _blocks(bcsr_t, h, s2)
-    if bcsr_t.data.shape[0] and h:
-        _launch_stream("B6s", "gat_tile_bwd_sender_stream", bcsr_t, ins, (ds_t, dlsrc_t), h,
-                       f, slope)
-    return ds_t, dlsrc_t
+    ds, dlsrc = _zeros(n, h * f, s2), _zeros(n, h, s2)
+    if bcsr_t.data.shape[0] and n and h:
+        _launch_stream("B6s", "gat_tile_bwd_sender_stream", bcsr_t, ins, (ds, dlsrc), h, f,
+                       slope)
+    return ds, dlsrc
 
 
 def tile_v2_fwd_cuda(bcsr: BCSR, sl2, sr2, a, h: int, f: int, slope: float,
@@ -835,8 +856,9 @@ def tile_bwd_sender(bcsr_t, *args):
 
 
 def tile_fwd_stream(bcsr, lsrc, ldst, s2, h, f, slope):
-    return _pick(tile_fwd_stream_plain, tile_fwd_stream_cuda, s2)(bcsr, lsrc, ldst, s2, h, f,
-                                                                  slope)
+    """B4 → the merged ``(num, den, m)``; on the CPU the plain per-tile
+    partials merged by :func:`softmax_merge`."""
+    return _pick(tile_fwd_plain, tile_fwd_stream_cuda, s2)(bcsr, lsrc, ldst, s2, h, f, slope)
 
 
 def tile_bwd_dldst_stream(bcsr, *args):
@@ -844,8 +866,9 @@ def tile_bwd_dldst_stream(bcsr, *args):
 
 
 def tile_bwd_sender_stream(bcsr_t, *args):
-    return _pick(tile_bwd_sender_stream_plain, tile_bwd_sender_stream_cuda, args[2])(bcsr_t,
-                                                                                     *args)
+    """B6s → the merged ``(ds, dlsrc)``; on the CPU the plain per-tile blocks
+    summed by block row."""
+    return _pick(tile_bwd_sender_plain, tile_bwd_sender_stream_cuda, args[2])(bcsr_t, *args)
 
 
 def tile_v2_fwd(bcsr, sl2, sr2, a, h, f, slope):
@@ -873,8 +896,8 @@ class GATTilePartials(torch.autograd.Function):
     """Per-receiver attention partials over the tile edges, with the backward
     of ``pygcn_tpu``'s ``custom_vjp``: B3 forward, then B5 over the forward
     tiles and B6 over ``bcsr_t``; or, when :data:`TILE_REVISIT` is False at the
-    forward, B4 and :func:`softmax_merge`, then B5s and B6s, each merged by
-    :func:`sum_by_block_row`. ``m`` carries no gradient."""
+    forward, B4 (merged), then B5s, merged by :func:`sum_by_block_row`, and B6s
+    (merged). ``m`` carries no gradient."""
 
     @staticmethod
     def forward(ctx, meta, bcsr, bcsr_t, lsrc, ldst, s2):
@@ -884,8 +907,7 @@ class GATTilePartials(torch.autograd.Function):
         if ctx.revisit:
             num, den, m = tile_fwd(bcsr, lsrc, ldst, s2, h, f, slope)
         else:
-            num, den, m = softmax_merge(bcsr, *tile_fwd_stream(bcsr, lsrc, ldst, s2, h, f, slope),
-                                        s2.shape[0])
+            num, den, m = tile_fwd_stream(bcsr, lsrc, ldst, s2, h, f, slope)
         ctx.meta, ctx.bcsr, ctx.bcsr_t = meta, bcsr, bcsr_t
         ctx.save_for_backward(lsrc, ldst, s2, m)
         ctx.mark_non_differentiable(m)
@@ -902,10 +924,8 @@ class GATTilePartials(torch.autograd.Function):
             dldst = tile_bwd_dldst(bcsr, *args)
             ds, dlsrc = tile_bwd_sender(bcsr_t, *args)
         else:
-            n = s2.shape[0]
-            dldst = sum_by_block_row(tile_bwd_dldst_stream(bcsr, *args), bcsr, n)
-            ds_t, dl_t = tile_bwd_sender_stream(bcsr_t, *args)
-            ds, dlsrc = sum_by_block_row(ds_t, bcsr_t, n), sum_by_block_row(dl_t, bcsr_t, n)
+            dldst = sum_by_block_row(tile_bwd_dldst_stream(bcsr, *args), bcsr, s2.shape[0])
+            ds, dlsrc = tile_bwd_sender_stream(bcsr_t, *args)
         return None, None, None, dlsrc, dldst, ds
 
 

@@ -179,8 +179,10 @@ def test_gat_tile_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
 def test_gat_stream_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
-    """B4, B5s and B6s: per-tile blocks against their plain versions, on the
-    grid of the revisit kernels' test; ``m`` is the merged max."""
+    """B4 and B6s (their merges fused) against their merged plain versions,
+    B5s's per-tile blocks against its plain blocks, on the grid of the
+    revisit kernels' test; B4's ``m`` bit for bit, the block row without
+    edges ``NEG``/0."""
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
     gen = torch.Generator(device=dev).manual_seed(h * 100 + f + 1)
@@ -190,18 +192,23 @@ def test_gat_stream_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf)
     dden = torch.randn(300, h, device=dev, generator=gen)
     before = dict(gta.launches)
     got = gta.tile_fwd_stream(b, lsrc, ldst, s2, h, f, 0.2)
-    ref = gta.tile_fwd_stream_plain(b, lsrc, ldst, s2, h, f, 0.2)
-    m = gta.softmax_merge(b, *ref, 300)[2]
+    ref = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)
+    m = ref[2]
     args = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
     got_dl = gta.tile_bwd_dldst_stream(b, *args)
     ref_dl = gta.tile_bwd_dldst_stream_plain(b, *args)
     got_snd = gta.tile_bwd_sender_stream(bt, *args)
-    ref_snd = gta.tile_bwd_sender_stream_plain(bt, *args)
+    ref_snd = gta.tile_bwd_sender_plain(bt, *args)
     torch.cuda.synchronize()
     assert gta.launches == {k: before[k] + (k in ("B4", "B5s", "B6s")) for k in before}
     for a, r in zip((*got, got_dl, *got_snd), (*ref, ref_dl, *ref_snd)):
         assert a.shape == r.shape
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[2], m)
+    assert (got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
+    assert not got[1][128:256].any()
+    if symmetric:
+        assert not got_snd[0][128:256].any() and not got_snd[1][128:256].any()
 
 
 def test_gat_tile_kernels_leaky_derivative_at_zero(dev):
@@ -348,8 +355,9 @@ WIDE_SHAPES = [(2, 65), (1, 128)]
 @pytest.mark.parametrize("family", ["B3/B5/B6", "B4/B5s/B6s", "B7/B8/B9"])
 def test_gat_tile_kernels_wide_heads(dev, family, symmetric, dtype, hf):
     """Every GAT tile kernel at per-head widths above 64 (one full 64-column
-    slab and a ragged one, or two full ones) against its plain version; each
-    launch is counted."""
+    slab and a ragged one, or two full ones) against its plain version (B4 and
+    B6s, whose merges are fused, against the merged ones); each launch is
+    counted."""
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, True))
     gen = torch.Generator(device=dev).manual_seed(h * 1000 + f)
@@ -363,15 +371,14 @@ def test_gat_tile_kernels_wide_heads(dev, family, symmetric, dtype, hf):
         s2, dnum = (torch.randn(300, h * f, device=dev, generator=gen) for _ in range(2))
         dden = torch.randn(300, h, device=dev, generator=gen)
         stream = family == "B4/B5s/B6s"
-        fwd = (gta.tile_fwd_stream, gta.tile_fwd_stream_plain) if stream else (
-            gta.tile_fwd, gta.tile_fwd_plain)
+        fwd = (gta.tile_fwd_stream if stream else gta.tile_fwd, gta.tile_fwd_plain)
         before = dict(gta.launches)
         m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
         args = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
         dl = ((gta.tile_bwd_dldst_stream, gta.tile_bwd_dldst_stream_plain) if stream
               else (gta.tile_bwd_dldst, gta.tile_bwd_dldst_plain))
-        snd = ((gta.tile_bwd_sender_stream, gta.tile_bwd_sender_stream_plain) if stream
-               else (gta.tile_bwd_sender, gta.tile_bwd_sender_plain))
+        snd = (gta.tile_bwd_sender_stream if stream else gta.tile_bwd_sender,
+               gta.tile_bwd_sender_plain)
         pairs = [(fwd[0](b, *args[:3], h, f, 0.2), fwd[1](b, *args[:3], h, f, 0.2)),
                  ((dl[0](b, *args),), (dl[1](b, *args),)),
                  (snd[0](bt, *args), snd[1](bt, *args))]
@@ -708,3 +715,123 @@ def test_refused_launch_leaves_no_stale_error(dev, monkeypatch):
         torch.cuda.synchronize()
         for x, r in zip(got, ref):
             torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+
+
+def b4_b6s_runs(name, b, bt, ops, h, f):
+    """(kernel, merged plain version) of B4 over ``b`` or B6s over ``bt``, each
+    returning a tuple; B6s takes the plain forward's ``m``."""
+    lsrc, ldst, s2, dnum, dden = ops
+    if name == "B4":
+        return ((lambda: gta.tile_fwd_stream_cuda(b, lsrc, ldst, s2, h, f, 0.2)),
+                (lambda: gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)))
+    m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
+    bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    return ((lambda: gta.tile_bwd_sender_stream_cuda(bt, *bwd)),
+            (lambda: gta.tile_bwd_sender_plain(bt, *bwd)))
+
+
+@pytest.mark.parametrize("hf", [(8, 8), (1, 40), (2, 65), (8, 128)],
+                         ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", ["B4", "B6s"])
+def test_b4_b6s_long_rows_match_plain(dev, name, dtype, hf):
+    """B4 and B6s on the long-row tile set (its 43-tile block row puts 43
+    CTAs' reductions onto the same 128 output rows) and its transpose: within
+    1e-4 of the merged plain versions, two launches within 1e-4 of each other
+    (the reductions add in no fixed order: not bitwise), B4's ``m`` bit for
+    bit, the block row without tiles ``NEG``/0, and no ``bcsr.cache`` entry
+    (no work items, no counters)."""
+    h, f = hf
+    b, n = long_row_gat_tiles(dtype)
+    bt = gta.transpose_bcsr(b)
+    b, bt = b.to(dev), bt.to(dev)
+    kernel, plain = b4_b6s_runs(name, b, bt, v1_operands(dev, n, h, f, h * 11 + f), h, f)
+    first, second, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    for x, y, r in zip(first, second, ref):
+        assert x.shape == r.shape
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-4)
+    if name == "B4":
+        assert torch.equal(first[2], ref[2]) and torch.equal(second[2], ref[2])
+        assert (first[2][:128] == gta.NEG).all()
+        assert not first[0][:128].any() and not first[1][:128].any()
+    assert not b.cache and not bt.cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
+@pytest.mark.parametrize("name", ["B4", "B6s"])
+def test_b4_b6s_at_8_heads_of_128(dev, name, symmetric, dtype):
+    """B4 and B6s at the CLI's default width, 8 heads of 128 (two 64-column
+    slabs a head, B6s's shared memory above 48 KB), against their merged
+    plain versions, on the tile sets without padding tiles."""
+    h, f = 8, 128
+    b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, True))
+    kernel, plain = b4_b6s_runs(name, b, bt, v1_operands(dev, 300, h, f, 81 + symmetric), h, f)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+    if name == "B4":
+        assert torch.equal(got[2], ref[2])
+
+
+def test_b6s_many_heads_match_plain(dev):
+    """More heads than B6s stages at once (the receivers' ldst, m and dden of
+    all 160 heads of F = 1 outgrow a CTA's shared memory): it walks them in
+    groups, restaging between; against the merged plain version."""
+    h, f = 160, 1
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False))
+    kernel, plain = b4_b6s_runs("B6s", b, bt, v1_operands(dev, 300, h, f, 160), h, f)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+
+
+def test_b4_refused_launch_raises(dev):
+    """The logits of a tile's senders for 512 heads need more shared memory
+    than a CTA gets: B4 refuses the launch and raises (no plain fallback, no
+    count), and the next launch matches the merged plain version."""
+    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False))
+    before = gta.launches["B4"]
+    kernel, _ = b4_b6s_runs("B4", b, bt, v1_operands(dev, 300, 512, 1, 13), 512, 1)
+    with pytest.raises(RuntimeError, match="B4 kernel launch failed"):
+        kernel()
+    assert gta.launches["B4"] == before
+    kernel, plain = b4_b6s_runs("B4", b, bt, v1_operands(dev, 300, 2, 4, 14), 2, 4)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+    assert gta.launches["B4"] == before + 1
+
+
+@pytest.mark.parametrize("hf", [(8, 8), (2, 96)], ids=lambda x: f"{x[0]}x{x[1]}")
+def test_stream_mode_runs_no_merge_for_b4_b6s(dev, monkeypatch, hf):
+    """``GATTilePartials`` with ``TILE_REVISIT = False`` on CUDA tensors
+    launches B4, B5s and B6s once each, never calls a plain version or
+    :func:`softmax_merge`, and sums by block row only B5s's blocks."""
+    def refuse(*_args, **_kw):
+        raise AssertionError("a plain version or merge was called for CUDA tensors")
+
+    for name in dir(gta):
+        if name.endswith("_plain") and name.startswith("tile_"):
+            monkeypatch.setattr(gta, name, refuse)
+    monkeypatch.setattr(gta, "softmax_merge", refuse)
+    merges = []
+    sum_rows = gta.sum_by_block_row
+    monkeypatch.setattr(gta, "sum_by_block_row",
+                        lambda *a: merges.append(a[0].shape) or sum_rows(*a))
+    monkeypatch.setattr(gta, "TILE_REVISIT", False)
+    h, f = hf
+    b, bt = (x.to(dev) for x in gat_tiles(True, torch.float32, False))
+    args = [torch.randn(300, w, device=dev).requires_grad_(True) for w in (h, h, h * f)]
+    before = dict(gta.launches)
+    num, den, _m = gta.gat_tile_partials((h, f, 0.2), b, bt, *args)
+    (num.sum() + den.sum()).backward()
+    torch.cuda.synchronize()
+    assert {k: gta.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "B4": 1, "B5s": 1, "B6s": 1}
+    assert merges == [(b.data.shape[0], 128, h)]  # B5s's dldst_t

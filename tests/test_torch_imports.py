@@ -67,6 +67,27 @@ def test_timing_tools_raise_without_cuda(monkeypatch, tool):
         app.main([])
 
 
+def test_kernel_bits_needs_cuda_and_compares_fingerprints(monkeypatch, tmp_path, capsys):
+    """``apps/kernel_bits`` runs on the card only; ``--compare`` reads two
+    fingerprint files and reports, per kernel and shape, whether the trees'
+    bits agree and whether each tree's two launches did."""
+    import json
+
+    from pygcn_tpu_torch.apps import kernel_bits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card"):
+        kernel_bits.main([])
+    old, new = tmp_path / "old.json", tmp_path / "new.json"
+    old.write_text(json.dumps({"B1 H=40": ["a", "a"], "B2 H=40": ["b", "c"]}))
+    new.write_text(json.dumps({"B1 H=40": ["a", "a"], "B2 H=40": ["d", "d"]}))
+    kernel_bits.main(["--compare", str(old), str(new)])
+    rows = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert rows == {"B1 H=40": {"same_bits": True, "old_repeats": True, "new_repeats": True},
+                    "B2 H=40": {"same_bits": False, "old_repeats": False,
+                                "new_repeats": True}}
+
+
 def _tiny_graph():
     return Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=True,
                           build_dense=False, build_hybrid=False, build_ell=False)
