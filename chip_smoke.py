@@ -7,9 +7,9 @@ Run from the root of a checkout, with no arguments::
 
 It builds every CUDA kernel of the port from ``pygcn_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version on the card (the per-tile "stream" kernels also against the revisit
-kernels: B2, B4 and B6s, whose merges are fused, against B1, B3 and B6, and
-B5s, once merged, against B5), holds a small GCN, a small GAT and a small
+version on the card (the per-tile "stream" kernels, whose merges are fused,
+also against the revisit kernels: B2, B4, B5s and B6s against B1, B3, B5 and
+B6; B3, B4 and B5s also at 256 and 512 heads), holds a small GCN, a small GAT and a small
 GATv2 on the card against the same models on the CPU, and drives the port's
 main paths at the ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the
 hybrid layout) for a few epochs each through ``apps/train_fullgraph
@@ -18,8 +18,7 @@ hybrid layout) for a few epochs each through ``apps/train_fullgraph
 - the 3-layer GCN (widths 128/128/40): kernel B1, and with ``BCSR_STREAM``
   kernel B2;
 - ``--model gat --hidden 8`` (2-layer GAT, 8 heads of 8 then 1 head of 40):
-  kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s and B5s's
-  merge;
+  kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s;
 - ``--model gatv2 --hidden 8``: kernels B7/B8/B9;
 - ``--model gat`` and ``--model gatv2`` at the CLI's default ``--hidden 128``
   (8 heads of 128): the same kernels on wide heads, for one epoch;
@@ -48,8 +47,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Tolerances of the kernels against their plain versions on the card. Both
 # sum the same f32 terms (bf16 tiles: for B1, x rounded to bf16 in both,
 # products exact in f32; for B3-B9 the tiles only gate the mask) in another
-# order (B2, B4 and B6s by atomic reductions, in an order that changes from
-# run to run), and B3 and B7 rescale their running sums as the max rises
+# order (B2, B4, B5s and B6s by atomic reductions, in an order that changes
+# from run to run), and B3 and B7 rescale their running sums as the max rises
 # where the plain versions exponentiate once against the final max (B4's
 # plain version rescales each tile's sums onto the merged max); with
 # unit-normal inputs and sums of up to a few thousand terms the error stays
@@ -486,12 +485,12 @@ def check_long_rows(torch, v2: bool):
 def check_stream_kernels(torch):
     """B2 (its merge fused: it writes ``[n_rows, H]``) against the plain
     per-tile parts merged by block row and against B1, over the grids of
-    :func:`check_b1` and its long-row tile set; B4 and B6s (their merges
-    fused) against their merged plain versions and B5s against its plain
-    per-tile blocks, over the grids of :func:`check_gat_tiles` and the
-    long-row tile set made square, each merged output against the revisit
-    kernel's (B3, B5, B6); and the stream mode of ``GATTilePartials``
-    (values and VJP) against its revisit mode."""
+    :func:`check_b1` and its long-row tile set; B4, B5s and B6s (their merges
+    fused) against their merged plain versions, over the grids of
+    :func:`check_gat_tiles` and the long-row tile set made square, each
+    output against the revisit kernel's (B3, B5, B6) and B5s's against a
+    second launch of it; and the stream mode of ``GATTilePartials`` (values
+    and VJP) against its revisit mode."""
     import numpy as np
 
     from pygcn_tpu_torch.apps.time_spmm import long_row_counts, long_row_tiles
@@ -533,20 +532,21 @@ def check_stream_kernels(torch):
     saved = gta.TILE_REVISIT
 
     def gat_stream_case(b, bt, n, h, f, label, empty, transpose_empty):
-        """B4 and B6s (merged) and B5s (blocks) against their plain versions,
-        B4's m bit for bit, the merged outputs against B3/B5/B6, and
+        """B4, B5s and B6s (merged) against their plain versions, B4's m bit
+        for bit, against B3/B5/B6, B5s against a second launch of it, and
         GATTilePartials' stream mode against its revisit mode."""
         ops = [torch.randn(n, w, device="cuda", generator=gen) for w in (h, h, h * f)]
         cot = [torch.randn(n, w, device="cuda", generator=gen) for w in (h * f, h)]
         fused = gta.tile_fwd_stream(b, *ops, h, f, SLOPE)
         bwd = (*ops, fused[2], *cot, h, f, SLOPE)
-        dl_t = gta.tile_bwd_dldst_stream(b, *bwd)
+        dl = gta.tile_bwd_dldst_stream(b, *bwd)
+        dl_again = gta.tile_bwd_dldst_stream(b, *bwd)
         snd = gta.tile_bwd_sender_stream(bt, *bwd)
         ref = gta.tile_fwd_plain(b, *ops, h, f, SLOPE)
-        ref_bwd = (gta.tile_bwd_dldst_stream_plain(b, *bwd), *gta.tile_bwd_sender_plain(bt, *bwd))
+        ref_bwd = (gta.tile_bwd_dldst_plain(b, *bwd), *gta.tile_bwd_sender_plain(bt, *bwd))
         rev = gta.tile_fwd_cuda(b, *ops, h, f, SLOPE)
         rev_bwd = (gta.tile_bwd_dldst_cuda(b, *bwd), *gta.tile_bwd_sender_cuda(bt, *bwd))
-        mer_bwd = (b1.sum_by_block_row(dl_t, b, n), *snd)
+        mer_bwd = (dl, *snd)
         modes = {}
         try:
             for revisit in (True, False):
@@ -558,12 +558,13 @@ def check_stream_kernels(torch):
         finally:
             gta.TILE_REVISIT = saved
         torch.cuda.synchronize()
-        for a, r in zip((*fused, dl_t, *snd), (*ref, *ref_bwd)):
+        for a, r in zip((*fused, *mer_bwd), (*ref, *ref_bwd)):
             close(a, r, label + " vs plain")
         if not torch.equal(fused[2], ref[2]):
             fail(f"{label}: B4's m is not the plain version's bit for bit")
         for a, r in zip((*fused, *mer_bwd), (*rev, *rev_bwd)):
-            close(a, r, label + " merged vs B3/B5/B6")
+            close(a, r, label + " vs B3/B5/B6")
+        close(dl_again, dl, label + " B5s's second launch")
         for a, r in zip(modes[False], modes[True]):
             close(a, r, label + " GATTilePartials stream vs revisit")
         rows = slice(empty, empty + 128)
@@ -593,10 +594,64 @@ def check_stream_kernels(torch):
     print(f"B2/B4/B5s/B6s vs plain on the card: {cases} cases (B2 on B1's grids, its fused "
           f"output vs the plain parts merged and vs B1; B4/B5s/B6s on the GAT grid, (H, F) in "
           f"{list(GAT_SHAPES)}, and on block rows of {long_row_counts(gta.MAX_TILES)} tiles: "
-          f"B4's and B6s's fused outputs vs the merged plain versions (B4's m bit for bit), "
-          f"B5s's blocks vs plain, merged outputs vs B3/B5/B6, GATTilePartials stream vs "
-          f"revisit (values and VJP)), within rtol=atol={RTOL}; max abs err {worst:.3e}",
-          flush=True)
+          f"their fused outputs vs the merged plain versions (B4's m bit for bit) and vs "
+          f"B3/B5/B6, B5s's second launch vs its first, GATTilePartials stream vs revisit "
+          f"(values and VJP)), within rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
+
+
+# Head counts of the many-heads check (F = 1): above what B3 and B4 staged at
+# once before they walked their heads in groups (about 224 and 450 heads).
+MANY_HEADS = (256, 512)
+
+
+def check_many_heads(torch):
+    """B3, B4 and B5s at :data:`MANY_HEADS` heads of one feature, more than
+    their shared memory stages at once: on a small tile set and on the
+    long-row set made square, each launch counted once and within the
+    tolerance of its plain version (B4's ``m`` bit for bit)."""
+    import numpy as np
+
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    sets = [("300 nodes", _gat_tiles(np.random.default_rng(9), False, torch.float32, False)[0],
+             300)]
+    sets += [("long rows", b, n)
+             for dtype, b, _bt, n in _long_row_gat_tiles(torch, np.random.default_rng(10))
+             if dtype == torch.float32]
+    worst, cases = 0.0, 0
+    saved = dict(gta.launches)
+    for label, b, n in sets:
+        for h in MANY_HEADS:
+            f = 1
+            lsrc, ldst, s2, dnum, dden = (torch.randn(n, h, device="cuda", generator=gen)
+                                          for _ in range(5))
+            ref = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, SLOPE)
+            bwd = (lsrc, ldst, s2, ref[2], dnum, dden, h, f, SLOPE)
+            runs = {"B3": (lambda: gta.tile_fwd_cuda(b, lsrc, ldst, s2, h, f, SLOPE), ref),
+                    "B4": (lambda: gta.tile_fwd_stream_cuda(b, lsrc, ldst, s2, h, f, SLOPE), ref),
+                    "B5s": (lambda: (gta.tile_bwd_dldst_stream_cuda(b, *bwd),),
+                            (gta.tile_bwd_dldst_plain(b, *bwd),))}
+            for name, (kernel, want) in runs.items():
+                before = dict(gta.launches)
+                got = kernel()
+                torch.cuda.synchronize()
+                tag = f"{name} {label} H={h} F={f}"
+                if {k: gta.launches[k] - before[k] for k in before} != {
+                        **dict.fromkeys(before, 0), name: 1}:
+                    fail(f"{tag}: launches {gta.launches}, before {before}")
+                for a, r in zip(got, want):
+                    if a.shape != r.shape or not torch.isfinite(a).all():
+                        fail(f"{tag}: shape {tuple(a.shape)} or non-finite values")
+                    torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+                    worst = max(worst, float((a - r).abs().max()))
+                if name == "B4" and not torch.equal(got[2], ref[2]):
+                    fail(f"{tag}: m is not the plain version's bit for bit")
+                cases += 1
+    gta.launches.update(saved)
+    print(f"B3/B4/B5s at {list(MANY_HEADS)} heads of F = 1 (head groups) vs plain on the card: "
+          f"{cases} cases on a 300-node set and on the long-row set, each launch counted, "
+          f"within rtol=atol={RTOL} (B4's m bit for bit); max abs err {worst:.3e}", flush=True)
 
 
 def check_small_reference(torch):
@@ -842,10 +897,10 @@ def run_ab_tool():
 
     rows = ab_kernel_stream.main(["--device", "cuda"])
     diff = rows[-1]
-    # the modes sum the same f32 terms in another order (the merges' index_add_
-    # in no fixed order), and the stream merge rescales by exp(max_t - m) where
-    # the revisit kernels rescale as they go: relative to the output's largest
-    # magnitude they agree to about 1e-6
+    # the modes sum the same f32 terms in another order (the stream kernels'
+    # reductions in no fixed order), and B4 exponentiates once against the
+    # final max where the revisit kernels rescale as they go: relative to the
+    # output's largest magnitude they agree to about 1e-6
     for op in ("hybrid_spmm", "gat_hybrid_fwd", "gat_hybrid_step"):
         if not diff[op + "_relative"] <= 1e-4:
             fail(f"A/B: stream and revisit {op} differ by {diff[op]}, "
@@ -953,17 +1008,14 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     B8 and B9) at the GAT main path's tiles, for both layer shapes: kernel
     and plain times (CUDA events), the bound of each function, the kernel's
     time without the longest block row (``ms_without_longest_row``, a
-    diagnostic of the launch's tail); B4's and B6s's times include their
-    outputs' fills, and their rows give the per-tile design's bound beside
-    the fused one (``bound_ms_per_tile``), B4's also its bits buffer's
-    traffic, which the bound does not count (``bits_bytes``, ``bits_ms``);
-    B5s's its merge's time and bound.
+    diagnostic of the launch's tail); B4's, B5s's and B6s's times include
+    their outputs' fills, and B4's row gives its bits buffer's traffic, which
+    the bound does not count (``bits_bytes``, ``bits_ms``).
     The kernels on work items (:data:`ITEM_KERNELS`)
     also at each C of :data:`SWEEP_GAT_MAX_TILES` (two runs in turns) and the
     same bits in two launches."""
     from pygcn_tpu_torch.apps.time_spmm import F32_FLOPS, HBM_BYTES_PER_S, without_longest_row
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
-    from pygcn_tpu_torch.ops.cuda.bcsr_spmm import sum_by_block_row
     from pygcn_tpu_torch.utils.timing import cuda_ms
 
     bcsr = graph.hybrid.bcsr
@@ -979,13 +1031,13 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     # exp, 2F for sl_u . dnum_v, + dden and * p, then per f 4 for dsr
     # (leaky', * a, * de, the sum) and 2 for dapart (* de, the sum); B9 the
     # same with 2F for the aggregation p * dnum_v in place of dapart. The
-    # stream modes B4, B5s and B6s do the terms of B3, B5 and B6.
+    # stream modes B4, B5s and B6s compute B3's, B5's and B6's functions from
+    # the same inputs into merged [N, .] outputs: they share their bounds.
+    same_function = {"B4": "B3", "B5s": "B5", "B6s": "B6"}
     nnz = int(torch.count_nonzero(bcsr.data))
     ops_per_term = {"B3": lambda f: 2 * f + 6, "B5": lambda f: 2 * f + 8,
                     "B6": lambda f: 4 * f + 8, "B7": lambda f: 7 * f + 4,
                     "B8": lambda f: 13 * f + 4, "B9": lambda f: 13 * f + 4}
-    ops_per_term.update(B4=ops_per_term["B3"], B5s=ops_per_term["B5"], B6s=ops_per_term["B6"],
-                        B4_tiles=ops_per_term["B3"], B6s_tiles=ops_per_term["B6"])
     fwd_rows = _rows_under(torch, bcsr.block_rows, bcsr.tm, n)
     fwd_cols = _rows_under(torch, bcsr.block_cols, bcsr.tk, n)
     t_rows = _rows_under(torch, tiles_t.block_rows, tiles_t.tm, n)
@@ -994,39 +1046,29 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     def tile_bytes(b):
         return b.data.shape[0] * b.tm * b.tk * b.data.element_size()
 
-    t_blocks = bcsr.data.shape[0] * bcsr.tm  # rows of the per-tile blocks
-    tt_blocks = tiles_t.data.shape[0] * tiles_t.tm
-    bits_bytes = 2 * 16 * t_blocks  # B4's mask words, written by B4a and read by B4b
+    # B4's mask words, written by B4a and read by B4b
+    bits_bytes = 2 * 16 * bcsr.data.shape[0] * bcsr.tm
 
     def gat_bytes(name, h, f):
         """Bytes kernel ``name`` must move at H x F: the tiles, the operand
-        rows under them, and its outputs, each read or written once. B4's
-        and B6s's outputs are merged ``[N, ·]``, so their bounds are B3's and
-        B6's (B4's bits buffer is its design's own traffic, not counted; its
-        row gives it beside the bound); B5s's, and ``B4_tiles``'s and ``B6s_tiles``'
-        (the per-tile design before their merges were fused), per-tile
-        blocks."""
+        rows under them, and its outputs, each read or written once (B4's
+        bits buffer is its design's own traffic, not counted; its row gives
+        it beside the bound)."""
         hf = h * f
         fwd_t, bwd_t = tile_bytes(bcsr), tile_bytes(tiles_t)
         return {
             "B3": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + n * (hf + 2 * h)),
             "B5": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + n * h),
             "B6": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + n * (hf + h)),
-            "B4": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h + n * (hf + 2 * h)),
-            "B4_tiles": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * h
-                                     + t_blocks * (hf + 2 * h)),
-            "B5s": fwd_t + 4 * (fwd_cols * (h + hf) + fwd_rows * (3 * h + hf) + t_blocks * h),
-            "B6s": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf) + n * (hf + h)),
-            "B6s_tiles": bwd_t + 4 * (t_rows * (h + hf) + t_cols * (3 * h + hf)
-                                      + tt_blocks * (hf + h)),
             "B7": fwd_t + 4 * (fwd_cols * hf + fwd_rows * hf + hf + n * (hf + 2 * h)),
             "B8": fwd_t + 4 * (fwd_cols * hf + fwd_rows * (2 * hf + 2 * h) + hf + n * 2 * hf),
             "B9": bwd_t + 4 * (t_rows * hf + t_cols * (2 * hf + 2 * h) + hf + n * hf),
-        }[name]
+        }[same_function.get(name, name)]
 
     def bound(name, h, f):
         """(bound ms, what bounds it, bytes, operations) of kernel ``name``."""
-        nbytes, flops = gat_bytes(name, h, f), nnz * h * ops_per_term[name](f)
+        flops = nnz * h * ops_per_term[same_function.get(name, name)](f)
+        nbytes = gat_bytes(name, h, f)
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", nbytes,
                 flops)
@@ -1046,8 +1088,7 @@ def time_gat(torch, graph, tiles_t, v2: bool):
     for h, f in ((8, 8), (1, 40)):
         hf = h * f
         dnum, dden = (torch.randn(n, w, device="cuda", generator=gen) for w in (hf, h))
-        # name: (kernel, plain, tiles, for B5s the merge of
-        #        the kernel's blocks)
+        # name: (kernel, plain, tiles)
         if v2:
             sl2, sr2 = (torch.randn(n, hf, device="cuda", generator=gen) for _ in range(2))
             a = torch.randn(h, f, device="cuda", generator=gen)
@@ -1055,11 +1096,11 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             bwd = (sl2, sr2, a, gta.tile_v2_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
             runs = {
                 "B7": (lambda b: gta.tile_v2_fwd_cuda(b, *fwd[1:]),
-                       lambda b: gta.tile_v2_fwd_plain(b, *fwd[1:]), bcsr, None),
+                       lambda b: gta.tile_v2_fwd_plain(b, *fwd[1:]), bcsr),
                 "B8": (lambda b: gta.tile_v2_bwd_recv_cuda(b, *bwd),
-                       lambda b: gta.tile_v2_bwd_recv_plain(b, *bwd), bcsr, None),
+                       lambda b: gta.tile_v2_bwd_recv_plain(b, *bwd), bcsr),
                 "B9": (lambda b: gta.tile_v2_bwd_send_cuda(b, *bwd),
-                       lambda b: gta.tile_v2_bwd_send_plain(b, *bwd), tiles_t, None),
+                       lambda b: gta.tile_v2_bwd_send_plain(b, *bwd), tiles_t),
             }
         else:
             lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
@@ -1068,20 +1109,19 @@ def time_gat(torch, graph, tiles_t, v2: bool):
             bwd = (lsrc, ldst, s2, gta.tile_fwd_plain(*fwd)[2], dnum, dden, h, f, SLOPE)
             runs = {
                 "B3": (lambda b: gta.tile_fwd_cuda(b, *fwd[1:]),
-                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr, None),
+                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr),
                 "B5": (lambda b: gta.tile_bwd_dldst_cuda(b, *bwd),
-                       lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr, None),
+                       lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr),
                 "B6": (lambda b: gta.tile_bwd_sender_cuda(b, *bwd),
-                       lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t, None),
+                       lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t),
                 "B4": (lambda b: gta.tile_fwd_stream_cuda(b, *fwd[1:]),
-                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr, None),
+                       lambda b: gta.tile_fwd_plain(b, *fwd[1:]), bcsr),
                 "B5s": (lambda b: gta.tile_bwd_dldst_stream_cuda(b, *bwd),
-                        lambda b: gta.tile_bwd_dldst_stream_plain(b, *bwd), bcsr,
-                        lambda out: sum_by_block_row(out[0], bcsr, n)),
+                        lambda b: gta.tile_bwd_dldst_plain(b, *bwd), bcsr),
                 "B6s": (lambda b: gta.tile_bwd_sender_stream_cuda(b, *bwd),
-                        lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t, None),
+                        lambda b: gta.tile_bwd_sender_plain(b, *bwd), tiles_t),
             }
-        for name, (kernel_on, plain_on, tiles, merge) in runs.items():
+        for name, (kernel_on, plain_on, tiles) in runs.items():
             kernel, plain = (lambda: kernel_on(tiles)), (lambda: plain_on(tiles))
             a, r = kernel(), plain()
             torch.cuda.synchronize()
@@ -1124,16 +1164,8 @@ def time_gat(torch, graph, tiles_t, v2: bool):
                            ms_by_max_tiles_runs=by_c, items=sched.items.shape[0],
                            split_slots=sched.n_slots,
                            workspace_bytes=sched.n_slots * tiles.tm * ITEM_KERNELS[name](h, hf) * 4)
-            if name + "_tiles" in ops_per_term:
-                # the bound of the per-tile design, before the merge was fused
-                row["bound_ms_per_tile"] = bound(name + "_tiles", h, f)[0]
             if name == "B4":  # beside the bound: the bits buffer's traffic, at the card's rate
                 row.update(bits_bytes=bits_bytes, bits_ms=bits_bytes / HBM_BYTES_PER_S * 1e3)
-            if merge is not None:
-                # the merge reads the blocks once and writes [n, W] once
-                merge_bytes = sum(x.numel() * 4 + n * x.shape[2] * 4 for x in a)
-                row.update(merge_ms=cuda_ms(lambda: merge(a), iters=20),
-                           merge_bound_ms=merge_bytes / HBM_BYTES_PER_S * 1e3)
             print(f"{name} timing: " + json.dumps(row), flush=True)
             rows.append(row)
             del a, r
@@ -1186,13 +1218,12 @@ def time_wide_heads(torch, bcsr, tiles_t, n, v2: bool, bound):
 
 def gat_kernel_entries(timing, launches, source, lines):
     """The ``kernels`` line's entries of the tile-attention kernels named in
-    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row; B5s's
-    entry also has its merge's time."""
+    ``lines`` (name: line of the TPU kernel), from the layer-1 (8x8) row."""
     out = []
     for name, line in lines.items():
         mine = [r for r in timing if r["kernel"] == name]
         layer1 = mine[0]  # H = 8, F = 8
-        entry = {
+        out.append({
             "name": f"{name} {source.split('/')[-1][:-3]}",
             "route": "cuda",
             "source": source,
@@ -1204,10 +1235,7 @@ def gat_kernel_entries(timing, launches, source, lines):
             "bound_ms": layer1["bound_ms"],
             "bound_by": layer1["bound_by"],
             "library_ms": None,
-        }
-        if "merge_ms" in layer1:
-            entry["merge_ms"] = layer1["merge_ms"]
-        out.append(entry)
+        })
     return out
 
 
@@ -1259,6 +1287,7 @@ def main() -> None:
     phase("check_gat_tiles", check_gat_tiles, torch, False)
     phase("check_gatv2_tiles", check_gat_tiles, torch, True)
     phase("check_stream_kernels", check_stream_kernels, torch)
+    phase("check_many_heads", check_many_heads, torch)
     phase("small_gcn_reference", check_small_reference, torch)
     phase("small_gat_reference", check_small_gat_reference, torch, False)
     phase("small_gatv2_reference", check_small_gat_reference, torch, True)

@@ -5,7 +5,7 @@ graph of ``train_fullgraph`` (169,343 nodes, locality ordered, the hybrid
 layout at ``hybrid_min_edges_per_tile=64``) it runs three operations in each
 mode, first with the flags' defaults (``BCSR_STREAM = False``,
 ``TILE_REVISIT = True``: kernels B1, B3, B5, B6), then with both flipped
-(B2, whose merge is fused, and B4, B5s, B6s and their merges):
+(B2, B4, B5s and B6s, whose merges are fused):
 
 - ``hybrid_spmm``: ``hybrid_spmm_raw`` at H = ``--spmm_width`` (128);
 - ``gat_hybrid_fwd``: the ``gat_conv_hybrid`` forward at ``--heads`` ×

@@ -5,18 +5,22 @@ Runs B1 and B2 (H = 128 and 40) and every GAT tile kernel (B3-B9, B4, B5s,
 B6s; 8x8, 1x40 and 8x128) on the flagship's tiles (ogbn-arxiv scale, the
 ``--clustered`` hybrid layout) with inputs drawn from a seeded generator on
 the card, each kernel twice, and prints one JSON object: for each kernel and
-shape the SHA-256 of its outputs' bytes in each launch. The backward kernels
-take the plain forward's ``m``. B2, B4 and B6s add with atomics, so their
-bits are not expected to repeat. The JSON object is the last line of
-the output (building the graph prints before it). Run from the root of a
-checkout, or with ``PYTHONPATH=<an earlier checkout>`` for that checkout's
-kernels::
+shape the SHA-256 of its outputs' bytes in each launch (``bits``) and the
+outputs' shapes (``shapes``). The backward kernels take the plain forward's
+``m``. B2, B4, B5s and B6s add with atomics, so their bits are not expected
+to repeat. The JSON object is the last line of the output (building the
+graph prints before it). Run from the root of a checkout, or with
+``PYTHONPATH=<an earlier checkout>`` for that checkout's kernels::
 
     PYTHONPATH=. python3 pygcn_tpu_torch/apps/kernel_bits.py > new.json
     python3 pygcn_tpu_torch/apps/kernel_bits.py --compare old.json new.json
 
 ``--compare`` prints, for each kernel and shape, whether the two trees'
-first launches gave the same bits and whether each tree's two launches did.
+first launches gave the same bits and whether each tree's two launches did;
+where the trees' outputs differ in shape (a kernel that wrote per-tile
+blocks in one tree and merged rows in the other) it marks the row
+``changed_output`` with the two shapes. Files that record no shapes (bits
+only, as a list) compare by bits alone.
 """
 
 from __future__ import annotations
@@ -32,9 +36,13 @@ SHAPES = ((8, 8), (1, 40), (8, 128))
 SLOPE = 0.2
 
 
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _digest(out) -> str:
     h = hashlib.sha256()
-    for t in out if isinstance(out, tuple) else (out,):
+    for t in _outputs(out):
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -57,8 +65,9 @@ def fingerprints() -> dict:
         for _ in range(2):
             got = fn()
             launches.append(_digest(got))
+            shapes = [list(t.shape) for t in _outputs(got)]
             del got
-        out[key] = launches
+        out[key] = {"bits": launches, "shapes": shapes}
 
     for h in (128, 40):
         x = torch.randn(n, h, device="cuda", generator=gen)
@@ -88,15 +97,30 @@ def fingerprints() -> dict:
     return out
 
 
+def _entry(e) -> tuple:
+    """(the two launches' digests, the outputs' shapes or None) of one
+    fingerprint, in either file format."""
+    return (e["bits"], e["shapes"]) if isinstance(e, dict) else (e, None)
+
+
 def compare(old: dict, new: dict) -> dict:
     """Per kernel and shape: the same bits in both trees' first launches, and
-    each tree's two launches alike."""
-    rows = {k: {"same_bits": old[k][0] == new[k][0], "old_repeats": old[k][0] == old[k][1],
-                "new_repeats": new[k][0] == new[k][1]} for k in old if k in new}
+    each tree's two launches alike; ``changed_output`` (old and new shapes)
+    where both files record the outputs' shapes and they differ."""
+    rows = {}
+    for k in old:
+        if k not in new:
+            continue
+        (o, o_shapes), (n, n_shapes) = _entry(old[k]), _entry(new[k])
+        rows[k] = {"same_bits": o[0] == n[0], "old_repeats": o[0] == o[1],
+                   "new_repeats": n[0] == n[1]}
+        if None not in (o_shapes, n_shapes) and o_shapes != n_shapes:
+            rows[k]["changed_output"] = [o_shapes, n_shapes]
     print(json.dumps(rows))
     same = [k for k, r in rows.items() if r["same_bits"]]
+    changed = sorted(k for k, r in rows.items() if "changed_output" in r)
     print(f"{len(same)} of {len(rows)} kernel outputs have the same bits in both trees; "
-          f"differ: {sorted(set(rows) - set(same))}")
+          f"differ: {sorted(set(rows) - set(same) - set(changed))}; changed output: {changed}")
     return rows
 
 

@@ -8,15 +8,14 @@ layout), on one CUDA card.
   memory held before the chunked kernels (1x160, 1x224); B7's chunked
   kernel (``B7c``) at each of them too, beside the staged one that B7 runs up
   to F = 208; and GAT's backward kernels B5 and B6 and the stream kernels
-  B4, B5s and B6s at each of them, also without the longest block row
+  B4, B5s and B6s (their merges fused: each gives the merged outputs) at
+  each of them, also without the longest block row
   (``ms_without_longest_row_runs``: how much of a launch the 43-tile row's
-  tail holds). A stream kernel's row times what gives the merged outputs:
-  the kernel, and its merge (``softmax_merge``, ``sum_by_block_row``) after it
-  where the kernel leaves per-tile blocks, so that a tree whose B4 and B6s
-  leave blocks and one whose kernels merge compare like with like; its
-  ``<name> kernel`` row times the kernel alone.
+  tail holds).
 - ``HEAD_SHAPES``: B3 and B7 from one head of width 1 up to eight heads: what
   one more head, or a wider one, adds to a launch.
+- ``MANY_HEAD_SHAPES``: B3, B4 and B5s at 256 and 512 heads of width 1, more
+  heads than their shared memory stages at once (they walk them in groups).
 
 Each kernel is timed twice, the mean of 20 launches after warm-up between
 two CUDA events; the backward kernels take the plain forward's ``m``. One
@@ -44,6 +43,7 @@ import torch
 
 WIDTH_SHAPES = ((8, 8), (1, 40), (1, 48), (1, 64), (8, 64), (8, 128), (1, 160), (1, 224))
 HEAD_SHAPES = ((1, 1), (1, 8), (2, 8), (4, 8), (8, 8), (1, 40), (8, 16))
+MANY_HEAD_SHAPES = ((256, 1), (512, 1))
 SLOPE = 0.2
 
 
@@ -57,7 +57,6 @@ def main(argv=None) -> list:
 
     from pygcn_tpu_torch.apps.time_spmm import without_longest_row
     from pygcn_tpu_torch.apps.train_fullgraph import clustered_dataset
-    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
     from pygcn_tpu_torch.ops.gat import build_gat_tiles_t
     from pygcn_tpu_torch.utils.timing import cuda_ms
@@ -82,25 +81,6 @@ def main(argv=None) -> list:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    def timed_stream(name, h, f, kernel_on, tiles, short_tiles, merge):
-        """A stream kernel's rows: ``name``, what gives the merged outputs (the
-        kernel, and ``merge`` after it where it leaves per-tile blocks), with
-        and without the longest block row; ``name kernel``, the kernel alone."""
-        def run(b):
-            out = kernel_on(b)
-            first = out[0] if isinstance(out, tuple) else out
-            return merge(out, b) if first.dim() == 3 else out  # per-tile blocks: merged
-
-        timed(name, h, f, lambda: run(tiles), lambda: run(short_tiles))
-        timed(name + " kernel", h, f, lambda: kernel_on(tiles))
-
-    def softmax_merge(out, tiles):
-        return gta.softmax_merge(tiles, *out, n)
-
-    def sum_by_block_row(out, tiles):
-        out = out if isinstance(out, tuple) else (out,)
-        return tuple(b1.sum_by_block_row(x, tiles, n) for x in out)
-
     def v2_operands(h, f):
         sl2, sr2 = (torch.randn(n, h * f, device="cuda", generator=gen) for _ in range(2))
         return sl2, sr2, torch.randn(h, f, device="cuda", generator=gen) / f ** 0.5
@@ -123,19 +103,26 @@ def main(argv=None) -> list:
               lambda: gta.tile_bwd_dldst_cuda(short, *bwd))
         timed("B6", h, f, lambda: gta.tile_bwd_sender_cuda(tiles_t, *bwd),
               lambda: gta.tile_bwd_sender_cuda(short_t, *bwd))
-        timed_stream("B4", h, f, lambda b: gta.tile_fwd_stream_cuda(b, lsrc, ldst, s2, h, f,
-                                                                    SLOPE),
-                     bcsr, short, softmax_merge)
-        timed_stream("B5s", h, f, lambda b: gta.tile_bwd_dldst_stream_cuda(b, *bwd), bcsr, short,
-                     sum_by_block_row)
-        timed_stream("B6s", h, f, lambda b: gta.tile_bwd_sender_stream_cuda(b, *bwd), tiles_t,
-                     short_t, sum_by_block_row)
+        timed("B4", h, f, lambda: gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE),
+              lambda: gta.tile_fwd_stream_cuda(short, lsrc, ldst, s2, h, f, SLOPE))
+        timed("B5s", h, f, lambda: gta.tile_bwd_dldst_stream_cuda(bcsr, *bwd),
+              lambda: gta.tile_bwd_dldst_stream_cuda(short, *bwd))
+        timed("B6s", h, f, lambda: gta.tile_bwd_sender_stream_cuda(tiles_t, *bwd),
+              lambda: gta.tile_bwd_sender_stream_cuda(short_t, *bwd))
     for h, f in HEAD_SHAPES:
         lsrc, ldst = (torch.randn(n, h, device="cuda", generator=gen) for _ in range(2))
         s2 = torch.randn(n, h * f, device="cuda", generator=gen)
         timed("B3", h, f, lambda: gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE))
         sl2, sr2, a = v2_operands(h, f)
         timed("B7", h, f, lambda: gta.tile_v2_fwd_cuda(bcsr, sl2, sr2, a, h, f, SLOPE))
+    for h, f in MANY_HEAD_SHAPES:
+        lsrc, ldst, s2, dnum, dden = (torch.randn(n, h * f, device="cuda", generator=gen)
+                                      for _ in range(5))
+        m = gta.tile_fwd_plain(bcsr, lsrc, ldst, s2, h, f, SLOPE)[2]
+        bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, SLOPE)
+        timed("B3", h, f, lambda: gta.tile_fwd_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE))
+        timed("B4", h, f, lambda: gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE))
+        timed("B5s", h, f, lambda: gta.tile_bwd_dldst_stream_cuda(bcsr, *bwd))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     return rows

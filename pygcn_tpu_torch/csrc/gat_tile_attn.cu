@@ -33,10 +33,11 @@
 //   flagship 8.5 a tile on average and 15 for a warp's busiest lane, where
 //   the columns any row of the warp needs are 103 on average,
 //   and gathers the senders' operands per lane from shared memory, at padded
-//   strides: every head's lsrc of the item's senders, staged once, and per
-//   head the s2 slabs of all its tiles (or as many as fit in 48 KB), staged
-//   in one batch of loads, so a head costs one round trip to memory and two
-//   barriers.
+//   strides: every head's lsrc of the item's senders, staged once (for as
+//   many heads as fit, in turn, where the card's shared memory forbids all:
+//   above about 210 heads at C = 2), and per head the s2 slabs of all its tiles (or
+//   as many as fit in 48 KB), staged in one batch of loads, so a head costs
+//   one round trip to memory and two barriers.
 // - Per head (and F-slab) it takes an online softmax one edge at a time, as
 //   B7 does: a row whose running max rises rescales den and num by
 //   corr = exp(m_old - e) (0, with den and num still 0, for a row at NEG),
@@ -56,10 +57,11 @@
 // one stream, never together), B6 over the transpose tiles on their own. One
 // CTA per item for all heads, each tile's mask decoded once; each thread
 // walks its own row's edges (B5: the receiver v, holding dnum_v's slab; B6:
-// the sender u, holding s2_u's slab and ds) and evaluates p, the F-wide dot
-// product and the accumulations once per edge, where a CTA per (head, block
-// row) walking every column that any row of its warp needs (for_columns, as
-// B5s does) evaluates about 12 times as many. The column side's
+// the sender u, holding s2_u's slab and ds; the per-edge bodies
+// receiver_walk and sender_walk, which B5s and B6s share) and evaluates p,
+// the F-wide dot product and the accumulations once per edge, where a CTA
+// per (head, block row) walking every column that any row of its warp needs
+// evaluated about 12 times as many. The column side's
 // node values of all heads (of as many as fit, in turn, where the card's
 // shared memory forbids all) are staged once per item at the odd stride
 // H | 1 (B5: the senders' lsrc; B6: the receivers' ldst, m and dden), and
@@ -91,18 +93,22 @@
 //   equals the JAX merge, which rescales each tile's partials by exp(max_t
 //   - m), to rounding. A receiver without a tile edge keeps num = den = 0 and
 //   m = NEG.
+// - B5s computes the merged dldst: one CTA per forward tile for all heads,
+//   B5's per-edge walk (receiver_walk) on each receiver's own edges, the
+//   tile's senders' lsrc staged for as many heads as fit, and each row's sum
+//   added into a zero-filled output, one reduction per (row, head, tile).
 // - B6s computes the merged (ds, dlsrc): one CTA per transpose tile for all
 //   heads, B6's per-edge walk (sender_walk) on each sender's own edges, the
 //   receivers' node values staged for as many heads as fit, and each row's
 //   ds slab and dlsrc added into zero-filled outputs.
-// - B5s keeps one CTA per (head, tile), the column walk (for_columns) and
-//   per-tile blocks dldst_t [T, TM, H], which the caller sums by block row.
-// Bound of B4 and B6s: B3's and B6's, the same functions of the same inputs
-// (the tiles read once, the operand rows under them and the [N, .] outputs
-// once), 0.09 and 0.10 ms at the flagship's 8x8. B4's bits buffer (11.7 MB
-// written and read at the flagship) and the reductions (about 3 per row,
-// head and tile at 8x8; 33 at 8x128) are the design's own traffic, the
-// price of independent tiles.
+// Every stream kernel stages its node arrays in head groups (staged_heads),
+// so it takes any number of heads. Bound of B4, B5s and B6s: B3's, B5's and
+// B6's, the same functions of the same inputs (the tiles read once, the
+// operand rows under them and the [N, .] outputs once), 0.09, 0.09 and 0.10
+// ms at the flagship's 8x8. B4's bits buffer (11.7 MB written and read at
+// the flagship) and the reductions (about 3 per row, head and tile at 8x8;
+// 33 at 8x128 for B4's and B6s's F-wide outputs) are the design's own
+// traffic, the price of independent tiles.
 //
 // Precision: expf (not __expf) and f32 FMA, no TF32, so the kernels match their
 // plain PyTorch versions to rounding. Ragged shapes are masked in the kernel:
@@ -118,7 +124,9 @@ namespace {
 using namespace gat_tile;
 
 // B3. blockIdx.x is a work item; `max_tiles` (C) sizes the shared memory and
-// `group` tiles' s2 slabs are staged at once.
+// `group` tiles' s2 slabs are staged at once. The senders' lsrc of `hc` heads
+// at a time (all of them unless the card's shared memory forbids it) are
+// staged once per item.
 template <int FP>
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
@@ -127,68 +135,65 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
                     float* __restrict__ num_out, float* __restrict__ den_out,
                     float* __restrict__ m_out, float* __restrict__ ws,
                     int* __restrict__ counters, int n_slots, int n, int h, int f,
-                    int max_tiles, int group, float slope) {
+                    int max_tiles, int group, int hc, float slope) {
   constexpr int S = slab_stride(FP);
-  const int HS = h | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
   extern __shared__ __align__(16) unsigned char smem[];
-  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                   // [C][TM]: own words
-  float* s_sh = reinterpret_cast<float*>(mask_sh + max_tiles * TM);   // [group][TK][S]
-  float* ls_sh = s_sh + group * TK * S;                               // [C][TK][HS]
-  int* cols_sh = reinterpret_cast<int*>(ls_sh + max_tiles * TK * HS);  // [C]
+  uint4* mask_sh = reinterpret_cast<uint4*>(smem);                         // [C][TM]: own words
+  float* s_sh = reinterpret_cast<float*>(mask_sh + max_tiles * TM);         // [group][TK][S]
+  float* ls_sh = s_sh + group * TK * S;                                     // [C][TK][hc | 1]
+  int* cols_sh = reinterpret_cast<int*>(ls_sh + max_tiles * TK * (hc | 1));  // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
   const long long v = static_cast<long long>(it.row) * TM + i;
   const Partials parts(ws, n_slots, h, hf);
+  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
 
-  if (i < nt) cols_sh[i] = block_cols[it.begin + i];
-  for (int t = 0; t < nt; ++t) {
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles, bf16, it.begin + t), bf16, w);
-    mask_sh[t * TM + i] = make_uint4(w[0], w[1], w[2], w[3]);  // read by this thread only
-  }
-  __syncthreads();  // cols_sh
-  stage_tiles(ls_sh, HS, h, lsrc, cols_sh, nt, n, h, 0, h);  // every head's sender logits
-  __syncthreads();
-  for (int head = 0; head < h; ++head) {
-    const float ld = node(ldst, v, n, h, head);
-    for (int s0 = 0; s0 < f; s0 += FP) {
-      const int fw = min(FP, f - s0);
-      float m = NEG, den = 0.f, acc[FP];
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
+    __syncthreads();  // cols_sh; the previous heads' logits are no longer read
+    stage_tiles(ls_sh, HS, hn, lsrc, cols_sh, nt, n, h, h0, hn);
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float ld = node(ldst, v, n, h, head);
+      for (int s0 = 0; s0 < f; s0 += FP) {
+        const int fw = min(FP, f - s0);
+        float m = NEG, den = 0.f, acc[FP];
 #pragma unroll
-      for (int k = 0; k < FP; ++k) acc[k] = 0.f;
-      for (int g0 = 0; g0 < nt; g0 += group) {
-        const int gn = min(group, nt - g0);
-        __syncthreads();  // the previous slabs are no longer read
-        stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw);
-        __syncthreads();
-        for (int t = g0; t < g0 + gn; ++t) {
-          const float* ls = ls_sh + t * TK * HS + head;
-          const float* st = s_sh + (t - g0) * TK * S;
-          for_own_edges(mask_sh[t * TM + i], [&](int j) {
-            const float e = leaky(ld + ls[j * HS], slope);
-            if (e > m) {
-              const float corr = expf(m - e);  // from NEG: 0, with den and num still 0
-              den *= corr;
+        for (int k = 0; k < FP; ++k) acc[k] = 0.f;
+        for (int g0 = 0; g0 < nt; g0 += group) {
+          const int gn = min(group, nt - g0);
+          __syncthreads();  // the logits are staged; the previous slabs are no longer read
+          stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw);
+          __syncthreads();
+          for (int t = g0; t < g0 + gn; ++t) {
+            const float* ls = ls_sh + t * TK * HS + (head - h0);
+            const float* st = s_sh + (t - g0) * TK * S;
+            for_own_edges(mask_sh[t * TM + i], [&](int j) {
+              const float e = leaky(ld + ls[j * HS], slope);
+              if (e > m) {
+                const float corr = expf(m - e);  // from NEG: 0, with den and num still 0
+                den *= corr;
 #pragma unroll
-              for (int k = 0; k < FP; ++k) acc[k] *= corr;
-              m = e;
-            }
-            const float p = expf(e - m);
-            den += p;
-            const float4* sj = reinterpret_cast<const float4*>(st + j * S);
+                for (int k = 0; k < FP; ++k) acc[k] *= corr;
+                m = e;
+              }
+              const float p = expf(e - m);
+              den += p;
+              const float4* sj = reinterpret_cast<const float4*>(st + j * S);
 #pragma unroll
-            for (int q = 0; q < FP / 4; ++q) {
-              const float4 x = sj[q];
-              acc[4 * q + 0] = fmaf(p, x.x, acc[4 * q + 0]);
-              acc[4 * q + 1] = fmaf(p, x.y, acc[4 * q + 1]);
-              acc[4 * q + 2] = fmaf(p, x.z, acc[4 * q + 2]);
-              acc[4 * q + 3] = fmaf(p, x.w, acc[4 * q + 3]);
-            }
-          });
+              for (int q = 0; q < FP / 4; ++q) {
+                const float4 x = sj[q];
+                acc[4 * q + 0] = fmaf(p, x.x, acc[4 * q + 0]);
+                acc[4 * q + 1] = fmaf(p, x.y, acc[4 * q + 1]);
+                acc[4 * q + 2] = fmaf(p, x.z, acc[4 * q + 2]);
+                acc[4 * q + 3] = fmaf(p, x.w, acc[4 * q + 3]);
+              }
+            });
+          }
         }
+        put_softmax<FP>(it, parts, num_out, den_out, m_out, v, n, h, hf, head, f, s0, fw, acc,
+                        den, m);
       }
-      put_softmax<FP>(it, parts, num_out, den_out, m_out, v, n, h, hf, head, f, s0, fw, acc, den,
-                      m);
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
@@ -197,86 +202,102 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
 
 // B4a, the max: one CTA per tile for all heads, thread i on the tile's row i
 // (receiver v). Decodes the row's mask once and keeps its words in
-// bits [T][TM] for B4b; stages the 128 senders' lsrc of all heads at the odd
-// stride H | 1; per head takes the max of e over its own edges and merges it
-// into m (prefilled with NEG) by a float atomic max. A row without an edge in
-// the tile (or past n) does no atomic.
+// bits [T][TM] for B4b; stages the 128 senders' lsrc of `hc` heads at a time
+// (all unless the card's shared memory forbids it) at the odd stride hc | 1;
+// per head takes the max of e over its own edges and merges it into m
+// (prefilled with NEG) by a float atomic max. A row without an edge in the
+// tile (or past n) does no atomic, but takes every barrier.
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_stream_max_kernel(const void* __restrict__ tiles, int bf16,
                           const int* __restrict__ block_cols, const int* __restrict__ block_rows,
                           const float* __restrict__ lsrc, const float* __restrict__ ldst,
                           float* __restrict__ m_out, uint4* __restrict__ bits, int n, int h,
-                          float slope) {
+                          int hc, float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ls_sh = reinterpret_cast<float*>(smem);  // [TK][H | 1]
-  const int t = blockIdx.x, i = threadIdx.x, HS = h | 1;
+  float* ls_sh = reinterpret_cast<float*>(smem);  // [TK][hc | 1]
+  const int t = blockIdx.x, i = threadIdx.x;
   const long long v = static_cast<long long>(block_rows[t]) * TM + i;
+  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
   uint32_t w[4];
   mask_words(tile_ptr(tiles, bf16, t), bf16, w);
   const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
   bits[static_cast<size_t>(t) * TM + i] = own;
-  stage_rows(ls_sh, HS, h, lsrc, static_cast<long long>(block_cols[t]) * TK, n, h, 0, h);
-  __syncthreads();
-  if (v >= n || (own.x | own.y | own.z | own.w) == 0) return;
-  for (int head = 0; head < h; ++head) {
-    const float ld = ldst[v * h + head];
-    float m = NEG;
-    for_own_edges(own, [&](int j) { m = fmaxf(m, leaky(ld + ls_sh[j * HS + head], slope)); });
-    atomic_max_float(m_out + v * h + head, m);
+  const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
+    __syncthreads();  // the previous heads' logits are no longer read
+    stage_rows(ls_sh, HS, hn, lsrc, col0, n, h, h0, hn);
+    __syncthreads();
+    if (!live) continue;
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float ld = ldst[v * h + head];
+      const float* ls = ls_sh + (head - h0);
+      float m = NEG;
+      for_own_edges(own, [&](int j) { m = fmaxf(m, leaky(ld + ls[j * HS], slope)); });
+      atomic_max_float(m_out + v * h + head, m);
+    }
   }
 }
 
 // B4b, the sums: one CTA per tile for all heads, thread i on row i with its
-// mask words from B4a's bits. Stages lsrc as B4a does and per head the
-// tile's s2 slab of FP columns (64-column slabs above F = 64); walks its own
-// edges with p = exp(e - m_v) against the final max, and adds den and the
-// num slab, once per (row, head, slab) that has an edge, into the zero-filled
-// num and den by f32 reductions.
+// mask words from B4a's bits. Stages lsrc in head groups as B4a does and per
+// head the tile's s2 slab of FP columns (64-column slabs above F = 64); walks
+// its own edges with p = exp(e - m_v) against the final max, and adds den and
+// the num slab, once per (row, head, slab) that has an edge, into the
+// zero-filled num and den by f32 reductions.
 template <int FP>
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_stream_sum_kernel(const int* __restrict__ block_cols, const int* __restrict__ block_rows,
                           const uint4* __restrict__ bits, const float* __restrict__ lsrc,
                           const float* __restrict__ ldst, const float* __restrict__ s2,
                           const float* __restrict__ m_in, float* __restrict__ num_out,
-                          float* __restrict__ den_out, int n, int h, int f, float slope) {
+                          float* __restrict__ den_out, int n, int h, int f, int hc,
+                          float slope) {
   constexpr int S = slab_stride(FP);
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_sh = reinterpret_cast<float*>(smem);  // [TK][S]
-  float* ls_sh = s_sh + TK * S;                  // [TK][H | 1]
-  const int t = blockIdx.x, i = threadIdx.x, HS = h | 1, hf = h * f;
+  float* ls_sh = s_sh + TK * S;                  // [TK][hc | 1]
+  const int t = blockIdx.x, i = threadIdx.x, hf = h * f;
   const long long v = static_cast<long long>(block_rows[t]) * TM + i;
   const long long col0 = static_cast<long long>(block_cols[t]) * TK;
   const uint4 own = bits[static_cast<size_t>(t) * TM + i];
   const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
   const bool quads = f % 4 == 0;
-  stage_rows(ls_sh, HS, h, lsrc, col0, n, h, 0, h);
-  for (int head = 0; head < h; ++head) {
-    const float ld = live ? ldst[v * h + head] : 0.f;
-    const float mv = live ? m_in[v * h + head] : 0.f;
-    for (int s0 = 0; s0 < f; s0 += FP) {
-      const int fw = min(FP, f - s0);
-      __syncthreads();  // the logits are staged; the previous slab is no longer read
-      stage_rows(s_sh, S, FP, s2, col0, n, hf, head * f + s0, fw);
-      __syncthreads();
-      if (!live) continue;
-      float den = 0.f, acc[FP];
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
+    __syncthreads();  // the previous heads' logits are no longer read
+    stage_rows(ls_sh, HS, hn, lsrc, col0, n, h, h0, hn);
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float ld = live ? ldst[v * h + head] : 0.f;
+      const float mv = live ? m_in[v * h + head] : 0.f;
+      const float* ls = ls_sh + (head - h0);
+      for (int s0 = 0; s0 < f; s0 += FP) {
+        const int fw = min(FP, f - s0);
+        __syncthreads();  // the logits are staged; the previous slab is no longer read
+        stage_rows(s_sh, S, FP, s2, col0, n, hf, head * f + s0, fw);
+        __syncthreads();
+        if (!live) continue;
+        float den = 0.f, acc[FP];
 #pragma unroll
-      for (int k = 0; k < FP; ++k) acc[k] = 0.f;
-      for_own_edges(own, [&](int j) {
-        const float p = expf(leaky(ld + ls_sh[j * HS + head], slope) - mv);
-        den += p;
-        const float4* sj = reinterpret_cast<const float4*>(s_sh + j * S);
+        for (int k = 0; k < FP; ++k) acc[k] = 0.f;
+        for_own_edges(own, [&](int j) {
+          const float p = expf(leaky(ld + ls[j * HS], slope) - mv);
+          den += p;
+          const float4* sj = reinterpret_cast<const float4*>(s_sh + j * S);
 #pragma unroll
-        for (int q = 0; q < FP / 4; ++q) {
-          const float4 x = sj[q];
-          acc[4 * q + 0] = fmaf(p, x.x, acc[4 * q + 0]);
-          acc[4 * q + 1] = fmaf(p, x.y, acc[4 * q + 1]);
-          acc[4 * q + 2] = fmaf(p, x.z, acc[4 * q + 2]);
-          acc[4 * q + 3] = fmaf(p, x.w, acc[4 * q + 3]);
-        }
-      });
-      add_cols<FP>(num_out + v * hf + static_cast<long long>(head) * f + s0, fw, acc, quads);
-      if (s0 == 0) atomicAdd(den_out + v * h + head, den);
+          for (int q = 0; q < FP / 4; ++q) {
+            const float4 x = sj[q];
+            acc[4 * q + 0] = fmaf(p, x.x, acc[4 * q + 0]);
+            acc[4 * q + 1] = fmaf(p, x.y, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(p, x.z, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(p, x.w, acc[4 * q + 3]);
+          }
+        });
+        add_cols<FP>(num_out + v * hf + static_cast<long long>(head) * f + s0, fw, acc, quads);
+        if (s0 == 0) atomicAdd(den_out + v * h + head, den);
+      }
     }
   }
 }
@@ -326,25 +347,9 @@ gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
           __syncthreads();  // the logits are staged; the previous slabs are no longer read
           stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw);
           __syncthreads();
-          for (int t = g0; t < g0 + gn; ++t) {
-            const float* ls = ls_sh + t * TK * HS + (head - h0);
-            const float* st = s_sh + (t - g0) * TK * S;
-            for_own_edges(mask_sh[t * TM + i], [&](int j) {
-              const float pre = ld + ls[j * HS];
-              const float p = expf(leaky(pre, slope) - mv);
-              const float4* sj = reinterpret_cast<const float4*>(st + j * S);
-              float gdot = 0.f;
-#pragma unroll
-              for (int q = 0; q < FP / 4; ++q) {
-                const float4 x = sj[q];
-                gdot = fmaf(dn[4 * q + 0], x.x, gdot);
-                gdot = fmaf(dn[4 * q + 1], x.y, gdot);
-                gdot = fmaf(dn[4 * q + 2], x.z, gdot);
-                gdot = fmaf(dn[4 * q + 3], x.w, gdot);
-              }
-              acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
-            });
-          }
+          for (int t = g0; t < g0 + gn; ++t)
+            receiver_walk<FP>(mask_sh[t * TM + i], ls_sh + t * TK * HS + (head - h0), HS,
+                              s_sh + (t - g0) * TK * S, ld, mv, dn, dd, slope, acc);
         }
       }
       if (dst != nullptr) dst[head] = acc;
@@ -422,9 +427,14 @@ gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
     sum_parts(it, ws, hf + h, ds_out, dlsrc_out, n, hf);
 }
 
-// B5s: one CTA per (head, tile), blockIdx.x = tile * H + head; B5's sum over
-// that one tile's columns (for_columns), written into the tile's block of
-// dldst_t [T, TM, H].
+// B5s, merged: one CTA per forward tile for all heads, thread i on receiver v
+// (row i of the tile's block row); the mask decoded once into registers. The
+// tile's senders' lsrc of `hc` heads at a time (all unless the card's shared
+// memory forbids it) are staged at the odd stride hc | 1, per head the
+// tile's s2 slab; B5's walk (receiver_walk) per slab, dnum_v's slab in
+// registers, then the row's sum added into the zero-filled dldst by one f32
+// reduction per (row, head), by rows with an own edge. Rows past n, or
+// without an own edge, take every barrier and read nothing of their own.
 template <int FP>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
@@ -433,49 +443,42 @@ gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
                             const float* __restrict__ ldst, const float* __restrict__ s2,
                             const float* __restrict__ m_in, const float* __restrict__ dnum,
                             const float* __restrict__ dden, float* __restrict__ dldst_out, int n,
-                            int h, int f, float slope) {
-  __shared__ __align__(16) float s_sh[TK * FP];
-  __shared__ float ls_sh[TK];
-  const int head = blockIdx.x % h, t = blockIdx.x / h;
-  const int hf = h * f;
-  const long long v = static_cast<long long>(block_rows[t]) * TM + threadIdx.x;
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
-  const float ld = node(ldst, v, n, h, head);
-  const float mv = node(m_in, v, n, h, head);
-  float acc = 0.f;
+                            int h, int f, int hc, float slope) {
+  constexpr int S = slab_stride(FP);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_sh = reinterpret_cast<float*>(smem);  // [TK][S]
+  float* ls_sh = s_sh + TK * S;                  // [TK][hc | 1]
+  const int t = blockIdx.x, i = threadIdx.x, hf = h * f;
+  const long long v = static_cast<long long>(block_rows[t]) * TM + i;  // receiver
+  const long long col0 = static_cast<long long>(block_cols[t]) * TK;    // senders
+  uint32_t w[4];
+  mask_words(tile_ptr(tiles, bf16, t), bf16, w);
+  const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
+  const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
+  const long long vr = live ? v : n;  // a row past n reads zeros
 
-  for (int s0 = 0; s0 < f; s0 += FP) {
-    const int fw = min(FP, f - s0);
-    const float dd = s0 == 0 ? node(dden, v, n, h, head) : 0.f;  // its term once
-    float dn[FP];
-#pragma unroll
-    for (int k = 0; k < FP; ++k)
-      dn[k] = (v < n && k < fw) ? dnum[v * hf + static_cast<long long>(head) * f + s0 + k] : 0.f;
-    __syncthreads();
-    ls_sh[threadIdx.x] = node(lsrc, col0 + threadIdx.x, n, h, head);
-    stage_rows(s_sh, FP, FP, s2, col0, n, hf, head * f + s0, fw);
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles, bf16, t), bf16, w);
-    __syncthreads();
-
-    for_columns(w, [&](int j, bool on) {
-      const float pre = ld + ls_sh[j];
-      const float p = on ? expf(leaky(pre, slope) - mv) : 0.f;
-      const float4* sj = reinterpret_cast<const float4*>(s_sh + j * FP);
-      float gdot = 0.f;
-#pragma unroll
-      for (int q = 0; q < FP / 4; ++q) {
-        const float4 s = sj[q];
-        gdot = fmaf(dn[4 * q + 0], s.x, gdot);
-        gdot = fmaf(dn[4 * q + 1], s.y, gdot);
-        gdot = fmaf(dn[4 * q + 2], s.z, gdot);
-        gdot = fmaf(dn[4 * q + 3], s.w, gdot);
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hn = min(hc, h - h0);
+    const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
+    __syncthreads();  // the previous heads' logits are no longer read
+    stage_rows(ls_sh, HS, hn, lsrc, col0, n, h, h0, hn);
+    for (int head = h0; head < h0 + hn; ++head) {
+      const float ld = node(ldst, vr, n, h, head), mv = node(m_in, vr, n, h, head);
+      float acc = 0.f;
+      for (int s0 = 0; s0 < f; s0 += FP) {
+        const int fw = min(FP, f - s0);
+        const float dd = s0 == 0 ? node(dden, vr, n, h, head) : 0.f;  // its term once
+        float dn[FP];
+        load_cols<FP>(dn, dnum, vr, n, hf, head * f + s0, fw);
+        __syncthreads();  // the logits are staged; the previous slab is no longer read
+        stage_rows(s_sh, S, FP, s2, col0, n, hf, head * f + s0, fw);
+        __syncthreads();
+        if (live)
+          receiver_walk<FP>(own, ls_sh + (head - h0), HS, s_sh, ld, mv, dn, dd, slope, acc);
       }
-      acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
-    });
+      if (live) atomicAdd(dldst_out + v * h + head, acc);
+    }
   }
-  const long long o = static_cast<long long>(t) * TM + threadIdx.x;
-  dldst_out[o * h + head] = acc;
 }
 
 // B6s: one CTA per transpose tile for all heads, thread i on sender u; the
@@ -553,16 +556,20 @@ size_t item_smem(int fp, int hc, int max_tiles, int arrays) {
               static_cast<size_t>(arrays) * max_tiles * (hc | 1));
 }
 
-// B6s's dynamic shared memory: dnum's slab and the `arrays` node arrays of
-// hc heads (ldst, m, dden).
+// The stream kernels' dynamic shared memory: `arrays` node arrays of hc heads
+// for a tile's 128 columns (B4a, B4b, B5s: lsrc; B6s: ldst, m, dden), and
+// with them (B4b, B5s, B6s) the column side's slab of width fp (s2, or dnum).
+size_t node_smem(int hc, int arrays) {
+  return sizeof(float) * TK * static_cast<size_t>(arrays) * (hc | 1);
+}
 size_t stream_smem(int fp, int hc, int arrays) {
-  return sizeof(float) * TK * (slab_stride(fp) + static_cast<size_t>(arrays) * (hc | 1));
+  return sizeof(float) * TK * slab_stride(fp) + node_smem(hc, arrays);
 }
 
-// The heads whose node arrays B5, B6 and B6s stage at once, given the shared
-// memory `smem(hc)` a kernel takes with hc of them: all h unless that would
-// outgrow the card's (then the kernel walks them in groups of hc, restaging
-// between).
+// The heads whose node arrays B3-B6, B4 and B5s-B6s stage at once, given the
+// shared memory `smem(hc)` a kernel takes with hc of them: all h unless that
+// would outgrow the card's (then the kernel walks them in groups of hc,
+// restaging between).
 template <typename Smem>
 int staged_heads(int h, Smem smem) {
   int hc = h;
@@ -592,15 +599,16 @@ int gat_tile_fwd(const void* tiles, const void* block_cols, const void* items, c
                  const void* ldst, const void* s2, void* num, void* den, void* m, void* ws,
                  void* counters, int n_items, int n_slots, int n, int h, int f, int max_tiles,
                  int tile_bf16, float slope, void* stream) {
-  if (f < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (f < 1 || h < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
+  const int hc = staged_heads(h, [&](int c) { return item_smem(fp, c, max_tiles, 1); });
   return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_item_kernel)), dim3(n_items),
-                item_smem(fp, h, max_tiles, 1), stream, tiles, tile_bf16,
+                item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
                 static_cast<const int*>(block_cols), static_cast<const int*>(items),
                 static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
                 static_cast<const float*>(s2), static_cast<float*>(num), static_cast<float*>(den),
                 static_cast<float*>(m), static_cast<float*>(ws), static_cast<int*>(counters),
-                n_slots, n, h, f, max_tiles, item_group(fp, max_tiles), slope);
+                n_slots, n, h, f, max_tiles, item_group(fp, max_tiles), hc, slope);
 }
 
 // B4, merged: num [n, H*F] and den [n, H] zero-filled and m [n, H] filled
@@ -611,20 +619,21 @@ int gat_tile_fwd_stream(const void* tiles, const void* block_cols, const void* b
                         void* m, void* bits, int n_tiles, int n, int h, int f, int tile_bf16,
                         float slope, void* stream) {
   if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t logits = sizeof(float) * TK * (h | 1);
-  const int err = launch(gat_fwd_stream_max_kernel, dim3(n_tiles), logits, stream, tiles,
-                         tile_bf16, static_cast<const int*>(block_cols),
+  const int fp = width_of(f);
+  const int hc_max = staged_heads(h, [](int c) { return node_smem(c, 1); });
+  const int err = launch(gat_fwd_stream_max_kernel, dim3(n_tiles), node_smem(hc_max, 1),
+                         stream, tiles, tile_bf16, static_cast<const int*>(block_cols),
                          static_cast<const int*>(block_rows), static_cast<const float*>(lsrc),
                          static_cast<const float*>(ldst), static_cast<float*>(m),
-                         static_cast<uint4*>(bits), n, h, slope);
+                         static_cast<uint4*>(bits), n, h, hc_max, slope);
   if (err) return err;
+  const int hc_sum = staged_heads(h, [&](int c) { return stream_smem(fp, c, 1); });
   return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_stream_sum_kernel)), dim3(n_tiles),
-                logits + sizeof(float) * TK * slab_stride(width_of(f)), stream,
-                static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
-                static_cast<const uint4*>(bits), static_cast<const float*>(lsrc),
-                static_cast<const float*>(ldst), static_cast<const float*>(s2),
-                static_cast<const float*>(m), static_cast<float*>(num), static_cast<float*>(den),
-                n, h, f, slope);
+                stream_smem(fp, hc_sum, 1), stream, static_cast<const int*>(block_cols),
+                static_cast<const int*>(block_rows), static_cast<const uint4*>(bits),
+                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                static_cast<const float*>(s2), static_cast<const float*>(m),
+                static_cast<float*>(num), static_cast<float*>(den), n, h, f, hc_sum, slope);
 }
 
 // B5 over the forward tiles, on B3's work items (the same schedule and
@@ -649,19 +658,22 @@ int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* it
                 n, h, f, max_tiles, item_group(fp, max_tiles), hc, slope);
 }
 
-// B5s over the forward tiles: dldst_t [T, TM, H].
+// B5s over the forward tiles, merged: dldst [n, H], zero-filled by the
+// caller.
 int gat_tile_bwd_dldst_stream(const void* tiles, const void* block_cols, const void* block_rows,
                               const void* lsrc, const void* ldst, const void* s2, const void* m,
-                              const void* dnum, const void* dden, void* dldst_t, int n_tiles,
+                              const void* dnum, const void* dden, void* dldst, int n_tiles,
                               int n, int h, int f, int tile_bf16, float slope, void* stream) {
-  if (f < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_stream_kernel)),
-                grid_of(n_tiles, h), 0, stream, tiles, tile_bf16,
+  if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int fp = width_of(f);
+  const int hc = staged_heads(h, [&](int c) { return stream_smem(fp, c, 1); });
+  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_stream_kernel)), dim3(n_tiles),
+                stream_smem(fp, hc, 1), stream, tiles, tile_bf16,
                 static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
                 static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
                 static_cast<const float*>(s2), static_cast<const float*>(m),
                 static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(dldst_t), n, h, f, slope);
+                static_cast<float*>(dldst), n, h, f, hc, slope);
 }
 
 // B6 over the transpose tiles (block rows are senders), on their own work

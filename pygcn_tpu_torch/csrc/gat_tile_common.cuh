@@ -1,25 +1,21 @@
 // What the GAT tile-attention kernels share (gat_tile_attn.cu: B3-B6, B4,
 // B5s, B6s; gatv2_tile_attn.cu: B7/B8/B9): the tile shape, the mask read by
-// warp ballots, the two walks over a tile's edges, operand staging, the
+// warp ballots, the walk over a row's own edges, operand staging, the
 // per-width kernel pick, the work items of the item-scheduled kernels (B3,
 // B5, B6, B7, B8, B9): their masks decoded once per item, the flash merge of
 // B3's and B7's split rows, and the in-order sum of the backward kernels'
-// split rows; B6's per-edge walk, which B6s shares; and the reductions that
-// merge the stream kernels' tiles (B4, B6s).
+// split rows; B5's and B6's per-edge walks, which B5s and B6s share; and the
+// reductions that merge the stream kernels' tiles (B4, B5s, B6s).
 //
 // The mask is decoded from the tile itself (only B4 keeps its words in device
 // memory, a bits buffer its first kernel writes for its second): warp w reads
 // rows 32w..32w+31 of a tile, one 16-byte (f32) or 8-byte (bf16) load a lane
 // per row, and four ballots give that row's 128 mask bits (bit l of word c is
-// column 4l + c), which lane r keeps for its own row. Two walks use them:
-// - for_columns (B5s): the warp walks the columns that any of its 32 rows
-//   needs (the OR of its words) and evaluates every (row, column) slot
-//   there, warp-uniformly; the kernel applies the mask by select, never by
-//   multiplying (exp(NEG - NEG) = 1 must not leak in).
-// - for_own_edges (B3-B9, B6s): each thread walks only its own row's set bits,
-//   8.5 of the 128 columns of a flagship tile on average, and reads the column side
-//   by per-lane gathers from a staged slab whose row stride is padded
-//   (slab_stride) so that eight lanes of a 16-byte access see eight banks.
+// column 4l + c), which lane r keeps for its own row. Each thread then walks
+// only its own row's set bits (for_own_edges), 8.5 of the 128 columns of a
+// flagship tile on average, and reads the column side by per-lane gathers
+// from a staged slab whose row stride is padded (slab_stride) so that eight
+// lanes of a 16-byte access see eight banks.
 //
 // Per-head widths: a kernel compiled for width FP (4, 8, 16, 32, 40 or 64)
 // takes any F: F <= 64 runs on the smallest FP >= F, with the last columns
@@ -85,22 +81,6 @@ __device__ __forceinline__ void mask_words(const void* tile, bool bf16, uint32_t
 
 __device__ __forceinline__ const void* tile_ptr(const void* tiles, bool bf16, int t) {
   return static_cast<const char*>(tiles) + static_cast<size_t>(t) * TM * TK * (bf16 ? 2 : 4);
-}
-
-// Calls body(j, on) for every column j of the tile that some row of the warp
-// needs; `on` says whether this thread's row has an edge there. The loop is
-// uniform across the warp.
-template <typename Body>
-__device__ __forceinline__ void for_columns(const uint32_t w[4], Body body) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    uint32_t any = __reduce_or_sync(FULL, w[c]);
-    while (any) {
-      const int l = __ffs(any) - 1;
-      any &= any - 1;
-      body(4 * l + c, (w[c] >> l) & 1u);
-    }
-  }
 }
 
 // Calls body(j) for every column j where this thread's row has an edge, in
@@ -229,10 +209,6 @@ Kernel pick_width(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k4
 #define GAT_TILE_WIDTHS(kernel) \
   kernel<4>, kernel<8>, kernel<16>, kernel<32>, kernel<40>, kernel<64>
 
-inline dim3 grid_of(int n_block_rows, int h) {
-  return dim3(static_cast<unsigned>(n_block_rows) * h);
-}
-
 // `kernel` on `grid` with `smem` bytes of dynamic shared memory (above 48 KB
 // only after the opt-in), on `stream`; returns the launch's CUDA error. A
 // refused opt-in is also the runtime's last error: it is cleared here, or the
@@ -300,6 +276,34 @@ __device__ __forceinline__ void load_cols(float dst[W], const float* x, long lon
   for (int k = 0; k < W; ++k) dst[k] = (row < n && k < fw) ? __ldg(x + row * ld + c0 + k) : 0.f;
 }
 
+// B5's and B5s's walk of one tile's own edges u -> v for receiver v (this
+// thread), one head and one F-slab: acc += p (s2_u . dnum_v + dd) leaky'(pre),
+// with pre = ld + lsrc_u and p = exp(leaky(pre) - mv); dd is dden_v on the
+// first slab and 0 on the others. ls points at the tile's senders' staged
+// lsrc of this head (sender j at j * hs), st at their s2 slab
+// [TK][slab_stride(FP)]; dn holds dnum_v's slab.
+template <int FP>
+__device__ __forceinline__ void receiver_walk(uint4 own, const float* ls, int hs, const float* st,
+                                              float ld, float mv, const float dn[FP], float dd,
+                                              float slope, float& acc) {
+  constexpr int S = slab_stride(FP);
+  for_own_edges(own, [&](int j) {
+    const float pre = ld + ls[j * hs];
+    const float p = expf(leaky(pre, slope) - mv);
+    const float4* sj = reinterpret_cast<const float4*>(st + j * S);
+    float gdot = 0.f;
+#pragma unroll
+    for (int q = 0; q < FP / 4; ++q) {
+      const float4 x = sj[q];
+      gdot = fmaf(dn[4 * q + 0], x.x, gdot);
+      gdot = fmaf(dn[4 * q + 1], x.y, gdot);
+      gdot = fmaf(dn[4 * q + 2], x.z, gdot);
+      gdot = fmaf(dn[4 * q + 3], x.w, gdot);
+    }
+    acc += p * (gdot + dd) * (pre >= 0.f ? 1.f : slope);
+  });
+}
+
 // B6's and B6s's walk of one tile's own edges u -> v for sender u (this
 // thread), one head and one F-slab: ds += p dnum_v and dl += p (s2_u . dnum_v
 // + dden_v) leaky'(pre), with pre = lsrc_u + ldst_v and p = exp(leaky(pre) -
@@ -335,8 +339,8 @@ __device__ __forceinline__ void sender_walk(uint4 own, const float* ld, const fl
 }
 
 // ------------------------------------------------------------------------
-// The per-tile ("stream") kernels' merges (B4, B6s): each tile adds its rows
-// into zero-filled outputs with f32 reductions, and B4 takes the row max
+// The per-tile ("stream") kernels' merges (B4, B5s, B6s): each tile adds its
+// rows into zero-filled outputs with f32 reductions, and B4 takes the row max
 // with a float atomic max; the sum order is free.
 // ------------------------------------------------------------------------
 

@@ -22,8 +22,9 @@ every tile is computed on its own and the tiles are merged by block row (JAX:
   m)``, each tile's rows added into zero-filled outputs and its row maxima
   merged by an atomic max (the plain version: per-tile partials merged by
   :func:`softmax_merge`);
-- **B5s** (``_bwd_dldst_kernel``, ``stream=True``): B5's body over one tile,
-  per-tile blocks ``dldst_t [T, tm, H]`` that :func:`sum_by_block_row` merges;
+- **B5s** (``_bwd_dldst_kernel``, ``stream=True``), its merge fused: the
+  merged ``dldst``, each tile's rows added into a zero-filled output (the
+  plain version: per-tile blocks summed by :func:`sum_by_block_row`);
 - **B6s** (``_bwd_sender_kernel``, ``stream=True``), its merge fused: the
   merged ``(ds, dlsrc)``, each tile's rows added into zero-filled outputs;
 
@@ -47,16 +48,17 @@ only its own row's edges; the items of a split row writing partials that
 the last to arrive merges in item order, so the result is the same bits
 every run: B3's and B7's ``(m, den, num)`` by the flash merge
 (:func:`scheduled_merge` in plain PyTorch), the backward kernels' gradients
-by a plain sum (:func:`scheduled_sum`). B4 and B6s take one CTA per tile for
-all heads, each thread walking its own row's edges, and add into their
-outputs with f32 reductions, so their sums come in no fixed order; B5s keeps
-one CTA per (head, tile) and writes each block once. At
+by a plain sum (:func:`scheduled_sum`). B4, B5s and B6s take one CTA per
+tile for all heads, each thread walking its own row's edges, and add into
+their outputs with f32 reductions, so their sums come in no fixed order. At
 the ogbn-arxiv hybrid's shapes all are bound by bytes (the tiles as stored,
 about 0.19 GB a launch). Every kernel takes any per-head width F, with
 shared memory that fits the card whatever F: B3-B6 in slabs of 64 columns;
 B7 with whole rows staged up to F = 208, B8 and B9 with own rows in
 registers up to F = 40, and above those the F-chunked kernels (32 columns
-at a time).
+at a time). B3-B6, B4 and B5s-B6s take any number of heads: they stage
+their node arrays for as many heads as the card's shared memory holds,
+restaging between groups.
 
 Tile values only gate the mask (``tile != 0``); they are never multiplied in.
 Each kernel has a plain PyTorch version here (``*_plain``), the CPU path and
@@ -96,8 +98,8 @@ CHUNK_EDGES = 32
 
 # The JAX package's A/B flag (``pygcn_tpu/ops/pallas/gat_tile_attn.py:115``),
 # with its default. :class:`GATTilePartials` reads it once in its forward
-# and runs its backward in the same mode: False runs B4, then B5s (and its
-# merge) and B6s, in place of B3, B5 and B6.
+# and runs its backward in the same mode: False runs B4, then B5s and B6s, in
+# place of B3, B5 and B6.
 TILE_REVISIT = True
 
 # Kernel launches since import (or since a caller reset them to 0).
@@ -289,9 +291,9 @@ def tile_fwd_scheduled_plain(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: 
 
 def tile_bwd_dldst_stream_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
                                 slope: float):
-    """B5s's function: per tile ``dldst_t [T, tm, H]`` over the forward
-    tiles, with ``p = mask·exp(e − m_v)`` (``m`` the merged max the forward
-    returned)."""
+    """B5's and B5s's per-tile blocks, as the JAX kernel emits them before
+    its merge: per tile ``dldst_t [T, tm, H]`` over the forward tiles, with
+    ``p = mask·exp(e − m_v)`` (``m`` the merged max the forward returned)."""
     tm, tk = bcsr.tm, bcsr.tk
     mask = bcsr.data != 0
     ls = _slabs(lsrc, bcsr.block_cols, bcsr.n_block_cols, tk)
@@ -313,8 +315,9 @@ def tile_bwd_dldst_stream_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: in
 
 def tile_bwd_dldst_plain(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
                          slope: float):
-    """B5's function: ``dldst [N, H]`` over the forward tiles, with
-    ``p = mask·exp(e − m_v)`` (``m`` as B3 returned it): B5s's blocks merged."""
+    """B5's and B5s's function: ``dldst [N, H]`` over the forward tiles, with
+    ``p = mask·exp(e − m_v)`` (``m`` as B3 or B4 returned it): the per-tile
+    blocks merged."""
     parts = tile_bwd_dldst_stream_plain(bcsr, lsrc, ldst, s2, m, dnum, dden, h, f, slope)
     return sum_by_block_row(parts, bcsr, s2.shape[0])
 
@@ -691,12 +694,6 @@ def _empty(n, w, like):
     return torch.empty((n, w), dtype=torch.float32, device=like.device)
 
 
-def _blocks(bcsr: BCSR, w, like):
-    """Per-tile outputs ``[T, tm, w]``."""
-    return torch.empty((bcsr.data.shape[0], bcsr.tm, w), dtype=torch.float32,
-                       device=like.device)
-
-
 def _v1_shapes(n, h, f):
     """B3/B5/B6's operand shapes: lsrc, ldst, s2, then m, dnum, dden."""
     return ((n, h), (n, h), (n, h * f), (n, h), (n, h * f), (n, h))
@@ -768,14 +765,16 @@ def tile_fwd_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: floa
 
 def tile_bwd_dldst_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
                                slope: float):
-    """Launch B5s on the current stream; raises on anything it does not take."""
+    """Launch B5s on the current stream → the merged ``dldst [n, H]``,
+    zero-filled, then every tile's rows added in. Raises on anything it does
+    not take."""
     n = s2.shape[0]
     ins = (lsrc, ldst, s2, m, dnum, dden)
     _check_cuda("B5s", bcsr, ins, _v1_shapes(n, h, f), n, f)
-    dldst_t = _blocks(bcsr, h, s2)
-    if bcsr.data.shape[0] and h:
-        _launch_stream("B5s", "gat_tile_bwd_dldst_stream", bcsr, ins, (dldst_t,), h, f, slope)
-    return dldst_t
+    dldst = _zeros(n, h, s2)
+    if bcsr.data.shape[0] and n and h:
+        _launch_stream("B5s", "gat_tile_bwd_dldst_stream", bcsr, ins, (dldst,), h, f, slope)
+    return dldst
 
 
 def tile_bwd_sender_stream_cuda(bcsr_t: BCSR, lsrc, ldst, s2, m, dnum, dden, h: int, f: int,
@@ -862,7 +861,9 @@ def tile_fwd_stream(bcsr, lsrc, ldst, s2, h, f, slope):
 
 
 def tile_bwd_dldst_stream(bcsr, *args):
-    return _pick(tile_bwd_dldst_stream_plain, tile_bwd_dldst_stream_cuda, args[2])(bcsr, *args)
+    """B5s → the merged ``dldst``; on the CPU the plain per-tile blocks
+    summed by block row."""
+    return _pick(tile_bwd_dldst_plain, tile_bwd_dldst_stream_cuda, args[2])(bcsr, *args)
 
 
 def tile_bwd_sender_stream(bcsr_t, *args):
@@ -896,8 +897,8 @@ class GATTilePartials(torch.autograd.Function):
     """Per-receiver attention partials over the tile edges, with the backward
     of ``pygcn_tpu``'s ``custom_vjp``: B3 forward, then B5 over the forward
     tiles and B6 over ``bcsr_t``; or, when :data:`TILE_REVISIT` is False at the
-    forward, B4 (merged), then B5s, merged by :func:`sum_by_block_row`, and B6s
-    (merged). ``m`` carries no gradient."""
+    forward, B4, then B5s and B6s, each merged in its kernel. ``m`` carries no
+    gradient."""
 
     @staticmethod
     def forward(ctx, meta, bcsr, bcsr_t, lsrc, ldst, s2):
@@ -924,7 +925,7 @@ class GATTilePartials(torch.autograd.Function):
             dldst = tile_bwd_dldst(bcsr, *args)
             ds, dlsrc = tile_bwd_sender(bcsr_t, *args)
         else:
-            dldst = sum_by_block_row(tile_bwd_dldst_stream(bcsr, *args), bcsr, s2.shape[0])
+            dldst = tile_bwd_dldst_stream(bcsr, *args)
             ds, dlsrc = tile_bwd_sender_stream(bcsr_t, *args)
         return None, None, None, dlsrc, dldst, ds
 

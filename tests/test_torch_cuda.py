@@ -179,10 +179,9 @@ def test_gat_tile_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
 def test_gat_stream_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf):
-    """B4 and B6s (their merges fused) against their merged plain versions,
-    B5s's per-tile blocks against its plain blocks, on the grid of the
-    revisit kernels' test; B4's ``m`` bit for bit, the block row without
-    edges ``NEG``/0."""
+    """B4, B5s and B6s (their merges fused) against their merged plain
+    versions, on the grid of the revisit kernels' test; B4's ``m`` bit for
+    bit, the block row without edges ``NEG``/0 (and no ``dldst``)."""
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, drop_padding))
     gen = torch.Generator(device=dev).manual_seed(h * 100 + f + 1)
@@ -196,7 +195,7 @@ def test_gat_stream_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf)
     m = ref[2]
     args = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
     got_dl = gta.tile_bwd_dldst_stream(b, *args)
-    ref_dl = gta.tile_bwd_dldst_stream_plain(b, *args)
+    ref_dl = gta.tile_bwd_dldst_plain(b, *args)
     got_snd = gta.tile_bwd_sender_stream(bt, *args)
     ref_snd = gta.tile_bwd_sender_plain(bt, *args)
     torch.cuda.synchronize()
@@ -206,7 +205,7 @@ def test_gat_stream_kernels_match_plain(dev, symmetric, dtype, drop_padding, hf)
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
     assert torch.equal(got[2], m)
     assert (got[2][128:256] == gta.NEG).all() and not got[0][128:256].any()
-    assert not got[1][128:256].any()
+    assert not got[1][128:256].any() and not got_dl[128:256].any()
     if symmetric:
         assert not got_snd[0][128:256].any() and not got_snd[1][128:256].any()
 
@@ -355,9 +354,9 @@ WIDE_SHAPES = [(2, 65), (1, 128)]
 @pytest.mark.parametrize("family", ["B3/B5/B6", "B4/B5s/B6s", "B7/B8/B9"])
 def test_gat_tile_kernels_wide_heads(dev, family, symmetric, dtype, hf):
     """Every GAT tile kernel at per-head widths above 64 (one full 64-column
-    slab and a ragged one, or two full ones) against its plain version (B4 and
-    B6s, whose merges are fused, against the merged ones); each launch is
-    counted."""
+    slab and a ragged one, or two full ones) against its plain version (B4,
+    B5s and B6s, whose merges are fused, against the merged ones); each
+    launch is counted."""
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, True))
     gen = torch.Generator(device=dev).manual_seed(h * 1000 + f)
@@ -375,8 +374,8 @@ def test_gat_tile_kernels_wide_heads(dev, family, symmetric, dtype, hf):
         before = dict(gta.launches)
         m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
         args = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
-        dl = ((gta.tile_bwd_dldst_stream, gta.tile_bwd_dldst_stream_plain) if stream
-              else (gta.tile_bwd_dldst, gta.tile_bwd_dldst_plain))
+        dl = (gta.tile_bwd_dldst_stream if stream else gta.tile_bwd_dldst,
+              gta.tile_bwd_dldst_plain)
         snd = (gta.tile_bwd_sender_stream if stream else gta.tile_bwd_sender,
                gta.tile_bwd_sender_plain)
         pairs = [(fwd[0](b, *args[:3], h, f, 0.2), fwd[1](b, *args[:3], h, f, 0.2)),
@@ -717,15 +716,19 @@ def test_refused_launch_leaves_no_stale_error(dev, monkeypatch):
             torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
 
 
-def b4_b6s_runs(name, b, bt, ops, h, f):
-    """(kernel, merged plain version) of B4 over ``b`` or B6s over ``bt``, each
-    returning a tuple; B6s takes the plain forward's ``m``."""
+def stream_runs(name, b, bt, ops, h, f):
+    """(kernel, merged plain version) of B4 or B5s over ``b`` or B6s over
+    ``bt``, each returning a tuple; B5s and B6s take the plain forward's
+    ``m``."""
     lsrc, ldst, s2, dnum, dden = ops
     if name == "B4":
         return ((lambda: gta.tile_fwd_stream_cuda(b, lsrc, ldst, s2, h, f, 0.2)),
                 (lambda: gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)))
     m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
     bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    if name == "B5s":
+        return ((lambda: (gta.tile_bwd_dldst_stream_cuda(b, *bwd),)),
+                (lambda: (gta.tile_bwd_dldst_plain(b, *bwd),)))
     return ((lambda: gta.tile_bwd_sender_stream_cuda(bt, *bwd)),
             (lambda: gta.tile_bwd_sender_plain(bt, *bwd)))
 
@@ -733,19 +736,19 @@ def b4_b6s_runs(name, b, bt, ops, h, f):
 @pytest.mark.parametrize("hf", [(8, 8), (1, 40), (2, 65), (8, 128)],
                          ids=lambda x: f"{x[0]}x{x[1]}")
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("name", ["B4", "B6s"])
-def test_b4_b6s_long_rows_match_plain(dev, name, dtype, hf):
-    """B4 and B6s on the long-row tile set (its 43-tile block row puts 43
+@pytest.mark.parametrize("name", ["B4", "B5s", "B6s"])
+def test_stream_kernels_long_rows_match_plain(dev, name, dtype, hf):
+    """B4, B5s and B6s on the long-row tile set (its 43-tile block row puts 43
     CTAs' reductions onto the same 128 output rows) and its transpose: within
     1e-4 of the merged plain versions, two launches within 1e-4 of each other
     (the reductions add in no fixed order: not bitwise), B4's ``m`` bit for
-    bit, the block row without tiles ``NEG``/0, and no ``bcsr.cache`` entry
-    (no work items, no counters)."""
+    bit, the block row without tiles ``NEG``/0 (and no ``dldst``), and no
+    ``bcsr.cache`` entry (no work items, no counters)."""
     h, f = hf
     b, n = long_row_gat_tiles(dtype)
     bt = gta.transpose_bcsr(b)
     b, bt = b.to(dev), bt.to(dev)
-    kernel, plain = b4_b6s_runs(name, b, bt, v1_operands(dev, n, h, f, h * 11 + f), h, f)
+    kernel, plain = stream_runs(name, b, bt, v1_operands(dev, n, h, f, h * 11 + f), h, f)
     first, second, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     for x, y, r in zip(first, second, ref):
@@ -756,19 +759,21 @@ def test_b4_b6s_long_rows_match_plain(dev, name, dtype, hf):
         assert torch.equal(first[2], ref[2]) and torch.equal(second[2], ref[2])
         assert (first[2][:128] == gta.NEG).all()
         assert not first[0][:128].any() and not first[1][:128].any()
+    if name == "B5s":
+        assert not first[0][:128].any()
     assert not b.cache and not bt.cache
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("symmetric", [False, True], ids=["asym", "sym"])
-@pytest.mark.parametrize("name", ["B4", "B6s"])
-def test_b4_b6s_at_8_heads_of_128(dev, name, symmetric, dtype):
-    """B4 and B6s at the CLI's default width, 8 heads of 128 (two 64-column
-    slabs a head, B6s's shared memory above 48 KB), against their merged
-    plain versions, on the tile sets without padding tiles."""
+@pytest.mark.parametrize("name", ["B4", "B5s", "B6s"])
+def test_stream_kernels_at_8_heads_of_128(dev, name, symmetric, dtype):
+    """B4, B5s and B6s at the CLI's default width, 8 heads of 128 (two
+    64-column slabs a head), against their merged plain versions, on the
+    tile sets without padding tiles."""
     h, f = 8, 128
     b, bt = (x.to(dev) for x in gat_tiles(symmetric, dtype, True))
-    kernel, plain = b4_b6s_runs(name, b, bt, v1_operands(dev, 300, h, f, 81 + symmetric), h, f)
+    kernel, plain = stream_runs(name, b, bt, v1_operands(dev, 300, h, f, 81 + symmetric), h, f)
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     for x, r in zip(got, ref):
@@ -777,42 +782,98 @@ def test_b4_b6s_at_8_heads_of_128(dev, name, symmetric, dtype):
         assert torch.equal(got[2], ref[2])
 
 
+@pytest.mark.parametrize("hf", GAT_SHAPES + [(2, 65), (8, 128)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tiles", ["asym", "sym", "long_rows"])
+def test_b5s_matches_plain_and_b5(dev, tiles, dtype, hf):
+    """B5s (one CTA per tile for all heads, its rows added into a
+    zero-filled ``[n, H]``) against the merged plain version and against B5
+    (on work items, summed in item order), to 1e-4, on the GAT grid's tile
+    sets without padding tiles and on the long-row set; two launches agree to
+    1e-4 (their reductions add in no fixed order), each counted once."""
+    h, f = hf
+    if tiles == "long_rows":
+        b, n = long_row_gat_tiles(dtype)
+        b = b.to(dev)
+    else:
+        b, n = gat_tiles(tiles == "sym", dtype, True)[0].to(dev), 300
+    lsrc, ldst, s2, dnum, dden = v1_operands(dev, n, h, f, h * 13 + f)
+    m = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)[2]
+    bwd = (lsrc, ldst, s2, m, dnum, dden, h, f, 0.2)
+    before = dict(gta.launches)
+    first = gta.tile_bwd_dldst_stream_cuda(b, *bwd)
+    second = gta.tile_bwd_dldst_stream_cuda(b, *bwd)
+    revisit = gta.tile_bwd_dldst_cuda(b, *bwd)
+    torch.cuda.synchronize()
+    assert {k: gta.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "B5": 1, "B5s": 2}
+    assert first.shape == (n, h)
+    torch.testing.assert_close(first, gta.tile_bwd_dldst_plain(b, *bwd), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(first, revisit, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(second, first, rtol=1e-4, atol=1e-4)
+    empty = 0 if tiles == "long_rows" else 128  # the block row without tiles
+    assert not first[empty:empty + 128].any()
+
+
 def test_b6s_many_heads_match_plain(dev):
     """More heads than B6s stages at once (the receivers' ldst, m and dden of
     all 160 heads of F = 1 outgrow a CTA's shared memory): it walks them in
     groups, restaging between; against the merged plain version."""
     h, f = 160, 1
     b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False))
-    kernel, plain = b4_b6s_runs("B6s", b, bt, v1_operands(dev, 300, h, f, 160), h, f)
+    kernel, plain = stream_runs("B6s", b, bt, v1_operands(dev, 300, h, f, 160), h, f)
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     for x, r in zip(got, ref):
         torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
 
 
-def test_b4_refused_launch_raises(dev):
-    """The logits of a tile's senders for 512 heads need more shared memory
-    than a CTA gets: B4 refuses the launch and raises (no plain fallback, no
-    count), and the next launch matches the merged plain version."""
-    b, bt = (x.to(dev) for x in gat_tiles(False, torch.float32, False))
-    before = gta.launches["B4"]
-    kernel, _ = b4_b6s_runs("B4", b, bt, v1_operands(dev, 300, 512, 1, 13), 512, 1)
-    with pytest.raises(RuntimeError, match="B4 kernel launch failed"):
-        kernel()
-    assert gta.launches["B4"] == before
-    kernel, plain = b4_b6s_runs("B4", b, bt, v1_operands(dev, 300, 2, 4, 14), 2, 4)
-    got, ref = kernel(), plain()
+@pytest.mark.parametrize("tiles", ["asym", "long_rows"])
+@pytest.mark.parametrize("h", [256, 512])
+@pytest.mark.parametrize("name", ["B3", "B4", "B5s"])
+def test_b3_b4_b5s_any_head_count(dev, name, h, tiles):
+    """Fault C5: B3 and B4 staged every head's sender logits at once and
+    refused more than about 224 (B3) or 450 (B4) heads. At 256 and 512 heads
+    of F = 1 they, and B5s, walk their heads in groups, restaging between:
+    each launch counts once and matches its plain version (B4's ``m`` bit for
+    bit), on the small tile set and on the long-row set (B3's split rows
+    merged over 512 heads)."""
+    f = 1
+    if tiles == "long_rows":
+        b, n = long_row_gat_tiles()
+        b = b.to(dev)
+    else:
+        b, n = gat_tiles(False, torch.float32, False)[0].to(dev), 300
+    ops = v1_operands(dev, n, h, f, h + 1)
+    if name == "B3":
+        lsrc, ldst, s2 = ops[:3]
+
+        def kernel():
+            return gta.tile_fwd_cuda(b, lsrc, ldst, s2, h, f, 0.2)
+
+        def plain():
+            return gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)
+    else:
+        kernel, plain = stream_runs(name, b, None, ops, h, f)
+    before = dict(gta.launches)
+    got = kernel()
     torch.cuda.synchronize()
+    assert {k: gta.launches[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), name: 1}
+    ref = plain()
     for x, r in zip(got, ref):
+        assert x.shape == r.shape
         torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
-    assert gta.launches["B4"] == before + 1
+    if name == "B4":
+        assert torch.equal(got[2], ref[2])
 
 
 @pytest.mark.parametrize("hf", [(8, 8), (2, 96)], ids=lambda x: f"{x[0]}x{x[1]}")
-def test_stream_mode_runs_no_merge_for_b4_b6s(dev, monkeypatch, hf):
+def test_stream_mode_runs_no_merge(dev, monkeypatch, hf):
     """``GATTilePartials`` with ``TILE_REVISIT = False`` on CUDA tensors
-    launches B4, B5s and B6s once each, never calls a plain version or
-    :func:`softmax_merge`, and sums by block row only B5s's blocks."""
+    launches B4, B5s and B6s once each and never calls a plain version,
+    :func:`softmax_merge` or :func:`sum_by_block_row`: all three merge in
+    their kernels."""
     def refuse(*_args, **_kw):
         raise AssertionError("a plain version or merge was called for CUDA tensors")
 
@@ -820,10 +881,7 @@ def test_stream_mode_runs_no_merge_for_b4_b6s(dev, monkeypatch, hf):
         if name.endswith("_plain") and name.startswith("tile_"):
             monkeypatch.setattr(gta, name, refuse)
     monkeypatch.setattr(gta, "softmax_merge", refuse)
-    merges = []
-    sum_rows = gta.sum_by_block_row
-    monkeypatch.setattr(gta, "sum_by_block_row",
-                        lambda *a: merges.append(a[0].shape) or sum_rows(*a))
+    monkeypatch.setattr(gta, "sum_by_block_row", refuse)
     monkeypatch.setattr(gta, "TILE_REVISIT", False)
     h, f = hf
     b, bt = (x.to(dev) for x in gat_tiles(True, torch.float32, False))
@@ -834,4 +892,4 @@ def test_stream_mode_runs_no_merge_for_b4_b6s(dev, monkeypatch, hf):
     torch.cuda.synchronize()
     assert {k: gta.launches[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0), "B4": 1, "B5s": 1, "B6s": 1}
-    assert merges == [(b.data.shape[0], 128, h)]  # B5s's dldst_t
+    assert all(torch.isfinite(a.grad).all() for a in args)

@@ -88,6 +88,33 @@ def test_kernel_bits_needs_cuda_and_compares_fingerprints(monkeypatch, tmp_path,
                                 "new_repeats": True}}
 
 
+def test_kernel_bits_reports_a_shape_change(tmp_path, capsys):
+    """``--compare`` on fingerprints whose outputs changed shape between the
+    trees (per-tile blocks ``[T, 128, H]`` in one, merged rows ``[N, H]`` in
+    the other) marks the row ``changed_output`` with both shapes, not an
+    error; rows of one shape, and a file of bits only, compare as before."""
+    import json
+
+    from pygcn_tpu_torch.apps import kernel_bits
+
+    old, new = tmp_path / "old.json", tmp_path / "new.json"
+    old.write_text("building the graph\n" + json.dumps({
+        "B5s 8x8": {"bits": ["a", "a"], "shapes": [[2863, 128, 8]]},
+        "B5 8x8": {"bits": ["b", "b"], "shapes": [[169343, 8]]},
+        "B1 H=40": ["c", "c"]}))
+    new.write_text(json.dumps({
+        "B5s 8x8": {"bits": ["d", "e"], "shapes": [[169343, 8]]},
+        "B5 8x8": {"bits": ["b", "b"], "shapes": [[169343, 8]]},
+        "B1 H=40": {"bits": ["c", "c"], "shapes": [[169343, 40]]}}))
+    rows = kernel_bits.compare(*(json.loads(p.read_text().splitlines()[-1]) for p in (old, new)))
+    assert rows == {
+        "B5s 8x8": {"same_bits": False, "old_repeats": True, "new_repeats": False,
+                    "changed_output": [[[2863, 128, 8]], [[169343, 8]]]},
+        "B5 8x8": {"same_bits": True, "old_repeats": True, "new_repeats": True},
+        "B1 H=40": {"same_bits": True, "old_repeats": True, "new_repeats": True}}
+    assert "changed output: ['B5s 8x8']" in capsys.readouterr().out.splitlines()[1]
+
+
 def _tiny_graph():
     return Graph.from_coo([0, 1, 2], [1, 2, 0], n_nodes=3, build_bcsr=True,
                           build_dense=False, build_hybrid=False, build_ell=False)
