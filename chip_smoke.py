@@ -9,8 +9,12 @@ It builds every CUDA kernel of the port from ``pygcn_tpu_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
 version on the card (the per-tile "stream" kernels, whose merges are fused,
 also against the revisit kernels: B2, B4, B5s and B6s against B1, B3, B5 and
-B6; B3, B4 and B5s also at 256 and 512 heads), holds a small GCN, a small GAT and a small
-GATv2 on the card against the same models on the CPU, and drives the port's
+B6; B3, B4 and B5s also at 256 and 512 heads; every kernel also at tile
+shapes other than 128 x 128, ``check_tile_shapes``), holds a small GCN, a
+small GAT and a small GATv2 on the card against the same models on the CPU,
+runs the Cora CLI (``apps/train_cora``: the dense layout, no tile kernel) in
+its accuracy band and against the CPU, trains a GAT with dropout (its steps
+launch no tile kernel, its evaluation does), and drives the port's
 main paths at the ogbn-arxiv sizes (169,343 nodes, average degree 13.3, the
 hybrid layout) for a few epochs each through ``apps/train_fullgraph
 --clustered``:
@@ -731,6 +735,207 @@ def check_small_gat_reference(torch, v2: bool):
           flush=True)
 
 
+# Tile shapes other than 128 x 128 (``Graph.from_coo(tile=...)``): B1 and B2
+# at sides that are multiples of 8 (rectangular included), the GAT kernels
+# at square sides that are multiples of 32 (160 and 256 cut into panels).
+SPMM_TILES = ((8, 8), (32, 32), (64, 64), (96, 96), (64, 128), (256, 256))
+GAT_SIDES = (32, 64, 96, 160, 256)
+TILE_SHAPE_HF = ((2, 4), (1, 40))
+
+
+def check_tile_shapes(torch):
+    """Every kernel against its plain version at the tile shapes above, on
+    ``apps/time_spmm.shaped_tiles`` sets (a block row without tiles, one
+    split into work items, ragged edges), with each kernel's time there
+    (CUDA events, 10 launches after warm-up)."""
+    import numpy as np
+
+    from pygcn_tpu_torch.apps.time_spmm import shaped_tiles
+    from pygcn_tpu_torch.graph.graph import drop_zero_tiles
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    dev = torch.device("cuda")
+    worst, cases, times = 0.0, 0, {}
+
+    def hold(name, shape, got, ref, fn=None):
+        nonlocal worst, cases
+        for a, r in zip(got, ref):
+            if a.shape != r.shape or not torch.isfinite(a).all():
+                fail(f"{name} at {shape}: shape {tuple(a.shape)} or non-finite values")
+            torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+            worst = max(worst, float((a - r).abs().max()))
+        cases += 1
+        if fn is not None:
+            times[f"{name} {shape}"] = round(cuda_ms(fn, iters=10), 4)
+
+    for tile in SPMM_TILES:
+        for dtype in (torch.float32, torch.bfloat16):
+            b, n_rows, n_cols = shaped_tiles(tile, np.random.default_rng(tile[0]), dtype)
+            b = b.to(dev)
+            gen = torch.Generator(device=dev).manual_seed(tile[1])
+            for h in (40, 128):
+                x = torch.randn(n_cols, h, device=dev, generator=gen)
+                ref = (b1.bcsr_spmm_plain(b, x, n_rows=n_rows),)
+                label = f"{tile[0]}x{tile[1]} {'bf16' if dtype == torch.bfloat16 else 'f32'} H={h}"
+                for name, fn in (("B1", b1.bcsr_spmm_cuda), ("B2", b1.bcsr_spmm_stream_cuda)):
+                    got = (fn(b, x, n_rows=n_rows),)
+                    torch.cuda.synchronize()
+                    if got[0][tile[0]:2 * tile[0]].any():
+                        fail(f"{name} at {label}: the block row without tiles is not zero")
+                    hold(name, label, got, ref,
+                         (lambda fn=fn: fn(b, x, n_rows=n_rows)) if dtype == torch.float32
+                         and h == 128 else None)
+
+    for side in GAT_SIDES:
+        b, n, _ = shaped_tiles((side, side), np.random.default_rng(side), square=True)
+        bt = drop_zero_tiles(gta.transpose_bcsr(b))
+        b, bt = b.to(dev), bt.to(dev)
+        gen = torch.Generator(device=dev).manual_seed(side)
+        for h, f in TILE_SHAPE_HF:
+            label = f"side {side} {h}x{f}"
+            timed = (h, f) == TILE_SHAPE_HF[0]
+            lsrc, ldst, dden = (torch.randn(n, h, device=dev, generator=gen) for _ in range(3))
+            s2, dnum = (torch.randn(n, h * f, device=dev, generator=gen) for _ in range(2))
+            ref = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, SLOPE)
+            bwd = (lsrc, ldst, s2, ref[2], dnum, dden, h, f, SLOPE)
+            for name, fn, args, plain in (
+                    ("B3", gta.tile_fwd_cuda, (b, lsrc, ldst, s2, h, f, SLOPE), ref),
+                    ("B4", gta.tile_fwd_stream_cuda, (b, lsrc, ldst, s2, h, f, SLOPE), ref),
+                    ("B5", gta.tile_bwd_dldst_cuda, (b, *bwd), None),
+                    ("B5s", gta.tile_bwd_dldst_stream_cuda, (b, *bwd), None),
+                    ("B6", gta.tile_bwd_sender_cuda, (bt, *bwd), None),
+                    ("B6s", gta.tile_bwd_sender_stream_cuda, (bt, *bwd), None)):
+                if plain is None:
+                    plain = ((gta.tile_bwd_dldst_plain(b, *bwd),) if name.startswith("B5")
+                             else gta.tile_bwd_sender_plain(bt, *bwd))
+                got = fn(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                torch.cuda.synchronize()
+                if name == "B4" and not torch.equal(got[2], ref[2]):
+                    fail(f"B4 at {label}: m differs from the plain version's")
+                hold(name, label, got, plain, (lambda fn=fn, args=args: fn(*args))
+                     if timed else None)
+            sl2, sr2 = (torch.randn(n, h * f, device=dev, generator=gen) for _ in range(2))
+            a = torch.randn(h, f, device=dev, generator=gen) / f ** 0.5
+            ref = gta.tile_v2_fwd_plain(b, sl2, sr2, a, h, f, SLOPE)
+            bwd = (sl2, sr2, a, ref[2], dnum, dden, h, f, SLOPE)
+            for name, fn, args, plain in (
+                    ("B7", gta.tile_v2_fwd_cuda, (b, sl2, sr2, a, h, f, SLOPE), ref),
+                    ("B8", gta.tile_v2_bwd_recv_cuda, (b, *bwd),
+                     gta.tile_v2_bwd_recv_plain(b, *bwd)),
+                    ("B9", gta.tile_v2_bwd_send_cuda, (bt, *bwd),
+                     (gta.tile_v2_bwd_send_plain(bt, *bwd),))):
+                got = fn(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                torch.cuda.synchronize()
+                hold(name, label, got, plain, (lambda fn=fn, args=args: fn(*args))
+                     if timed else None)
+            empty = slice(side, 2 * side)  # block row 1 has no tile
+            if (ref[2][empty] != gta.NEG).any():
+                fail(f"shaped GAT set at side {side}: block row 1 is not empty")
+    print(f"tile shapes: {cases} kernel cases within rtol=atol={RTOL} (B1/B2 f32 and bf16 at "
+          f"{', '.join(f'{a}x{b}' for a, b in SPMM_TILES)}, H = 40 and 128; B3-B9, B4, B5s and "
+          f"B6s at sides {', '.join(map(str, GAT_SIDES))}, heads x width "
+          f"{', '.join(f'{a}x{b}' for a, b in TILE_SHAPE_HF)}); max abs err {worst:.3e}",
+          flush=True)
+    print("tile-shape times (ms, B1/B2 at f32 H=128, GAT at 2x4): " + json.dumps(times),
+          flush=True)
+
+
+# The Cora CLI at its defaults (the synthetic SBM stand-in: 1500 nodes, 7
+# classes, 256 features; 200 epochs): accuracy must clear the JAX CLI test's
+# band. Dense layout: no hand-written kernel.
+CORA_BAND = 0.6
+
+
+def run_cora(torch):
+    """``apps/train_cora`` on the card at its defaults, in the accuracy band,
+    launching no tile kernel; with ``--dropout 0`` its final loss within 1e-4
+    of the same run on the CPU."""
+    from pygcn_tpu_torch.apps import train_cora
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    b1.launches = b1.stream_launches = 0
+    for k in gta.launches:
+        gta.launches[k] = 0
+    base = ["--data_dir", os.path.join(HERE, "no_such_dir"), "--fastmode"]  # the SBM
+    t0 = time.time()
+    card = train_cora.train(train_cora.parse_args(base))
+    card_s = time.time() - t0
+    tile_launches = b1.launches + b1.stream_launches + sum(gta.launches.values())
+    on_card, on_cpu = (train_cora.train(train_cora.parse_args(base + ["--dropout", "0",
+                                                                      "--device", dev]))
+                       for dev in ("cuda", "cpu"))
+    diff = abs(on_card["loss"] - on_cpu["loss"])
+    print(f"cora: train_cora on the card at its defaults (SBM 1500 nodes, 200 epochs, dropout "
+          f"0.5): test accuracy {card['test_acc']:.4f} (band > {CORA_BAND}), loss "
+          f"{card['loss']:.6f}, {card_s:.2f}s; tile-kernel launches {tile_launches} (dense "
+          f"layout); --dropout 0: final loss card {on_card['loss']:.7f}, CPU "
+          f"{on_cpu['loss']:.7f}, |diff| {diff:.3e}", flush=True)
+    if not card["test_acc"] > CORA_BAND:
+        fail(f"train_cora test accuracy {card['test_acc']} not above {CORA_BAND}")
+    if tile_launches:
+        fail(f"train_cora launched {tile_launches} tile kernels on the dense layout")
+    if not diff <= 1e-4:
+        fail(f"train_cora --dropout 0: card and CPU final losses differ by {diff}")
+
+
+def run_gat_dropout(torch):
+    """A GAT trained with dropout on the hybrid layout: its training steps
+    take the slot path (JAX's routing) and launch no tile kernel; its
+    evaluation launches B3 once per layer."""
+    import numpy as np
+
+    from pygcn_tpu_torch.apps.train_fullgraph import train_step
+    from pygcn_tpu_torch.graph.datasets import community_classification
+    from pygcn_tpu_torch.nn.gat import GAT
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+    from pygcn_tpu_torch.ops.gat import build_edge_map, build_gat_tiles_t
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    data = community_classification(n=3000, avg_degree=10, n_classes=5, feat_dim=32,
+                                    seed=1, build_dense=False, build_ell=True,
+                                    build_hybrid=True, hybrid_min_edges_per_tile=64)
+    if data.graph.hybrid.bcsr is None:
+        fail("GAT dropout graph has no tiles")
+    dev = torch.device("cuda")
+    kw = dict(edge_map=build_edge_map(data.graph).to(dev), hybrid_tiles=True,
+              tiles_t=build_gat_tiles_t(data.graph).to(dev))
+    g = data.graph.to(dev)
+    x = torch.from_numpy(data.features).to(dev)
+    labels = torch.from_numpy(data.labels.astype(np.int64)).to(dev)
+    mask = torch.zeros(g.n_nodes, device=dev)
+    mask[torch.from_numpy(data.idx_train.astype(np.int64)).to(dev)] = 1.0
+    model = GAT(32, 8, 5, heads=8, dropout=0.5,
+                generator=torch.Generator().manual_seed(3)).to(dev)
+    opt = adam_l2(model.parameters(), 0.01)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for k in gta.launches:
+        gta.launches[k] = 0
+    model.train()
+    losses = [float(train_step(model, opt, x, labels, mask, g, dropout_generator=gen, **kw))
+              for _ in range(3)]
+    torch.cuda.synchronize()
+    train_launches = dict(gta.launches)
+    model.eval()
+    with torch.no_grad():
+        logp = model(x, g, **kw)
+    torch.cuda.synchronize()
+    eval_launches = {k: gta.launches[k] - train_launches[k] for k in gta.launches}
+    print(f"GAT with dropout 0.5 on the hybrid layout: 3 training steps (losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}) launched {sum(train_launches.values())} "
+          f"tile kernels (the slot path); evaluation launched {eval_launches}", flush=True)
+    if any(train_launches.values()):
+        fail(f"GAT training with dropout launched tile kernels: {train_launches}")
+    if eval_launches != {**dict.fromkeys(gta.launches, 0), "B3": 2}:
+        fail(f"GAT evaluation launched {eval_launches}, expected B3 twice")
+    if not all(map(math.isfinite, losses)) or not torch.isfinite(logp).all():
+        fail("GAT with dropout: non-finite loss or log-probs")
+
+
 def run_main_path(torch, epochs):
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
@@ -1291,6 +1496,9 @@ def main() -> None:
     phase("small_gcn_reference", check_small_reference, torch)
     phase("small_gat_reference", check_small_gat_reference, torch, False)
     phase("small_gatv2_reference", check_small_gat_reference, torch, True)
+    phase("check_tile_shapes", check_tile_shapes, torch)
+    phase("cora", run_cora, torch)
+    phase("gat_dropout", run_gat_dropout, torch)
     graph, launches = phase("gcn_main_path", run_main_path, torch, EPOCHS)
     timing = phase("time_b1_b2", time_b1, torch, graph)
     del graph

@@ -8,7 +8,7 @@ the card, each kernel twice, and prints one JSON object: for each kernel and
 shape the SHA-256 of its outputs' bytes in each launch (``bits``) and the
 outputs' shapes (``shapes``). The backward kernels take the plain forward's
 ``m``. B2, B4, B5s and B6s add with atomics, so their bits are not expected
-to repeat. The JSON object is the last line of the output (building the
+to repeat; B4's ``m`` alone (``B4 m``, its float atomic max) is. The JSON object is the last line of the output (building the
 graph prints before it). Run from the root of a checkout, or with
 ``PYTHONPATH=<an earlier checkout>`` for that checkout's kernels::
 
@@ -84,6 +84,8 @@ def fingerprints() -> dict:
         run(f"B5 {shape}", lambda: gta.tile_bwd_dldst_cuda(bcsr, *bwd))
         run(f"B6 {shape}", lambda: gta.tile_bwd_sender_cuda(tiles_t, *bwd))
         run(f"B4 {shape}", lambda: gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE))
+        run(f"B4 m {shape}",
+            lambda: gta.tile_fwd_stream_cuda(bcsr, lsrc, ldst, s2, h, f, SLOPE)[2])
         run(f"B5s {shape}", lambda: gta.tile_bwd_dldst_stream_cuda(bcsr, *bwd))
         run(f"B6s {shape}", lambda: gta.tile_bwd_sender_stream_cuda(tiles_t, *bwd))
         sl2, sr2 = (torch.randn(n, h * f, device="cuda", generator=gen) for _ in range(2))

@@ -24,8 +24,8 @@ path::
     PYTHONPATH=<earlier checkout> python3 pygcn_tpu_torch/apps/time_spmm.py --label parent
 
 The module also holds what ``chip_smoke.py`` and the tests share about these
-kernels: the bound, the tiles without their longest row, and the long-row
-tile set.
+kernels: the bound, the tiles without their longest row, the long-row tile
+set and the tile sets of other tile shapes (:func:`shaped_tiles`).
 """
 
 from __future__ import annotations
@@ -112,6 +112,42 @@ def long_row_tiles(c, rng, dtype=torch.float32):
         raise ValueError(f"long-row tile set has {per_row} tiles per block row, "
                          f"want {long_row_counts(c)}")
     return dataclasses.replace(b, data=b.data.to(dtype)), *m.shape
+
+
+# Tiles per block row of :func:`shaped_tiles`: two (one work item at C = 2),
+# none, one, five (split into items) and three.
+SHAPED_COUNTS = (2, 0, 1, 5, 3)
+
+
+def shaped_tiles(tile, rng, dtype=torch.float32, square=False):
+    """A tile set of ``tile = (tm, tk)`` tiles for the kernels' checks at any
+    tile shape: block row ``r`` has :data:`SHAPED_COUNTS` ``[r]`` tiles in
+    random block columns of five (``square``: a square matrix, the GAT
+    kernels' case) or seven, each about 7% full as the flagship's tiles are
+    (at least two entries), the last block row and column ragged, the row
+    without tiles without a padding tile. Returns ``(bcsr, n_rows,
+    n_cols)``."""
+    import scipy.sparse as sp
+
+    from pygcn_tpu_torch.graph.graph import _build_bcsr, drop_zero_tiles
+
+    tm, tk = tile
+    n_bc = len(SHAPED_COUNTS) if square else 7
+    n_rows, n_cols = tm * len(SHAPED_COUNTS) - 3, tk * n_bc - 3
+    if square:
+        n_rows = n_cols = min(n_rows, n_cols)
+    per_tile = max(2, tm * tk * 7 // 100)
+    rows, cols = [], []
+    for r, k in enumerate(SHAPED_COUNTS):
+        for bc in rng.choice(n_bc, size=k, replace=False):
+            rows.append(r * tm + rng.integers(0, tm, per_tile))
+            cols.append(bc * tk + rng.integers(0, tk, per_tile))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    keep = (rows < n_rows) & (cols < n_cols)
+    m = sp.coo_matrix((rng.standard_normal(int(keep.sum())).astype(np.float32),
+                       (rows[keep], cols[keep])), shape=(n_rows, n_cols))
+    b = drop_zero_tiles(_build_bcsr(m.tocsr().tocoo(), tile))
+    return dataclasses.replace(b, data=b.data.to(dtype)), n_rows, n_cols
 
 
 def _peak_above(fn) -> int:

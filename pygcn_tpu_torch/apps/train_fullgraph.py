@@ -7,7 +7,10 @@ N-layer GCN over the sparse engine), ``--model gat`` (the 2-layer GAT of
 families ``--model sage``, ``gin`` and ``appnp`` (``nn/sage.py``,
 ``nn/gin.py``), with Adam with L2 decay and masked NLL. Without
 ``--clustered`` it times epochs on a synthetic Chung-Lu power-law graph with
-random labels. With ``--clustered`` it runs the convergence flagship: a
+random labels, or on a labelled dataset (``--npz``, or ``--content`` with
+``--cites``), then reports its validation and test accuracy. With
+``--clustered`` it runs the convergence flagship (from a pre-built, already
+ordered ``--npz`` file when one is given): a
 learnable community-classification graph with shuffled ids, locality
 ordering (native label propagation when graphkit loads, else BFS), the
 hybrid BCSR+ELL layout whose tiles run on kernel B1 (GCN, SAGE, GIN, APPNP;
@@ -25,6 +28,7 @@ Usage::
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gat --hidden 8
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gatv2 --hidden 8
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model sage
+    python -m pygcn_tpu_torch.apps.train_fullgraph --npz data/arxiv.npz --epochs 50
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from pygcn_tpu_torch.nn.gat import GAT
 from pygcn_tpu_torch.nn.gin import APPNP, GIN
 from pygcn_tpu_torch.nn.layers import GraphConv
 from pygcn_tpu_torch.nn.sage import SAGE
+from pygcn_tpu_torch.train.loop import masked_nll
 
 # --model sage|gin|appnp: the JAX package's 2-layer extension families
 EXTENSION_MODELS = {"sage": SAGE, "gin": GIN, "appnp": APPNP}
@@ -78,11 +83,6 @@ class GCN(nn.Module):
             else:
                 h = self._layer(layer, h, graph, is_last)
         return F.log_softmax(h, dim=1)
-
-
-def masked_nll(logp: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    per_node = -logp.gather(1, labels[:, None])[:, 0]
-    return (per_node * mask).sum() / mask.sum()
 
 
 def train_step(model: nn.Module, opt: torch.optim.Optimizer, x, labels, mask, graph,
@@ -146,17 +146,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max_epochs", type=int, default=200)
     ap.add_argument("--eval_every", type=int, default=1)
     ap.add_argument("--max_wall_s", type=float, default=None)
-    ap.add_argument("--npz", default=None, help="not ported yet")
-    ap.add_argument("--content", default=None, help="not ported yet")
-    ap.add_argument("--cites", default=None, help="not ported yet")
+    ap.add_argument("--npz", default=None,
+                    help="train on a dataset in the .npz interchange format "
+                         "(graph.datasets.load_npz_dataset); with --clustered, a "
+                         "pre-built, already ordered convergence dataset")
+    ap.add_argument("--content", default=None,
+                    help="Planetoid .content file (with --cites: Cora-format data)")
+    ap.add_argument("--cites", default=None, help="Planetoid .cites file")
     args = ap.parse_args(argv)
     if args.model not in ("gcn", "gat", "gatv2", *EXTENSION_MODELS):
         raise SystemExit(f"--model {args.model}: not ported yet "
                          "(gcn, gat, gatv2, sage, gin and appnp are)")
     if args.shards != 1:
         raise SystemExit("--shards > 1: not ported yet")
-    if args.npz or args.content or args.cites:
-        raise SystemExit("--npz / --content / --cites: not ported yet")
     if args.avg_degree is None:
         args.avg_degree = 13.3 if args.clustered else 7.1
     return args
@@ -168,7 +170,7 @@ class Setup:
 
     device: torch.device
     graph: Graph
-    data: object  # NodeClassificationData with --clustered, else None
+    data: object  # NodeClassificationData (--clustered, --npz, --content/--cites), else None
     x: torch.Tensor
     labels: torch.Tensor
     mask: torch.Tensor
@@ -179,23 +181,29 @@ class Setup:
 
 
 def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim: int,
-                      seed: int, *, attention: bool):
+                      seed: int, *, attention: bool, npz: Optional[str] = None):
     """The ``--clustered`` data on the host: community classification with
-    shuffled ids, locality ordering, then the layouts of the
+    shuffled ids and locality ordering (or, when ``npz`` names a file, that
+    pre-built, already ordered dataset as it is), then the layouts of the
     ``Graph.from_coo`` auto-policy on the ordered ids (the hybrid layout at
     ``hybrid_min_edges_per_tile=64`` between 8K and 1M nodes). ``attention``
     builds what the GAT needs as well: the ELL slot path and the hybrid tiles."""
-    from pygcn_tpu_torch.graph.datasets import community_classification
+    import os
+
+    from pygcn_tpu_torch.graph.datasets import community_classification, load_npz_dataset
     from pygcn_tpu_torch.parallel.partition import locality_order, reorder_dataset
     from pygcn_tpu_torch.utils import native
 
     t0 = time.time()
-    data = community_classification(
-        n=n_nodes, avg_degree=avg_degree, n_classes=n_classes, feat_dim=feat_dim, seed=seed,
-        build_dense=False, build_bcsr=False, build_ell=False,
-        build_hybrid=False, build_colpanel=False,
-    )
-    data = reorder_dataset(data, locality_order(data.graph, "auto"))
+    bare = dict(build_dense=False, build_bcsr=False, build_ell=False, build_hybrid=False,
+                build_colpanel=False)
+    if npz and os.path.exists(npz):
+        data = load_npz_dataset(npz, **bare)
+    else:
+        data = community_classification(
+            n=n_nodes, avg_degree=avg_degree, n_classes=n_classes, feat_dim=feat_dim,
+            seed=seed, **bare)
+        data = reorder_dataset(data, locality_order(data.graph, "auto"))
     kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
               hybrid_min_edges_per_tile=64)
     if attention:
@@ -229,10 +237,20 @@ def prepare(args: argparse.Namespace) -> Setup:
     tile_frac = None
     if args.clustered:
         data = clustered_dataset(args.n_nodes, args.avg_degree, args.n_classes, args.feat_dim,
-                                 args.seed, attention=args.model in ("gat", "gatv2"))
+                                 args.seed, attention=args.model in ("gat", "gatv2"),
+                                 npz=args.npz)
+        if data.graph.hybrid is not None:
+            tile_frac = data.graph.hybrid.tile_edges / data.graph.n_edges
+    elif args.npz:
+        from pygcn_tpu_torch.graph.datasets import load_npz_dataset
+
+        data = load_npz_dataset(args.npz, build_dense=False, build_bcsr=False)
+    elif args.content and args.cites:
+        from pygcn_tpu_torch.graph.datasets import load_planetoid
+
+        data = load_planetoid(args.content, args.cites, build_dense=False, build_bcsr=False)
+    if data is not None:
         graph = data.graph
-        if graph.hybrid is not None:
-            tile_frac = graph.hybrid.tile_edges / graph.n_edges
         x = torch.from_numpy(data.features)
         labels = torch.from_numpy(data.labels.astype(np.int64))
         mask = torch.zeros(graph.n_nodes)
@@ -295,8 +313,9 @@ def main(argv=None):
     """Run the CLI. With ``--clustered`` returns a dict of the run's results
     (accuracies, step and evaluation counts, ``tile_frac``, the ``graph`` on
     its device, for the GAT its ``edge_map``, ``hybrid_tiles`` and
-    ``tiles_t``, and, with ``--memstats``, ``peak_mem_bytes``); else the
-    seconds per epoch."""
+    ``tiles_t``, and, with ``--memstats``, ``peak_mem_bytes``); on a
+    labelled dataset (``--npz``, ``--content``/``--cites``) the dict
+    ``{"dt", "val", "test"}``; else the seconds per epoch."""
     args = parse_args(argv)
     run = prepare(args)
     device = run.device
@@ -316,6 +335,8 @@ def main(argv=None):
         result.update(tile_frac=run.tile_frac, graph=run.graph, **run.fwd_kw)
     else:
         result = _time_epochs(args, run.graph, run_step)
+        if run.data is not None:
+            result = {"dt": result, **_report_accuracy(run.data, predict)}
     if args.memstats:
         if device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(device)
@@ -341,6 +362,18 @@ def _time_epochs(args, graph, run_step):
     print(f"epoch time: {dt * 1e3:.1f} ms  loss={loss_val:.4f}  "
           f"~{graph.n_edges * spmm_equiv / dt / 1e6:.0f} Medge-traversals/s")
     return dt
+
+
+def _report_accuracy(data, predict) -> dict:
+    """Validation and test accuracy of the trained model on a labelled
+    dataset, printed and returned as ``{"val", "test"}``."""
+    preds = predict().argmax(dim=1).cpu().numpy()
+    labels = np.asarray(data.labels)
+    accs = {}
+    for split, idx in (("val", data.idx_val), ("test", data.idx_test)):
+        accs[split] = float((preds[idx] == labels[idx]).mean())
+        print(f"{split} accuracy: {accs[split]:.4f}")
+    return accs
 
 
 def _run_convergence(args, data, run_step, predict):

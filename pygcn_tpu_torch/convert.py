@@ -13,7 +13,10 @@ on. The SAGE, GIN and APPNP trees of ``pygcn_tpu.nn.sage`` and
 ``{"gin1": {"mlp": {"w1", "b1", "w2", "b2"}, "eps"}, ...}``,
 ``{"mlp": {...}}``) map onto the state dicts of
 :mod:`pygcn_tpu_torch.nn.sage` and :mod:`pygcn_tpu_torch.nn.gin` by joining
-their keys with dots (:func:`tree_to_state_dict`). The two random generators
+their keys with dots (:func:`tree_to_state_dict`). ``KipfGCN``'s tree
+``{"gc1" | "gc2": {"w", "b"}}`` maps onto
+:class:`~pygcn_tpu_torch.nn.models.KipfGCN`'s ``gc1.weight``, ``gc1.bias``
+and so on (:func:`kipf_params_to_state_dict`). The two random generators
 differ, so tests start both packages from one set of weights carried across
 here. Arrays go through NumPy; nothing of JAX is imported.
 """
@@ -86,3 +89,23 @@ def state_dict_to_tree(state) -> dict:
             node = node.setdefault(name, {})
         node[leaf] = value.detach().cpu().numpy().copy()
     return tree
+
+
+KIPF_LAYERS = ("gc1", "gc2")
+
+
+def kipf_params_to_state_dict(params) -> dict:
+    """JAX-side ``KipfGCN`` tree ``{"gc1", "gc2"}`` of ``{"w", "b"}`` → state
+    dict of :class:`~pygcn_tpu_torch.nn.models.KipfGCN`."""
+    state = {}
+    for layer in KIPF_LAYERS:
+        state[f"{layer}.weight"] = torch.from_numpy(np.array(params[layer]["w"], np.float32))
+        state[f"{layer}.bias"] = torch.from_numpy(np.array(params[layer]["b"], np.float32))
+    return state
+
+
+def state_dict_to_kipf_params(state) -> dict:
+    """``KipfGCN`` state dict → the JAX-side tree of NumPy arrays."""
+    return {layer: {"w": state[f"{layer}.weight"].detach().cpu().numpy().copy(),
+                    "b": state[f"{layer}.bias"].detach().cpu().numpy().copy()}
+            for layer in KIPF_LAYERS}

@@ -1,6 +1,6 @@
 // Kernels B1 and B2 for Hopper (sm_90a): block-sparse SpMM over BCSR tiles,
 //
-//   y[:n_rows, :h] = sum over tiles t of  data[t] @ x[bc[t]*TK : +TK, :]
+//   y[:n_rows, :h] = sum over tiles t of  data[t] @ x[bc[t]*tk : +tk, :]
 //                    added into block row br[t].
 //
 // B1 replaces the TPU kernel pygcn_tpu/ops/pallas/bcsr_spmm.py:_kernel, whose
@@ -49,6 +49,15 @@
 // columns. No parts array and no separate merge; the order of the sums, and
 // so the last bits, vary from run to run.
 //
+// Tile shapes: the kernels are compiled for 128 x 128 tiles, the fast case,
+// and (ANY) for any tm x tk whose sides are multiples of 8, read at run time.
+// A CTA covers a panel of at most TM = 128 rows of a tile, so a tile taller
+// than 128 rows takes ceil(tm / 128) CTAs (blockIdx.z), each with its own
+// arrival counters; panel rows past tm are staged as zeros and never written.
+// The k loop takes ceil(tk / BK) chunks a tile, columns past tk (and the x
+// rows under them) staged as zeros. A multiple of 8 keeps every 16-byte
+// cp.async row segment wholly inside or outside the tile, for f32 and bf16.
+//
 // Ragged shapes: output rows past n_rows and columns past h are not written.
 // x, y and the workspace take 16-byte accesses when h is a multiple of 4 and
 // they are 16-byte aligned, element accesses otherwise. Tiles must be 16-byte
@@ -62,8 +71,8 @@
 
 namespace {
 
-constexpr int TM = 128;  // tile rows (output rows of a block row)
-constexpr int TK = 128;  // tile columns (x rows per tile)
+constexpr int TM = 128;  // tile rows of one CTA's panel (all of a 128 x 128 tile)
+constexpr int TK = 128;  // tile columns of the fast case
 constexpr int BK = 32;   // tile columns per pipeline stage
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
@@ -174,12 +183,15 @@ __device__ __forceinline__ void put4(float* dst, float4 v, int col, int h) {
 // tiles [begin, end) of block row `row`; `slot` -1 for a row of one item, else
 // this item's partial in ws, whose row's partials are slots first .. first +
 // parts - 1 and whose arrival counter is counters[blockIdx.y * n_slots + first]).
-template <typename T, int WN, bool VEC, bool STREAM>
+// ANY: tiles of tm x tk (blockIdx.z the panel of TM rows); else 128 x 128
+// and tm, tk are not read.
+template <typename T, int WN, bool VEC, bool STREAM, bool ANY>
 __global__ void __launch_bounds__(THREADS, 2)
 bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
                  const int* __restrict__ block_cols, const int* __restrict__ items,
                  const float* __restrict__ x, float* __restrict__ out, float* __restrict__ ws,
-                 int* __restrict__ counters, int n_slots, int n_rows, int n_cols, int h) {
+                 int* __restrict__ counters, int n_slots, int n_rows, int n_cols, int h, int tm,
+                 int tk) {
   using S = Shape<T, WN>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const As = reinterpret_cast<T*>(smem);
@@ -192,6 +204,11 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
   const int wm = warp % S::WM, wn = warp / S::WM;
   const int n0 = blockIdx.y * S::BN;
   const int wcol = n0 + wn * 64;  // first output column of this warp
+  const int tile_m = ANY ? tm : TM, tile_k = ANY ? tk : TK;
+  const int panel = ANY ? static_cast<int>(blockIdx.z) : 0;
+  const int prow0 = panel * TM;                          // first tile row of the panel
+  const int prows = ANY ? min(TM, tile_m - prow0) : TM;  // rows of the panel
+  const int chunks = ANY ? (tile_k + BK - 1) / BK : CHUNKS_PER_TILE;  // k chunks a tile
 
   int begin, end, row, slot = -1, first = 0, parts = 1;
   if constexpr (STREAM) {
@@ -207,7 +224,7 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
     first = it[4];
     parts = it[5];
   }
-  const int n_chunks = (end - begin) * CHUNKS_PER_TILE;
+  const int n_chunks = (end - begin) * chunks;
 
   float acc[S::MT][S::NT][4];
 #pragma unroll
@@ -217,12 +234,13 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
 #pragma unroll
       for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
 
-  // Chunk c (tile begin + c / CHUNKS_PER_TILE, tile columns k0 .. k0 + BK)
-  // into ring stage `stage`.
+  // Chunk c (tile begin + c / chunks, tile columns k0 .. k0 + BK) into ring
+  // stage `stage`: the panel's rows, zero past the tile's.
   auto load = [&](int c, int stage) {
-    const int tile = begin + c / CHUNKS_PER_TILE;
-    const int k0 = (c % CHUNKS_PER_TILE) * BK;
-    const T* src = data + static_cast<size_t>(tile) * TM * TK + k0;
+    const int tile = begin + c / chunks;
+    const int k0 = (c % chunks) * BK;
+    const T* src = data + static_cast<size_t>(tile) * tile_m * tile_k +
+                   static_cast<size_t>(prow0) * tile_k + k0;
     T* a_dst = As + stage * S::A_STAGE;
     constexpr int A_SEG = 16 / static_cast<int>(sizeof(T));  // elements per copy
     constexpr int A_ROW_SEGS = BK / A_SEG;
@@ -230,9 +248,10 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
     for (int i = 0; i < TM * A_ROW_SEGS / THREADS; ++i) {
       const int idx = tid + i * THREADS;
       const int r = idx / A_ROW_SEGS, e = (idx % A_ROW_SEGS) * A_SEG;
-      cp_async16(a_dst + r * S::A_STRIDE + e, src + r * TK + e, true);
+      const bool ok = !ANY || (r < prows && k0 + e < tile_k);
+      cp_async16(a_dst + r * S::A_STRIDE + e, ok ? src + r * tile_k + e : data, ok);
     }
-    const long long x_row0 = static_cast<long long>(block_cols[tile]) * TK + k0;
+    const long long x_row0 = static_cast<long long>(block_cols[tile]) * tile_k + k0;
     float* x_dst = Xs + stage * S::X_STAGE;
     if constexpr (VEC) {
       constexpr int ROW_SEGS = S::BN / 4;
@@ -241,7 +260,7 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
         const int idx = tid + i * THREADS;
         const int k = idx / ROW_SEGS, e = (idx % ROW_SEGS) * 4;
         const long long xr = x_row0 + k;
-        const bool ok = xr < n_cols && n0 + e < h;
+        const bool ok = xr < n_cols && n0 + e < h && (!ANY || k0 + k < tile_k);
         cp_async16(x_dst + k * S::X_STRIDE + e, ok ? x + xr * h + n0 + e : x, ok);
       }
     } else {
@@ -250,7 +269,7 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
         const int idx = tid + i * THREADS;
         const int k = idx / S::BN, e = idx % S::BN;
         const long long xr = x_row0 + k;
-        const bool ok = xr < n_cols && n0 + e < h;
+        const bool ok = xr < n_cols && n0 + e < h && (!ANY || k0 + k < tile_k);
         cp_async4(x_dst + k * S::X_STRIDE + e, ok ? x + xr * h + n0 + e : x, ok);
       }
     }
@@ -341,31 +360,35 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
         const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
         const float4 v = odd ? make_float4(r0, r1, c[2], c[3]) : make_float4(c[0], c[1], r0, r1);
         const int col = wcol + nt * 8 + (t4 >> 1) * 4;
-        if (col < h) put((wm * S::MT + mt) * 16 + g + (odd ? 8 : 0), col, v);
+        const int r = (wm * S::MT + mt) * 16 + g + (odd ? 8 : 0);  // row of the panel
+        if (col < h && (!ANY || r < prows)) put(r, col, v);
       }
   };
 
+  const long long y_row0 = static_cast<long long>(row) * tile_m + prow0;  // the panel's first
   if constexpr (STREAM) {
     emit([&](int r, int col, float4 v) {
-      const long long yr = static_cast<long long>(row) * TM + r;
+      const long long yr = y_row0 + r;
       if (yr < n_rows) put4<VEC, true>(out + yr * h + col, v, col, h);
     });
     return;
   } else {
     if (slot < 0) {
       emit([&](int r, int col, float4 v) {
-        const long long yr = static_cast<long long>(row) * TM + r;
+        const long long yr = y_row0 + r;
         if (yr < n_rows) put4<VEC, false>(out + yr * h + col, v, col, h);
       });
       return;
     }
     emit([&](int r, int col, float4 v) {
-      put4<VEC, false>(ws + (static_cast<long long>(slot) * TM + r) * h + col, v, col, h);
+      put4<VEC, false>(ws + (static_cast<long long>(slot) * tile_m + prow0 + r) * h + col, v,
+                       col, h);
     });
     __threadfence();
     __syncthreads();
     if (tid == 0) {
-      int* counter = counters + static_cast<size_t>(blockIdx.y) * n_slots + first;
+      int* counter =
+          counters + (static_cast<size_t>(panel) * gridDim.y + blockIdx.y) * n_slots + first;
       const int arrived = atomicAdd(counter, 1) + 1;
       last_arrival = arrived == parts;
       if (arrived == parts) *counter = 0;  // every part has arrived: ready for the next launch
@@ -376,11 +399,11 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
     // The last CTA of the row sums its partials in item order: the same bits
     // whichever CTA arrives last.
     const int cols = min(S::BN, h - n0);
-    const long long rows_left = static_cast<long long>(n_rows) - static_cast<long long>(row) * TM;
-    const int rows = rows_left < TM ? static_cast<int>(rows_left) : TM;  // <= 0: none
-    const float* base = ws + static_cast<long long>(first) * TM * h + n0;
-    const long long part_stride = static_cast<long long>(TM) * h;
-    float* dst = out + static_cast<long long>(row) * TM * h + n0;
+    const long long rows_left = static_cast<long long>(n_rows) - y_row0;
+    const int rows = rows_left < prows ? static_cast<int>(rows_left) : prows;  // <= 0: none
+    const float* base = ws + (static_cast<long long>(first) * tile_m + prow0) * h + n0;
+    const long long part_stride = static_cast<long long>(tile_m) * h;
+    float* dst = out + y_row0 * h + n0;
     if constexpr (VEC) {
       const int quads = cols / 4;
       for (int idx = tid; idx < rows * quads; idx += THREADS) {
@@ -406,89 +429,98 @@ bcsr_spmm_kernel(const T* __restrict__ data, const int* __restrict__ block_rows,
   }
 }
 
-template <typename T, int WN, bool VEC, bool STREAM>
+template <typename T, int WN, bool VEC, bool STREAM, bool ANY>
 int launch_one(const void* data, const void* block_rows, const void* block_cols,
                const void* items, const void* x, void* out, void* ws, void* counters,
-               int grid_x, int n_slots, int n_rows, int n_cols, int h, void* stream) {
+               int grid_x, int n_slots, int n_rows, int n_cols, int h, int tm, int tk,
+               void* stream) {
   using S = Shape<T, WN>;
-  auto kernel = bcsr_spmm_kernel<T, WN, VEC, STREAM>;
+  auto kernel = bcsr_spmm_kernel<T, WN, VEC, STREAM, ANY>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(grid_x, (h + S::BN - 1) / S::BN);
+  const dim3 grid(grid_x, (h + S::BN - 1) / S::BN, ANY ? (tm + TM - 1) / TM : 1);
   kernel<<<grid, THREADS, S::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const int*>(block_rows),
       static_cast<const int*>(block_cols), static_cast<const int*>(items),
       static_cast<const float*>(x), static_cast<float*>(out), static_cast<float*>(ws),
-      static_cast<int*>(counters), n_slots, n_rows, n_cols, h);
+      static_cast<int*>(counters), n_slots, n_rows, n_cols, h, tm, tk);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // grid_x CTAs down: work items (B1) or tiles (B2, STREAM). The 64-column
-// variant serves H <= 64; wider H takes 128-column CTAs.
+// variant serves H <= 64; wider H takes 128-column CTAs. 128 x 128 tiles run
+// the fast case, other tm x tk (multiples of 8) the ANY kernels.
 template <typename T, bool STREAM>
 int launch(const void* data, const void* block_rows, const void* block_cols, const void* items,
            const void* x, void* out, void* ws, void* counters, int grid_x, int n_slots,
-           int n_rows, int n_cols, int h, void* stream) {
+           int n_rows, int n_cols, int h, int tm, int tk, void* stream) {
+  if (tm < 8 || tk < 8 || tm % 8 || tk % 8) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = h % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(ws);
   auto go = [&](auto fn) {
     return fn(data, block_rows, block_cols, items, x, out, ws, counters, grid_x, n_slots, n_rows,
-              n_cols, h, stream);
+              n_cols, h, tm, tk, stream);
   };
-  if (h > 64) {
-    return vec ? go(launch_one<T, 2, true, STREAM>) : go(launch_one<T, 2, false, STREAM>);
-  }
-  return vec ? go(launch_one<T, 1, true, STREAM>) : go(launch_one<T, 1, false, STREAM>);
+  auto pick = [&](auto any) {
+    constexpr bool A = decltype(any)::value;
+    if (h > 64) {
+      return vec ? go(launch_one<T, 2, true, STREAM, A>) : go(launch_one<T, 2, false, STREAM, A>);
+    }
+    return vec ? go(launch_one<T, 1, true, STREAM, A>) : go(launch_one<T, 1, false, STREAM, A>);
+  };
+  if (tm == TM && tk == TK) return pick(std::false_type{});
+  return pick(std::true_type{});
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile shape and work-item width the kernels are compiled for; the Python
-// wrapper checks them.
-int bcsr_spmm_tile(int* tm, int* tk, int* item_ints) {
-  *tm = TM;
-  *tk = TK;
+// The rows of one CTA's panel, the multiple that tile sides must be and the
+// work-item width the kernels are compiled for; the Python wrapper checks them.
+int bcsr_spmm_config(int* panel, int* side_multiple, int* item_ints) {
+  *panel = TM;
+  *side_multiple = 8;
   *item_ints = ITEM_INTS;
   return 0;
 }
 
-// B1. f32 tiles, f32 x -> f32 out [n_rows, h]. items: the schedule
-// [n_items, ITEM_INTS]; ws: n_slots partial blocks [n_slots, TM, h] (null when
-// n_slots is 0); counters: n_slots * ceil(h / BN) ints, zero between launches.
-// Returns the CUDA error of the launch (0 on success).
+// B1. f32 tiles [T, tm, tk], f32 x -> f32 out [n_rows, h]. items: the
+// schedule [n_items, ITEM_INTS]; ws: n_slots partial blocks [n_slots, tm, h]
+// (null when n_slots is 0); counters: n_slots * ceil(h / 64) * ceil(tm / 128)
+// ints, zero between launches. Returns the CUDA error of the launch (0 on
+// success).
 int bcsr_spmm_f32(const void* data, const void* block_cols, const void* items, const void* x,
                   void* out, void* ws, void* counters, int n_items, int n_slots, int n_rows,
-                  int n_cols, int h, void* stream) {
+                  int n_cols, int h, int tm, int tk, void* stream) {
   return launch<float, false>(data, nullptr, block_cols, items, x, out, ws, counters, n_items,
-                              n_slots, n_rows, n_cols, h, stream);
+                              n_slots, n_rows, n_cols, h, tm, tk, stream);
 }
 
 // B1. bf16 tiles, f32 x (rounded to bf16 in the kernel) -> f32 out.
 int bcsr_spmm_bf16(const void* data, const void* block_cols, const void* items, const void* x,
                    void* out, void* ws, void* counters, int n_items, int n_slots, int n_rows,
-                   int n_cols, int h, void* stream) {
+                   int n_cols, int h, int tm, int tk, void* stream) {
   return launch<__nv_bfloat16, false>(data, nullptr, block_cols, items, x, out, ws, counters,
-                                      n_items, n_slots, n_rows, n_cols, h, stream);
+                                      n_items, n_slots, n_rows, n_cols, h, tm, tk, stream);
 }
 
 // B2. f32 tiles, f32 x -> adds into out [n_rows, h], which the caller zeroes.
 int bcsr_spmm_stream_f32(const void* data, const void* block_rows, const void* block_cols,
                          const void* x, void* out, int n_tiles, int n_rows, int n_cols, int h,
-                         void* stream) {
+                         int tm, int tk, void* stream) {
   return launch<float, true>(data, block_rows, block_cols, nullptr, x, out, nullptr, nullptr,
-                             n_tiles, 0, n_rows, n_cols, h, stream);
+                             n_tiles, 0, n_rows, n_cols, h, tm, tk, stream);
 }
 
 // B2. bf16 tiles, f32 x (rounded to bf16 in the kernel) -> adds into out.
 int bcsr_spmm_stream_bf16(const void* data, const void* block_rows, const void* block_cols,
                           const void* x, void* out, int n_tiles, int n_rows, int n_cols, int h,
-                          void* stream) {
+                          int tm, int tk, void* stream) {
   return launch<__nv_bfloat16, true>(data, block_rows, block_cols, nullptr, x, out, nullptr,
-                                     nullptr, n_tiles, 0, n_rows, n_cols, h, stream);
+                                     nullptr, n_tiles, 0, n_rows, n_cols, h, tm, tk, stream);
 }
 
 }  // extern "C"

@@ -127,10 +127,10 @@ using namespace gat_tile;
 // `group` tiles' s2 slabs are staged at once. The senders' lsrc of `hc` heads
 // at a time (all of them unless the card's shared memory forbids it) are
 // staged once per item.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restrict__ block_cols,
-                    const int* __restrict__ items, const float* __restrict__ lsrc,
+                    const int* __restrict__ items, Geo geo, const float* __restrict__ lsrc,
                     const float* __restrict__ ldst, const float* __restrict__ s2,
                     float* __restrict__ num_out, float* __restrict__ den_out,
                     float* __restrict__ m_out, float* __restrict__ ws,
@@ -144,15 +144,15 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
   int* cols_sh = reinterpret_cast<int*>(ls_sh + max_tiles * TK * (hc | 1));  // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(it.row) * TM + i;
+  const long long v = own_node<ANY>(geo, it.row, n);
   const Partials parts(ws, n_slots, h, hf);
-  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles, bf16, block_cols, mask_sh, cols_sh);
 
   for (int h0 = 0; h0 < h; h0 += hc) {
     const int hn = min(hc, h - h0);
     const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
     __syncthreads();  // cols_sh; the previous heads' logits are no longer read
-    stage_tiles(ls_sh, HS, hn, lsrc, cols_sh, nt, n, h, h0, hn);
+    stage_tiles(ls_sh, HS, hn, lsrc, cols_sh, nt, n, h, h0, hn, col_unit<ANY>);
     for (int head = h0; head < h0 + hn; ++head) {
       const float ld = node(ldst, v, n, h, head);
       for (int s0 = 0; s0 < f; s0 += FP) {
@@ -163,7 +163,7 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           __syncthreads();  // the logits are staged; the previous slabs are no longer read
-          stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw);
+          stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw, col_unit<ANY>);
           __syncthreads();
           for (int t = g0; t < g0 + gn; ++t) {
             const float* ls = ls_sh + t * TK * HS + (head - h0);
@@ -197,7 +197,7 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    merge_parts(it, parts, num_out, den_out, m_out, n, h, hf);
+    merge_parts<ANY>(geo, it, parts, num_out, den_out, m_out, n, h, hf);
 }
 
 // B4a, the max: one CTA per tile for all heads, thread i on the tile's row i
@@ -207,20 +207,19 @@ gat_fwd_item_kernel(const void* __restrict__ tiles, int bf16, const int* __restr
 // per head takes the max of e over its own edges and merges it into m
 // (prefilled with NEG) by a float atomic max. A row without an edge in the
 // tile (or past n) does no atomic, but takes every barrier.
+template <bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_stream_max_kernel(const void* __restrict__ tiles, int bf16,
                           const int* __restrict__ block_cols, const int* __restrict__ block_rows,
-                          const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                          Geo geo, const float* __restrict__ lsrc, const float* __restrict__ ldst,
                           float* __restrict__ m_out, uint4* __restrict__ bits, int n, int h,
                           int hc, float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ls_sh = reinterpret_cast<float*>(smem);  // [TK][hc | 1]
   const int t = blockIdx.x, i = threadIdx.x;
-  const long long v = static_cast<long long>(block_rows[t]) * TM + i;
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
-  uint32_t w[4];
-  mask_words(tile_ptr(tiles, bf16, t), bf16, w);
-  const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
+  const long long v = own_node<ANY>(geo, block_rows[t], n);
+  const long long col0 = first_node<ANY>(geo, block_cols[t]);
+  const uint4 own = panel_mask<ANY>(geo, tiles, bf16, t, block_rows[t], block_cols[t]);
   bits[static_cast<size_t>(t) * TM + i] = own;
   const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
   for (int h0 = 0; h0 < h; h0 += hc) {
@@ -246,10 +245,10 @@ gat_fwd_stream_max_kernel(const void* __restrict__ tiles, int bf16,
 // its own edges with p = exp(e - m_v) against the final max, and adds den and
 // the num slab, once per (row, head, slab) that has an edge, into the
 // zero-filled num and den by f32 reductions.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_fwd_stream_sum_kernel(const int* __restrict__ block_cols, const int* __restrict__ block_rows,
-                          const uint4* __restrict__ bits, const float* __restrict__ lsrc,
+                          Geo geo, const uint4* __restrict__ bits, const float* __restrict__ lsrc,
                           const float* __restrict__ ldst, const float* __restrict__ s2,
                           const float* __restrict__ m_in, float* __restrict__ num_out,
                           float* __restrict__ den_out, int n, int h, int f, int hc,
@@ -259,8 +258,8 @@ gat_fwd_stream_sum_kernel(const int* __restrict__ block_cols, const int* __restr
   float* s_sh = reinterpret_cast<float*>(smem);  // [TK][S]
   float* ls_sh = s_sh + TK * S;                  // [TK][hc | 1]
   const int t = blockIdx.x, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(block_rows[t]) * TM + i;
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;
+  const long long v = own_node<ANY>(geo, block_rows[t], n);
+  const long long col0 = first_node<ANY>(geo, block_cols[t]);
   const uint4 own = bits[static_cast<size_t>(t) * TM + i];
   const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
   const bool quads = f % 4 == 0;
@@ -307,11 +306,11 @@ gat_fwd_stream_sum_kernel(const int* __restrict__ block_cols, const int* __restr
 // unless the card's shared memory forbids it) are staged once per item, each
 // head's s2 slab of `group` tiles in one batch; dnum_v's slab sits in
 // registers.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
                           const int* __restrict__ block_cols, const int* __restrict__ items,
-                          const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                          Geo geo, const float* __restrict__ lsrc, const float* __restrict__ ldst,
                           const float* __restrict__ s2, const float* __restrict__ m_in,
                           const float* __restrict__ dnum, const float* __restrict__ dden,
                           float* __restrict__ dldst_out, float* __restrict__ ws,
@@ -325,15 +324,15 @@ gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
   int* cols_sh = reinterpret_cast<int*>(ls_sh + max_tiles * TK * (hc | 1));  // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(it.row) * TM + i;
+  const long long v = own_node<ANY>(geo, it.row, n);
   float* const dst = grad_row(it, ws, h, 0, dldst_out, h, v, n);
-  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles, bf16, block_cols, mask_sh, cols_sh);
 
   for (int h0 = 0; h0 < h; h0 += hc) {
     const int hn = min(hc, h - h0);
     const int HS = hn | 1;  // odd: lanes gathering the logits of random senders hit distinct banks
     __syncthreads();  // cols_sh; the previous heads' logits are no longer read
-    stage_tiles(ls_sh, HS, hn, lsrc, cols_sh, nt, n, h, h0, hn);
+    stage_tiles(ls_sh, HS, hn, lsrc, cols_sh, nt, n, h, h0, hn, col_unit<ANY>);
     for (int head = h0; head < h0 + hn; ++head) {
       const float ld = node(ldst, v, n, h, head), mv = node(m_in, v, n, h, head);
       float acc = 0.f;
@@ -345,7 +344,7 @@ gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           __syncthreads();  // the logits are staged; the previous slabs are no longer read
-          stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw);
+          stage_tiles(s_sh, S, FP, s2, cols_sh + g0, gn, n, hf, head * f + s0, fw, col_unit<ANY>);
           __syncthreads();
           for (int t = g0; t < g0 + gn; ++t)
             receiver_walk<FP>(mask_sh[t * TM + i], ls_sh + t * TK * HS + (head - h0), HS,
@@ -356,7 +355,7 @@ gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    sum_parts(it, ws, h, dldst_out, nullptr, n, h);
+    sum_parts<ANY>(geo, it, ws, h, dldst_out, nullptr, n, h);
 }
 
 // B6, over the transpose tiles: blockIdx.x is a work item of their own
@@ -364,11 +363,11 @@ gat_bwd_dldst_item_kernel(const void* __restrict__ tiles, int bf16,
 // registers. The receivers' ldst, m and dden of `hc` heads at a time are
 // staged once per item, each head's dnum slab of `group` tiles in one batch.
 // A part of a split row is [TM][H F + H]: ds, then dlsrc.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
                            const int* __restrict__ block_cols, const int* __restrict__ items,
-                           const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                           Geo geo, const float* __restrict__ lsrc, const float* __restrict__ ldst,
                            const float* __restrict__ s2, const float* __restrict__ m_in,
                            const float* __restrict__ dnum, const float* __restrict__ dden,
                            float* __restrict__ ds_out, float* __restrict__ dlsrc_out,
@@ -385,18 +384,18 @@ gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
   int* cols_sh = reinterpret_cast<int*>(dd_sh + node_floats);         // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long u = static_cast<long long>(it.row) * TM + i;  // sender
+  const long long u = own_node<ANY>(geo, it.row, n);  // sender
   float* const dst_ds = grad_row(it, ws, hf + h, 0, ds_out, hf, u, n);
   float* const dst_dl = grad_row(it, ws, hf + h, hf, dlsrc_out, h, u, n);
-  load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
 
   for (int h0 = 0; h0 < h; h0 += hc) {
     const int hn = min(hc, h - h0);
     const int HS = hn | 1;  // odd: lanes gathering random receivers hit distinct banks
     __syncthreads();  // cols_sh; the previous heads' receivers are no longer read
-    stage_tiles(ld_sh, HS, hn, ldst, cols_sh, nt, n, h, h0, hn);
-    stage_tiles(m_sh, HS, hn, m_in, cols_sh, nt, n, h, h0, hn);
-    stage_tiles(dd_sh, HS, hn, dden, cols_sh, nt, n, h, h0, hn);
+    stage_tiles(ld_sh, HS, hn, ldst, cols_sh, nt, n, h, h0, hn, col_unit<ANY>);
+    stage_tiles(m_sh, HS, hn, m_in, cols_sh, nt, n, h, h0, hn, col_unit<ANY>);
+    stage_tiles(dd_sh, HS, hn, dden, cols_sh, nt, n, h, h0, hn, col_unit<ANY>);
     for (int head = h0; head < h0 + hn; ++head) {
       const float lu = node(lsrc, u, n, h, head);
       float dl = 0.f;
@@ -410,7 +409,8 @@ gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           __syncthreads();  // the receivers are staged; the previous slabs are no longer read
-          stage_tiles(dn_sh, S, FP, dnum, cols_sh + g0, gn, n, hf, head * f + s0, fw);
+          stage_tiles(dn_sh, S, FP, dnum, cols_sh + g0, gn, n, hf, head * f + s0,
+                      fw, col_unit<ANY>);
           __syncthreads();
           for (int t = g0; t < g0 + gn; ++t) {
             const int base = t * TK * HS + (head - h0);
@@ -424,7 +424,7 @@ gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    sum_parts(it, ws, hf + h, ds_out, dlsrc_out, n, hf);
+    sum_parts<ANY>(geo, it, ws, hf + h, ds_out, dlsrc_out, n, hf);
 }
 
 // B5s, merged: one CTA per forward tile for all heads, thread i on receiver v
@@ -435,12 +435,13 @@ gat_bwd_sender_item_kernel(const void* __restrict__ tiles_t, int bf16,
 // registers, then the row's sum added into the zero-filled dldst by one f32
 // reduction per (row, head), by rows with an own edge. Rows past n, or
 // without an own edge, take every barrier and read nothing of their own.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
                             const int* __restrict__ block_cols,
-                            const int* __restrict__ block_rows, const float* __restrict__ lsrc,
-                            const float* __restrict__ ldst, const float* __restrict__ s2,
+                            const int* __restrict__ block_rows, Geo geo,
+                            const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                            const float* __restrict__ s2,
                             const float* __restrict__ m_in, const float* __restrict__ dnum,
                             const float* __restrict__ dden, float* __restrict__ dldst_out, int n,
                             int h, int f, int hc, float slope) {
@@ -449,11 +450,9 @@ gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
   float* s_sh = reinterpret_cast<float*>(smem);  // [TK][S]
   float* ls_sh = s_sh + TK * S;                  // [TK][hc | 1]
   const int t = blockIdx.x, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(block_rows[t]) * TM + i;  // receiver
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;    // senders
-  uint32_t w[4];
-  mask_words(tile_ptr(tiles, bf16, t), bf16, w);
-  const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
+  const long long v = own_node<ANY>(geo, block_rows[t], n);    // receiver
+  const long long col0 = first_node<ANY>(geo, block_cols[t]);  // senders
+  const uint4 own = panel_mask<ANY>(geo, tiles, bf16, t, block_rows[t], block_cols[t]);
   const bool live = v < n && (own.x | own.y | own.z | own.w) != 0;
   const long long vr = live ? v : n;  // a row past n reads zeros
 
@@ -487,12 +486,13 @@ gat_bwd_dldst_stream_kernel(const void* __restrict__ tiles, int bf16,
 // at the odd stride hc | 1, per head the tile's dnum slab; B6's walk
 // (sender_walk) per slab, then ds's slab and, after the last, dlsrc added
 // into the zero-filled outputs by f32 reductions, by rows with an own edge.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gat_bwd_sender_stream_kernel(const void* __restrict__ tiles_t, int bf16,
                              const int* __restrict__ block_cols,
-                             const int* __restrict__ block_rows, const float* __restrict__ lsrc,
-                             const float* __restrict__ ldst, const float* __restrict__ s2,
+                             const int* __restrict__ block_rows, Geo geo,
+                             const float* __restrict__ lsrc, const float* __restrict__ ldst,
+                             const float* __restrict__ s2,
                              const float* __restrict__ m_in, const float* __restrict__ dnum,
                              const float* __restrict__ dden, float* __restrict__ ds_out,
                              float* __restrict__ dlsrc_out, int n, int h, int f, int hc,
@@ -505,11 +505,9 @@ gat_bwd_sender_stream_kernel(const void* __restrict__ tiles_t, int bf16,
   float* m_sh = ld_sh + node_floats;              // [TK][hc | 1]
   float* dd_sh = m_sh + node_floats;              // [TK][hc | 1]
   const int t = blockIdx.x, i = threadIdx.x, hf = h * f;
-  const long long u = static_cast<long long>(block_rows[t]) * TM + i;  // sender
-  const long long col0 = static_cast<long long>(block_cols[t]) * TK;    // receivers
-  uint32_t w[4];
-  mask_words(tile_ptr(tiles_t, bf16, t), bf16, w);
-  const uint4 own = make_uint4(w[0], w[1], w[2], w[3]);
+  const long long u = own_node<ANY>(geo, block_rows[t], n);    // sender
+  const long long col0 = first_node<ANY>(geo, block_cols[t]);  // receivers
+  const uint4 own = panel_mask<ANY>(geo, tiles_t, bf16, t, block_rows[t], block_cols[t]);
   const bool live = u < n && (own.x | own.y | own.z | own.w) != 0;
   const bool quads = f % 4 == 0;
 
@@ -581,15 +579,20 @@ int staged_heads(int h, Smem smem) {
 
 extern "C" {
 
-// Tile shape and the ints of one work item of B3, B5 and B6.
-int gat_tile_attn_config(int* tm, int* tk, int* item_ints) {
-  *tm = TM;
-  *tk = TK;
+// The rows of one CTA's panel, the multiple that tile sides must be, and the
+// ints of one work item of B3, B5 and B6.
+int gat_tile_attn_config(int* panel, int* side_multiple, int* item_ints) {
+  *panel = TM;
+  *side_multiple = 32;
   *item_ints = ITEM_INTS;
   return 0;
 }
 
-// Each entry returns cudaGetLastError() after its launch.
+// Each entry returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for arguments it does not take. Every entry takes the
+// tile geometry: side S, panels P and the panel tiles' source tiles `src`
+// (gat_tile_common.cuh); block_cols, block_rows and items are the panel
+// tiles' (the tiles' own when P = 1).
 
 // B3: num [n, H*F], den, m [n, H]. items: the schedule [n_items, ITEM_INTS] at
 // C = max_tiles; ws: the partials of n_slots split items (n_slots * TM *
@@ -598,42 +601,54 @@ int gat_tile_attn_config(int* tm, int* tk, int* item_ints) {
 int gat_tile_fwd(const void* tiles, const void* block_cols, const void* items, const void* lsrc,
                  const void* ldst, const void* s2, void* num, void* den, void* m, void* ws,
                  void* counters, int n_items, int n_slots, int n, int h, int f, int max_tiles,
-                 int tile_bf16, float slope, void* stream) {
-  if (f < 1 || h < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+                 int tile_bf16, int side, int panels, const void* src, float slope,
+                 void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || h < 1 || max_tiles < 1 || !geo_ok(geo))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   const int hc = staged_heads(h, [&](int c) { return item_smem(fp, c, max_tiles, 1); });
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_item_kernel)), dim3(n_items),
-                item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(items),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<float*>(num), static_cast<float*>(den),
-                static_cast<float*>(m), static_cast<float*>(ws), static_cast<int*>(counters),
-                n_slots, n, h, f, max_tiles, item_group(fp, max_tiles), hc, slope);
+  return by_geometry(geo, [&](auto any) {
+    return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_item_kernel, decltype(any)::value)),
+                  dim3(n_items), item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items), geo,
+                  static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                  static_cast<const float*>(s2), static_cast<float*>(num),
+                  static_cast<float*>(den), static_cast<float*>(m), static_cast<float*>(ws),
+                  static_cast<int*>(counters), n_slots, n, h, f, max_tiles,
+                  item_group(fp, max_tiles), hc, slope);
+  });
 }
 
 // B4, merged: num [n, H*F] and den [n, H] zero-filled and m [n, H] filled
-// with NEG by the caller; bits: [T][TM] 16-byte mask words, written by B4a
-// and read by B4b, the two kernels launched one after the other on `stream`.
+// with NEG by the caller; bits: [T][TM] 16-byte mask words (T panel tiles),
+// written by B4a and read by B4b, the two kernels launched one after the
+// other on `stream`.
 int gat_tile_fwd_stream(const void* tiles, const void* block_cols, const void* block_rows,
                         const void* lsrc, const void* ldst, const void* s2, void* num, void* den,
                         void* m, void* bits, int n_tiles, int n, int h, int f, int tile_bf16,
-                        float slope, void* stream) {
-  if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+                        int side, int panels, const void* src, float slope, void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || h < 1 || !geo_ok(geo)) return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   const int hc_max = staged_heads(h, [](int c) { return node_smem(c, 1); });
-  const int err = launch(gat_fwd_stream_max_kernel, dim3(n_tiles), node_smem(hc_max, 1),
-                         stream, tiles, tile_bf16, static_cast<const int*>(block_cols),
-                         static_cast<const int*>(block_rows), static_cast<const float*>(lsrc),
-                         static_cast<const float*>(ldst), static_cast<float*>(m),
-                         static_cast<uint4*>(bits), n, h, hc_max, slope);
-  if (err) return err;
   const int hc_sum = staged_heads(h, [&](int c) { return stream_smem(fp, c, 1); });
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_stream_sum_kernel)), dim3(n_tiles),
-                stream_smem(fp, hc_sum, 1), stream, static_cast<const int*>(block_cols),
-                static_cast<const int*>(block_rows), static_cast<const uint4*>(bits),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<const float*>(m),
-                static_cast<float*>(num), static_cast<float*>(den), n, h, f, hc_sum, slope);
+  return by_geometry(geo, [&](auto any) {
+    constexpr bool A = decltype(any)::value;
+    const int err = launch(gat_fwd_stream_max_kernel<A>, dim3(n_tiles), node_smem(hc_max, 1),
+                           stream, tiles, tile_bf16, static_cast<const int*>(block_cols),
+                           static_cast<const int*>(block_rows), geo,
+                           static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                           static_cast<float*>(m), static_cast<uint4*>(bits), n, h, hc_max,
+                           slope);
+    if (err) return err;
+    return launch(pick_width(f, GAT_TILE_WIDTHS(gat_fwd_stream_sum_kernel, A)), dim3(n_tiles),
+                  stream_smem(fp, hc_sum, 1), stream, static_cast<const int*>(block_cols),
+                  static_cast<const int*>(block_rows), geo, static_cast<const uint4*>(bits),
+                  static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+                  static_cast<const float*>(s2), static_cast<const float*>(m),
+                  static_cast<float*>(num), static_cast<float*>(den), n, h, f, hc_sum, slope);
+  });
 }
 
 // B5 over the forward tiles, on B3's work items (the same schedule and
@@ -643,19 +658,24 @@ int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* it
                        const void* lsrc, const void* ldst, const void* s2, const void* m,
                        const void* dnum, const void* dden, void* dldst, void* ws, void* counters,
                        int n_items, int n_slots, int n, int h, int f, int max_tiles,
-                       int tile_bf16, float slope, void* stream) {
-  if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0)
+                       int tile_bf16, int side, int panels, const void* src, float slope,
+                       void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0 || !geo_ok(geo))
     return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   const int hc = staged_heads(h, [&](int c) { return item_smem(fp, c, max_tiles, 1); });
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_item_kernel)), dim3(n_items),
-                item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(items),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<const float*>(m),
-                static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(dldst), static_cast<float*>(ws), static_cast<int*>(counters),
-                n, h, f, max_tiles, item_group(fp, max_tiles), hc, slope);
+  return by_geometry(geo, [&](auto any) {
+    return launch(
+        pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_item_kernel, decltype(any)::value)),
+        dim3(n_items), item_smem(fp, hc, max_tiles, 1), stream, tiles, tile_bf16,
+        static_cast<const int*>(block_cols), static_cast<const int*>(items), geo,
+        static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+        static_cast<const float*>(s2), static_cast<const float*>(m),
+        static_cast<const float*>(dnum), static_cast<const float*>(dden),
+        static_cast<float*>(dldst), static_cast<float*>(ws), static_cast<int*>(counters), n, h,
+        f, max_tiles, item_group(fp, max_tiles), hc, slope);
+  });
 }
 
 // B5s over the forward tiles, merged: dldst [n, H], zero-filled by the
@@ -663,17 +683,22 @@ int gat_tile_bwd_dldst(const void* tiles, const void* block_cols, const void* it
 int gat_tile_bwd_dldst_stream(const void* tiles, const void* block_cols, const void* block_rows,
                               const void* lsrc, const void* ldst, const void* s2, const void* m,
                               const void* dnum, const void* dden, void* dldst, int n_tiles,
-                              int n, int h, int f, int tile_bf16, float slope, void* stream) {
-  if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+                              int n, int h, int f, int tile_bf16, int side, int panels,
+                              const void* src, float slope, void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || h < 1 || !geo_ok(geo)) return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   const int hc = staged_heads(h, [&](int c) { return stream_smem(fp, c, 1); });
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_stream_kernel)), dim3(n_tiles),
-                stream_smem(fp, hc, 1), stream, tiles, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<const float*>(m),
-                static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(dldst), n, h, f, hc, slope);
+  return by_geometry(geo, [&](auto any) {
+    return launch(
+        pick_width(f, GAT_TILE_WIDTHS(gat_bwd_dldst_stream_kernel, decltype(any)::value)),
+        dim3(n_tiles), stream_smem(fp, hc, 1), stream, tiles, tile_bf16,
+        static_cast<const int*>(block_cols), static_cast<const int*>(block_rows), geo,
+        static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+        static_cast<const float*>(s2), static_cast<const float*>(m),
+        static_cast<const float*>(dnum), static_cast<const float*>(dden),
+        static_cast<float*>(dldst), n, h, f, hc, slope);
+  });
 }
 
 // B6 over the transpose tiles (block rows are senders), on their own work
@@ -683,20 +708,24 @@ int gat_tile_bwd_sender(const void* tiles_t, const void* block_cols, const void*
                         const void* lsrc, const void* ldst, const void* s2, const void* m,
                         const void* dnum, const void* dden, void* ds, void* dlsrc, void* ws,
                         void* counters, int n_items, int n_slots, int n, int h, int f,
-                        int max_tiles, int tile_bf16, float slope, void* stream) {
-  if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0)
+                        int max_tiles, int tile_bf16, int side, int panels, const void* src,
+                        float slope, void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || h < 1 || max_tiles < 1 || n_slots < 0 || !geo_ok(geo))
     return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   const int hc = staged_heads(h, [&](int c) { return item_smem(fp, c, max_tiles, 3); });
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_item_kernel)), dim3(n_items),
-                item_smem(fp, hc, max_tiles, 3), stream, tiles_t, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(items),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<const float*>(m),
-                static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(ds), static_cast<float*>(dlsrc), static_cast<float*>(ws),
-                static_cast<int*>(counters), n, h, f, max_tiles, item_group(fp, max_tiles), hc,
-                slope);
+  return by_geometry(geo, [&](auto any) {
+    return launch(
+        pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_item_kernel, decltype(any)::value)),
+        dim3(n_items), item_smem(fp, hc, max_tiles, 3), stream, tiles_t, tile_bf16,
+        static_cast<const int*>(block_cols), static_cast<const int*>(items), geo,
+        static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+        static_cast<const float*>(s2), static_cast<const float*>(m),
+        static_cast<const float*>(dnum), static_cast<const float*>(dden),
+        static_cast<float*>(ds), static_cast<float*>(dlsrc), static_cast<float*>(ws),
+        static_cast<int*>(counters), n, h, f, max_tiles, item_group(fp, max_tiles), hc, slope);
+  });
 }
 
 // B6s over the transpose tiles, merged: ds [n, H*F] and dlsrc [n, H],
@@ -705,17 +734,22 @@ int gat_tile_bwd_sender_stream(const void* tiles_t, const void* block_cols,
                                const void* block_rows, const void* lsrc, const void* ldst,
                                const void* s2, const void* m, const void* dnum, const void* dden,
                                void* ds, void* dlsrc, int n_tiles, int n, int h, int f,
-                               int tile_bf16, float slope, void* stream) {
-  if (f < 1 || h < 1) return static_cast<int>(cudaErrorInvalidValue);
+                               int tile_bf16, int side, int panels, const void* src, float slope,
+                               void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || h < 1 || !geo_ok(geo)) return static_cast<int>(cudaErrorInvalidValue);
   const int fp = width_of(f);
   const int hc = staged_heads(h, [&](int c) { return stream_smem(fp, c, 3); });
-  return launch(pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_stream_kernel)), dim3(n_tiles),
-                stream_smem(fp, hc, 3), stream, tiles_t, tile_bf16,
-                static_cast<const int*>(block_cols), static_cast<const int*>(block_rows),
-                static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
-                static_cast<const float*>(s2), static_cast<const float*>(m),
-                static_cast<const float*>(dnum), static_cast<const float*>(dden),
-                static_cast<float*>(ds), static_cast<float*>(dlsrc), n, h, f, hc, slope);
+  return by_geometry(geo, [&](auto any) {
+    return launch(
+        pick_width(f, GAT_TILE_WIDTHS(gat_bwd_sender_stream_kernel, decltype(any)::value)),
+        dim3(n_tiles), stream_smem(fp, hc, 3), stream, tiles_t, tile_bf16,
+        static_cast<const int*>(block_cols), static_cast<const int*>(block_rows), geo,
+        static_cast<const float*>(lsrc), static_cast<const float*>(ldst),
+        static_cast<const float*>(s2), static_cast<const float*>(m),
+        static_cast<const float*>(dnum), static_cast<const float*>(dden),
+        static_cast<float*>(ds), static_cast<float*>(dlsrc), n, h, f, hc, slope);
+  });
 }
 
 }  // extern "C"

@@ -17,6 +17,19 @@
 // from a staged slab whose row stride is padded (slab_stride) so that eight
 // lanes of a 16-byte access see eight banks.
 //
+// Tile shapes: every kernel is compiled for 128 x 128 tiles, the fast case,
+// and (ANY) for square tiles of any side S that is a multiple of 32, read at
+// run time from a Geo. A CTA always works on a panel of at most TM x TK of a
+// tile, thread i on the panel's row i. A side of at most 128 is one panel:
+// rows past S have no thread's node (own_node gives n) and columns past S no
+// mask bit. A wider side is cut into P = ceil(S / 128) panels each way, and the
+// wrapper hands the kernels its panel tiles in place of the tiles, sorted by
+// panel block row: block row (or column) b of panels is panel b % P of tile
+// block row b / P, its first node b / P * S + b % P * 128, and src[t] the
+// tile of panel tile t. The staged slabs, the mask words and the workspace
+// rows are sized for one panel, so no shared-memory cutoff depends on S and
+// S has no upper bound.
+//
 // Per-head widths: a kernel compiled for width FP (4, 8, 16, 32, 40 or 64)
 // takes any F: F <= 64 runs on the smallest FP >= F, with the last columns
 // zero and never written; wider F runs FP = 64 over slabs of 64 columns (the
@@ -28,11 +41,12 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace gat_tile {
 
-constexpr int TM = 128;  // tile rows
-constexpr int TK = 128;  // tile columns
+constexpr int TM = 128;  // rows of a panel (a 128 x 128 tile is one)
+constexpr int TK = 128;  // columns of a panel
 constexpr int THREADS = 128;  // one thread per tile row
 constexpr int SLAB = 64;  // the widest compiled width: wider F loops over slabs of it
 constexpr int ITEM_INTS = 6;  // a work item: begin, end, block row, slot, first slot, parts
@@ -44,16 +58,75 @@ static_assert(THREADS == TM, "one thread per tile row");
 
 __device__ __forceinline__ float leaky(float x, float slope) { return x >= 0.f ? x : slope * x; }
 
-// The four mask words of this thread's row of `tile`: bit l of word c is set
-// when tile[row][4l + c] != 0 (-0 counts as zero, as in the plain version).
-__device__ __forceinline__ void mask_words(const void* tile, bool bf16, uint32_t w[4]) {
+// The tile geometry of an ANY kernel (see the top of this file).
+struct Geo {
+  int side;        // S, a multiple of 32
+  int panels;      // P = ceil(S / 128)
+  const int* src;  // the tile of each panel tile; null when P = 1 (the panel is the tile)
+};
+
+inline bool geo_ok(const Geo& g) {
+  return g.side >= 32 && g.side % 32 == 0 && g.panels == (g.side + TM - 1) / TM &&
+         (g.panels == 1 || g.src != nullptr);
+}
+
+// go(std::false_type) for 128 x 128 tiles (the fast case), else
+// go(std::true_type) (the ANY kernels).
+template <typename Go>
+int by_geometry(const Geo& g, Go go) {
+  if (g.side == TM) return go(std::false_type{});
+  return go(std::true_type{});
+}
+
+// The first node of panel block row (or column) b.
+template <bool ANY>
+__device__ __forceinline__ long long first_node(const Geo& g, int b) {
+  if constexpr (ANY) {
+    return static_cast<long long>(b / g.panels) * g.side + (b % g.panels) * TM;
+  } else {
+    return static_cast<long long>(b) * TM;
+  }
+}
+
+// The rows (or columns) of panel block b that lie in the tile.
+template <bool ANY>
+__device__ __forceinline__ int panel_extent(const Geo& g, int b) {
+  if constexpr (ANY) {
+    return min(TM, g.side - (b % g.panels) * TM);
+  } else {
+    return TM;
+  }
+}
+
+// This thread's node on the row side of panel block row b: n (past every
+// node) for a thread past the panel's rows.
+template <bool ANY>
+__device__ __forceinline__ long long own_node(const Geo& g, int b, int n) {
+  const int i = threadIdx.x;
+  if constexpr (ANY) {
+    return i < panel_extent<true>(g, b) ? first_node<true>(g, b) + i : static_cast<long long>(n);
+  } else {
+    return static_cast<long long>(b) * TM + i;
+  }
+}
+
+// The four mask words of this thread's row of a panel whose rows lie
+// `stride` elements apart, `rows` x `cols` of it in the tile (ANY; multiples
+// of 32, the rest reads as zero): bit l of word c is set when
+// panel[row][4l + c] != 0 (-0 counts as zero, as in the plain version).
+template <bool ANY>
+__device__ __forceinline__ void mask_words(const void* tile, bool bf16, int stride, int rows,
+                                           int cols, uint32_t w[4]) {
   const int lane = threadIdx.x & 31;
   const int row0 = threadIdx.x & ~31;
+  const bool lane_in = !ANY || 4 * lane < cols;
 #pragma unroll 8
   for (int r = 0; r < 32; ++r) {
-    const size_t row = static_cast<size_t>(row0 + r) * TK;
+    const size_t row = static_cast<size_t>(row0 + r) * (ANY ? stride : TK);
     bool nz0, nz1, nz2, nz3;
-    if (bf16) {
+    if (ANY && (!lane_in || row0 + r >= rows)) {
+      nz0 = nz1 = nz2 = nz3 = false;  // outside the tile: no edge
+    } else if (bf16) {
       const uint2 b =
           __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(tile) + row) + lane);
       nz0 = (b.x & 0x7fffu) != 0;
@@ -81,6 +154,24 @@ __device__ __forceinline__ void mask_words(const void* tile, bool bf16, uint32_t
 
 __device__ __forceinline__ const void* tile_ptr(const void* tiles, bool bf16, int t) {
   return static_cast<const char*>(tiles) + static_cast<size_t>(t) * TM * TK * (bf16 ? 2 : 4);
+}
+
+// This thread's mask words of panel tile t at panel block (br, bc).
+template <bool ANY>
+__device__ __forceinline__ uint4 panel_mask(const Geo& g, const void* tiles, bool bf16, int t,
+                                            int br, int bc) {
+  uint32_t w[4];
+  if constexpr (ANY) {
+    const int p = br % g.panels, q = bc % g.panels;
+    const size_t tile = g.src != nullptr ? g.src[t] : t;
+    const size_t at = (tile * g.side + static_cast<size_t>(p) * TM) * g.side +
+                      static_cast<size_t>(q) * TK;  // the panel's first element
+    mask_words<true>(static_cast<const char*>(tiles) + at * (bf16 ? 2 : 4), bf16, g.side,
+                     min(TM, g.side - p * TM), min(TK, g.side - q * TK), w);
+  } else {
+    mask_words<false>(tile_ptr(tiles, bf16, t), bf16, TK, TM, TK, w);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // Calls body(j) for every column j where this thread's row has an edge, in
@@ -174,14 +265,18 @@ __device__ __forceinline__ void stage_rows(float* xs, int stride, int width, con
   stage_blocks(xs, stride, width, x, 1, [=](int) { return row0; }, n, ld, c0, fw);
 }
 
-// The rows under `blocks` consecutive tiles, tile t's block column
-// block_cols[t] (stage_blocks).
+// The TK rows from node cols[t] * unit on under each of `blocks` consecutive
+// (panel) tiles (stage_blocks): cols holds their block columns (unit TK, the
+// fast case) or their first column nodes (unit 1, the ANY kernels; col_unit).
 __device__ __forceinline__ void stage_tiles(float* xs, int stride, int width, const float* x,
-                                            const int* block_cols, int blocks, int n, int ld,
-                                            int c0, int fw) {
+                                            const int* cols, int blocks, int n, int ld, int c0,
+                                            int fw, int unit) {
   stage_blocks(xs, stride, width, x, blocks,
-               [=](int t) { return static_cast<long long>(block_cols[t]) * TK; }, n, ld, c0, fw);
+               [=](int t) { return static_cast<long long>(cols[t]) * unit; }, n, ld, c0, fw);
 }
+
+template <bool ANY>
+constexpr int col_unit = ANY ? 1 : TK;
 
 // Row stride of a staged slab `width` floats wide (a multiple of 4): the
 // smallest stride >= width that is 4 mod 8 words, so eight consecutive rows
@@ -206,8 +301,9 @@ Kernel pick_width(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k4
   return f <= 4 ? k4 : f <= 8 ? k8 : f <= 16 ? k16 : f <= 32 ? k32 : f <= 40 ? k40 : k64;
 }
 
-#define GAT_TILE_WIDTHS(kernel) \
-  kernel<4>, kernel<8>, kernel<16>, kernel<32>, kernel<40>, kernel<64>
+#define GAT_TILE_WIDTHS(kernel, any)                                                     \
+  kernel<4, any>, kernel<8, any>, kernel<16, any>, kernel<32, any>, kernel<40, any>, \
+      kernel<64, any>
 
 // `kernel` on `grid` with `smem` bytes of dynamic shared memory (above 48 KB
 // only after the opt-in), on `stream`; returns the launch's CUDA error. A
@@ -252,18 +348,24 @@ __device__ __forceinline__ Item load_item(const int* items) {
   return Item{it[0], it[1], it[2], it[3], it[4], it[5]};
 }
 
-// Decode the masks of an item's tiles once into mask_sh [C][TM] (this
-// thread's own words) and its block columns into cols_sh [C]; the caller's
-// first barrier publishes cols_sh.
-__device__ __forceinline__ void load_item_tiles(const Item& it, const void* tiles, int bf16,
-                                                const int* block_cols, uint4* mask_sh,
+// Decode the masks of an item's (panel) tiles once into mask_sh [C][TM]
+// (this thread's own words) and into cols_sh [C] their block columns (the
+// fast case) or first column nodes (ANY), as stage_tiles reads them with
+// col_unit<ANY>; the caller's first barrier publishes cols_sh.
+template <bool ANY>
+__device__ __forceinline__ void load_item_tiles(const Geo& g, const Item& it, const void* tiles,
+                                                int bf16, const int* block_cols, uint4* mask_sh,
                                                 int* cols_sh) {
   const int nt = it.end - it.begin, i = threadIdx.x;
-  if (i < nt) cols_sh[i] = block_cols[it.begin + i];
+  if constexpr (ANY) {
+    if (i < nt) cols_sh[i] = static_cast<int>(first_node<true>(g, block_cols[it.begin + i]));
+  } else {
+    if (i < nt) cols_sh[i] = block_cols[it.begin + i];
+  }
   for (int t = 0; t < nt; ++t) {
-    uint32_t w[4];
-    mask_words(tile_ptr(tiles, bf16, it.begin + t), bf16, w);
-    mask_sh[t * TM + i] = make_uint4(w[0], w[1], w[2], w[3]);  // read by this thread only
+    const int bc = ANY ? block_cols[it.begin + t] : 0;
+    // read by this thread only
+    mask_sh[t * TM + i] = panel_mask<ANY>(g, tiles, bf16, it.begin + t, it.row, bc);
   }
 }
 
@@ -440,12 +542,14 @@ __device__ __forceinline__ bool arrive_last(int* counter, int parts) {
 // whichever part arrives last. The parts come from L2, so each thread keeps
 // several independent loads in flight: four parts at a time, and num in
 // 16-byte quads when F is a multiple of 4 (a quad then lies in one head).
-__device__ __forceinline__ void merge_parts(const Item& it, const Partials& ws, float* num_out,
-                                            float* den_out, float* m_out, int n, int h,
-                                            int hf) {
-  const long long row0 = static_cast<long long>(it.row) * TM;
+template <bool ANY>
+__device__ __forceinline__ void merge_parts(const Geo& g, const Item& it, const Partials& ws,
+                                            float* num_out, float* den_out, float* m_out, int n,
+                                            int h, int hf) {
+  const long long row0 = first_node<ANY>(g, it.row);
   const long long left = static_cast<long long>(n) - row0;
-  const int rows = left < TM ? static_cast<int>(left) : TM;
+  const int extent = panel_extent<ANY>(g, it.row);
+  const int rows = left < extent ? static_cast<int>(left) : extent;
   const size_t m_part = static_cast<size_t>(TM) * h, num_part = static_cast<size_t>(TM) * hf;
   const size_t base = static_cast<size_t>(it.first) * TM;
   const int parts = it.parts;
@@ -537,11 +641,13 @@ __device__ __forceinline__ void get_cols(float x[W], const float* row, int c0, i
 // null) into out1 [n, width - hf]. The same bits whichever part arrives
 // last. Four parts at a time and 16-byte quads when both outputs' widths are
 // multiples of 4 (a quad then lies in one output), as merge_parts.
-__device__ __forceinline__ void sum_parts(const Item& it, const float* ws, int width,
-                                          float* out0, float* out1, int n, int hf) {
-  const long long row0 = static_cast<long long>(it.row) * TM;
+template <bool ANY>
+__device__ __forceinline__ void sum_parts(const Geo& g, const Item& it, const float* ws,
+                                          int width, float* out0, float* out1, int n, int hf) {
+  const long long row0 = first_node<ANY>(g, it.row);
   const long long left = static_cast<long long>(n) - row0;
-  const int rows = left < TM ? static_cast<int>(left) : TM;
+  const int extent = panel_extent<ANY>(g, it.row);
+  const int rows = left < extent ? static_cast<int>(left) : extent;
   const int w1 = width - hf;
   const size_t part = static_cast<size_t>(TM) * width;
   const float* base = ws + static_cast<size_t>(it.first) * part;

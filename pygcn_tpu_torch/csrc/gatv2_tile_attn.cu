@@ -156,10 +156,10 @@ __device__ __forceinline__ void stage_a(float* a_sh, const float* a, int head, i
 
 // B7. blockIdx.x is a work item; `max_tiles` (C) sizes the shared memory and
 // `group` tiles' sl rows are staged at once.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
-                      const int* __restrict__ block_cols, const int* __restrict__ items,
+                      const int* __restrict__ block_cols, const int* __restrict__ items, Geo geo,
                       const float* __restrict__ sl, const float* __restrict__ sr,
                       const float* __restrict__ a, float* __restrict__ num_out,
                       float* __restrict__ den_out, float* __restrict__ m_out,
@@ -175,10 +175,10 @@ gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
   int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * S + FP);  // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long row0 = static_cast<long long>(it.row) * TM, v = row0 + i;
+  const long long row0 = first_node<ANY>(geo, it.row), v = own_node<ANY>(geo, it.row, n);
   const Partials parts(ws, n_slots, h, hf);
 
-  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles, bf16, block_cols, mask_sh, cols_sh);
   const float* own = own_sh + i * S;
   for (int head = 0; head < h; ++head) {
     float srv[FP];
@@ -195,7 +195,7 @@ gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
           stage_a(a_sh, a, head, f, W);
           if constexpr (!REG) stage_rows(own_sh, S, W, sr, row0, n, hf, head * f, f);
         }
-        stage_tiles(sl_sh, S, W, sl, cols_sh + g0, gn, n, hf, head * f, f);
+        stage_tiles(sl_sh, S, W, sl, cols_sh + g0, gn, n, hf, head * f, f, col_unit<ANY>);
         __syncthreads();
         for (int t = g0; t < g0 + gn; ++t) {
           const float* st = sl_sh + (t - g0) * TK * S;
@@ -232,7 +232,7 @@ gatv2_fwd_item_kernel(const void* __restrict__ tiles, int bf16,
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    merge_parts(it, parts, num_out, den_out, m_out, n, h, hf);
+    merge_parts<ANY>(geo, it, parts, num_out, den_out, m_out, n, h, hf);
 }
 
 
@@ -260,11 +260,11 @@ __device__ __forceinline__ void send_col(float& g, float p, float de, float a, f
 // in registers, the own dnum row in shared memory transposed ([FP][TM]: the
 // warp's lanes read 32 banks), and the senders' sl rows of `group` tiles are
 // staged at once at the odd stride.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gatv2_bwd_recv_item_kernel(const void* __restrict__ tiles, int bf16,
                            const int* __restrict__ block_cols, const int* __restrict__ items,
-                           const float* __restrict__ sl, const float* __restrict__ sr,
+                           Geo geo, const float* __restrict__ sl, const float* __restrict__ sr,
                            const float* __restrict__ a, const float* __restrict__ m_in,
                            const float* __restrict__ dnum, const float* __restrict__ dden,
                            float* __restrict__ dsr_out, float* __restrict__ dapart_out,
@@ -279,10 +279,10 @@ gatv2_bwd_recv_item_kernel(const void* __restrict__ tiles, int bf16,
   int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * S);     // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(it.row) * TM + i;
+  const long long v = own_node<ANY>(geo, it.row, n);
   float* const dst_sr = grad_row(it, ws, 2 * hf, 0, dsr_out, hf, v, n);
   float* const dst_ap = grad_row(it, ws, 2 * hf, hf, dapart_out, hf, v, n);
-  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles, bf16, block_cols, mask_sh, cols_sh);
 
   for (int head = 0; head < h; ++head) {
     float srv[FP], gsr[FP], gap[FP];
@@ -298,7 +298,7 @@ gatv2_bwd_recv_item_kernel(const void* __restrict__ tiles, int bf16,
       const int gn = min(group, nt - g0);
       __syncthreads();  // the previous senders and a are no longer read
       if (g0 == 0) stage_a(a_sh, a, head, f, FP);
-      stage_tiles(sl_sh, S, FP, sl, cols_sh + g0, gn, n, hf, head * f, f);
+      stage_tiles(sl_sh, S, FP, sl, cols_sh + g0, gn, n, hf, head * f, f, col_unit<ANY>);
       __syncthreads();
       for (int t = g0; t < g0 + gn; ++t) {
         const float* st = sl_sh + (t - g0) * TK * S;
@@ -332,17 +332,17 @@ gatv2_bwd_recv_item_kernel(const void* __restrict__ tiles, int bf16,
     put_cols<FP>(dst_ap, head * f, f, gap);
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    sum_parts(it, ws, 2 * hf, dsr_out, dapart_out, n, hf);
+    sum_parts<ANY>(geo, it, ws, 2 * hf, dsr_out, dapart_out, n, hf);
 }
 
 // B9 for heads up to MAX_REG_F wide, over the transpose tiles (the item's
 // block row holds senders u): per head the own sl row and dsl in registers;
 // the receivers' sr and dnum rows, m and dden of `group` tiles staged at once.
-template <int FP>
+template <int FP, bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gatv2_bwd_send_item_kernel(const void* __restrict__ tiles_t, int bf16,
                            const int* __restrict__ block_cols, const int* __restrict__ items,
-                           const float* __restrict__ sl, const float* __restrict__ sr,
+                           Geo geo, const float* __restrict__ sl, const float* __restrict__ sr,
                            const float* __restrict__ a, const float* __restrict__ m_in,
                            const float* __restrict__ dnum, const float* __restrict__ dden,
                            float* __restrict__ dsl_out, float* __restrict__ ws,
@@ -359,9 +359,9 @@ gatv2_bwd_send_item_kernel(const void* __restrict__ tiles_t, int bf16,
   int* cols_sh = reinterpret_cast<int*>(dd_sh + group * TK);         // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long u = static_cast<long long>(it.row) * TM + i;  // sender
+  const long long u = own_node<ANY>(geo, it.row, n);  // sender
   float* const dst_sl = grad_row(it, ws, hf, 0, dsl_out, hf, u, n);
-  load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
 
   for (int head = 0; head < h; ++head) {
     float slu[FP], g[FP];
@@ -372,10 +372,10 @@ gatv2_bwd_send_item_kernel(const void* __restrict__ tiles_t, int bf16,
       const int gn = min(group, nt - g0);
       __syncthreads();  // the previous receivers and a are no longer read
       if (g0 == 0) stage_a(a_sh, a, head, f, FP);
-      stage_tiles(sr_sh, S, FP, sr, cols_sh + g0, gn, n, hf, head * f, f);
-      stage_tiles(dn_sh, S, FP, dnum, cols_sh + g0, gn, n, hf, head * f, f);
-      stage_tiles(m_sh, 1, 1, m_in, cols_sh + g0, gn, n, h, head, 1);
-      stage_tiles(dd_sh, 1, 1, dden, cols_sh + g0, gn, n, h, head, 1);
+      stage_tiles(sr_sh, S, FP, sr, cols_sh + g0, gn, n, hf, head * f, f, col_unit<ANY>);
+      stage_tiles(dn_sh, S, FP, dnum, cols_sh + g0, gn, n, hf, head * f, f, col_unit<ANY>);
+      stage_tiles(m_sh, 1, 1, m_in, cols_sh + g0, gn, n, h, head, 1, col_unit<ANY>);
+      stage_tiles(dd_sh, 1, 1, dden, cols_sh + g0, gn, n, h, head, 1, col_unit<ANY>);
       __syncthreads();
       for (int t = g0; t < g0 + gn; ++t) {
         const int tb = (t - g0) * TK;
@@ -405,7 +405,7 @@ gatv2_bwd_send_item_kernel(const void* __restrict__ tiles_t, int bf16,
     put_cols<FP>(dst_sl, head * f, f, g);
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    sum_parts(it, ws, hf, dsl_out, nullptr, n, hf);
+    sum_parts<ANY>(geo, it, ws, hf, dsl_out, nullptr, n, hf);
 }
 
 // The F-chunked kernels: B8 and B9 above MAX_REG_F, B7 above the staged
@@ -483,30 +483,33 @@ __device__ __forceinline__ float dot_reg(const float x[W], const float* y, float
 // Stage chunk c0 of a and of the column side's rows under tiles
 // g0 .. g0 + gn (x_sh: x's rows; with y, y_sh: y's rows too; with m_in, m and
 // dden of those columns into m_sh and dd_sh), between the barriers that keep
-// the previous chunk's readers and this chunk's apart.
+// the previous chunk's readers and this chunk's apart; `unit` is col_unit.
 __device__ __forceinline__ void stage_chunk(float* a_sh, const float* a, float* x_sh,
                                             const float* x, float* y_sh, const float* y,
                                             float* m_sh, const float* m_in, float* dd_sh,
                                             const float* dden, const int* cols_sh, int g0,
-                                            int gn, int n, int h, int f, int head, int c0) {
+                                            int gn, int n, int h, int f, int head, int c0,
+                                            int unit) {
   const int hf = h * f, fw = min(CW, f - c0);
   __syncthreads();  // the previous chunk is no longer read
   if (g0 == 0) stage_a_chunk(a_sh, a, head, f, c0);
-  stage_tiles(x_sh, CS, CW, x, cols_sh + g0, gn, n, hf, head * f + c0, fw);
-  if (y != nullptr) stage_tiles(y_sh, CS, CW, y, cols_sh + g0, gn, n, hf, head * f + c0, fw);
+  stage_tiles(x_sh, CS, CW, x, cols_sh + g0, gn, n, hf, head * f + c0, fw, unit);
+  if (y != nullptr)
+    stage_tiles(y_sh, CS, CW, y, cols_sh + g0, gn, n, hf, head * f + c0, fw, unit);
   if (m_in != nullptr) {
-    stage_tiles(m_sh, 1, 1, m_in, cols_sh + g0, gn, n, h, head, 1);
-    stage_tiles(dd_sh, 1, 1, dden, cols_sh + g0, gn, n, h, head, 1);
+    stage_tiles(m_sh, 1, 1, m_in, cols_sh + g0, gn, n, h, head, 1, unit);
+    stage_tiles(dd_sh, 1, 1, dden, cols_sh + g0, gn, n, h, head, 1, unit);
   }
   __syncthreads();
 }
 
 // B8, any F. Per edge: pass 1 the logit and sl_u . dnum_v, then
 // de = exp(e - m_v) (gdot + dden_v); pass 2 dsr and dapart, CW columns at a time.
+template <bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
                             const int* __restrict__ block_cols, const int* __restrict__ items,
-                            const float* __restrict__ sl, const float* __restrict__ sr,
+                            Geo geo, const float* __restrict__ sl, const float* __restrict__ sr,
                             const float* __restrict__ a, const float* __restrict__ m_in,
                             const float* __restrict__ dnum, const float* __restrict__ dden,
                             float* __restrict__ dsr_out, float* __restrict__ dapart_out,
@@ -521,10 +524,10 @@ gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
   int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * CS);    // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(it.row) * TM + i;
+  const long long v = own_node<ANY>(geo, it.row, n);
   float* const dst_sr = grad_row(it, ws, 2 * hf, 0, dsr_out, hf, v, n);
   float* const dst_ap = grad_row(it, ws, 2 * hf, hf, dapart_out, hf, v, n);
-  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles, bf16, block_cols, mask_sh, cols_sh);
   __syncthreads();
   const int batches = own_batches(mask_sh, nt);
 
@@ -542,7 +545,7 @@ gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      cols_sh, g0, gn, n, h, f, head, c0);
+                      cols_sh, g0, gn, n, h, f, head, c0, col_unit<ANY>);
           for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
             const float* xj = sl_sh + ((t - g0) * TK + j) * CS;
             float *eb = ebuf + s * TM + i, *gb = gbuf + s * TM + i;
@@ -567,7 +570,7 @@ gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      cols_sh, g0, gn, n, h, f, head, c0);
+                      cols_sh, g0, gn, n, h, f, head, c0, col_unit<ANY>);
           for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
             const float* xj = sl_sh + ((t - g0) * TK + j) * CS;
             const float de = ebuf[s * TM + i];
@@ -588,15 +591,16 @@ gatv2_bwd_recv_chunk_kernel(const void* __restrict__ tiles, int bf16,
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    sum_parts(it, ws, 2 * hf, dsr_out, dapart_out, n, hf);
+    sum_parts<ANY>(geo, it, ws, 2 * hf, dsr_out, dapart_out, n, hf);
 }
 
 // B9, any F. Per edge: pass 1 the logit and sl_u . dnum_v, then
 // p = exp(e - m_v) and de = p (gdot + dden_v); pass 2 dsl, CW columns at a time.
+template <bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
                             const int* __restrict__ block_cols, const int* __restrict__ items,
-                            const float* __restrict__ sl, const float* __restrict__ sr,
+                            Geo geo, const float* __restrict__ sl, const float* __restrict__ sr,
                             const float* __restrict__ a, const float* __restrict__ m_in,
                             const float* __restrict__ dnum, const float* __restrict__ dden,
                             float* __restrict__ dsl_out, float* __restrict__ ws,
@@ -614,9 +618,9 @@ gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
   int* cols_sh = reinterpret_cast<int*>(dd_sh + group * TK);         // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long u = static_cast<long long>(it.row) * TM + i;  // sender
+  const long long u = own_node<ANY>(geo, it.row, n);  // sender
   float* const dst_sl = grad_row(it, ws, hf, 0, dsl_out, hf, u, n);
-  load_item_tiles(it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles_t, bf16, block_cols, mask_sh, cols_sh);
   __syncthreads();
   const int batches = own_batches(mask_sh, nt);
 
@@ -631,7 +635,7 @@ gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           stage_chunk(a_sh, a, sr_sh, sr, dn_sh, dnum, m_sh, last ? m_in : nullptr, dd_sh, dden,
-                      cols_sh, g0, gn, n, h, f, head, c0);
+                      cols_sh, g0, gn, n, h, f, head, c0, col_unit<ANY>);
           for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
             const int at = (t - g0) * TK + j;
             float *eb = ebuf + s * TM + i, *gb = gbuf + s * TM + i;
@@ -657,7 +661,7 @@ gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           stage_chunk(a_sh, a, sr_sh, sr, dn_sh, dnum, m_sh, nullptr, dd_sh, dden, cols_sh, g0,
-                      gn, n, h, f, head, c0);
+                      gn, n, h, f, head, c0, col_unit<ANY>);
           for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
             const int at = (t - g0) * TK + j;
             const float p = ebuf[s * TM + i], de = gbuf[s * TM + i];
@@ -678,7 +682,7 @@ gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    sum_parts(it, ws, hf, dsl_out, nullptr, n, hf);
+    sum_parts<ANY>(geo, it, ws, hf, dsl_out, nullptr, n, hf);
 }
 
 // B7 above the staged kernel's reach (its rows of all F columns would
@@ -686,9 +690,10 @@ gatv2_bwd_send_chunk_kernel(const void* __restrict__ tiles_t, int bf16,
 // logit through the chunks; pass 2 runs B7's online softmax over the logits
 // once per CW-column slab of num, each slab from the batch's starting state
 // (the same m and den every slab), the split rows' partials merged as B7's.
+template <bool ANY>
 __global__ void __launch_bounds__(THREADS)
 gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
-                       const int* __restrict__ block_cols, const int* __restrict__ items,
+                       const int* __restrict__ block_cols, const int* __restrict__ items, Geo geo,
                        const float* __restrict__ sl, const float* __restrict__ sr,
                        const float* __restrict__ a, float* __restrict__ num_out,
                        float* __restrict__ den_out, float* __restrict__ m_out,
@@ -702,12 +707,12 @@ gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
   int* cols_sh = reinterpret_cast<int*>(sl_sh + group * TK * CS);    // [C]
   const Item it = load_item(items);
   const int nt = it.end - it.begin, i = threadIdx.x, hf = h * f;
-  const long long v = static_cast<long long>(it.row) * TM + i;
+  const long long v = own_node<ANY>(geo, it.row, n);
   const Partials parts(ws, n_slots, h, hf);
   // this thread's num row (nullptr past n), as put_softmax writes it
   float* num_row = it.slot < 0 ? (v < n ? num_out + v * hf : nullptr)
                                : parts.num + (static_cast<size_t>(it.slot) * TM + i) * hf;
-  load_item_tiles(it, tiles, bf16, block_cols, mask_sh, cols_sh);
+  load_item_tiles<ANY>(geo, it, tiles, bf16, block_cols, mask_sh, cols_sh);
   __syncthreads();
   const int batches = own_batches(mask_sh, nt);
 
@@ -722,7 +727,7 @@ gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      cols_sh, g0, gn, n, h, f, head, c0);
+                      cols_sh, g0, gn, n, h, f, head, c0, col_unit<ANY>);
           for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
             float* eb = ebuf + s * TM + i;
             *eb = logit_reg<CW>(a_sh, osr, sl_sh + ((t - g0) * TK + j) * CS, slope,
@@ -741,7 +746,7 @@ gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
         for (int g0 = 0; g0 < nt; g0 += group) {
           const int gn = min(group, nt - g0);
           stage_chunk(a_sh, a, sl_sh, sl, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      cols_sh, g0, gn, n, h, f, head, s0);
+                      cols_sh, g0, gn, n, h, f, head, s0, col_unit<ANY>);
           for_batch_edges(mask_sh, g0, g0 + gn, k, lo, [&](int t, int j, int s) {
             const float e = ebuf[s * TM + i];
             if (e > m) {
@@ -772,7 +777,7 @@ gatv2_fwd_chunk_kernel(const void* __restrict__ tiles, int bf16,
     }
   }
   if (it.slot >= 0 && arrive_last(counters + it.first, it.parts))
-    merge_parts(it, parts, num_out, den_out, m_out, n, h, hf);
+    merge_parts<ANY>(geo, it, parts, num_out, den_out, m_out, n, h, hf);
 }
 
 // Each kernel's dynamic shared memory at per-head width f (compiled width
@@ -831,53 +836,64 @@ Kernel pick_narrow(int f, Kernel k4, Kernel k8, Kernel k16, Kernel k32, Kernel k
 int v2_fwd(const void* tiles, const void* block_cols, const void* items, const void* sl,
            const void* sr, const void* a, void* num, void* den, void* m, void* ws,
            void* counters, int n_items, int n_slots, int n, int h, int f, int max_tiles,
-           int tile_bf16, float slope, void* stream, bool chunked) {
-  if (f < 1 || max_tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+           int tile_bf16, const Geo& geo, float slope, void* stream, bool chunked) {
+  if (f < 1 || max_tiles < 1 || !geo_ok(geo)) return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto kernel, size_t smem, int group) {
     return launch(kernel, dim3(n_items), smem, stream, tiles, tile_bf16,
-                  static_cast<const int*>(block_cols), static_cast<const int*>(items),
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items), geo,
                   static_cast<const float*>(sl), static_cast<const float*>(sr),
                   static_cast<const float*>(a), static_cast<float*>(num), static_cast<float*>(den),
                   static_cast<float*>(m), static_cast<float*>(ws), static_cast<int*>(counters),
                   n_slots, n, h, f, max_tiles, group, slope);
   };
   const size_t staged = fwd_smem(f, width_of(f), max_tiles);
-  if (chunked || f > MAX_STAGED_F || staged > MAX_SMEM)
-    return go(gatv2_fwd_chunk_kernel, fwd_chunk_smem(max_tiles), recv_group(CS, max_tiles));
-  return go(pick_width(f, GAT_TILE_WIDTHS(gatv2_fwd_item_kernel)), staged,
-            fwd_group(f, max_tiles));
+  return by_geometry(geo, [&](auto any) {
+    constexpr bool A = decltype(any)::value;
+    if (chunked || f > MAX_STAGED_F || staged > MAX_SMEM)
+      return go(gatv2_fwd_chunk_kernel<A>, fwd_chunk_smem(max_tiles), recv_group(CS, max_tiles));
+    return go(pick_width(f, GAT_TILE_WIDTHS(gatv2_fwd_item_kernel, A)), staged,
+              fwd_group(f, max_tiles));
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile shape and the ints of one work item of B7, B8 and B9.
-int gatv2_tile_attn_config(int* tm, int* tk, int* item_ints) {
-  *tm = TM;
-  *tk = TK;
+// The rows of one CTA's panel, the multiple that tile sides must be, and the
+// ints of one work item of B7, B8 and B9.
+int gatv2_tile_attn_config(int* panel, int* side_multiple, int* item_ints) {
+  *panel = TM;
+  *side_multiple = 32;
   *item_ints = ITEM_INTS;
   return 0;
 }
+
+// Every entry takes the tile geometry as gat_tile_attn.cu's do: side S,
+// panels P and the panel tiles' source tiles `src`; block_cols and items are
+// the panel tiles' (the tiles' own when P = 1).
 
 // B7: the staged kernel while its rows fit, else the chunked one.
 // Returns the CUDA error of the launch (0 on success).
 int gatv2_tile_fwd(const void* tiles, const void* block_cols, const void* items, const void* sl,
                    const void* sr, const void* a, void* num, void* den, void* m, void* ws,
                    void* counters, int n_items, int n_slots, int n, int h, int f, int max_tiles,
-                   int tile_bf16, float slope, void* stream) {
+                   int tile_bf16, int side, int panels, const void* src, float slope,
+                   void* stream) {
   return v2_fwd(tiles, block_cols, items, sl, sr, a, num, den, m, ws, counters, n_items, n_slots,
-                n, h, f, max_tiles, tile_bf16, slope, stream, false);
+                n, h, f, max_tiles, tile_bf16, Geo{side, panels, static_cast<const int*>(src)},
+                slope, stream, false);
 }
 
 // B7 on its chunked kernel at any F, to time and test it against the staged one.
 int gatv2_tile_fwd_chunked(const void* tiles, const void* block_cols, const void* items,
                            const void* sl, const void* sr, const void* a, void* num, void* den,
                            void* m, void* ws, void* counters, int n_items, int n_slots, int n,
-                           int h, int f, int max_tiles, int tile_bf16, float slope,
-                           void* stream) {
+                           int h, int f, int max_tiles, int tile_bf16, int side, int panels,
+                           const void* src, float slope, void* stream) {
   return v2_fwd(tiles, block_cols, items, sl, sr, a, num, den, m, ws, counters, n_items, n_slots,
-                n, h, f, max_tiles, tile_bf16, slope, stream, true);
+                n, h, f, max_tiles, tile_bf16, Geo{side, panels, static_cast<const int*>(src)},
+                slope, stream, true);
 }
 
 // B8 over the forward tiles, on B7's work items (the same schedule and
@@ -887,24 +903,31 @@ int gatv2_tile_bwd_recv(const void* tiles, const void* block_cols, const void* i
                         const void* sl, const void* sr, const void* a, const void* m,
                         const void* dnum, const void* dden, void* dsr, void* dapart, void* ws,
                         void* counters, int n_items, int n_slots, int n, int h, int f,
-                        int max_tiles, int tile_bf16, float slope, void* stream) {
-  if (f < 1 || max_tiles < 1 || n_slots < 0) return static_cast<int>(cudaErrorInvalidValue);
+                        int max_tiles, int tile_bf16, int side, int panels, const void* src,
+                        float slope, void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || max_tiles < 1 || n_slots < 0 || !geo_ok(geo))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto kernel, size_t smem, int group) {
     return launch(kernel, dim3(n_items), smem, stream, tiles, tile_bf16,
-                  static_cast<const int*>(block_cols), static_cast<const int*>(items),
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items), geo,
                   static_cast<const float*>(sl), static_cast<const float*>(sr),
                   static_cast<const float*>(a), static_cast<const float*>(m),
                   static_cast<const float*>(dnum), static_cast<const float*>(dden),
                   static_cast<float*>(dsr), static_cast<float*>(dapart), static_cast<float*>(ws),
                   static_cast<int*>(counters), n, h, f, max_tiles, group, slope);
   };
-  if (f > MAX_REG_F)
-    return go(gatv2_bwd_recv_chunk_kernel, recv_chunk_smem(max_tiles), recv_group(CS, max_tiles));
-  const int fp = width_of(f);
-  return go(pick_narrow(f, gatv2_bwd_recv_item_kernel<4>, gatv2_bwd_recv_item_kernel<8>,
-                        gatv2_bwd_recv_item_kernel<16>, gatv2_bwd_recv_item_kernel<32>,
-                        gatv2_bwd_recv_item_kernel<40>),
-            recv_item_smem(fp, max_tiles), recv_group(slab_stride(fp), max_tiles));
+  return by_geometry(geo, [&](auto any) {
+    constexpr bool A = decltype(any)::value;
+    if (f > MAX_REG_F)
+      return go(gatv2_bwd_recv_chunk_kernel<A>, recv_chunk_smem(max_tiles),
+                recv_group(CS, max_tiles));
+    const int fp = width_of(f);
+    return go(pick_narrow(f, gatv2_bwd_recv_item_kernel<4, A>, gatv2_bwd_recv_item_kernel<8, A>,
+                          gatv2_bwd_recv_item_kernel<16, A>, gatv2_bwd_recv_item_kernel<32, A>,
+                          gatv2_bwd_recv_item_kernel<40, A>),
+              recv_item_smem(fp, max_tiles), recv_group(slab_stride(fp), max_tiles));
+  });
 }
 
 // B9 over the transpose tiles (block rows are senders), on their own work
@@ -913,24 +936,31 @@ int gatv2_tile_bwd_send(const void* tiles_t, const void* block_cols, const void*
                         const void* sl, const void* sr, const void* a, const void* m,
                         const void* dnum, const void* dden, void* dsl, void* ws, void* counters,
                         int n_items, int n_slots, int n, int h, int f, int max_tiles,
-                        int tile_bf16, float slope, void* stream) {
-  if (f < 1 || max_tiles < 1 || n_slots < 0) return static_cast<int>(cudaErrorInvalidValue);
+                        int tile_bf16, int side, int panels, const void* src, float slope,
+                        void* stream) {
+  const Geo geo{side, panels, static_cast<const int*>(src)};
+  if (f < 1 || max_tiles < 1 || n_slots < 0 || !geo_ok(geo))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto go = [&](auto kernel, size_t smem, int group) {
     return launch(kernel, dim3(n_items), smem, stream, tiles_t, tile_bf16,
-                  static_cast<const int*>(block_cols), static_cast<const int*>(items),
+                  static_cast<const int*>(block_cols), static_cast<const int*>(items), geo,
                   static_cast<const float*>(sl), static_cast<const float*>(sr),
                   static_cast<const float*>(a), static_cast<const float*>(m),
                   static_cast<const float*>(dnum), static_cast<const float*>(dden),
                   static_cast<float*>(dsl), static_cast<float*>(ws), static_cast<int*>(counters),
                   n, h, f, max_tiles, group, slope);
   };
-  if (f > MAX_REG_F)
-    return go(gatv2_bwd_send_chunk_kernel, send_chunk_smem(max_tiles), send_group(CS, max_tiles));
-  const int fp = width_of(f);
-  return go(pick_narrow(f, gatv2_bwd_send_item_kernel<4>, gatv2_bwd_send_item_kernel<8>,
-                        gatv2_bwd_send_item_kernel<16>, gatv2_bwd_send_item_kernel<32>,
-                        gatv2_bwd_send_item_kernel<40>),
-            send_item_smem(fp, max_tiles), send_group(slab_stride(fp), max_tiles));
+  return by_geometry(geo, [&](auto any) {
+    constexpr bool A = decltype(any)::value;
+    if (f > MAX_REG_F)
+      return go(gatv2_bwd_send_chunk_kernel<A>, send_chunk_smem(max_tiles),
+                send_group(CS, max_tiles));
+    const int fp = width_of(f);
+    return go(pick_narrow(f, gatv2_bwd_send_item_kernel<4, A>, gatv2_bwd_send_item_kernel<8, A>,
+                          gatv2_bwd_send_item_kernel<16, A>, gatv2_bwd_send_item_kernel<32, A>,
+                          gatv2_bwd_send_item_kernel<40, A>),
+              send_item_smem(fp, max_tiles), send_group(slab_stride(fp), max_tiles));
+  });
 }
 
 }  // extern "C"

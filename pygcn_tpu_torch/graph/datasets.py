@@ -1,9 +1,16 @@
-"""Dataset builders for the full-graph GCN path.
+"""Dataset loaders and builders for the node-classification paths.
 
-Synthetic generators at arbitrary scale, copied from
-``pygcn_tpu/graph/datasets.py`` with the NumPy ``default_rng`` call order kept
-exactly, so the same seed gives the same arrays in both packages:
+Copied from ``pygcn_tpu/graph/datasets.py`` with the NumPy ``default_rng``
+call order kept exactly, so the same files and seeds give the same arrays in
+both packages:
 
+- ``load_planetoid`` — the Cora/Citeseer/Pubmed text format (``.content`` +
+  ``.cites``), with the reference's preprocessing; ``load_planetoid_structure``
+  — the real ``.cites`` structure with synthetic features and labels;
+- ``load_npz_dataset``/``save_npz_dataset`` — the single-file interchange
+  format (``train_fullgraph --npz``);
+- ``sbm_classification`` — the synthetic Planetoid stand-in of
+  ``apps/train_cora``;
 - ``community_classification`` — the clustered, learnable arxiv-scale
   workload (``train_fullgraph --clustered``) over ``community_graph``.
 - ``chung_lu_graph`` — power-law degree graphs for throughput runs.
@@ -76,6 +83,233 @@ def _finalize(
         idx_val=np.asarray(idx_val, np.int32),
         idx_test=np.asarray(idx_test, np.int32),
         n_classes=int(labels.max()) + 1,
+    )
+
+
+def load_planetoid(
+    content_path: str,
+    cites_path: str,
+    *,
+    adj_norm: str = "sym",
+    splits: Optional[tuple] = None,
+    **graph_kwargs,
+) -> NodeClassificationData:
+    """Load a Cora-format dataset (``<id> <feat…> <label>`` + ``<cited> <citing>``)."""
+    raw = np.genfromtxt(content_path, dtype=str)
+    ids = raw[:, 0]
+    features = raw[:, 1:-1].astype(np.float32)
+    label_names = raw[:, -1]
+    classes = {c: i for i, c in enumerate(sorted(set(label_names)))}
+    labels = np.array([classes[c] for c in label_names], np.int32)
+
+    idx_map = {j: i for i, j in enumerate(ids)}
+    edges_raw = np.genfromtxt(cites_path, dtype=str)
+    edges = np.array(
+        [[idx_map[a], idx_map[b]] for a, b in edges_raw if a in idx_map and b in idx_map],
+        np.int64,
+    )
+    n = len(ids)
+    adj = sp.coo_matrix(
+        (np.ones(len(edges), np.float32), (edges[:, 0], edges[:, 1])), shape=(n, n)
+    )
+
+    if splits is None:
+        splits = (range(140), range(200, 500), range(500, 1500))
+    idx_train, idx_val, idx_test = (np.asarray(list(s)) for s in splits)
+    return _finalize(
+        adj, features, labels, idx_train, idx_val, idx_test,
+        adj_norm=adj_norm, **graph_kwargs,
+    )
+
+
+def load_planetoid_structure(
+    cites_path: str,
+    *,
+    n_classes: int = 7,
+    feat_dim: int = 256,
+    seed: int = 0,
+    adj_norm: str = "sym",
+    splits: Optional[tuple] = None,
+    **graph_kwargs,
+) -> NodeClassificationData:
+    """Real citation-graph structure with synthetic features and labels, for
+    a dataset whose ``.content`` file is missing (the reference ships
+    ``cora.cites`` but not ``cora.content``).
+
+    Parses the edge list (``native.parse_edge_list``: graphkit when built,
+    NumPy otherwise), maps node ids in first-appearance order over the file,
+    applies the reference preprocessing, and draws labels from the real
+    structure (label-propagation communities folded into ``n_classes`` by
+    size rank) with class-indicator noise features and seeded splits of the
+    reference's sizes (140/300/1000). Accuracy on it is not comparable to
+    real-Cora numbers.
+    """
+    from pygcn_tpu_torch.utils import native
+
+    cited, citing = native.parse_edge_list(cites_path)
+
+    interleaved = np.stack([cited, citing], 1).ravel()
+    uniq, first = np.unique(interleaved, return_index=True)
+    # rank each unique id by first appearance in the file
+    first_order = np.argsort(np.argsort(first))
+    src = first_order[np.searchsorted(uniq, cited)]
+    dst = first_order[np.searchsorted(uniq, citing)]
+    n = uniq.size
+    adj = sp.coo_matrix((np.ones(src.size, np.float32), (src, dst)), shape=(n, n))
+
+    sym = symmetrize_max(adj).tocsr()
+    comm = native.label_propagation(sym.indptr, sym.indices, sym.data, max_iters=20)
+    _, comm_ids, counts = np.unique(comm, return_inverse=True, return_counts=True)
+    size_rank = np.argsort(np.argsort(-counts, kind="stable"), kind="stable")
+    labels = (size_rank[comm_ids] % n_classes).astype(np.int32)
+
+    rng = np.random.default_rng(seed)
+    proto = rng.uniform(0.02, 0.08, (n_classes, feat_dim))
+    slice_w = max(1, feat_dim // n_classes)
+    for c in range(n_classes):
+        proto[c, c * slice_w : (c + 1) * slice_w] = 0.35
+    features = (rng.uniform(size=(n, feat_dim)) < proto[labels]).astype(np.float32)
+
+    if splits is None:
+        # the reference's sizes from a seeded permutation: the cites file
+        # lists papers community by community
+        perm = rng.permutation(n)
+        splits = (perm[:140], perm[200:500], perm[500:1500])
+    idx_train, idx_val, idx_test = (np.asarray(list(s)) for s in splits)
+    return _finalize(
+        adj, features, labels, idx_train, idx_val, idx_test,
+        adj_norm=adj_norm, **graph_kwargs,
+    )
+
+
+def load_npz_dataset(
+    path: str,
+    *,
+    adj_norm: str = "auto",
+    normalize_features: Optional[bool] = None,
+    **graph_kwargs,
+) -> NodeClassificationData:
+    """Load a node-classification dataset from one ``.npz`` file.
+
+    Keys: ``edge_index`` [2, E] (row 0 the receiver, row 1 the sender of the
+    aggregation operator A), ``features`` [N, F], ``labels`` [N]; optional
+    ``edge_weight`` [E], ``idx_train``/``idx_val``/``idx_test`` (default:
+    Planetoid-style splits scaled to N) and :func:`save_npz_dataset`'s
+    markers ``normalized`` and ``is_symmetric``. ``adj_norm='auto'`` loads a
+    file marked ``normalized`` as it is and normalizes others with ``'sym'``;
+    ``normalize_features=None`` follows the same marker.
+    """
+    with np.load(path) as z:
+        edge_index = np.asarray(z["edge_index"], np.int64)
+        features = np.asarray(z["features"], np.float32)
+        labels = np.asarray(z["labels"], np.int32)
+        n = features.shape[0]
+        weight = (
+            np.asarray(z["edge_weight"], np.float32)
+            if "edge_weight" in z
+            else np.ones(edge_index.shape[1], np.float32)
+        )
+        pre_normalized = bool(z["normalized"]) if "normalized" in z else False
+        is_symmetric = bool(z["is_symmetric"]) if "is_symmetric" in z else False
+        if "idx_train" in z:
+            idx_train = np.asarray(z["idx_train"], np.int64)
+            idx_val = np.asarray(z["idx_val"], np.int64)
+            idx_test = np.asarray(z["idx_test"], np.int64)
+        else:
+            n_train = min(140, n // 5)
+            n_val = min(300, n // 5)
+            n_test = min(1000, n - n_train - n_val)
+            idx_train = np.arange(n_train)
+            idx_val = np.arange(n_train, n_train + n_val)
+            idx_test = np.arange(n - n_test, n)
+    if adj_norm == "auto":
+        adj_norm = "none" if pre_normalized else "sym"
+    if normalize_features is None:
+        normalize_features = not pre_normalized
+    adj = sp.coo_matrix((weight, (edge_index[0], edge_index[1])), shape=(n, n))
+    return _finalize(
+        adj, features, labels, idx_train, idx_val, idx_test,
+        adj_norm=adj_norm, normalize_features=normalize_features,
+        is_symmetric=(True if (adj_norm == "none" and is_symmetric) else None),
+        **graph_kwargs,
+    )
+
+
+def save_npz_dataset(path: str, data: NodeClassificationData) -> None:
+    """Write :func:`load_npz_dataset`'s format: the already-normalized
+    operator's COO edges (row 0 receivers), features, labels and splits, with
+    the ``normalized`` and ``is_symmetric`` markers."""
+    coo = data.graph.to_scipy()
+    csr = coo.tocsr()
+    is_symmetric = (csr != csr.T).nnz == 0
+    np.savez_compressed(
+        path,
+        edge_index=np.vstack([coo.row, coo.col]).astype(np.int64),
+        edge_weight=coo.data.astype(np.float32),
+        features=data.features,
+        labels=data.labels,
+        idx_train=data.idx_train,
+        idx_val=data.idx_val,
+        idx_test=data.idx_test,
+        normalized=np.bool_(True),
+        is_symmetric=np.bool_(is_symmetric),
+    )
+
+
+def sbm_classification(
+    n: int = 600,
+    n_classes: int = 4,
+    feat_dim: int = 64,
+    avg_degree: float = 8.0,
+    homophily: float = 0.9,
+    train_per_class: int = 20,
+    n_val: int = 100,
+    n_test: int = 200,
+    seed: int = 0,
+    *,
+    adj_norm: str = "sym",
+    feature_signal: float = 0.35,
+    **graph_kwargs,
+) -> NodeClassificationData:
+    """Planetoid-shaped synthetic data: a stochastic-block-model graph whose
+    edge homophily is exactly ``homophily``, with class-signal sparse binary
+    features (rate ``feature_signal`` on each class's slice of dimensions,
+    0.02-0.08 elsewhere)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, n_classes, n).astype(np.int32)
+
+    e_target = int(n * avg_degree / 2)
+    # each edge is same-class with probability h: same-class partners are
+    # drawn within the source's class through the label-sorted node table
+    by_label = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=n_classes)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    n_cand = int(1.1 * e_target) + 16
+    src = rng.integers(0, n, n_cand)
+    is_same = rng.uniform(size=n_cand) < homophily
+    c = labels[src]
+    within = (offsets[c] + rng.integers(0, np.maximum(counts[c], 1))).astype(
+        np.int64)
+    dst = np.where(is_same, by_label[within], rng.integers(0, n, n_cand))
+    keep = src != dst
+    src, dst = src[keep][:e_target], dst[keep][:e_target]
+    adj = sp.coo_matrix((np.ones(src.size, np.float32), (src, dst)), shape=(n, n))
+
+    proto = rng.uniform(0.02, 0.08, (n_classes, feat_dim))
+    slice_w = feat_dim // n_classes
+    for c in range(n_classes):
+        proto[c, c * slice_w : (c + 1) * slice_w] = feature_signal
+    features = (rng.uniform(size=(n, feat_dim)) < proto[labels]).astype(np.float32)
+
+    order = rng.permutation(n)
+    idx_train = np.concatenate(
+        [order[labels[order] == c][:train_per_class] for c in range(n_classes)]
+    )
+    rest = np.setdiff1d(order, idx_train, assume_unique=False)
+    idx_val, idx_test = rest[:n_val], rest[n_val : n_val + n_test]
+    return _finalize(
+        adj, features, labels, idx_train, idx_val, idx_test,
+        adj_norm=adj_norm, **graph_kwargs,
     )
 
 

@@ -6,7 +6,8 @@ between the layers, head-concat on the hidden layer and head-mean on the
 output layer. Weights are drawn from an explicit ``torch.Generator`` with the
 reference's GraphConv bounds (``pygcn_tpu_torch/nn/init.py``); tests that
 need the JAX package's weights carry them across with
-``pygcn_tpu_torch.convert``. Dropout is not ported yet.
+``pygcn_tpu_torch.convert``. Training with dropout (the paper's, on the
+layer inputs and the attention coefficients) takes an explicit generator.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from pygcn_tpu_torch.graph.graph import Graph
 from pygcn_tpu_torch.nn import init as tinit
+from pygcn_tpu_torch.nn.layers import dropout
 from pygcn_tpu_torch.ops.gat import (attention_aggregate, gat_attention, gat_conv_ell,
                                      gat_conv_hybrid, gatv2_attention, gatv2_conv_ell,
                                      gatv2_conv_hybrid)
@@ -46,19 +48,24 @@ class GATConv(nn.Module):
             if bias else None
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
-                tiles_t=None) -> torch.Tensor:
+                tiles_t=None, attn_dropout=None) -> torch.Tensor:
         """Tile attention on the hybrid layout when ``hybrid_tiles`` (with
         ``tiles_t`` from ``ops.gat.build_gat_tiles_t``), else the ELL path
-        when an ``edge_map`` is given, else the COO path."""
+        when an ``edge_map`` is given, else the COO path. ``attn_dropout``
+        drops attention coefficients; the tile path takes none, so with it
+        the layer runs the ELL or COO path, as in JAX."""
         n = x.shape[0]
         h, f = self.heads, self.out_features
         s = torch.matmul(x, self.w).view(n, h, f)
-        if hybrid_tiles:
+        if hybrid_tiles and attn_dropout is None:
             out = gat_conv_hybrid(graph, tiles_t, s, self.a_src, self.a_dst, self.negative_slope)
         elif edge_map is not None:
-            out = gat_conv_ell(graph, edge_map, s, self.a_src, self.a_dst, self.negative_slope)
+            out = gat_conv_ell(graph, edge_map, s, self.a_src, self.a_dst, self.negative_slope,
+                               attn_dropout)
         else:
             alpha = gat_attention(graph, s, self.a_src, self.a_dst, self.negative_slope)
+            if attn_dropout is not None:
+                alpha = attn_dropout(alpha)  # the paper's dropout on the coefficients
             out = attention_aggregate(graph, s, alpha)  # [N, H, F]
         return _combine_heads(out, self.concat, self.b)
 
@@ -95,19 +102,22 @@ class GATv2Conv(nn.Module):
             if bias else None
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
-                tiles_t=None) -> torch.Tensor:
+                tiles_t=None, attn_dropout=None) -> torch.Tensor:
         """The paths of :meth:`GATConv.forward`; on the hybrid layout the
         tile edges run on kernels B7/B8/B9."""
         n = x.shape[0]
         h, f = self.heads, self.out_features
         s_l = torch.matmul(x, self.w_l).view(n, h, f)
         s_r = torch.matmul(x, self.w_l if self.w_r is None else self.w_r).view(n, h, f)
-        if hybrid_tiles:
+        if hybrid_tiles and attn_dropout is None:
             out = gatv2_conv_hybrid(graph, tiles_t, s_l, s_r, self.a, self.negative_slope)
         elif edge_map is not None:
-            out = gatv2_conv_ell(graph, edge_map, s_l, s_r, self.a, self.negative_slope)
+            out = gatv2_conv_ell(graph, edge_map, s_l, s_r, self.a, self.negative_slope,
+                                 attn_dropout)
         else:
             alpha = gatv2_attention(graph, s_l, s_r, self.a, self.negative_slope)
+            if attn_dropout is not None:
+                alpha = attn_dropout(alpha)
             out = attention_aggregate(graph, s_l, alpha)  # [N, H, F]
         return _combine_heads(out, self.concat, self.b)
 
@@ -116,14 +126,19 @@ class GAT(nn.Module):
     """2-layer GAT: ``elu(GATConv(heads, concat)) → GATConv(out_heads, mean)``
     with log-softmax output, the standard transductive configuration (8
     hidden heads of 8 features, one output head); ``v2`` takes
-    :class:`GATv2Conv` layers."""
+    :class:`GATv2Conv` layers.
+
+    ``dropout`` applies to both layers' inputs and attention coefficients
+    when :meth:`forward` gets a ``dropout_generator`` in training mode (the
+    JAX model's ``dropout_rng``); then the layers leave the hybrid tile path
+    for the slot path, as JAX's do, and input dropout still applies.
+    Evaluation (no generator, or eval mode) runs the tile path."""
 
     def __init__(self, nfeat: int, nhid: int, nclass: int, heads: int = 8, out_heads: int = 1,
                  negative_slope: float = 0.2, dropout: float = 0.0, v2: bool = False, *,
                  generator: torch.Generator):
         super().__init__()
-        if dropout > 0.0:
-            raise NotImplementedError("GAT input and attention dropout are not ported yet")
+        self.dropout = dropout
         conv = GATv2Conv if v2 else GATConv
         self.gat1 = conv(nfeat, nhid, heads, concat=True, negative_slope=negative_slope,
                          generator=generator)
@@ -131,7 +146,16 @@ class GAT(nn.Module):
                          negative_slope=negative_slope, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
-                tiles_t=None) -> torch.Tensor:
-        kw = dict(edge_map=edge_map, hybrid_tiles=hybrid_tiles, tiles_t=tiles_t)
+                tiles_t=None, dropout_generator=None) -> torch.Tensor:
+        drop = None
+        if dropout_generator is not None and self.training and self.dropout > 0.0:
+            def drop(a):
+                return dropout(a, self.dropout, dropout_generator)
+        kw = dict(edge_map=edge_map, hybrid_tiles=hybrid_tiles, tiles_t=tiles_t,
+                  attn_dropout=drop)
+        if drop is not None:
+            x = drop(x)
         x = F.elu(self.gat1(x, graph, **kw))
+        if drop is not None:
+            x = drop(x)
         return F.log_softmax(self.gat2(x, graph, **kw), dim=1)

@@ -1,9 +1,11 @@
-"""Graph convolution as an ``nn.Module``.
+"""Graph convolution as an ``nn.Module``, and the models' dropout.
 
 Mirrors ``pygcn_tpu/nn/layers.py:GraphConv`` and the reference's
 ``GraphConvolution`` (``pygcn/layers.py:7-38``): ``out = A @ (x @ W) + b``.
 ``x @ W`` is a plain ``torch.matmul``; the SpMM goes through
-``ops.spmm.spmm``, which picks the graph's layout.
+``ops.spmm.spmm``, which picks the graph's layout. :func:`dropout` is the
+JAX package's ``_maybe_dropout`` (``pygcn_tpu/nn/models.py``) on an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,18 @@ from torch import nn
 from pygcn_tpu_torch.graph.graph import Graph
 from pygcn_tpu_torch.nn import init as tinit
 from pygcn_tpu_torch.ops.spmm import spmm
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Keep each value with probability ``1 - rate``, scaled by ``1 / keep``,
+    the rest zero: one uniform draw per value from ``generator`` (which must
+    live on ``x``'s device). ``x`` itself without a generator or at
+    ``rate <= 0``, as the JAX models do without a dropout key."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    kept = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(kept, x / keep, 0.0)
 
 
 class GraphConv(nn.Module):

@@ -41,9 +41,12 @@ import torch
 
 from pygcn_tpu_torch.graph.graph import BCSR, Graph
 
-# The tile shape the kernel is compiled for, and the ints of one work item
-# (checked against the library).
-TILE = (128, 128)
+# The kernels take tiles whose sides are multiples of TILE_MULTIPLE (the
+# shapes JAX's kernel takes on a TPU, whose blocks follow the (8, 128) rule),
+# 128 x 128 as their fast case; a CTA covers a panel of at most PANEL tile
+# rows. With the ints of one work item, checked against the library.
+TILE_MULTIPLE = 8
+PANEL = 128
 ITEM_INTS = 6
 
 # The JAX package's A/B flag (``pygcn_tpu/ops/pallas/bcsr_spmm.py:47``), with
@@ -71,20 +74,20 @@ def _load():
         lib = ctypes.CDLL(str(build.library_path("bcsr_spmm")))
         for name in ("bcsr_spmm_f32", "bcsr_spmm_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         for name in ("bcsr_spmm_stream_f32", "bcsr_spmm_stream_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.bcsr_spmm_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
-        lib.bcsr_spmm_tile.restype = ctypes.c_int
-        tm, tk, item = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        lib.bcsr_spmm_tile(ctypes.byref(tm), ctypes.byref(tk), ctypes.byref(item))
-        if (tm.value, tk.value, item.value) != (*TILE, ITEM_INTS):
-            raise RuntimeError(f"library built for {(tm.value, tk.value)} tiles and "
-                               f"{item.value}-int work items, wrapper expects {TILE} "
-                               f"and {ITEM_INTS}")
+        lib.bcsr_spmm_config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.bcsr_spmm_config.restype = ctypes.c_int
+        panel, multiple, item = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        lib.bcsr_spmm_config(ctypes.byref(panel), ctypes.byref(multiple), ctypes.byref(item))
+        got = (panel.value, multiple.value, item.value)
+        if got != (PANEL, TILE_MULTIPLE, ITEM_INTS):
+            raise RuntimeError(f"library built for panels, tile multiples and work items of "
+                               f"{got}, wrapper expects {(PANEL, TILE_MULTIPLE, ITEM_INTS)}")
         _lib = lib
     return _lib
 
@@ -130,9 +133,9 @@ def spmm_schedule(bcsr: BCSR, max_tiles: int) -> SpMMSchedule:
 
 def _device_schedule(bcsr: BCSR, h: int) -> tuple[SpMMSchedule, torch.Tensor]:
     """B1's schedule at :data:`MAX_TILES` on the tiles' device and its int32
-    arrival counters (zero between launches, at least one per split item and
-    64 columns of ``h``), built on the first launch over ``bcsr`` and kept in
-    ``bcsr.cache``."""
+    arrival counters (zero between launches, at least one per split item, 64
+    columns of ``h`` and :data:`PANEL` rows of ``tm``), built on the first
+    launch over ``bcsr`` and kept in ``bcsr.cache``."""
     key = ("bcsr_spmm", MAX_TILES)
     dev = bcsr.block_row_ptr.device
     if key not in bcsr.cache:
@@ -140,7 +143,7 @@ def _device_schedule(bcsr: BCSR, h: int) -> tuple[SpMMSchedule, torch.Tensor]:
         bcsr.cache[key] = (dataclasses.replace(sched, items=sched.items.to(dev)),
                            torch.zeros(0, dtype=torch.int32, device=dev))
     sched, counters = bcsr.cache[key]
-    need = sched.n_slots * -(-h // 64)
+    need = sched.n_slots * -(-h // 64) * -(-bcsr.tm // PANEL)
     if counters.numel() < need:
         counters = torch.zeros(need, dtype=torch.int32, device=dev)
         bcsr.cache[key] = (sched, counters)
@@ -197,8 +200,18 @@ def bcsr_spmm_plain(bcsr: BCSR, x: torch.Tensor, *, n_rows: int) -> torch.Tensor
     return sum_by_block_row(bcsr_spmm_stream_plain(bcsr, x), bcsr, n_rows)
 
 
+def check_tile_shape(bcsr: BCSR) -> None:
+    """Raise unless B1 and B2 take ``bcsr``'s tile shape: both sides
+    multiples of :data:`TILE_MULTIPLE`, rectangular tiles included."""
+    tm, tk = bcsr.tm, bcsr.tk
+    if tm < TILE_MULTIPLE or tk < TILE_MULTIPLE or tm % TILE_MULTIPLE or tk % TILE_MULTIPLE:
+        raise ValueError(f"B1 and B2 take tiles whose sides are positive multiples of "
+                         f"{TILE_MULTIPLE}; got {(tm, tk)}")
+
+
 def _check_cuda(name: str, bcsr: BCSR, x: torch.Tensor) -> None:
-    """What kernel ``name`` needs beyond :func:`_check`."""
+    """What kernel ``name`` needs beyond :func:`_check`: the tile shape first."""
+    check_tile_shape(bcsr)
     tensors = (bcsr.data, bcsr.block_rows, bcsr.block_cols, bcsr.block_row_ptr, x)
     if any(t.device != x.device for t in tensors) or x.device.type != "cuda":
         raise ValueError(f"{name} needs the tiles and x on one CUDA device, got "
@@ -213,8 +226,6 @@ def _check_cuda(name: str, bcsr: BCSR, x: torch.Tensor) -> None:
         raise ValueError("block_row_ptr must have n_block_rows + 1 entries")
     if not bcsr.block_cols.numel() == bcsr.block_rows.numel() == bcsr.data.shape[0]:
         raise ValueError("block_rows and block_cols must have one entry per tile")
-    if (bcsr.tm, bcsr.tk) != TILE:
-        raise ValueError(f"kernel is built for {TILE} tiles, got {(bcsr.tm, bcsr.tk)}")
     if bcsr.data.data_ptr() % 16:
         raise ValueError("tiles must be 16-byte aligned (16-byte cp.async loads)")
 
@@ -237,7 +248,7 @@ def bcsr_spmm_cuda(bcsr: BCSR, x: torch.Tensor, *, n_rows: int) -> torch.Tensor:
         err = fn(bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), sched.items.data_ptr(),
                  x.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
                  counters.data_ptr(), sched.items.shape[0], sched.n_slots, n_rows,
-                 x.shape[0], h, torch.cuda.current_stream(x.device).cuda_stream)
+                 x.shape[0], h, bcsr.tm, bcsr.tk, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"bcsr_spmm kernel launch failed with CUDA error {err}")
     launches += 1
@@ -259,7 +270,7 @@ def bcsr_spmm_stream_cuda(bcsr: BCSR, x: torch.Tensor, *, n_rows: int) -> torch.
     fn = lib.bcsr_spmm_stream_bf16 if bf16 else lib.bcsr_spmm_stream_f32
     with torch.cuda.device(x.device):
         err = fn(bcsr.data.data_ptr(), bcsr.block_rows.data_ptr(), bcsr.block_cols.data_ptr(),
-                 x.data_ptr(), out.data_ptr(), t, n_rows, x.shape[0], h,
+                 x.data_ptr(), out.data_ptr(), t, n_rows, x.shape[0], h, bcsr.tm, bcsr.tk,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"bcsr_spmm stream kernel launch failed with CUDA error {err}")

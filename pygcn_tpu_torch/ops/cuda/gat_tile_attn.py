@@ -60,6 +60,14 @@ at a time). B3-B6, B4 and B5s-B6s take any number of heads: they stage
 their node arrays for as many heads as the card's shared memory holds,
 restaging between groups.
 
+Tile shapes: square tiles whose side is a multiple of :data:`SIDE_MULTIPLE`
+(every side JAX's kernels take on a TPU, where the ``(H, tk)`` logit block
+needs 128 lanes, and the 32 and 64 of the CPU tests), with 128 as the
+kernels' fast case. A CTA works on a panel of at most :data:`PANEL` x
+:data:`PANEL` of a tile; a wider side reaches the kernels as its panels
+(:func:`tile_panels`), so the side has no upper bound. Other shapes raise
+(:func:`check_tile_side`).
+
 Tile values only gate the mask (``tile != 0``); they are never multiplied in.
 Each kernel has a plain PyTorch version here (``*_plain``), the CPU path and
 the card's yardstick. The wrappers pick by the device of the operands: CPU
@@ -72,6 +80,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -81,9 +90,11 @@ from pygcn_tpu_torch.ops.cuda.bcsr_spmm import SpMMSchedule, spmm_schedule, sum_
 
 NEG = -1e30  # finite stand-in for -inf: max/exp algebra without NaNs
 
-# The tile shape the kernels are compiled for, and the ints of one work item
-# (checked against the libraries).
-TILE = (128, 128)
+# The kernels take square tiles whose side is a multiple of SIDE_MULTIPLE; a
+# CTA covers a panel of at most PANEL x PANEL of one. With the ints of one
+# work item, checked against the libraries.
+SIDE_MULTIPLE = 32
+PANEL = 128
 ITEM_INTS = 6
 
 # The most tiles one work item of the item-scheduled kernels (B3, B5-B9)
@@ -549,32 +560,99 @@ def _load(name: str):
         entries = ((("gat_tile_fwd_stream", 7), ("gat_tile_bwd_dldst_stream", 7),
                     ("gat_tile_bwd_sender_stream", 8))
                    if name == "gat_tile_attn" else ())
+        # (each entry then takes the geometry: side, panels, src)
         for fn_name, n_ptrs in entries:
             fn = getattr(lib, fn_name)
-            fn.argtypes = [p] * (3 + n_ptrs) + [i] * 5 + [fl, p]
+            fn.argtypes = [p] * (3 + n_ptrs) + [i] * 5 + [i, i, p] + [fl, p]
             fn.restype = ctypes.c_int
         # on work items (B3, B5-B9): tiles, block_cols, items, the operands,
         # the outputs, ws, counters; n_items, n_slots, n, h, f, max_tiles,
-        # tile_bf16; slope; stream
+        # tile_bf16; side, panels, src; slope; stream
         items = ((("gat_tile_fwd", 3, 3), ("gat_tile_bwd_dldst", 6, 1),
                   ("gat_tile_bwd_sender", 6, 2)) if name == "gat_tile_attn" else
                  (("gatv2_tile_fwd", 3, 3), ("gatv2_tile_fwd_chunked", 3, 3),
                   ("gatv2_tile_bwd_recv", 6, 2), ("gatv2_tile_bwd_send", 6, 1)))
         for fn_name, n_ins, n_outs in items:
             fn = getattr(lib, fn_name)
-            fn.argtypes = [p] * (5 + n_ins + n_outs) + [i] * 7 + [fl, p]
+            fn.argtypes = [p] * (5 + n_ins + n_outs) + [i] * 7 + [i, i, p] + [fl, p]
             fn.restype = ctypes.c_int
         config = getattr(lib, f"{name}_config")
         config.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         config.restype = ctypes.c_int
-        tm, tk, item = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        config(ctypes.byref(tm), ctypes.byref(tk), ctypes.byref(item))
-        if (tm.value, tk.value, item.value) != (*TILE, ITEM_INTS):
-            raise RuntimeError(f"{name} built for {(tm.value, tk.value)} tiles and "
-                               f"{item.value}-int work items; wrapper expects {TILE} and "
-                               f"{ITEM_INTS}")
+        panel, multiple, item = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        config(ctypes.byref(panel), ctypes.byref(multiple), ctypes.byref(item))
+        got = (panel.value, multiple.value, item.value)
+        if got != (PANEL, SIDE_MULTIPLE, ITEM_INTS):
+            raise RuntimeError(f"{name} built for panels, side multiples and work items of "
+                               f"{got}; wrapper expects {(PANEL, SIDE_MULTIPLE, ITEM_INTS)}")
         _libs[name] = lib
     return _libs[name]
+
+
+def check_tile_side(name: str, bcsr: BCSR) -> None:
+    """Raise unless the GAT kernels take ``bcsr``'s tiles: square, with a
+    side that is a positive multiple of :data:`SIDE_MULTIPLE`."""
+    tm, tk = bcsr.tm, bcsr.tk
+    if tm != tk or tm < SIDE_MULTIPLE or tm % SIDE_MULTIPLE:
+        raise ValueError(f"{name} takes square tiles whose side is a positive multiple of "
+                         f"{SIDE_MULTIPLE}; got {(tm, tk)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Panels:
+    """A tile set as the GAT kernels walk it: panels of at most
+    :data:`PANEL` x :data:`PANEL`, sorted by panel block row, with the
+    tiles' own arrays when a tile is one panel (``src`` None).
+
+    A side S above :data:`PANEL` is cut into ``panels = ceil(S / PANEL)``
+    panels each way: panel block row ``b`` is panel ``b % panels`` of tile
+    block row ``b // panels``, and ``src[t]`` the tile of panel tile ``t``.
+    Every panel of every tile is kept, empty ones included (they add no edge).
+    """
+
+    block_rows: torch.Tensor  # [T'] int32
+    block_cols: torch.Tensor  # [T'] int32
+    block_row_ptr: torch.Tensor  # [n_block_rows + 1] int32
+    n_block_rows: int
+    src: Optional[torch.Tensor]  # [T'] int32, or None: the panels are the tiles
+    side: int
+    panels: int
+
+
+def tile_panels(bcsr: BCSR) -> Panels:
+    """The panels of ``bcsr`` (:class:`Panels`). A side up to :data:`PANEL`
+    wraps the tiles' own arrays; a wider side's panel arrays are built in
+    NumPy on the first call and kept in ``bcsr.cache``."""
+    side = bcsr.tm
+    panels = -(-side // PANEL)
+    if panels == 1:
+        return Panels(bcsr.block_rows, bcsr.block_cols, bcsr.block_row_ptr, bcsr.n_block_rows,
+                      None, side, 1)
+    key = ("gat_panels",)
+    if key not in bcsr.cache:
+        br = bcsr.block_rows.cpu().numpy().astype(np.int64)
+        bc = bcsr.block_cols.cpu().numpy().astype(np.int64)
+        tile = np.repeat(np.arange(br.size), panels * panels)
+        pr = np.tile(np.repeat(np.arange(panels), panels), br.size)
+        pc = np.tile(np.arange(panels), br.size * panels)
+        rows, cols = br[tile] * panels + pr, bc[tile] * panels + pc
+        order = np.lexsort((cols, rows))
+        n_rows = bcsr.n_block_rows * panels
+        ptr = np.zeros(n_rows + 1, np.int64)
+        np.add.at(ptr, rows + 1, 1)
+        dev = bcsr.block_rows.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(dev)
+
+        bcsr.cache[key] = Panels(put(rows[order]), put(cols[order]), put(np.cumsum(ptr)),
+                                 n_rows, put(tile[order]), side, panels)
+    return bcsr.cache[key]
+
+
+def _geometry(view: Panels) -> tuple:
+    """The geometry arguments of every kernel entry: side, panels, src."""
+    return view.side, view.panels, None if view.src is None else view.src.data_ptr()
 
 
 def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
@@ -585,6 +663,7 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
     ``[n, H·F]`` and ``a`` ``[H, F]``; then for the backward ``m`` ``[n, H]``,
     ``dnum`` ``[n, H·F]`` and ``dden`` ``[n, H]``.
     """
+    check_tile_side(name, bcsr)
     dev = tensors[0].device
     arrays = (bcsr.data, bcsr.block_rows, bcsr.block_cols, bcsr.block_row_ptr, *tensors)
     if dev.type != "cuda" or any(t.device != dev for t in arrays):
@@ -602,8 +681,6 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
     if any(t.dtype != torch.int32
            for t in (bcsr.block_rows, bcsr.block_cols, bcsr.block_row_ptr)):
         raise TypeError("block_rows, block_cols and block_row_ptr must be int32")
-    if (bcsr.tm, bcsr.tk) != TILE:
-        raise ValueError(f"{name} is built for {TILE} tiles, got {(bcsr.tm, bcsr.tk)}")
     # Shapes only: checking the indices' values would wait for the device.
     if bcsr.block_row_ptr.numel() != bcsr.n_block_rows + 1:
         raise ValueError("block_row_ptr must have n_block_rows + 1 entries")
@@ -621,16 +698,17 @@ def _check_cuda(name: str, bcsr: BCSR, tensors, shapes, n: int, f: int) -> None:
 
 def _launch_stream(name: str, fn_name: str, bcsr: BCSR, ins, outs, h: int, f: int,
                    slope: float):
-    """Launch stream kernel ``fn_name`` (B4, B5s, B6s) over every tile."""
+    """Launch stream kernel ``fn_name`` (B4, B5s, B6s) over every panel tile."""
     lib = _load("gat_tile_attn")
     n = ins[0].shape[0]
     dev = ins[0].device
+    view = tile_panels(bcsr)
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
-            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), bcsr.block_rows.data_ptr(),
+            bcsr.data.data_ptr(), view.block_cols.data_ptr(), view.block_rows.data_ptr(),
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-            bcsr.data.shape[0], n, h, f, int(bcsr.data.dtype == torch.bfloat16),
-            float(slope), torch.cuda.current_stream(dev).cuda_stream)
+            view.block_rows.shape[0], n, h, f, int(bcsr.data.dtype == torch.bfloat16),
+            *_geometry(view), float(slope), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} (H={h}, F={f})")
     launches[name] += 1
@@ -647,11 +725,12 @@ def _item_schedule(bcsr: BCSR) -> tuple[SpMMSchedule, torch.Tensor]:
     included (B3 and B5, B7 and B8; B6 and B9): a step launches them one
     after the other on one stream, and the last item of a split row resets
     its counter before the next launch starts. Like B1's, they assume one
-    launch at a time over a tile set."""
+    launch at a time over a tile set. A side above :data:`PANEL` schedules
+    its panel tiles (:func:`tile_panels`)."""
     key = ("gat_tile", MAX_TILES)
     if key not in bcsr.cache:
         dev = bcsr.block_row_ptr.device
-        sched = spmm_schedule(bcsr, MAX_TILES)
+        sched = spmm_schedule(tile_panels(bcsr), MAX_TILES)
         bcsr.cache[key] = (dataclasses.replace(sched, items=sched.items.to(dev)),
                            torch.zeros(max(sched.n_slots, 1), dtype=torch.int32, device=dev))
     return bcsr.cache[key]
@@ -669,20 +748,21 @@ def _launch_items(lib_name: str, name: str, fn_name: str, bcsr: BCSR, ins, outs,
                   f: int, slope: float, ws_width: int):
     """Launch ``fn_name`` (B3, B5-B9): one CTA per work item of
     :func:`_item_schedule`, the split items' partials in a workspace of
-    ``n_slots * 128 * ws_width`` floats."""
+    ``n_slots * PANEL * ws_width`` floats (a slot is one panel's rows)."""
     lib = _load(lib_name)
     n = ins[0].shape[0]
     dev = ins[0].device
+    view = tile_panels(bcsr)
     sched, counters = _item_schedule(bcsr)
-    ws = (torch.empty(sched.n_slots * bcsr.tm * ws_width, dtype=torch.float32, device=dev)
+    ws = (torch.empty(sched.n_slots * PANEL * ws_width, dtype=torch.float32, device=dev)
           if sched.n_slots else None)
     with torch.cuda.device(dev):
         err = getattr(lib, fn_name)(
-            bcsr.data.data_ptr(), bcsr.block_cols.data_ptr(), sched.items.data_ptr(),
+            bcsr.data.data_ptr(), view.block_cols.data_ptr(), sched.items.data_ptr(),
             *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
             None if ws is None else ws.data_ptr(), counters.data_ptr(),
             sched.items.shape[0], sched.n_slots, n, h, f, MAX_TILES,
-            int(bcsr.data.dtype == torch.bfloat16), float(slope),
+            int(bcsr.data.dtype == torch.bfloat16), *_geometry(view), float(slope),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err} (H={h}, F={f}, "
@@ -749,7 +829,7 @@ def tile_fwd_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: floa
     """Launch B4 on the current stream → the merged ``(num [n, H·F], den
     [n, H], m [n, H])``: ``num`` and ``den`` zero-filled and ``m`` filled with
     ``NEG``, then every tile's row maxima and sums merged in, through a bits
-    buffer of the tiles' mask words ``[T, tm, 4]``. Raises on anything it does
+    buffer of the panel tiles' mask words ``[T', PANEL, 4]``. Raises on anything it does
     not take."""
     n = s2.shape[0]
     _check_cuda("B4", bcsr, (lsrc, ldst, s2), _v1_shapes(n, h, f), n, f)
@@ -757,7 +837,8 @@ def tile_fwd_stream_cuda(bcsr: BCSR, lsrc, ldst, s2, h: int, f: int, slope: floa
     m = torch.full((n, h), NEG, dtype=torch.float32, device=s2.device)
     t = bcsr.data.shape[0]
     if t and n and h:
-        bits = torch.empty((t, bcsr.tm, 4), dtype=torch.int32, device=s2.device)
+        n_panels = tile_panels(bcsr).block_rows.shape[0]
+        bits = torch.empty((n_panels, PANEL, 4), dtype=torch.int32, device=s2.device)
         _launch_stream("B4", "gat_tile_fwd_stream", bcsr, (lsrc, ldst, s2),
                        (num, den, m, bits), h, f, slope)
     return num, den, m

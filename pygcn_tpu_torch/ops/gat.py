@@ -17,6 +17,13 @@ convolution:
   on kernels B3/B5/B6 or B7/B8/B9 (``ops/cuda/gat_tile_attn.py``), residual
   edges on the ELL one-pass, merged by the rescaled flash combine.
 
+Attention dropout (``attn_dropout``, a function that drops and rescales the
+values of a tensor, ``nn.layers.dropout`` on one generator) runs on the COO
+and ELL paths, as in JAX: on the attention coefficients, or, on the one-pass
+ELL path, on the unnormalised numerator only (the denominator keeps every
+edge), which is the same. The hybrid tile path takes none: the models send a
+step with attention dropout to the slot path.
+
 The JAX package replicates ``[.., H]`` logits f-fold into ``[.., H·F]`` lanes
 (a TPU layout workaround); the port computes in ``[.., H]`` and broadcasts,
 with the same results.
@@ -171,7 +178,7 @@ def build_edge_map(graph: Graph) -> EdgeMap:
 
 
 def gat_conv_ell(graph: Graph, em: EdgeMap, s: torch.Tensor, a_src: torch.Tensor,
-                 a_dst: torch.Tensor, negative_slope: float = 0.2,
+                 a_dst: torch.Tensor, negative_slope: float = 0.2, attn_dropout=None,
                  stabilizer: str = "flash") -> torch.Tensor:
     """GAT convolution on the bucketed-ELL layout: ``[N, H, F]`` out.
 
@@ -181,7 +188,7 @@ def gat_conv_ell(graph: Graph, em: EdgeMap, s: torch.Tensor, a_src: torch.Tensor
     first, then the denominators, then the weighted sum.
     """
     if stabilizer in ("flash", "bound"):
-        return gat_conv_ell_onepass(graph, em, s, a_src, a_dst, negative_slope)
+        return gat_conv_ell_onepass(graph, em, s, a_src, a_dst, negative_slope, attn_dropout)
     if stabilizer != "segmax":
         raise ValueError(f"unknown stabilizer {stabilizer!r}")
     ell = graph.ell
@@ -214,13 +221,16 @@ def gat_conv_ell(graph: Graph, em: EdgeMap, s: torch.Tensor, a_src: torch.Tensor
     for cols, ex, rows in zip(ell.cols, ex_blocks, ell.rows):
         nb, k = cols.shape
         alpha = ex / denom.index_select(0, rows)[:, None, :]  # [nb, k, h]
+        if attn_dropout is not None:
+            alpha = attn_dropout(alpha)
         g = s2.index_select(0, cols.reshape(-1)).view(nb, k, h, f)
         out_parts.append((g * alpha[..., None]).reshape(nb, k, h * f).sum(dim=1))
     return _segment_sum(torch.cat(out_parts), r, n).view(n, h, f)
 
 
 def gat_conv_ell_onepass(graph: Graph, em: EdgeMap, s: torch.Tensor, a_src: torch.Tensor,
-                         a_dst: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+                         a_dst: torch.Tensor, negative_slope: float = 0.2,
+                         attn_dropout=None) -> torch.Tensor:
     """One-pass GAT convolution, exact by a flash-style two-level softmax:
     each virtual row exponentiates against its own max and emits partial
     ``(num, den, max)``; the combine rescales every partial by
@@ -229,12 +239,12 @@ def gat_conv_ell_onepass(graph: Graph, em: EdgeMap, s: torch.Tensor, a_src: torc
     logit_src, logit_dst = _node_logits(s, a_src, a_dst)
     valids = [eidx != em.sentinel for eidx in em.eidx]
     num, den, _m = _ell_attn_partials(graph.ell, logit_src, logit_dst, s.reshape(n, h * f),
-                                      h, f, negative_slope, valids)
+                                      h, f, negative_slope, valids, attn_dropout)
     return (num.view(n, h, f) / torch.clamp(den, min=1e-16)[..., None])
 
 
 def _ell_attn_partials(ell, logit_src, logit_dst, s2, h: int, f: int, negative_slope: float,
-                       valids):
+                       valids, attn_dropout=None):
     """Per-receiver attention partials over an ELL layout's edges.
 
     ``logit_src``/``logit_dst``: per-head node logits ``[N, H]``; ``s2``:
@@ -242,8 +252,9 @@ def _ell_attn_partials(ell, logit_src, logit_dst, s2, h: int, f: int, negative_s
     slots. Returns ``(num [N, H·F], den [N, H], m [N, H])``:
     ``num = Σ exp(e − m_v) s``, ``den = Σ exp(e − m_v)`` and ``m`` the
     per-receiver max logit over these edges (``-inf`` where a receiver has
-    none; no gradient). The JAX function returns ``den`` and ``m``
-    replicated f-fold, ``[N, H·F]``; the values are the same.
+    none; no gradient). ``attn_dropout`` drops terms of ``num`` only. The
+    JAX function returns ``den`` and ``m`` replicated f-fold, ``[N, H·F]``;
+    the values are the same.
     """
     n = s2.shape[0]
     parts = []
@@ -253,21 +264,30 @@ def _ell_attn_partials(ell, logit_src, logit_dst, s2, h: int, f: int, negative_s
         lsrc = logit_src.index_select(0, flat).view(nb, k, h)
         ldst = logit_dst.index_select(0, rows)[:, None, :]
         e = torch.where(valid2[..., None], _leaky(lsrc + ldst, negative_slope), -torch.inf)
-        parts.append(_vrow_partials(e, s2.index_select(0, flat).view(nb, k, h, f)))
+        parts.append(_vrow_partials(e, s2.index_select(0, flat).view(nb, k, h, f),
+                                    _kept(attn_dropout, e)))
     return _combine_vrow_partials(ell, parts, n, f)
 
 
-def _vrow_partials(e: torch.Tensor, g: torch.Tensor):
+def _kept(attn_dropout, e: torch.Tensor):
+    """The attention-dropout factors ``[nb, K, H]`` of a bucket whose slot
+    logits are ``e`` (0 or ``1 / keep``), or None without dropout."""
+    return None if attn_dropout is None else attn_dropout(torch.ones_like(e.detach()))
+
+
+def _vrow_partials(e: torch.Tensor, g: torch.Tensor, kept=None):
     """One bucket's virtual-row partials ``(num [nb, H·F], den [nb, H],
     max [nb, H])`` from its slot logits ``e [nb, K, H]`` (``-inf`` on padding
     slots) and gathered features ``g [nb, K, H, F]``, each row exponentiated
-    against its own max (no gradient through the max)."""
+    against its own max (no gradient through the max); ``kept`` (attention
+    dropout's factors) scales the terms of ``num`` only."""
     nb, k, h, f = g.shape
     # local max over this virtual row's slots; -inf only for all-padding rows
     bmax = e.detach().amax(dim=1)  # [nb, h]
     shift = torch.where(torch.isfinite(bmax), bmax, 0.0)
     ex = torch.exp(e - shift[:, None, :])  # [nb, k, h]; padding slots exp(-inf) = 0
-    return (g * ex[..., None]).sum(dim=1).reshape(nb, h * f), ex.sum(dim=1), bmax
+    w = ex if kept is None else ex * kept
+    return (g * w[..., None]).sum(dim=1).reshape(nb, h * f), ex.sum(dim=1), bmax
 
 
 def _combine_vrow_partials(ell, parts, n: int, f: int):
@@ -287,7 +307,7 @@ def _combine_vrow_partials(ell, parts, n: int, f: int):
 
 
 def gatv2_conv_ell(graph: Graph, em: EdgeMap, s_l: torch.Tensor, s_r: torch.Tensor,
-                   a: torch.Tensor, negative_slope: float = 0.2,
+                   a: torch.Tensor, negative_slope: float = 0.2, attn_dropout=None,
                    stabilizer: str = "flash") -> torch.Tensor:
     """GATv2 convolution on the bucketed-ELL layout: ``[N, H, F]`` out.
 
@@ -298,7 +318,7 @@ def gatv2_conv_ell(graph: Graph, em: EdgeMap, s_l: torch.Tensor, s_r: torch.Tens
     the denominators, then the weighted sum of ``s_l``.
     """
     if stabilizer in ("flash", "bound"):
-        return gatv2_conv_ell_onepass(graph, em, s_l, s_r, a, negative_slope)
+        return gatv2_conv_ell_onepass(graph, em, s_l, s_r, a, negative_slope, attn_dropout)
     if stabilizer != "segmax":
         raise ValueError(f"unknown stabilizer {stabilizer!r}")
     ell = graph.ell
@@ -330,24 +350,29 @@ def gatv2_conv_ell(graph: Graph, em: EdgeMap, s_l: torch.Tensor, s_r: torch.Tens
     for cols, ex, rows in zip(ell.cols, ex_blocks, ell.rows):
         nb, k = cols.shape
         alpha = ex / denom.index_select(0, rows)[:, None, :]  # [nb, k, h]
+        if attn_dropout is not None:
+            alpha = attn_dropout(alpha)
         g = sl2.index_select(0, cols.reshape(-1)).view(nb, k, h, f)
         out_parts.append((g * alpha[..., None]).reshape(nb, k, h * f).sum(dim=1))
     return _segment_sum(torch.cat(out_parts), r, n).view(n, h, f)
 
 
 def gatv2_conv_ell_onepass(graph: Graph, em: EdgeMap, s_l: torch.Tensor, s_r: torch.Tensor,
-                           a: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+                           a: torch.Tensor, negative_slope: float = 0.2,
+                           attn_dropout=None) -> torch.Tensor:
     """One-pass GATv2 convolution by the flash-style two-level softmax of
     :func:`gat_conv_ell_onepass`: one gather of the source block per bucket
     feeds both the logit and the weighted sum."""
     n, h, f = s_l.shape
     valids = [eidx != em.sentinel for eidx in em.eidx]
     num, den, _m = _ell_attn_partials_v2(graph.ell, s_l.reshape(n, h * f),
-                                         s_r.reshape(n, h * f), a, h, f, negative_slope, valids)
+                                         s_r.reshape(n, h * f), a, h, f, negative_slope, valids,
+                                         attn_dropout)
     return num.view(n, h, f) / torch.clamp(den, min=1e-16)[..., None]
 
 
-def _ell_attn_partials_v2(ell, sl2, sr2, a, h: int, f: int, negative_slope: float, valids):
+def _ell_attn_partials_v2(ell, sl2, sr2, a, h: int, f: int, negative_slope: float, valids,
+                          attn_dropout=None):
     """Per-receiver GATv2 attention partials over an ELL layout's edges, the
     v2 analogue of :func:`_ell_attn_partials` with the same return contract:
     ``(num [N, H·F], den [N, H], m [N, H])``, ``num`` aggregating ``sl2``. The
@@ -360,7 +385,7 @@ def _ell_attn_partials_v2(ell, sl2, sr2, a, h: int, f: int, negative_slope: floa
         g = sl2.index_select(0, cols.reshape(-1)).view(nb, k, h, f)
         d = sr2.index_select(0, rows).view(nb, 1, h, f)
         e = torch.where(valid2[..., None], _v2_logits(g, d, a, negative_slope), -torch.inf)
-        parts.append(_vrow_partials(e, g))
+        parts.append(_vrow_partials(e, g, _kept(attn_dropout, e)))
     return _combine_vrow_partials(ell, parts, n, f)
 
 

@@ -2,8 +2,9 @@
 
 The port keeps its own wrapper around the shared library the JAX package
 also uses (same source, same ``native/build.sh`` g++ build), limited to the
-two entry points the full-graph GCN path needs: the bucketed-ELL layout
-builder and weighted label propagation. Each has a NumPy fallback;
+entry points the port's paths need: the bucketed-ELL layout builder,
+weighted label propagation and the edge-list parser of the Planetoid
+structure loader. Each has a NumPy fallback;
 ``available()`` reports which path runs. The two label-propagation paths give
 the same labels, but ``partition.locality_order("auto")`` picks BFS instead of
 LP when the library is missing, which changes the node order and so the
@@ -85,6 +86,9 @@ def _load() -> Optional[ctypes.CDLL]:
         _i64p, _i64p, _f32p, ctypes.c_int64, ctypes.c_int64, _i64p,
     ]
     lib.gk_label_propagation.restype = ctypes.c_int64
+    if hasattr(lib, "gk_parse_edge_list"):
+        lib.gk_parse_edge_list.argtypes = [ctypes.c_char_p, _i64p, _i64p, ctypes.c_int64]
+        lib.gk_parse_edge_list.restype = ctypes.c_int64
     _lib = lib
     return _lib
 
@@ -96,6 +100,27 @@ def available() -> bool:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctype)
+
+
+def parse_edge_list(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The two int64 columns of a whitespace-separated edge list (a
+    Planetoid ``.cites`` file: ``<cited> <citing>`` a line).
+
+    ``gk_parse_edge_list`` when the library has it (two passes: count, then
+    fill), else NumPy's ``genfromtxt`` (the JAX package's fallback,
+    ``pygcn_tpu/graph/datasets.py``). Both give the same arrays.
+    """
+    lib = _load()
+    if lib is None or not hasattr(lib, "gk_parse_edge_list"):
+        raw = np.genfromtxt(path, dtype=np.int64).reshape(-1, 2)
+        return raw[:, 0], raw[:, 1]
+    n = lib.gk_parse_edge_list(path.encode(), None, None, 0)
+    if n < 0:
+        raise FileNotFoundError(path)
+    a = np.empty(n, np.int64)
+    b = np.empty(n, np.int64)
+    got = lib.gk_parse_edge_list(path.encode(), _ptr(a, _i64p), _ptr(b, _i64p), n)
+    return a[:got], b[:got]
 
 
 def build_ell_layout(

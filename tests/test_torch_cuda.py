@@ -1,5 +1,6 @@
 """Kernels B1-B9, and the stream modes B5s and B6s, on a CUDA card against
-their plain versions (skipped without a card).
+their plain versions (skipped without a card), on 128 x 128 tiles and on the
+other tile shapes a layout can carry.
 
 Run on a machine with an H100 from the repo root (``--noconftest`` because
 ``tests/conftest.py`` configures JAX, which that machine does not need)::
@@ -14,7 +15,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from pygcn_tpu_torch.apps.time_spmm import long_row_tiles
+from pygcn_tpu_torch.apps.time_spmm import long_row_tiles, shaped_tiles
 from pygcn_tpu_torch.graph.graph import Graph, _build_bcsr, drop_zero_tiles
 from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
 from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
@@ -893,3 +894,106 @@ def test_stream_mode_runs_no_merge(dev, monkeypatch, hf):
     assert {k: gta.launches[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0), "B4": 1, "B5s": 1, "B6s": 1}
     assert all(torch.isfinite(a.grad).all() for a in args)
+
+
+# Tile shapes other than 128 x 128 (the layout's ``tile``): B1 and B2 take
+# any sides that are multiples of 8, rectangular included; the GAT kernels
+# square tiles whose side is a multiple of 32, 160 and 256 cut into panels.
+SPMM_TILES = [(8, 8), (32, 32), (64, 64), (96, 96), (64, 128), (24, 40), (160, 160), (256, 256)]
+GAT_SIDES = [32, 64, 96, 160, 256]
+
+
+@pytest.mark.parametrize("h", [1, 40, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("tile", SPMM_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("kernel", ["B1", "B2"])
+def test_b1_b2_any_tile_shape(dev, kernel, tile, dtype, h):
+    """B1 (split rows included) and B2 on the tile shapes a layout can carry
+    against the plain version: a block row without tiles gives zeros, and
+    B1 gives the same bits in two launches with its counters back at zero."""
+    b, n_rows, n_cols = shaped_tiles(tile, np.random.default_rng(h), dtype)
+    b = b.to(dev)
+    x = torch.randn(n_cols, h, device=dev, generator=torch.Generator(dev).manual_seed(h))
+    fn = b1.bcsr_spmm_cuda if kernel == "B1" else b1.bcsr_spmm_stream_cuda
+    before = (b1.launches, b1.stream_launches)
+    got = fn(b, x, n_rows=n_rows)
+    again = fn(b, x, n_rows=n_rows)
+    torch.cuda.synchronize()
+    assert (b1.launches, b1.stream_launches) == (
+        (before[0] + 2, before[1]) if kernel == "B1" else (before[0], before[1] + 2))
+    torch.testing.assert_close(got, b1.bcsr_spmm_plain(b, x, n_rows=n_rows), rtol=1e-4,
+                               atol=1e-4)
+    assert not got[tile[0]:2 * tile[0]].any()
+    if kernel == "B1":
+        assert torch.equal(got, again)
+        ((sched, counters),) = b.cache.values()
+        assert sched.n_slots > 0 and not counters.any()
+
+
+def shaped_gat_tiles(side, dtype, seed):
+    """:func:`shaped_tiles` at ``side`` (square), its exact transpose without
+    padding tiles, and the node count."""
+    b, n, _ = shaped_tiles((side, side), np.random.default_rng(seed), dtype, square=True)
+    return b, drop_zero_tiles(gta.transpose_bcsr(b)), n
+
+
+@pytest.mark.parametrize("hf", [(2, 4), (1, 40), (2, 65)], ids=lambda x: f"{x[0]}x{x[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("side", GAT_SIDES)
+@pytest.mark.parametrize("family", ["B3/B5/B6", "B4/B5s/B6s", "B7/B8/B9", "B7c"])
+def test_gat_kernels_any_tile_side(dev, family, side, dtype, hf):
+    """Every GAT kernel against its plain version at a tile side other than
+    128, forward and backward: the block row without tiles gives NEG/0, and
+    B4's ``m`` is the plain version's bit for bit."""
+    h, f = hf
+    b, bt, n = (x.to(dev) if i < 2 else x
+                for i, x in enumerate(shaped_gat_tiles(side, dtype, side + h + f)))
+    if family in ("B3/B5/B6", "B4/B5s/B6s"):
+        lsrc, ldst, s2, dnum, dden = v1_operands(dev, n, h, f, side + f)
+        stream = family == "B4/B5s/B6s"
+        ref = gta.tile_fwd_plain(b, lsrc, ldst, s2, h, f, 0.2)
+        got = (gta.tile_fwd_stream_cuda if stream else gta.tile_fwd_cuda)(
+            b, lsrc, ldst, s2, h, f, 0.2)
+        args = (lsrc, ldst, s2, ref[2], dnum, dden, h, f, 0.2)
+        got += ((gta.tile_bwd_dldst_stream_cuda if stream else gta.tile_bwd_dldst_cuda)(b, *args),
+                *(gta.tile_bwd_sender_stream_cuda if stream else gta.tile_bwd_sender_cuda)(
+                    bt, *args))
+        ref += (gta.tile_bwd_dldst_plain(b, *args), *gta.tile_bwd_sender_plain(bt, *args))
+        if stream:
+            assert torch.equal(got[2], ref[2])
+    else:
+        gen = torch.Generator(device=dev).manual_seed(side + f)
+        sl2, sr2 = (torch.randn(n, h * f, device=dev, generator=gen) for _ in range(2))
+        a = torch.randn(h, f, device=dev, generator=gen) / f ** 0.5
+        dnum = torch.randn(n, h * f, device=dev, generator=gen)
+        dden = torch.randn(n, h, device=dev, generator=gen)
+        ref = gta.tile_v2_fwd_plain(b, sl2, sr2, a, h, f, 0.2)
+        got = gta.tile_v2_fwd_cuda(b, sl2, sr2, a, h, f, 0.2, chunked=family == "B7c")
+        if family == "B7/B8/B9":
+            args = (sl2, sr2, a, ref[2], dnum, dden, h, f, 0.2)
+            got += (*gta.tile_v2_bwd_recv_cuda(b, *args), gta.tile_v2_bwd_send_cuda(bt, *args))
+            ref += (*gta.tile_v2_bwd_recv_plain(b, *args), gta.tile_v2_bwd_send_plain(bt, *args))
+    torch.cuda.synchronize()
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape
+        torch.testing.assert_close(x, r, rtol=1e-4, atol=1e-4)
+    empty = slice(side, 2 * side)  # block row 1 has no tile
+    assert (got[2][empty] == gta.NEG).all() and not got[0][empty].any()
+    assert not got[1][empty].any()
+
+
+@pytest.mark.parametrize("tile", [(12, 16), (8, 4)], ids=lambda t: f"{t[0]}x{t[1]}")
+def test_b1_refuses_sides_off_the_rule(dev, tile):
+    b, n_rows, n_cols = shaped_tiles(tile, np.random.default_rng(0))
+    b = b.to(dev)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        b1.bcsr_spmm_cuda(b, torch.ones(n_cols, 4, device=dev), n_rows=n_rows)
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (48, 48), (16, 16)], ids=lambda t: f"{t[0]}x{t[1]}")
+def test_gat_kernels_refuse_tiles_off_the_rule(dev, tile):
+    b, n, _ = shaped_tiles(tile, np.random.default_rng(0))
+    b = b.to(dev)
+    ops = v1_operands(dev, n, 2, 4, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        gta.tile_fwd_cuda(b, *ops[:3], 2, 4, 0.2)

@@ -408,7 +408,7 @@ class _FakeLib:
 
     def __getattr__(self, name):
         def entry(*args):
-            self.calls.append((name, args[2], args[-10]))  # items, counters
+            self.calls.append((name, args[2], args[-13]))  # items, counters
             return 0
         return entry
 

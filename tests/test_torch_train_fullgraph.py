@@ -177,8 +177,8 @@ def test_cli_synthetic_timing():
 
 
 @pytest.mark.parametrize("flags", [["--model", "sage", "--shards", "2"], ["--shards", "2"],
-                                   ["--npz", "x.npz"],
-                                   ["--content", "a", "--cites", "b"]])
+                                   ["--model", "gat", "--shards", "4"],
+                                   ["--model", "appnp", "--shards", "2"]])
 def test_cli_unported_options_exit(flags):
     with pytest.raises(SystemExit, match="not ported yet"):
         tapp.main(["--device", "cpu", *flags])
