@@ -31,7 +31,15 @@ hybrid layout) for a few epochs each through ``apps/train_fullgraph
 It checks that each path launched its kernels exactly as often as it must
 and no other tile kernel, runs ``apps/ab_kernel_stream`` (revisit against
 stream on the flagship graph) once, and times each kernel at its path's
-shapes beside its bound. It prints each phase's wall time. Its last line is
+shapes beside its bound. Then the epidemic simulator, which reaches no
+hand-written kernel: the card's samplers against the exact pmfs, a small
+world on the card against the CPU, the simulator at SafeGraph width (2943
+CBGs, 50,000 POIs, 600K visits an hour, 1512 hours, 40 seeds; two runs of
+one seed and the paged run give the same bits, a day runs with no host
+sync; it prints ms/hour, seed-hours/s, peak memory and the profiled split
+on a ``sim {...}`` line), 8 policies in one batch against their runs
+alone, and ``apps/gt_gen`` and ``apps/no_vac_baseline`` on the card. It
+prints each phase's wall time. Its last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -45,6 +53,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -1463,6 +1473,365 @@ def spmm_kernel_entry(timing, name, launches, line):
     }
 
 
+# ---------------------------------------------------------------------- #
+# The epidemic simulator (pygcn_tpu_torch/sim): no hand-written kernel; its
+# samplers, its bits and its rates at SafeGraph width.
+# ---------------------------------------------------------------------- #
+
+# tests/test_draws.py's regimes, at its sample size
+DRAW_SAMPLES = 120_000
+POISSON_LAMS = (0.3, 3.0, 9.9, 10.1, 50.0, 400.0)
+BINOMIAL_NPS = ((5, 0.3), (40, 0.1), (100, 0.5), (1000, 0.002), (1000, 0.3), (1000, 0.97),
+                (20000, 0.4), (7, 0.9))
+# the policy batch: 8 policies at that width, over a horizon cut to two weeks
+BATCH_POLICIES, BATCH_HOURS = 8, 336
+
+
+def _chi2_pval(samples, ks, pmf):
+    from scipy import stats
+
+    obs = np.array([(samples == k).sum() for k in ks], float)
+    exp = pmf * samples.size
+    keep = exp > 5
+    chi2 = ((obs[keep] - exp[keep]) ** 2 / exp[keep]).sum()
+    return float(stats.chi2.sf(chi2, int(keep.sum()) - 1))
+
+
+def check_draws(torch):
+    """The card's samplers (``torch.poisson``/``torch.binomial`` on CUDA share
+    no code with the CPU's) held to tests/test_draws.py's chi-square and
+    moment checks at each of its regimes, and the edge cases."""
+    from scipy import stats
+
+    from pygcn_tpu_torch.sim import draws
+
+    dev, n_s = torch.device("cuda"), DRAW_SAMPLES
+    g = torch.Generator(device=dev)
+    worst = 1.0
+    for lam in POISSON_LAMS:
+        g.manual_seed(int(lam * 100))
+        s = draws.poisson(torch.full((n_s,), lam, device=dev), g).cpu().numpy()
+        lo = int(max(0, lam - 6 * np.sqrt(lam + 1)))
+        ks = np.arange(lo, int(lam + 6 * np.sqrt(lam + 1) + 10) + 1)
+        pval = _chi2_pval(s, ks, stats.poisson.pmf(ks, lam))
+        worst = min(worst, pval)
+        if not (abs(s.mean() - lam) < 4 * np.sqrt(lam / n_s) + 1e-3
+                and abs(s.var() - lam) / lam < 0.05 and pval > 1e-4 and (s >= 0).all()):
+            fail(f"poisson({lam}) on the card: mean {s.mean()}, var {s.var()}, chi2 p {pval}")
+    for n, p in BINOMIAL_NPS:
+        g.manual_seed(n * 31 + int(p * 1000))
+        s = draws.binomial(torch.full((n_s,), float(n), device=dev),
+                           torch.full((n_s,), p, device=dev), g).cpu().numpy()
+        m, v = n * p, n * p * (1 - p)
+        sd = max(np.sqrt(v), 1.0)
+        ks = np.arange(int(max(0, m - 6 * sd)), int(min(n, m + 6 * sd) + 5) + 1)
+        pval = _chi2_pval(s, ks, stats.binom.pmf(ks, n, p))
+        worst = min(worst, pval)
+        if not (abs(s.mean() - m) < 4 * np.sqrt(v / n_s) + 1e-3
+                and abs(s.var() - v) / max(v, 1e-6) < 0.06 and s.min() >= 0 and s.max() <= n
+                and pval > 1e-4):
+            fail(f"binomial({n}, {p}) on the card: mean {s.mean()}, var {s.var()}, "
+                 f"range [{s.min()}, {s.max()}], chi2 p {pval}")
+    edge = draws.binomial(torch.tensor([0.0, 10.0, 10.0, 3.9], device=dev),
+                          torch.tensor([0.5, 0.0, 1.0, 1.0], device=dev), g).tolist()
+    if edge != [0.0, 0.0, 10.0, 3.0]:
+        fail(f"binomial edge cases (n=0, p=0, p=1, n=3.9 floored) on the card gave {edge}")
+    print(f"draws: poisson at {POISSON_LAMS} and binomial at {BINOMIAL_NPS} on the card, "
+          f"{n_s} samples each: moments within bounds, smallest chi-square p {worst:.3g} "
+          f"(limit 1e-4); edge cases and the floor of n hold", flush=True)
+
+
+def _small_sim_world(torch, device, deterministic: bool):
+    """A 16-CBG, 6-POI world; ``deterministic``: every draw has p in {0, 1}
+    or lambda = 0 (tests/test_torch_sim.py's regime)."""
+    from pygcn_tpu_torch.sim import EpidemicParams, VisitSeq
+
+    n_cbgs, n_pois, hours = 16, 6, 24
+    rng = np.random.default_rng(11)
+    visits = rng.uniform(0, 3.0, (hours, n_pois, n_cbgs)).astype(np.float32)
+    visits[visits < 2.0] = 0.0
+    kw = (dict(p_sick_at_t0=1.0, cbg_attack_rates_original=np.zeros(n_cbgs),
+               cbg_death_rates_original=np.arange(n_cbgs) % 2, latency_period=1.0,
+               infectious_period=1.0, confirmation_rate=1.0, confirmation_lag=1.0,
+               death_lag=1.0)
+          if deterministic else
+          dict(p_sick_at_t0=0.01, cbg_attack_rates_original=np.ones(n_cbgs),
+               cbg_death_rates_original=np.full(n_cbgs, 0.01)))
+    params = EpidemicParams.build(
+        poi_areas=rng.uniform(100, 1000, n_pois),
+        cbg_sizes=rng.integers(500, 2000, n_cbgs).astype(np.float32), total_hours=72,
+        vaccination_time=24, vaccination_vector=np.zeros(n_cbgs),
+        vaccine_acceptance=np.ones(n_cbgs), protection_rate=0.5, poi_psi=1500.0,
+        home_beta=0.005, device=device, **kw)
+    return params, VisitSeq.from_dense(visits, device)
+
+
+def sim_reference(torch):
+    """A small world on the card against the CPU: the deterministic regime's
+    outputs bit for bit, the hour rates within 1e-5."""
+    from pygcn_tpu_torch.sim import model
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        params, visits = _small_sim_world(torch, dev, True)
+        outs[dev] = model.simulate(params, visits, 3, 0)
+    bad = [k for k in outs["cpu"] if not torch.equal(outs["cuda"][k].cpu(), outs["cpu"][k])]
+    if bad:
+        fail(f"simulator, deterministic regime: card and CPU differ in {bad}")
+    rng = np.random.default_rng(7)
+    state = {k: rng.uniform(0, hi, (3, 16)).astype(np.float32)
+             for k, hi in (("latent", 30), ("infected", 150), ("removed", 20))}
+    worst = 0.0
+    for t in (3, 30):
+        rates = {}
+        for dev in ("cuda", "cpu"):
+            params, visits = _small_sim_world(torch, dev, False)
+            rates[dev] = model.compute_hour_rates(
+                {k: torch.from_numpy(v).to(dev) for k, v in state.items()}, t, params, visits)
+        for k, ref in rates["cpu"].items():
+            got = rates["cuda"][k].cpu()
+            if not torch.allclose(got.double(), ref.double(), rtol=1e-5, atol=1e-5):
+                fail(f"hour rates at t={t}: {k} on the card differs from the CPU by "
+                     f"{(got.double() - ref.double()).abs().max().item()}")
+            worst = max(worst, (got.double() - ref.double()).abs().max().item())
+    params, visits = _small_sim_world(torch, "cuda", False)
+    out = model.simulate(params, visits, 8, 3)
+    if not all(torch.isfinite(v.float()).all() for v in out.values()):
+        fail("small simulator run on the card: non-finite outputs")
+    print(f"sim reference: deterministic 72-hour run card == CPU bit for bit "
+          f"({len(outs['cpu'])} outputs); hour rates at t=3, 30 within {worst:.3g} "
+          f"(limit 1e-5); stochastic run finite", flush=True)
+
+
+def _reset_tile_launches():
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
+
+    b1.launches = b1.stream_launches = 0
+    for k in gta.launches:
+        gta.launches[k] = 0
+    return lambda: b1.launches + b1.stream_launches + sum(gta.launches.values())
+
+
+def _same_bits(torch, a, b):
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _event_ms(torch, fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _profile_split(torch, fn):
+    """Device milliseconds of one call of ``fn``, from torch.profiler: all
+    kernels and copies, and those launched inside the simulator's
+    ``sim.visit_products`` and ``sim.draws`` ranges."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+
+    def annotation(e):
+        return getattr(e, "is_user_annotation", False) or e.name.startswith("sim.")
+
+    split = {"device_busy_ms": sum(e.device_time_total for e in events
+                                   if e.device_type == DeviceType.CUDA and not annotation(e))}
+    for name in ("sim.visit_products", "sim.draws"):
+        split[name] = sum(e.device_time_total for e in events
+                          if e.name == name and e.device_type == DeviceType.CPU)
+    return {k: v / 1e3 for k, v in split.items()}
+
+
+def sim_main_path(torch):
+    """The simulator at SafeGraph width on the card (``apps/time_sim``'s
+    world: 2943 CBGs, 50,000 POIs, 600K visit entries an hour, one week of
+    hourly matrices reused, a 1512-hour horizon, 40 seeds, exact draws): two
+    runs of one seed give equal bits, the paged run (a week a page) the
+    one-shot run's; a 24-hour block and two one-day pages run with no host
+    sync (CUDA's sync debug mode); the block is timed, then profiled, for
+    its split and idle share; ms/hour, seed-hours/s and peak memory are
+    printed."""
+    import dataclasses
+
+    from pygcn_tpu_torch.apps.time_sim import SAFEGRAPH, safegraph_params, safegraph_visits
+    from pygcn_tpu_torch.sim import HostVisitSeq, VisitSeq, simulate, simulate_paged
+
+    c = SAFEGRAPH
+    t0 = time.time()
+    poi, cbg, w = safegraph_visits()
+    params = safegraph_params()
+    host = HostVisitSeq(poi, cbg, w, c["n_pois"], c["n_cbgs"])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    visits = VisitSeq.from_coo(poi, cbg, w, c["n_pois"], c["n_cbgs"], "cuda")
+    torch.cuda.synchronize()
+    build_s, upload_s = t1 - t0, time.time() - t1
+    launched = _reset_tile_launches()
+
+    t3 = time.time()
+    host.layout  # sorted on the host and page-locked once: pages are row copies of it
+    host_sort_s = time.time() - t3
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    with torch.cuda.stream(side):
+        page = host.page(0, c["period"], "cuda")  # a week, as simulate_paged queues it
+    page_queue_ms = 1e3 * (time.perf_counter() - t4)
+    side.synchronize()
+    page_ready_ms = 1e3 * (time.perf_counter() - t4)
+    del page
+    day = dataclasses.replace(params, total_hours=24)
+    two_days = dataclasses.replace(params, total_hours=48)
+    simulate(day, visits, c["seeds"], 1)  # first calls, outside the sync check
+    simulate_paged(two_days, host, c["seeds"], 1, page_hours=24)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        simulate(day, visits, c["seeds"], 1)
+        simulate_paged(two_days, host, c["seeds"], 1, page_hours=24)
+    except RuntimeError as e:
+        fail(f"simulator: a 24-hour block or a page synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _, day_ms = _event_ms(torch, lambda: simulate(day, visits, c["seeds"], 1))
+    split = _profile_split(torch, lambda: simulate(day, visits, c["seeds"], 1))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t2 = time.perf_counter()
+    out, run_ms = _event_ms(torch, lambda: simulate(params, visits, c["seeds"], 7))
+    wall_s = time.perf_counter() - t2
+    peak = torch.cuda.max_memory_allocated()
+    if not all(t.is_pinned() for t in host.layout.tensors()):
+        fail("the host-sorted visit layout is not page-locked: its pages would block the host")
+
+    def paged_run():
+        return _event_ms(torch, lambda: simulate_paged(params, host, c["seeds"], 7,
+                                                       page_hours=c["period"]))
+
+    # one-shot and paged in turns: the host's clock varies from run to run
+    paged, paged_ms = paged_run()
+    again, again_ms = _event_ms(torch, lambda: simulate(params, visits, c["seeds"], 7))
+    paged2, paged2_ms = paged_run()
+    tiles = launched()
+
+    bad = _same_bits(torch, out, again)
+    if bad:
+        fail(f"simulator at SafeGraph width: two runs of one seed differ in {bad}")
+    bad = _same_bits(torch, out, paged) + _same_bits(torch, out, paged2)
+    if bad:
+        fail(f"simulator at SafeGraph width: simulate_paged differs from simulate in {bad}")
+    days = c["hours"] // 24
+    shapes = {"L": (days, c["seeds"]), "history_C2": (days, c["seeds"], c["n_cbgs"]),
+              "C2": (c["seeds"], c["n_cbgs"]), "total_affected": (c["seeds"],),
+              "monitor": (c["hours"], 5)}
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape:
+            fail(f"simulator output {k} has shape {tuple(out[k].shape)}, expected {shape}")
+    if not all(torch.isfinite(v.float()).all() for v in out.values()):
+        fail("simulator at SafeGraph width: non-finite outputs")
+    affected = out["cbg_all_affected"]
+    if (affected < 0).any() or (affected > params.cbg_sizes + 1e-3).any() or \
+            not out["total_affected"].gt(0).all():
+        fail("simulator at SafeGraph width: affected counts outside [0, population] or zero")
+    if tiles:
+        fail(f"the simulator launched {tiles} tile kernels; its path has none")
+    ms_hour = run_ms / c["hours"]
+    result = {
+        "cbgs": c["n_cbgs"], "pois": c["n_pois"], "entries_per_hour": c["entries"],
+        "period_hours": c["period"], "hours": c["hours"], "seeds": c["seeds"], "draws": "exact",
+        "ms_per_hour": ms_hour, "repeat_ms_per_hour": again_ms / c["hours"],
+        "paged_ms_per_hour": paged_ms / c["hours"],
+        "paged_repeat_ms_per_hour": paged2_ms / c["hours"],
+        "seed_hours_per_s": c["seeds"] * c["hours"] / (run_ms / 1e3),
+        "host_wall_s": wall_s, "visit_seq_device_bytes": visits.nbytes,
+        "peak_memory_bytes": peak, "world_build_s": build_s, "upload_sort_s": upload_s,
+        "host_sort_pin_s": host_sort_s, "page_queue_host_ms": page_queue_ms,
+        "page_ready_ms": page_ready_ms, "block24_ms": day_ms,
+        "block24_device_busy_ms": split["device_busy_ms"],
+        "block24_visit_products_ms": split["sim.visit_products"],
+        "block24_draws_ms": split["sim.draws"],
+        "block24_idle_share": 1 - split["device_busy_ms"] / day_ms,
+        "final_affected_share": float(out["total_affected"].mean() / params.cbg_sizes.sum()),
+        "final_confirmed_mean": float(out["C2"].sum(-1).mean()),
+    }
+    print(f"sim_main_path: {c['n_cbgs']} CBGs x {c['n_pois']} POIs, {c['entries']} entries/h, "
+          f"{c['period']}-hour period, {c['hours']} hours, {c['seeds']} seeds, exact draws: "
+          f"{ms_hour:.4f} ms/hour (repeat {again_ms / c['hours']:.4f}; paged, in turns with "
+          f"them, {paged_ms / c['hours']:.4f} and {paged2_ms / c['hours']:.4f}), "
+          f"{result['seed_hours_per_s']:.1f} seed-hours/s; "
+          f"visit sequence {visits.nbytes / 2**30:.3f} GiB on the card, peak "
+          f"{peak / 2**30:.3f} GiB; the first 24-hour block {day_ms:.3f} ms, of it (profiled) "
+          f"products {split['sim.visit_products']:.3f} ms, draws {split['sim.draws']:.3f} ms, "
+          f"card busy {split['device_busy_ms']:.3f} ms: idle share "
+          f"{result['block24_idle_share']:.3f}; bits repeat, paged == one-shot, no host sync "
+          f"in a block or a page, no tile kernel", flush=True)
+    print("sim " + json.dumps(result), flush=True)
+    return visits, params
+
+
+def policy_batch(torch, visits, params):
+    """8 policies at SafeGraph width in one batch: rows 0 and 7 equal their
+    runs alone (the horizon cut to BATCH_HOURS)."""
+    import dataclasses
+
+    from pygcn_tpu_torch.apps.time_sim import SAFEGRAPH
+    from pygcn_tpu_torch.sim import simulate, simulate_policy_batch
+
+    c = SAFEGRAPH
+    params = dataclasses.replace(params, total_hours=BATCH_HOURS)
+    fracs = torch.linspace(0.0, 0.7, BATCH_POLICIES, device="cuda")
+    attack = params.attack_orig[None] * (1 - fracs[:, None])
+    seeds = [100 + b for b in range(BATCH_POLICIES)]
+    out, ms = _event_ms(torch, lambda: simulate_policy_batch(
+        params, visits, attack, seeds, c["seeds"], extract=lambda o: o))
+    for b in (0, BATCH_POLICIES - 1):
+        solo = simulate(dataclasses.replace(params, attack_vac=attack[b]), visits, c["seeds"],
+                        seeds[b])
+        bad = [k for k in solo if not torch.equal(out[k][b], solo[k])]
+        if bad:
+            fail(f"policy batch row {b} differs from its run alone in {bad}")
+    print(f"policy_batch: {BATCH_POLICIES} policies x {c['seeds']} seeds at SafeGraph width, "
+          f"horizon cut from {c['hours']} to {BATCH_HOURS} hours: {ms / BATCH_HOURS:.4f} "
+          f"ms/hour for the batch ({BATCH_POLICIES * c['seeds'] * BATCH_HOURS / (ms / 1e3):.1f}"
+          f" seed-hours/s); rows 0 and {BATCH_POLICIES - 1} equal their runs alone", flush=True)
+
+
+def run_sim_clis(torch):
+    """``apps/gt_gen --quick_test`` and ``apps/no_vac_baseline --quick_test``
+    through their ``main`` at their default device, the card."""
+    import csv
+    import tempfile
+
+    from pygcn_tpu_torch.apps import gt_gen, no_vac_baseline
+
+    launched = _reset_tile_launches()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "vac.csv")
+        gt_gen.main(["--quick_test", "--out", path])
+        with open(path, newline="") as fh:
+            rows = list(csv.DictReader(fh))
+        cases, deaths = no_vac_baseline.main(["--quick_test", "--out_dir", d])
+        files = sorted(os.listdir(d))
+    values = [float(r[k]) for r in rows for k in ("Total_Cases", "Case_Rates_STD",
+                                                  "Total_Deaths", "Death_Rates_STD")]
+    if len(rows) != 5 or not all(math.isfinite(v) and v >= 0 for v in values):
+        fail(f"gt_gen --quick_test on the card wrote {len(rows)} rows, outcomes {values}")
+    if len(files) != 5 or not np.isfinite(cases).all() or not cases[-1].sum() > 0:
+        fail(f"no_vac_baseline --quick_test on the card wrote {files}, cases {cases[-1]}")
+    if launched():
+        fail("the simulator CLIs launched tile kernels")
+    print(f"gt_gen --quick_test on the card: {len(rows)} rows (baseline total cases "
+          f"{rows[0]['Total_Cases']}); no_vac_baseline --quick_test: {files}", flush=True)
+
+
 # Epochs of each main path: enough for a step and an evaluation after the
 # warm-up pair; the launch checks hold at any count. The runs at --hidden 128
 # take one.
@@ -1517,6 +1886,12 @@ def main() -> None:
     stream_launches = phase("stream_main_paths", run_stream_main_paths, torch, EPOCHS)
     phase("extension_main_paths", run_extension_main_paths, torch, EPOCHS)
     phase("ab_kernel_stream", run_ab_tool)
+    phase("check_draws", check_draws, torch)
+    phase("sim_reference", sim_reference, torch)
+    sim_world = phase("sim_main_path", sim_main_path, torch)
+    phase("policy_batch", policy_batch, torch, *sim_world)
+    del sim_world
+    phase("sim_clis", run_sim_clis, torch)
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),

@@ -16,8 +16,12 @@ and GAT training on the hybrid BCSR+ELL layout:
   reference's init bounds.
 - ``pygcn_tpu_torch.train``    — torch Adam with L2 decay and clipping.
 - ``pygcn_tpu_torch.parallel`` — host-side locality ordering.
+- ``pygcn_tpu_torch.sim``      — the metapopulation epidemic simulator (visit
+  products, exact draws, paged visits, policy batches) and its policies.
+- ``pygcn_tpu_torch.data``     — feature helpers (``standardize``).
 - ``pygcn_tpu_torch.apps``     — the ``train_fullgraph`` CLI (``--model gcn|gat``)
-  and its profiler.
+  and its profiler; the Cora CLI; the simulator's ``gt_gen``,
+  ``no_vac_baseline`` and ``export_dynalearn``.
 """
 
 __version__ = "0.1.0"

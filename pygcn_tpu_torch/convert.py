@@ -18,7 +18,12 @@ their keys with dots (:func:`tree_to_state_dict`). ``KipfGCN``'s tree
 :class:`~pygcn_tpu_torch.nn.models.KipfGCN`'s ``gc1.weight``, ``gc1.bias``
 and so on (:func:`kipf_params_to_state_dict`). The two random generators
 differ, so tests start both packages from one set of weights carried across
-here. Arrays go through NumPy; nothing of JAX is imported.
+here. The simulator's inputs cross the same way: :func:`fields_of` reads any
+of the JAX package's dataclasses (``EpidemicParams``, ``VisitSeq``,
+``HostVisitSeq``) into NumPy arrays and meta fields, and
+:func:`epidemic_params_from_fields`, :func:`visit_seq_from_fields` and
+:func:`host_visit_seq_from_fields` build the port's. Arrays go through NumPy;
+nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -109,3 +114,39 @@ def state_dict_to_kipf_params(state) -> dict:
     return {layer: {"w": state[f"{layer}.weight"].detach().cpu().numpy().copy(),
                     "b": state[f"{layer}.bias"].detach().cpu().numpy().copy()}
             for layer in KIPF_LAYERS}
+
+
+def fields_of(obj) -> dict:
+    """Every field of a dataclass (the JAX package's ``EpidemicParams``,
+    ``VisitSeq`` or ``HostVisitSeq``) by name: arrays as NumPy arrays, the
+    meta fields as they are."""
+    import dataclasses
+
+    return {f.name: np.asarray(v) if hasattr(v, "shape") else v
+            for f in dataclasses.fields(obj) for v in (getattr(obj, f.name),)}
+
+
+def epidemic_params_from_fields(fields: dict, device="cuda"):
+    """JAX ``EpidemicParams`` fields (:func:`fields_of`) → the port's, on ``device``."""
+    from pygcn_tpu_torch.sim.model import EpidemicParams
+
+    return EpidemicParams(**{
+        k: torch.from_numpy(np.array(v, np.float32)).to(device) if isinstance(v, np.ndarray)
+        else v for k, v in fields.items()})
+
+
+def host_visit_seq_from_fields(fields: dict):
+    """JAX ``HostVisitSeq`` (or ``VisitSeq``) fields → the port's ``HostVisitSeq``."""
+    from pygcn_tpu_torch.sim.model import HostVisitSeq
+
+    poi = np.array(fields["poi_idx"], np.int32)
+    if fields.get("period", poi.shape[0]) != poi.shape[0]:
+        raise ValueError(f"period {fields['period']} != {poi.shape[0]} rows")
+    return HostVisitSeq(poi, np.array(fields["cbg_idx"], np.int32),
+                        np.array(fields["w"], np.float32), int(fields["n_pois"]),
+                        int(fields["n_cbgs"]))
+
+
+def visit_seq_from_fields(fields: dict, device="cuda"):
+    """JAX ``VisitSeq`` fields → the port's ``VisitSeq`` on ``device``."""
+    return host_visit_seq_from_fields(fields).to_device(device)

@@ -26,9 +26,12 @@ def port_modules():
 def test_every_module_imports_without_jax_or_pygcn_tpu():
     mods = port_modules()
     for m in ("ops.cuda.bcsr_spmm", "ops.cuda.gat_tile_attn", "ops.cuda.build", "ops.gat",
-              "nn.gat", "nn.sage", "nn.gin", "apps.ab_kernel_stream", "convert"):
+              "nn.gat", "nn.sage", "nn.gin", "apps.ab_kernel_stream", "convert",
+              "sim", "sim.calibration", "sim.policies", "sim.draws", "sim.model", "sim.dist",
+              "graph.covisit", "data", "data.features", "apps.common", "apps.gt_gen",
+              "apps.no_vac_baseline", "apps.export_dynalearn", "apps.time_sim"):
         assert f"pygcn_tpu_torch.{m}" in mods
-    assert len(mods) >= 26
+    assert len(mods) >= 52
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -56,7 +59,7 @@ def test_ab_tool_default_device_raises_without_cuda(monkeypatch):
         ab_kernel_stream.main(["--n_nodes", "200"])
 
 
-@pytest.mark.parametrize("tool", ["time_spmm", "time_gat"])
+@pytest.mark.parametrize("tool", ["time_spmm", "time_gat", "time_sim"])
 def test_timing_tools_raise_without_cuda(monkeypatch, tool):
     """The kernel timing scripts time the card only, before building any graph."""
     import importlib
