@@ -38,7 +38,14 @@ CBGs, 50,000 POIs, 600K visits an hour, 1512 hours, 40 seeds; two runs of
 one seed and the paged run give the same bits, a day runs with no host
 sync; it prints ms/hour, seed-hours/s, peak memory and the profiled split
 on a ``sim {...}`` line), 8 policies in one batch against their runs
-alone, and ``apps/gt_gen`` and ``apps/no_vac_baseline`` on the card. It
+alone, and ``apps/gt_gen`` and ``apps/no_vac_baseline`` on the card. Then
+the surrogate evaluator at SafeGraph width, whose dense graph reaches no
+hand-written kernel: ``gt_gen`` for 200 policies, ``apps/train_evaluator``
+for 4 epochs and again for 3 ended by SIGTERM and resumed for the fourth
+(equal weights), a step timed and profiled, the model's ``impl="bcsr"``
+step (kernel B1) against the dense one, B1 at the folded ``[2943, 640]``
+product beside ``torch.mm``, and ``apps/baselines`` and
+``apps/train_legacy``; it prints an ``evaluator {...}`` line. It
 prints each phase's wall time. Its last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints no
@@ -47,6 +54,7 @@ result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -1454,12 +1462,13 @@ def gat_kernel_entries(timing, launches, source, lines):
     return out
 
 
-def spmm_kernel_entry(timing, name, launches, line):
-    """The ``kernels`` line's entry of B1 or B2, from its H = 128 row."""
+def spmm_kernel_entry(timing, name, launches, line, path=""):
+    """The ``kernels`` line's entry of B1 or B2, from its first row (the
+    main path's H = 128; the evaluator's bcsr route: H = 640)."""
     mine = [r for r in timing if r["kernel"] == name]
     h128 = mine[0]
     return {
-        "name": f"{name} bcsr_spmm",
+        "name": f"{name} bcsr_spmm{path}",
         "route": "cuda",
         "source": "pygcn_tpu_torch/csrc/bcsr_spmm.cu",
         "replaces": f"pygcn_tpu/ops/pallas/bcsr_spmm.py:{line}",
@@ -1832,6 +1841,312 @@ def run_sim_clis(torch):
           f"{rows[0]['Total_Cases']}); no_vac_baseline --quick_test: {files}", flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# The surrogate evaluator (apps/train_evaluator and its neighbours) at
+# SafeGraph width: the dense co-visitation graph on cuBLAS, no tile kernel;
+# with impl="bcsr" its products run kernel B1 on the graph's tiles.
+# ---------------------------------------------------------------------- #
+
+# SafeGraph's CBG count; the POI count and the horizon only shape the
+# co-visitation graph and the ground truth's cost, not the evaluator's width
+EVAL_WORLD = ["--n_cbgs", "2943", "--n_pois", "500", "--hours", "48"]
+# ground truth: policies (the reference used 990) and simulator seeds each
+EVAL_POLICIES, EVAL_SEEDS = 200, 2
+# the CLI's defaults: batch 20, hidden 32; epochs before the preemption, and
+# the one resumed after it
+EVAL_BATCH, EVAL_HIDDEN, EVAL_EPOCHS = 20, 32, 3
+# steps timed by CUDA events (after EVAL_WARMUP untimed), and profiled
+EVAL_TIMED, EVAL_WARMUP, EVAL_PROFILED = 50, 5, 10
+
+
+def _evaluator_setup(torch, csv_path):
+    """The evaluator's inputs as ``apps/train_evaluator`` builds them, on
+    the card: world, features, targets, split; with the seconds of the
+    world and of the centralities."""
+    from pygcn_tpu_torch.apps import train_evaluator as tev
+    from pygcn_tpu_torch.apps.common import build_synthetic_world
+    from pygcn_tpu_torch.data.features import assemble_evaluator_features, centrality_features
+    from pygcn_tpu_torch.data.vac_results import load_vac_results
+
+    t0 = time.perf_counter()
+    world = build_synthetic_world(n_cbgs=int(EVAL_WORLD[1]), n_pois=int(EVAL_WORLD[3]),
+                                  hours=int(EVAL_WORLD[5]), seed=42, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cent = centrality_features(world.adj)
+    t2 = time.perf_counter()
+    res = load_vac_results(csv_path)
+    feats, dim = assemble_evaluator_features(tev.build_predictor_features(world, res), cent,
+                                             True, False)
+    y = res.graph_labels[:, 0]
+    y = ((y - y.mean()) / (y.std() + 1e-8)).astype(np.float32)
+    return world, res, feats, dim, y, t1 - t0, t2 - t1
+
+
+def _kernel_time_split(torch, fn, top=4):
+    """Device milliseconds of ``fn()`` from torch.profiler: all kernels and
+    copies (user annotations left out), their count, and the ``top``
+    kernels by time."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name, count = Counter(), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] += e.device_time_total / 1e3
+            count += 1
+    return sum(by_name.values()), count, {k[:60]: v for k, v in by_name.most_common(top)}
+
+
+def run_evaluator_main_path(torch):
+    """The evaluator pipeline at SafeGraph width through its CLIs on the
+    card: ``gt_gen`` writes the ground truth (EVAL_POLICIES policies);
+    ``train_evaluator`` trains four epochs, and again three that end in a
+    SIGTERM caught by its preemption guard, then ``--resume`` runs the
+    fourth: the weights equal the uninterrupted run's within 1e-6. No tile
+    kernel runs on this path (dense layout). Then one step is timed by CUDA
+    events and profiled; the same model with ``impl="bcsr"`` is held
+    against ``impl="dense"`` (outputs, gradients and weights after an Adam
+    step within 1e-4; B1 launched 6 times a step), and B1 is timed at the
+    folded ``[2943, 640]`` product against its plain version, ``torch.mm``
+    on the dense matrix and its bound; ``baselines mlp``, ``summary-ols``
+    and ``train_legacy`` take a few epochs. Prints an ``evaluator {...}``
+    line; returns B1's row for the ``kernels`` line."""
+    import pickle
+    import signal
+    import tempfile
+
+    from pygcn_tpu_torch.apps import baselines, gt_gen, train_legacy
+    from pygcn_tpu_torch.apps import train_evaluator as tev
+    from pygcn_tpu_torch.apps.time_spmm import spmm_bound
+    from pygcn_tpu_torch.convert import tree_to_state_dict
+    from pygcn_tpu_torch.data.loader import ArrayLoader
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.train.optim import adam_l2
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    class PreemptedLogger(tev.MetricsLogger):
+        """Raises SIGTERM once the epoch EVAL_EPOCHS - 1 is logged: the
+        guard latches it and the loop saves its preemption checkpoint."""
+
+        def log(self, step, **metrics):
+            super().log(step, **metrics)
+            if step == EVAL_EPOCHS - 1:
+                signal.raise_signal(signal.SIGTERM)
+
+    out = {"cbgs": int(EVAL_WORLD[1]), "pois": int(EVAL_WORLD[3]), "hours": int(EVAL_WORLD[5]),
+           "policies": EVAL_POLICIES, "sim_seeds": EVAL_SEEDS, "batch": EVAL_BATCH,
+           "hidden": EVAL_HIDDEN}
+    with tempfile.TemporaryDirectory() as d:
+        csv_path = os.path.join(d, "vac.csv")
+        t0 = time.perf_counter()
+        gt_gen.main(["--out", csv_path, "--num_samples", str(EVAL_POLICIES), "--num_seeds",
+                     str(EVAL_SEEDS), "--batch", "50", *EVAL_WORLD])
+        out["gt_gen_s"] = time.perf_counter() - t0
+        common = ["--vac_result_path", csv_path, *EVAL_WORLD]
+        launched = _reset_tile_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        test_loss, test_corr = tev.main(common + ["--out_dir", os.path.join(d, "full"),
+                                                  "--epochs", str(EVAL_EPOCHS + 1)])
+        out["cli_4_epochs_s"] = time.perf_counter() - t0
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        pre = os.path.join(d, "pre")
+        saved_logger = tev.MetricsLogger
+        tev.MetricsLogger = PreemptedLogger
+        try:
+            preempted = tev.main(common + ["--out_dir", pre, "--epochs", str(EVAL_EPOCHS + 1)])
+        finally:
+            tev.MetricsLogger = saved_logger
+        if preempted is not None or not os.path.exists(os.path.join(pre, "checkpoint_last.pkl")):
+            fail("train_evaluator: SIGTERM after epoch 2 did not end in a preemption save")
+        resumed = tev.main(common + ["--out_dir", pre, "--epochs", "1", "--resume"])
+        params = {}
+        for name in ("full", "pre"):
+            with open(os.path.join(d, name, "evaluator.pkl"), "rb") as f:
+                params[name] = pickle.load(f)["params"]
+        full, pre = (tree_to_state_dict(params[k]) for k in ("full", "pre"))
+        diffs = [float((full[k] - pre[k]).abs().max()) for k in full]
+        out["resume_max_abs_diff"] = max(diffs)
+        if max(diffs) > 1e-6 or abs(resumed[0] - test_loss) > 1e-6:
+            fail(f"train_evaluator --resume after {EVAL_EPOCHS} epochs differs from 4 "
+                 f"uninterrupted epochs: weights by {max(diffs)}, test loss {resumed[0]} "
+                 f"against {test_loss}")
+        if not (math.isfinite(test_loss) and -1 <= test_corr <= 1):
+            fail(f"train_evaluator: test loss {test_loss}, Spearman {test_corr}")
+        out.update(test_loss=test_loss, test_spearman=test_corr)
+
+        mse, corr = baselines.main(["mlp", *common, "--epochs", "2"])
+        fit = baselines.main(["summary-ols", *common])
+        legacy = train_legacy.main(["--vac_result_path", csv_path, *EVAL_WORLD, "--epochs", "3"])
+        if not all(math.isfinite(v) for v in (mse, corr, fit["r2"], legacy)):
+            fail(f"baselines/train_legacy: mlp {mse} {corr}, ols r2 {fit['r2']}, "
+                 f"legacy {legacy}")
+        out.update(mlp_test_mse=mse, ols_r2=fit["r2"], legacy_test_loss=legacy)
+        if launched():
+            fail(f"the evaluator's CLIs launched {launched()} tile kernels; the dense "
+                 "layout has none")
+        world, res, feats, dim, y, out["world_s"], out["centralities_s"] = \
+            _evaluator_setup(torch, csv_path)
+
+    graph = world.graph
+    feats_dev, y_dev = torch.from_numpy(feats).cuda(), torch.from_numpy(y).cuda()
+    model = tev.make_model(dim, feats.shape[2], EVAL_HIDDEN, 42, device="cuda")
+    step = tev.make_train_step(model, adam_l2(model.parameters(), 0.01, 5e-4,
+                                              grad_clip_norm=0.1), graph)
+    batches = tev.epoch_batches(torch.from_numpy(np.array(res.idx_train)).cuda(), EVAL_BATCH)
+    n_steps = len(batches)
+    turn = itertools.count()
+
+    def one_step():
+        idx = batches[next(turn) % n_steps]
+        return step(feats_dev.index_select(0, idx), y_dev.index_select(0, idx))
+
+    step_ms = [cuda_ms(one_step, iters=EVAL_TIMED, warmup=EVAL_WARMUP) for _ in range(2)]
+    busy_ms, n_kernels, top = _kernel_time_split(
+        torch, lambda: [one_step() for _ in range(EVAL_PROFILED)])
+    val = ArrayLoader([feats[res.idx_val], y[res.idx_val]], EVAL_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [one_step() for _ in range(n_steps)]
+    torch.stack(losses).tolist()
+    tev.evaluate(model, graph, val, "cuda")
+    out["epoch_s"] = time.perf_counter() - t0
+    out.update(ms_per_step=min(step_ms), ms_per_step_runs=step_ms, steps_per_epoch=n_steps,
+               profiled_device_ms_per_step=busy_ms / EVAL_PROFILED,
+               device_idle_share=1 - busy_ms / EVAL_PROFILED / min(step_ms),
+               kernels_per_step=n_kernels / EVAL_PROFILED,
+               profiled_top_kernels_ms_per_step={n: v / EVAL_PROFILED for n, v in top.items()},
+               n_features=feats.shape[2], dim_touched=dim)
+
+    bcsr, n, h = graph.bcsr, graph.n_nodes, EVAL_BATCH * EVAL_HIDDEN
+    x = torch.randn((n, h), device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    got, again = b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), b1.bcsr_spmm_cuda(bcsr, x, n_rows=n)
+    ref = b1.bcsr_spmm_plain(bcsr, x, n_rows=n)
+    mm = torch.mm(graph.dense, x)
+    exact = torch.mm(graph.dense.double(), x.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(mm, ref, rtol=RTOL, atol=ATOL)
+    if not torch.equal(got, again):
+        fail(f"B1 at [{n}, {h}] gave other bits in a second launch")
+    saved = b1.launches
+    ms = [cuda_ms(lambda: b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), iters=50) for _ in range(2)]
+    mm_ms = [cuda_ms(lambda: torch.mm(graph.dense, x), iters=50) for _ in range(2)]
+    b1.launches = saved
+    bound_ms, bound_by, nbytes, flops = spmm_bound(bcsr, n, h)
+    b1_row = {"kernel": "B1", "H": h, "tiles": bcsr.data.shape[0],
+              "tile_nnz": flops // (2 * h), "tile_fill": flops / (2 * h) / bcsr.data.numel(),
+              "ms": min(ms), "ms_runs": ms,
+              "plain_ms": cuda_ms(lambda: b1.bcsr_spmm_plain(bcsr, x, n_rows=n), iters=10),
+              "library_ms": min(mm_ms), "library_ms_runs": mm_ms, "library": "torch.mm",
+              "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+              "max_abs_err": float((got - ref).abs().max()),
+              "f64_max_abs_err": float((got.double() - exact).abs().max()),
+              "library_f64_max_abs_err": float((mm.double() - exact).abs().max()),
+              "plain_f64_max_abs_err": float((ref.double() - exact).abs().max())}
+
+    # the same model on kernel B1 (impl="bcsr") against the dense layout
+    out.update(_bcsr_route(torch, tev, b1, adam_l2, graph, feats_dev.index_select(0, batches[0]),
+                           y_dev.index_select(0, batches[0]), dim, feats.shape[2]))
+    b1_row["launches"] = b1_launches = out["bcsr_route_b1_launches_per_step"]
+    print("evaluator B1 timing: " + json.dumps(b1_row), flush=True)
+    print(f"evaluator_main_path: {n} CBGs, batch {EVAL_BATCH}, hidden {EVAL_HIDDEN}, "
+          f"{feats.shape[2]} features: {min(step_ms):.4f} ms a step (CUDA events; "
+          f"{step_ms}; the card busy {out['profiled_device_ms_per_step']:.4f} ms of it, "
+          f"{out['kernels_per_step']:.0f} kernels), epoch {out['epoch_s']:.3f} s, "
+          f"centralities {out['centralities_s']:.2f} s, "
+          f"peak {out['peak_memory_bytes'] / 2**30:.3f} GiB; test loss {test_loss:.4f}, "
+          f"Spearman {test_corr:.4f} (a stand-in: training moves); --resume after "
+          f"{EVAL_EPOCHS} epochs == 4 epochs within {out['resume_max_abs_diff']:.3g}; "
+          f"impl=bcsr == dense within {out['bcsr_route_max_abs_err']:.3g} "
+          f"({out['bcsr_route_sign_flips']} weights stepped the other way), B1 "
+          f"{b1_launches} launches a step; B1 at "
+          f"[{n}, {h}] {min(ms):.4f} ms against torch.mm {min(mm_ms):.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); no tile kernel on the CLIs", flush=True)
+    print("evaluator " + json.dumps(out), flush=True)
+    return b1_row
+
+
+def _bcsr_route(torch, tev, b1, adam_l2, graph, bx, by, dim, n_features):
+    """One evaluator step with ``impl="bcsr"`` (B1) against ``impl="dense"``
+    (cuBLAS), the same weights and batch: outputs and gradients within
+    rtol = atol = 1e-4, and each route's weights after its Adam step equal
+    that step computed from its own gradient (1e-6), which is the other
+    route's within 1e-4 wherever the two gradients Adam sees (clipped, plus
+    the L2 term) have one sign. A first Adam step moves each weight by the
+    learning rate times the sign of that gradient, whatever its size, so an
+    element whose gradient lies within rounding of zero may step either way
+    on the two routes: such elements are counted and reported, and their
+    gradients are held to 1e-4 with the rest."""
+    lr, wd = 0.01, 5e-4
+    runs = {}
+    for impl in ("dense", "bcsr"):
+        m = tev.make_model(dim, n_features, EVAL_HIDDEN, 42, impl=impl, device="cuda")
+        w0 = {n: p.detach().clone() for n, p in m.named_parameters()}
+        with torch.no_grad():
+            fwd = m(bx, graph)
+        opt = adam_l2(m.parameters(), lr, wd, grad_clip_norm=0.1)
+        step = tev.make_train_step(m, opt, graph)
+        before = b1.launches
+        step(bx, by)
+        torch.cuda.synchronize()
+        # Adam's first moment after one step is (1 - b1) times the gradient it
+        # saw (clipped, plus the L2 term); its step is lr·m/(sqrt(v)/sqrt(1-b2) + eps)/(1-b1)
+        state = {n: opt.state[p] for n, p in m.named_parameters()}
+        runs[impl] = {
+            "output": fwd, "grads": {n: p.grad.clone() for n, p in m.named_parameters()},
+            "seen": {n: st["exp_avg"] for n, st in state.items()},
+            "weights": {n: p.detach().clone() for n, p in m.named_parameters()},
+            "expected": {n: w0[n] - lr / 0.1 * st["exp_avg"] / (
+                st["exp_avg_sq"].sqrt() / 0.001 ** 0.5 + 1e-8) for n, st in state.items()},
+            "launches": b1.launches - before}
+    d, b = runs["dense"], runs["bcsr"]
+    if d["launches"] != 0 or b["launches"] != 6:
+        fail(f"evaluator step: B1 launched {d['launches']} times on the dense layout "
+             f"and {b['launches']} on bcsr (expected 0 and 6)")
+    bad, worst, flips, n_weights = [], 0.0, [], 0
+
+    def hold(name, got, ref, rtol, atol, where=None):
+        err = (got - ref).abs()
+        over = err > atol + rtol * ref.abs()
+        if where is not None:
+            over &= where
+        if over.any():
+            j = int(torch.nonzero(over.flatten())[0])
+            bad.append(f"{name}: {int(over.sum())} of {ref.numel()} off, e.g. "
+                       f"{float(got.flatten()[j])} against {float(ref.flatten()[j])}")
+        return float(err[where].max()) if where is not None and where.any() else \
+            float(err.max()) if where is None else 0.0
+
+    worst = max(worst, hold("output", b["output"], d["output"], RTOL, ATOL))
+    for n, ref in d["grads"].items():
+        worst = max(worst, hold(f"grad {n}", b["grads"][n], ref, RTOL, ATOL))
+        for run in (d, b):
+            hold(f"Adam step of {n}", run["weights"][n], run["expected"][n], 0.0, 1e-6)
+        same_sign = torch.sign(b["seen"][n]) == torch.sign(d["seen"][n])
+        worst = max(worst, hold(f"weight {n}", b["weights"][n], d["weights"][n], RTOL, ATOL,
+                                same_sign))
+        n_weights += ref.numel()
+        for j in torch.nonzero(~same_sign.flatten()).flatten().tolist():
+            flips.append(f"{n}[{j}]: {float(d['seen'][n].flatten()[j]):.3g} (dense) against "
+                         f"{float(b['seen'][n].flatten()[j]):.3g} (bcsr)")
+    if bad:
+        fail("evaluator step, impl=bcsr against dense: " + "; ".join(bad))
+    print(f"evaluator bcsr route: outputs, gradients and weights within rtol=atol=1e-4 "
+          f"(max abs err {worst:.3g}); {len(flips)} of {n_weights} weights stepped the other "
+          f"way, their gradients within rounding of zero: {flips}", flush=True)
+    return {"bcsr_route_max_abs_err": worst, "bcsr_route_b1_launches_per_step": b["launches"],
+            "bcsr_route_sign_flips": len(flips), "bcsr_route_weights": n_weights}
+
+
 # Epochs of each main path: enough for a step and an evaluation after the
 # warm-up pair; the launch checks hold at any count. The runs at --hidden 128
 # take one.
@@ -1892,9 +2207,12 @@ def main() -> None:
     phase("policy_batch", policy_batch, torch, *sim_world)
     del sim_world
     phase("sim_clis", run_sim_clis, torch)
+    eval_b1 = phase("evaluator_main_path", run_evaluator_main_path, torch)
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),
+        spmm_kernel_entry([eval_b1], "B1", eval_b1["launches"], 50,
+                          f" (evaluator, H={eval_b1['H']})"),
     ]}
     kernels["kernels"] += gat_kernel_entries(
         gat_timing, gat_launches, "pygcn_tpu_torch/csrc/gat_tile_attn.cu",

@@ -16,7 +16,13 @@ on. The SAGE, GIN and APPNP trees of ``pygcn_tpu.nn.sage`` and
 their keys with dots (:func:`tree_to_state_dict`). ``KipfGCN``'s tree
 ``{"gc1" | "gc2": {"w", "b"}}`` maps onto
 :class:`~pygcn_tpu_torch.nn.models.KipfGCN`'s ``gc1.weight``, ``gc1.bias``
-and so on (:func:`kipf_params_to_state_dict`). The two random generators
+and so on (:func:`kipf_params_to_state_dict`). Any tree of
+``pygcn_tpu/nn/models.py``'s evaluator and generator models (``{"gcn":
+{"gc1": {"w", "b"}, ...}, "mlp": {"linear1": {"w", "b"}, ...}}``, and
+``pool_mlp``) maps onto the state dicts of
+:mod:`pygcn_tpu_torch.nn.models` with ``w`` as ``weight`` and ``b`` as
+``bias`` (:func:`evaluator_params_to_state_dict`); the port's
+``evaluator.pkl`` and checkpoints keep their weights in that tree. The two random generators
 differ, so tests start both packages from one set of weights carried across
 here. The simulator's inputs cross the same way: :func:`fields_of` reads any
 of the JAX package's dataclasses (``EpidemicParams``, ``VisitSeq``,
@@ -94,6 +100,31 @@ def state_dict_to_tree(state) -> dict:
             node = node.setdefault(name, {})
         node[leaf] = value.detach().cpu().numpy().copy()
     return tree
+
+
+# leaf names of the evaluator trees (JAX) and of the port's layers
+EVALUATOR_LEAVES = {"w": "weight", "b": "bias"}
+
+
+def _rename_leaf(key: str, names: dict) -> str:
+    head, _, leaf = key.rpartition(".")
+    leaf = names.get(leaf, leaf)
+    return f"{head}.{leaf}" if head else leaf
+
+
+def evaluator_params_to_state_dict(params) -> dict:
+    """A JAX-side tree of ``pygcn_tpu/nn/models.py`` (``GCN3``,
+    ``GCNOverMLP``, ``GCNRegressor``, ``PoolMLPModel``, the generators) →
+    state dict of the port's model: keys joined by dots, ``w``/``b`` as
+    ``weight``/``bias``."""
+    return {_rename_leaf(k, EVALUATOR_LEAVES): v for k, v in tree_to_state_dict(params).items()}
+
+
+def state_dict_to_evaluator_params(state) -> dict:
+    """The port's state dict (or named parameters) → the JAX-side tree of
+    NumPy arrays (:func:`evaluator_params_to_state_dict`'s inverse)."""
+    back = {v: k for k, v in EVALUATOR_LEAVES.items()}
+    return state_dict_to_tree({_rename_leaf(k, back): v for k, v in state.items()})
 
 
 KIPF_LAYERS = ("gc1", "gc2")

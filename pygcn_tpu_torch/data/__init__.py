@@ -1,1 +1,1 @@
-"""Feature assembly for the evaluator and generator apps (``standardize`` so far)."""
+"""The evaluator's data: ground-truth CSVs, loaders, node features and census tables."""

@@ -1,1 +1,1 @@
-"""Optimizers."""
+"""Optimizers, training loops, metrics, checkpoints, preemption and sweeps."""

@@ -1,1 +1,1 @@
-"""Native graphkit bindings and device timing."""
+"""Native graphkit bindings, device timing, logging and configuration."""

@@ -997,3 +997,55 @@ def test_gat_kernels_refuse_tiles_off_the_rule(dev, tile):
     ops = v1_operands(dev, n, 2, 4, 0)
     with pytest.raises(ValueError, match="multiple of 32"):
         gta.tile_fwd_cuda(b, *ops[:3], 2, 4, 0.2)
+
+
+def test_b1_on_the_evaluators_nearly_dense_tiles(dev):
+    """B1 at the evaluator's shape: a symmetric 2943-node matrix about 35%
+    full (every one of its 23 x 23 tiles present) times ``[2943, 640]`` (a
+    batch of 20 samples of 32 columns, folded), against the plain version
+    and bit for bit across two launches."""
+    rng = np.random.default_rng(13)
+    m = sp.random(2943, 2943, density=0.2, random_state=rng, format="coo",
+                  data_rvs=lambda k: rng.uniform(size=k), dtype=np.float32)
+    m = m.maximum(m.T).tocoo()
+    b = _build_bcsr(m, (128, 128)).to(dev)
+    assert b.data.shape[0] == 23 * 23
+    x = torch.from_numpy(rng.standard_normal((2943, 640)).astype(np.float32)).to(dev)
+    before = b1.launches
+    got, again = (b1.bcsr_spmm(b, x, n_rows=2943) for _ in range(2))
+    torch.cuda.synchronize()
+    assert b1.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, b1.bcsr_spmm_plain(b, x, n_rows=2943), rtol=1e-4, atol=1e-4)
+
+
+def test_evaluator_bcsr_step_matches_dense(dev):
+    """The evaluator with ``impl="bcsr"`` (kernel B1 on the co-visitation
+    graph's tiles, six launches a step) against ``impl="dense"`` (cuBLAS):
+    outputs, gradients and the weights after one Adam step."""
+    from pygcn_tpu_torch.apps import train_evaluator as tev
+    from pygcn_tpu_torch.apps.common import build_synthetic_world
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    world = build_synthetic_world(n_cbgs=600, n_pois=60, hours=24, seed=3, device=dev)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((8, 600, 17)).astype(np.float32)
+    x[:, :, -1] = rng.uniform(size=(8, 600)) < 0.02
+    bx = torch.from_numpy(x).to(dev)
+    by = torch.from_numpy(rng.standard_normal(8).astype(np.float32)).to(dev)
+    models, grads = {}, {}
+    for impl in ("dense", "bcsr"):
+        model = tev.make_model(16, 17, 32, 0, impl=impl, device=dev)
+        out = model(bx, world.graph)
+        opt = adam_l2(model.parameters(), 0.01, 5e-4, grad_clip_norm=0.1)
+        before = b1.launches
+        tev.make_train_step(model, opt, world.graph)(bx, by)
+        torch.cuda.synchronize()
+        assert b1.launches - before == (6 if impl == "bcsr" else 0)
+        models[impl], grads[impl] = (out, model), {k: p.grad for k, p in model.named_parameters()}
+    torch.testing.assert_close(models["bcsr"][0], models["dense"][0], rtol=1e-4, atol=1e-4)
+    for k, g in grads["dense"].items():
+        torch.testing.assert_close(grads["bcsr"][k], g, rtol=1e-4, atol=1e-4, msg=k)
+    for (k, p), (_, q) in zip(models["dense"][1].named_parameters(),
+                              models["bcsr"][1].named_parameters()):
+        torch.testing.assert_close(q, p, rtol=1e-4, atol=1e-4, msg=k)

@@ -29,14 +29,21 @@ def test_every_module_imports_without_jax_or_pygcn_tpu():
               "nn.gat", "nn.sage", "nn.gin", "apps.ab_kernel_stream", "convert",
               "sim", "sim.calibration", "sim.policies", "sim.draws", "sim.model", "sim.dist",
               "graph.covisit", "data", "data.features", "apps.common", "apps.gt_gen",
-              "apps.no_vac_baseline", "apps.export_dynalearn", "apps.time_sim"):
+              "apps.no_vac_baseline", "apps.export_dynalearn", "apps.time_sim",
+              "nn.models", "data.vac_results", "data.loader", "data.demographics",
+              "utils.logging", "utils.config", "train.checkpoint", "train.preempt",
+              "train.sweep", "apps.train_evaluator", "apps.baselines", "apps.train_legacy",
+              "apps.sweep"):
         assert f"pygcn_tpu_torch.{m}" in mods
-    assert len(mods) >= 52
+    assert len(mods) >= 64
+    # the evaluator's slice reads CSVs and computes centralities without
+    # pandas, networkx or scikit-learn (only `baselines summary-mlp` imports
+    # scikit-learn, when it runs)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'pygcn_tpu' or m.startswith('pygcn_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'pygcn_tpu', 'pandas', 'networkx', 'sklearn'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -49,6 +56,23 @@ def test_cli_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_fullgraph.main(["--n_nodes", "200", "--epochs", "1"])
+
+
+@pytest.mark.parametrize("app, argv", [
+    ("train_evaluator", ["--vac_result_path", "vac.csv", "--out_dir", "out"]),
+    ("baselines", ["summary-ols", "--vac_result_path", "vac.csv"]),
+    ("train_legacy", ["--vac_result_path", "vac.csv"]),
+])
+def test_evaluator_clis_default_device_raises_without_cuda(monkeypatch, tmp_path, app, argv):
+    """The evaluator's CLIs default to the card and raise before reading
+    anything when there is none."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(f"pygcn_tpu_torch.apps.{app}").main(argv)
+    assert not os.listdir(tmp_path)
 
 
 def test_ab_tool_default_device_raises_without_cuda(monkeypatch):
