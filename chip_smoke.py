@@ -45,8 +45,15 @@ for 4 epochs and again for 3 ended by SIGTERM and resumed for the fourth
 (equal weights), a step timed and profiled, the model's ``impl="bcsr"``
 step (kernel B1) against the dense one, B1 at the folded ``[2943, 640]``
 product beside ``torch.mm``, and ``apps/baselines`` and
-``apps/train_legacy``; it prints an ``evaluator {...}`` line. It
-prints each phase's wall time. Its last line is
+``apps/train_legacy``; it prints an ``evaluator {...}`` line. Then, against
+that evaluator, the policy generators and the server: ``apps/train_generator``
+(plain and ``--hierarchical``; NN-node policies, a step timed and profiled,
+the ``impl="bcsr"`` step against the dense one and B1 at ``[2943, 32]``),
+``apps/train_rl`` (128 policies an episode, then a rerun answered by its
+cache) and ``apps/predict`` (from the pickle, writing a ``torch.export``
+artifact, then from the artifact in a process that imports no model code;
+padding changes no row); it prints ``policy {...}`` and ``serve {...}``
+lines. It prints each phase's wall time. Its last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -60,6 +67,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1904,7 +1912,43 @@ def _kernel_time_split(torch, fn, top=4):
     return sum(by_name.values()), count, {k[:60]: v for k, v in by_name.most_common(top)}
 
 
-def run_evaluator_main_path(torch):
+def _time_b1_at(torch, graph, h):
+    """B1 on ``graph.bcsr`` at ``x [n, h]`` against its plain version (and
+    again, bit for bit), timed by CUDA events beside ``torch.mm`` on the
+    dense matrix and its bound; launches made here are not counted."""
+    from pygcn_tpu_torch.apps.time_spmm import spmm_bound
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    bcsr, n = graph.bcsr, graph.n_nodes
+    x = torch.randn((n, h), device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
+    saved = b1.launches
+    got, again = b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), b1.bcsr_spmm_cuda(bcsr, x, n_rows=n)
+    ref = b1.bcsr_spmm_plain(bcsr, x, n_rows=n)
+    mm = torch.mm(graph.dense, x)
+    exact = torch.mm(graph.dense.double(), x.double())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(mm, ref, rtol=RTOL, atol=ATOL)
+    if not torch.equal(got, again):
+        fail(f"B1 at [{n}, {h}] gave other bits in a second launch")
+    ms = [cuda_ms(lambda: b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), iters=50) for _ in range(2)]
+    mm_ms = [cuda_ms(lambda: torch.mm(graph.dense, x), iters=50) for _ in range(2)]
+    b1.launches = saved
+    bound_ms, bound_by, nbytes, flops = spmm_bound(bcsr, n, h)
+    return {"kernel": "B1", "n": n, "H": h, "tiles": bcsr.data.shape[0],
+            "tile_nnz": flops // (2 * h), "tile_fill": flops / (2 * h) / bcsr.data.numel(),
+            "ms": min(ms), "ms_runs": ms,
+            "plain_ms": cuda_ms(lambda: b1.bcsr_spmm_plain(bcsr, x, n_rows=n), iters=10),
+            "library_ms": min(mm_ms), "library_ms_runs": mm_ms, "library": "torch.mm",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+            "max_abs_err": float((got - ref).abs().max()),
+            "f64_max_abs_err": float((got.double() - exact).abs().max()),
+            "library_f64_max_abs_err": float((mm.double() - exact).abs().max()),
+            "plain_f64_max_abs_err": float((ref.double() - exact).abs().max())}
+
+
+def run_evaluator_main_path(torch, keep_dir):
     """The evaluator pipeline at SafeGraph width through its CLIs on the
     card: ``gt_gen`` writes the ground truth (EVAL_POLICIES policies);
     ``train_evaluator`` trains four epochs, and again three that end in a
@@ -1917,14 +1961,15 @@ def run_evaluator_main_path(torch):
     folded ``[2943, 640]`` product against its plain version, ``torch.mm``
     on the dense matrix and its bound; ``baselines mlp``, ``summary-ols``
     and ``train_legacy`` take a few epochs. Prints an ``evaluator {...}``
-    line; returns B1's row for the ``kernels`` line."""
+    line; returns B1's row for the ``kernels`` line. The trained
+    ``evaluator.pkl`` is copied into ``keep_dir`` for the phases after."""
     import pickle
+    import shutil
     import signal
     import tempfile
 
     from pygcn_tpu_torch.apps import baselines, gt_gen, train_legacy
     from pygcn_tpu_torch.apps import train_evaluator as tev
-    from pygcn_tpu_torch.apps.time_spmm import spmm_bound
     from pygcn_tpu_torch.convert import tree_to_state_dict
     from pygcn_tpu_torch.data.loader import ArrayLoader
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
@@ -1968,6 +2013,7 @@ def run_evaluator_main_path(torch):
         if preempted is not None or not os.path.exists(os.path.join(pre, "checkpoint_last.pkl")):
             fail("train_evaluator: SIGTERM after epoch 2 did not end in a preemption save")
         resumed = tev.main(common + ["--out_dir", pre, "--epochs", "1", "--resume"])
+        shutil.copy(os.path.join(d, "full", "evaluator.pkl"), keep_dir)
         params = {}
         for name in ("full", "pre"):
             with open(os.path.join(d, name, "evaluator.pkl"), "rb") as f:
@@ -2026,32 +2072,9 @@ def run_evaluator_main_path(torch):
                profiled_top_kernels_ms_per_step={n: v / EVAL_PROFILED for n, v in top.items()},
                n_features=feats.shape[2], dim_touched=dim)
 
-    bcsr, n, h = graph.bcsr, graph.n_nodes, EVAL_BATCH * EVAL_HIDDEN
-    x = torch.randn((n, h), device="cuda", generator=torch.Generator(device="cuda").manual_seed(5))
-    got, again = b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), b1.bcsr_spmm_cuda(bcsr, x, n_rows=n)
-    ref = b1.bcsr_spmm_plain(bcsr, x, n_rows=n)
-    mm = torch.mm(graph.dense, x)
-    exact = torch.mm(graph.dense.double(), x.double())
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(mm, ref, rtol=RTOL, atol=ATOL)
-    if not torch.equal(got, again):
-        fail(f"B1 at [{n}, {h}] gave other bits in a second launch")
-    saved = b1.launches
-    ms = [cuda_ms(lambda: b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), iters=50) for _ in range(2)]
-    mm_ms = [cuda_ms(lambda: torch.mm(graph.dense, x), iters=50) for _ in range(2)]
-    b1.launches = saved
-    bound_ms, bound_by, nbytes, flops = spmm_bound(bcsr, n, h)
-    b1_row = {"kernel": "B1", "H": h, "tiles": bcsr.data.shape[0],
-              "tile_nnz": flops // (2 * h), "tile_fill": flops / (2 * h) / bcsr.data.numel(),
-              "ms": min(ms), "ms_runs": ms,
-              "plain_ms": cuda_ms(lambda: b1.bcsr_spmm_plain(bcsr, x, n_rows=n), iters=10),
-              "library_ms": min(mm_ms), "library_ms_runs": mm_ms, "library": "torch.mm",
-              "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-              "max_abs_err": float((got - ref).abs().max()),
-              "f64_max_abs_err": float((got.double() - exact).abs().max()),
-              "library_f64_max_abs_err": float((mm.double() - exact).abs().max()),
-              "plain_f64_max_abs_err": float((ref.double() - exact).abs().max())}
+    b1_row = _time_b1_at(torch, graph, EVAL_BATCH * EVAL_HIDDEN)
+    n, h, ms, mm_ms = b1_row["n"], b1_row["H"], b1_row["ms_runs"], b1_row["library_ms_runs"]
+    bound_ms, bound_by = b1_row["bound_ms"], b1_row["bound_by"]
 
     # the same model on kernel B1 (impl="bcsr") against the dense layout
     out.update(_bcsr_route(torch, tev, b1, adam_l2, graph, feats_dev.index_select(0, batches[0]),
@@ -2147,6 +2170,361 @@ def _bcsr_route(torch, tev, b1, adam_l2, graph, bx, by, dim, n_features):
             "bcsr_route_sign_flips": len(flips), "bcsr_route_weights": n_weights}
 
 
+# ---------------------------------------------------------------------- #
+# The policy generators and the server (pygcn_tpu_torch/policy, apps/
+# train_generator, train_rl, predict): the dense graph reaches no
+# hand-written kernel; the generator's impl="bcsr" route runs B1 at H = 32.
+# ---------------------------------------------------------------------- #
+
+# the generator CLI's defaults (NN 5, hidden 32, --max_validate 8,
+# --num_seeds 8) for GEN_EPOCHS epochs; steps timed by CUDA events (after
+# GEN_WARMUP untimed), and profiled; weight states the bcsr route starts from
+GEN_EPOCHS, GEN_NN, GEN_HIDDEN = 20, 5, 32
+GEN_TIMED, GEN_WARMUP, GEN_PROFILED = 50, 5, 10
+GEN_ROUTE_STATES = (0, 10, 20, 30, 40)
+# REINFORCE: 128 policies an episode (the reference samples 1000)
+RL_EPISODES = 3
+RL_ARGS = ["--episodes", str(RL_EPISODES), "--epoch_width", "128", "--num_seeds", "4",
+           "--replay_width", "4"]
+# serving: the fixed batch, and requests for 200 batches (199 latencies once
+# the first is left out)
+SERVE_BATCH = 32
+SERVE_REQUESTS = 200 * SERVE_BATCH
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_generator_main_path(torch, evaluator_path):
+    """``apps/train_generator`` on the card at SafeGraph width against the
+    evaluator that ``evaluator_main_path`` trained: GEN_EPOCHS epochs at its
+    defaults, then again with ``--hierarchical`` and ``--target_group`` the
+    income group that the plain run's policies pick most from (the two runs
+    start from the same weights and differ only by the mask, so the mask
+    binds). Every validated policy has NN distinct nodes, the hierarchical
+    ones none of the target group's, the losses are finite,
+    ``policies.pkl`` reads back as plain types, and no tile kernel runs.
+    Then one generator step is timed by CUDA events and profiled; the step
+    on ``impl="bcsr"`` (generator and evaluator on the graph's tiles, kernel
+    B1) is held against the dense one from several weight states (loss and
+    the generator's gradients within 1e-4; the flags equal wherever the
+    NN-th and (NN+1)-th scores lie further apart than that), with B1's
+    launches a step; B1 is timed at ``[2943, 32]``. Returns B1's row for the
+    ``kernels`` line and the phase's numbers."""
+    import collections
+    import tempfile
+
+    from pygcn_tpu_torch.apps import train_generator as tgen
+    from pygcn_tpu_torch.apps.common import build_synthetic_world
+    from pygcn_tpu_torch.policy import make_generator_train_step
+    from pygcn_tpu_torch.train.checkpoint import load_evaluator, load_plain_pickle
+    from pygcn_tpu_torch.train.optim import adam_l2
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    out = {"cbgs": int(EVAL_WORLD[1]), "epochs": GEN_EPOCHS, "NN": GEN_NN, "hidden": GEN_HIDDEN}
+    world = build_synthetic_world(n_cbgs=int(EVAL_WORLD[1]), n_pois=int(EVAL_WORLD[3]),
+                                  hours=int(EVAL_WORLD[5]), seed=42, device="cuda")
+    groups = tgen.generator_inputs(world, hierarchical=True)[0][:, -1]
+    runs = {}
+    launched = _reset_tile_launches()
+    with tempfile.TemporaryDirectory() as d:
+        for name in ("plain", "hierarchical"):
+            if name == "plain":
+                extra = []
+            else:
+                picked = collections.Counter(int(groups[i]) for r in runs["plain"]
+                                             for i in r["policy"])
+                target = picked.most_common(1)[0][0]
+                extra = ["--hierarchical", "--target_group", str(target)]
+                out.update(target_group=target, plain_picks_of_target=picked[target])
+            run_dir = os.path.join(d, name)
+            t0 = time.perf_counter()
+            results = tgen.main(["--evaluator", evaluator_path, "--out_dir", run_dir, "--epochs",
+                                 str(GEN_EPOCHS), *EVAL_WORLD, *extra])
+            out[f"{name}_cli_s"] = time.perf_counter() - t0
+            losses = [r["train_loss"] for r in _jsonl(os.path.join(run_dir, "metrics.jsonl"))]
+            saved = load_plain_pickle(os.path.join(run_dir, "policies.pkl"))
+            if not (len(losses) == GEN_EPOCHS and all(math.isfinite(v) for v in losses)):
+                fail(f"train_generator {name}: losses {losses}")
+            if [r["policy"] for r in saved["results"]] != [r["policy"] for r in results] \
+                    or not results:
+                fail(f"train_generator {name}: policies.pkl does not hold the run's results")
+            for r in results:
+                if len(set(r["policy"])) != GEN_NN or len(r["policy"]) != GEN_NN \
+                        or not math.isfinite(r["total_cases"]):
+                    fail(f"train_generator {name}: policy {r}")
+            runs[name] = results
+            out[f"{name}_policies"] = len(results)
+            out[f"{name}_first_loss"], out[f"{name}_last_loss"] = losses[0], losses[-1]
+            out[f"{name}_best_cases"] = min(r["total_cases"] for r in results)
+    if launched():
+        fail(f"train_generator launched {launched()} tile kernels; the dense layout has none")
+    picked = [i for r in runs["hierarchical"] for i in r["policy"] if groups[i] == target]
+    if picked:
+        fail(f"train_generator --hierarchical --target_group {target} picked nodes {picked} "
+             f"of that group; the plain run picked {out['plain_picks_of_target']}")
+    gen_feats, dim, eval_block = tgen.generator_inputs(world)
+    evaluator, _ = load_evaluator(evaluator_path, "cuda")
+    eval_base = torch.from_numpy(tgen.evaluator_base(evaluator, eval_block)).cuda()
+    x = torch.from_numpy(gen_feats).cuda()
+    gen = tgen.make_generator(gen_feats.shape[1], dim, GEN_HIDDEN, GEN_NN, 42, device="cuda")
+    step = make_generator_train_step(gen, evaluator, adam_l2(gen.parameters(), 0.01, 5e-4),
+                                     world.graph, eval_base)
+    states, turn = {}, itertools.count()
+
+    def one_step():
+        k = next(turn)
+        if k in GEN_ROUTE_STATES:
+            states[k] = {n: t.detach().clone() for n, t in gen.state_dict().items()}
+        return step(x)
+
+    step_ms = [cuda_ms(one_step, iters=GEN_TIMED, warmup=GEN_WARMUP) for _ in range(2)]
+    busy_ms, n_kernels, top = _kernel_time_split(
+        torch, lambda: [one_step() for _ in range(GEN_PROFILED)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GEN_PROFILED):  # the CLI's epoch: a step and its one host copy
+        loss, flag = step(x)
+        torch.cat([loss.reshape(1), flag[:, 0]]).cpu()
+    out.update(ms_per_step=min(step_ms), ms_per_step_runs=step_ms,
+               ms_per_epoch_with_sync=(time.perf_counter() - t0) * 1e3 / GEN_PROFILED,
+               profiled_device_ms_per_step=busy_ms / GEN_PROFILED,
+               device_idle_share=1 - busy_ms / GEN_PROFILED / min(step_ms),
+               kernels_per_step=n_kernels / GEN_PROFILED,
+               profiled_top_kernels_ms_per_step={n: v / GEN_PROFILED for n, v in top.items()},
+               n_features=gen_feats.shape[1], dim_touched=dim)
+
+    out.update(_generator_bcsr_route(torch, tgen, world, evaluator_path, x, eval_base,
+                                     gen_feats.shape[1], dim, [states[k] for k in sorted(states)]))
+    b1_row = _time_b1_at(torch, world.graph, GEN_HIDDEN)
+    b1_row["launches"] = out["bcsr_route_b1_launches_per_step"]
+    print("generator B1 timing: " + json.dumps(b1_row), flush=True)
+    print(f"generator_main_path: {world.n_cbgs} CBGs, hidden {GEN_HIDDEN}, NN {GEN_NN}: "
+          f"{min(step_ms):.4f} ms a step (CUDA events; {step_ms}; the card busy "
+          f"{out['profiled_device_ms_per_step']:.4f} ms of it, {out['kernels_per_step']:.0f} "
+          f"kernels), {out['ms_per_epoch_with_sync']:.4f} ms an epoch with its host copy; "
+          f"CLI {out['plain_cli_s']:.2f} s, --hierarchical {out['hierarchical_cli_s']:.2f} s "
+          f"(--target_group {target}: none of its nodes against the plain run's "
+          f"{out['plain_picks_of_target']}); "
+          f"impl=bcsr == dense within {out['bcsr_route_max_abs_err']:.3g} over "
+          f"{len(states)} weight states, B1 {b1_row['launches']} launches a step; B1 at "
+          f"[{world.n_cbgs}, {GEN_HIDDEN}] {b1_row['ms']:.4f} ms against torch.mm "
+          f"{b1_row['library_ms']:.4f} ms, bound {b1_row['bound_ms']:.4f} ms "
+          f"({b1_row['bound_by']}); no tile kernel on the CLIs", flush=True)
+    return b1_row, out, world
+
+
+def _generator_bcsr_route(torch, tgen, world, evaluator_path, x, eval_base, n_features, dim,
+                          states):
+    """One generator step on ``impl="bcsr"`` (B1, generator and evaluator)
+    against ``impl="dense"`` from each of ``states``: the loss and the
+    generator's gradients within rtol = atol = 1e-4, and the flags equal
+    where the NN-th and (NN+1)-th scores (before the step) lie further apart
+    than 1e-4 on both routes; closer pairs are reported. B1 runs 6 times a
+    step: the generator's three graph convolutions forward and backward (the
+    evaluator's GCN sees only the constant base, so the step is made with
+    its output, and the gradient crosses no evaluator convolution)."""
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.policy import make_generator_train_step
+    from pygcn_tpu_torch.train.checkpoint import load_evaluator
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    graph, worst, near, bad, launches = world.graph, 0.0, [], [], set()
+    models = {}
+    for impl in ("dense", "bcsr"):
+        evaluator, _ = load_evaluator(evaluator_path, "cuda", impl=impl)
+        gen = tgen.make_generator(n_features, dim, GEN_HIDDEN, GEN_NN, 42, impl=impl,
+                                  device="cuda")
+        opt = adam_l2(gen.parameters(), 0.01, 5e-4)
+        models[impl] = (gen, opt, make_generator_train_step(gen, evaluator, opt, graph, eval_base))
+    for k, state in enumerate(states):
+        runs = {}
+        for impl, (gen, opt, step) in models.items():
+            gen.load_state_dict(state)
+            opt.state.clear()
+            with torch.no_grad():
+                scores = gen.scores(x, graph)[:, 0]
+            before = b1.launches
+            loss, flag = step(x)
+            torch.cuda.synchronize()
+            top = torch.topk(scores, GEN_NN + 1).values
+            runs[impl] = {"loss": loss, "flag": flag, "gap": float(top[-2] - top[-1]),
+                          "grads": {n: p.grad.clone() for n, p in gen.named_parameters()},
+                          "launches": b1.launches - before}
+        d, b = runs["dense"], runs["bcsr"]
+        if d["launches"] != 0:
+            fail(f"generator step: B1 launched {d['launches']} times on the dense layout")
+        launches.add(b["launches"])
+        if min(d["gap"], b["gap"]) <= RTOL:
+            near.append({"state": k, "gap_dense": d["gap"], "gap_bcsr": b["gap"],
+                         "same_flags": bool(torch.equal(d["flag"] > 0, b["flag"] > 0))})
+            continue
+        if not torch.equal(d["flag"] > 0, b["flag"] > 0):
+            bad.append(f"state {k}: flags differ with the NN-th score {d['gap']:.3g} above "
+                       "the next")
+            continue
+        pairs = [("loss", b["loss"], d["loss"])] + [
+            (f"grad {n}", b["grads"][n], g) for n, g in d["grads"].items()]
+        for name, got, ref in pairs:
+            err = (got - ref).abs()
+            worst = max(worst, float(err.max()))
+            if (err > ATOL + RTOL * ref.abs()).any():
+                bad.append(f"state {k}: {name} off by {float(err.max()):.3g}")
+    if launches != {6}:
+        fail(f"generator step on impl=bcsr: B1 launched {sorted(launches)} times a step "
+             "(expected 6)")
+    (per_step,) = launches
+    if bad or len(near) == len(states):
+        fail("generator step, impl=bcsr against dense: " + "; ".join(bad or ["every state "
+             "had the NN-th and (NN+1)-th scores within 1e-4"]))
+    print(f"generator bcsr route: losses and gradients within rtol=atol=1e-4 (max abs err "
+          f"{worst:.3g}) from {len(states) - len(near)} weight states, flags equal; "
+          f"{len(near)} states with the NN-th and (NN+1)-th scores within 1e-4: {near}",
+          flush=True)
+    return {"bcsr_route_max_abs_err": worst, "bcsr_route_b1_launches_per_step": per_step,
+            "bcsr_route_states": len(states), "bcsr_route_near_ties": near}
+
+
+def run_rl_main_path(torch):
+    """``apps/train_rl`` on the card at SafeGraph width: RL_ARGS (128
+    policies an episode, 4 seeds), then again in the same ``--out_dir``.
+    Every simulated policy (each sampled row, the cache's key) is NN distinct
+    nodes, the average rewards finite, ``checkpoint_rl.pkl`` written, the
+    greedy policy NN nodes. The cache shards hold one entry for each policy
+    the first run simulated before its last dump (its ``metrics.jsonl``
+    misses), and the rerun's misses are exactly the entries it adds to them:
+    it simulates no policy the merged cache answers. Reads each episode's
+    seconds, the simulator's seconds in it, and its misses from
+    ``metrics.jsonl``."""
+    import tempfile
+
+    from pygcn_tpu_torch.apps import train_rl
+    from pygcn_tpu_torch.policy import SimCache
+    from pygcn_tpu_torch.train.checkpoint import load_plain_pickle
+
+    def dumped_misses(records):
+        return int(records[-1]["baseline_misses"] + sum(r["misses"] for r in records[:-1]))
+
+    out = {"cbgs": int(EVAL_WORLD[1]), "args": " ".join(RL_ARGS)}
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--out_dir", d, *RL_ARGS, *EVAL_WORLD]
+        t0 = time.perf_counter()
+        final_cases, baseline = train_rl.main(argv)
+        out["cli_s"] = time.perf_counter() - t0
+        log = _jsonl(os.path.join(d, "metrics.jsonl"))
+        ckpt = load_plain_pickle(os.path.join(d, "checkpoint_rl.pkl"))
+        dumped = set(SimCache(d).cache)
+        t0 = time.perf_counter()
+        train_rl.main(argv)
+        out["rerun_s"] = time.perf_counter() - t0
+        rerun = _jsonl(os.path.join(d, "metrics.jsonl"))[len(log):]
+        merged = set(SimCache(d).cache)
+
+    if [r["step"] for r in log + rerun] != 2 * list(range(RL_EPISODES + 1)):
+        fail(f"train_rl: metrics.jsonl steps {[r['step'] for r in log + rerun]}")
+    bad = [p for p in merged if len(set(p)) != GEN_NN or len(p) != GEN_NN]
+    if bad:
+        fail(f"train_rl: {len(bad)} simulated policies without {GEN_NN} distinct nodes, "
+             f"e.g. {bad[:2]}")
+    episodes = log[:-1]
+    avg = [r["avg_reward"] for r in episodes]
+    if not all(math.isfinite(v) for v in avg) or not math.isfinite(ckpt["avg_rewards"]):
+        fail(f"train_rl: average rewards {avg}, checkpoint {ckpt.get('avg_rewards')}")
+    greedy = [log[-1]["greedy"], rerun[-1]["greedy"]]
+    if any(len(set(g)) != GEN_NN for g in greedy):
+        fail(f"train_rl: greedy policies {greedy}")
+    if dumped_misses(log) != len(dumped) or not dumped <= merged \
+            or dumped_misses(rerun) != len(merged - dumped):
+        fail(f"train_rl rerun: the first run simulated {dumped_misses(log)} policies before its "
+             f"last dump and its shards hold {len(dumped)}; the rerun simulated "
+             f"{dumped_misses(rerun)} and added {len(merged - dumped)} to them")
+    per_episode = [{"s": r["episode_s"], "sim_s": r["sim_s"],
+                    "sim_share": r["sim_s"] / r["episode_s"], "misses": int(r["misses"])}
+                   for r in episodes]
+    out.update(episodes=per_episode, baseline_cases=baseline, final_cases=final_cases,
+               baseline_sim_s=log[-1]["baseline_sim_s"], avg_rewards=avg,
+               cache_policies=len(dumped), rerun_misses=dumped_misses(rerun),
+               greedy=greedy[0])
+    print(f"rl_main_path: {out['cbgs']} CBGs, {' '.join(RL_ARGS)}: episodes "
+          + ", ".join(f"{p['s']:.2f} s ({p['misses']} misses, simulator "
+                      f"{100 * p['sim_share']:.0f}%)" for p in per_episode)
+          + f"; the rerun simulated {out['rerun_misses']} policies before its last dump "
+          f"(shards of {len(dumped)}); greedy {greedy[0]}: {final_cases:.1f} cases against "
+          f"the random baseline's {baseline:.1f}", flush=True)
+    return out
+
+
+def run_serve_main_path(torch, evaluator_path, world):
+    """``apps/predict`` on the card at SafeGraph width: SERVE_REQUESTS random
+    policies in batches of SERVE_BATCH from ``evaluator.pkl``, writing a
+    ``torch.export`` artifact, then from that artifact in a fresh process,
+    which imports no ``pygcn_tpu_torch.nn`` module: the predictions agree
+    within 1e-5; a batch padded from 1 row to SERVE_BATCH gives the
+    unpadded row within 1e-5. Prints a ``serve {...}`` line: p50/p99 ms a
+    batch over the batches after the first (their count beside them), the
+    export's seconds."""
+    import csv
+    import tempfile
+
+    from pygcn_tpu_torch.apps import predict
+
+    out = {"cbgs": int(EVAL_WORLD[1]), "requests": SERVE_REQUESTS, "batch": SERVE_BATCH}
+    with tempfile.TemporaryDirectory() as d:
+        art = os.path.join(d, "art.pt2")
+        common = ["--random", str(SERVE_REQUESTS), *EVAL_WORLD]
+        t0 = time.perf_counter()
+        eager, timing = predict.main(["--evaluator", evaluator_path, "--batch", str(SERVE_BATCH),
+                                      "--export", art, "--out", os.path.join(d, "a.csv"),
+                                      *common])
+        out["cli_s"] = time.perf_counter() - t0
+        code = (
+            "import sys\n"
+            f"sys.path.insert(0, {HERE!r})\n"
+            "from pygcn_tpu_torch.apps import predict\n"
+            f"predict.main(['--from_export', {art!r}, '--out', {os.path.join(d, 'b.csv')!r}, "
+            f"*{common!r}])\n"
+            "bad = sorted(m for m in sys.modules if m.startswith('pygcn_tpu_torch.nn'))\n"
+            "print('MODEL_MODULES', bad)\n"
+            "sys.exit(1 if bad else 0)\n"
+        )
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=600, cwd=d)
+        out["from_export_process_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"predict --from_export: rc {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+        with open(os.path.join(d, "b.csv")) as f:
+            served = np.array([float(r["Prediction"]) for r in csv.DictReader(f)], np.float32)
+        latency = [ln for ln in proc.stdout.splitlines() if "latency p50=" in ln][0]
+    err = float(np.abs(served - eager).max())
+    if served.shape != eager.shape or not np.isfinite(eager).all() \
+            or not np.allclose(served, eager, rtol=1e-5, atol=1e-5):
+        fail(f"predict: the exported artifact's {served.shape} predictions against the "
+             f"eager {eager.shape}: max abs err {err}")
+
+    server, feature_mode = predict.load_server(evaluator_path, world, "cuda")
+    rng = np.random.default_rng(3)
+    feats = predict._policy_features(world, [rng.choice(world.n_cbgs, GEN_NN, replace=False)],
+                                     feature_mode)
+    with torch.inference_mode():
+        row = torch.from_numpy(feats).cuda()
+        alone = server(row)
+        padded = server(torch.cat([row, row.new_zeros((SERVE_BATCH - 1,) + row.shape[1:])]))
+    pad_err = float((padded[:1] - alone).abs().max())
+    if not torch.allclose(padded[:1], alone, rtol=1e-5, atol=1e-5):
+        fail(f"predict: a row padded to {SERVE_BATCH} moved by {pad_err} "
+             f"({float(padded[0])} against {float(alone[0])})")
+    served_lat = timing["batch_ms"][1:]
+    out.update(p50_ms=float(np.percentile(served_lat, 50)),
+               p99_ms=float(np.percentile(served_lat, 99)), batches_timed=len(served_lat),
+               max_ms=max(served_lat), export_s=timing["export_s"], export_max_abs_err=err,
+               padding_max_abs_err=pad_err, from_export_latency=latency.split("; ")[-1])
+    print("serve " + json.dumps(out), flush=True)
+    return out
+
+
 # Epochs of each main path: enough for a step and an evaluation after the
 # warm-up pair; the launch checks hold at any count. The runs at --hidden 128
 # take one.
@@ -2207,12 +2585,22 @@ def main() -> None:
     phase("policy_batch", policy_batch, torch, *sim_world)
     del sim_world
     phase("sim_clis", run_sim_clis, torch)
-    eval_b1 = phase("evaluator_main_path", run_evaluator_main_path, torch)
+    with tempfile.TemporaryDirectory() as kept:
+        eval_b1 = phase("evaluator_main_path", run_evaluator_main_path, torch, kept)
+        evaluator = os.path.join(kept, "evaluator.pkl")
+        gen_b1, gen_out, world = phase("generator_main_path", run_generator_main_path, torch,
+                                       evaluator)
+        rl_out = phase("rl_main_path", run_rl_main_path, torch)
+        phase("serve_main_path", run_serve_main_path, torch, evaluator, world)
+        del world
+    print("policy " + json.dumps({"generator": gen_out, "rl": rl_out}), flush=True)
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),
         spmm_kernel_entry([eval_b1], "B1", eval_b1["launches"], 50,
                           f" (evaluator, H={eval_b1['H']})"),
+        spmm_kernel_entry([gen_b1], "B1", gen_b1["launches"], 50,
+                          f" (generator, H={gen_b1['H']})"),
     ]}
     kernels["kernels"] += gat_kernel_entries(
         gat_timing, gat_launches, "pygcn_tpu_torch/csrc/gat_tile_attn.cu",

@@ -33,11 +33,12 @@ import json
 import numpy as np
 import torch
 
-from pygcn_tpu_torch.apps.train_fullgraph import clustered_dataset, resolve_device
+from pygcn_tpu_torch.apps.train_fullgraph import clustered_dataset
 from pygcn_tpu_torch.ops import gat as gat_ops
 from pygcn_tpu_torch.ops.cuda import bcsr_spmm as bsp
 from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 from pygcn_tpu_torch.ops.hybrid import hybrid_spmm_raw
+from pygcn_tpu_torch.utils.device import resolve_device
 from pygcn_tpu_torch.utils.timing import cuda_ms
 
 MODES = ("revisit", "stream")

@@ -28,13 +28,13 @@ import numpy as np
 import torch
 
 from pygcn_tpu_torch.apps.common import build_synthetic_world, set_process_title
-from pygcn_tpu_torch.apps.train_fullgraph import resolve_device
 from pygcn_tpu_torch.data.features import centrality_features, standardize
 from pygcn_tpu_torch.data.loader import make_split_loaders
 from pygcn_tpu_torch.data.vac_results import load_vac_results
 from pygcn_tpu_torch.nn.models import PoolMLPModel
 from pygcn_tpu_torch.train.metrics import spearman
 from pygcn_tpu_torch.train.optim import adam_l2
+from pygcn_tpu_torch.utils.device import resolve_device
 
 
 def numpy_ols(x: np.ndarray, y: np.ndarray):

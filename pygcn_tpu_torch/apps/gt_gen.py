@@ -357,7 +357,7 @@ def main(argv=None):
         raise SystemExit("--shards: not ported yet (queue A, item 8)")
 
     from pygcn_tpu_torch.apps.common import set_process_title
-    from pygcn_tpu_torch.apps.train_fullgraph import resolve_device
+    from pygcn_tpu_torch.utils.device import resolve_device
 
     set_process_title("gt_gen")
     device = resolve_device(args.device)

@@ -44,7 +44,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from pygcn_tpu_torch.apps.common import set_process_title
-    from pygcn_tpu_torch.apps.train_fullgraph import resolve_device
+    from pygcn_tpu_torch.utils.device import resolve_device
 
     set_process_title("no_vac_baseline")
     device = resolve_device(args.device)

@@ -72,7 +72,7 @@ def train(args: argparse.Namespace) -> dict:
     import torch
 
     from pygcn_tpu_torch.apps.common import set_process_title
-    from pygcn_tpu_torch.apps.train_fullgraph import resolve_device
+    from pygcn_tpu_torch.utils.device import resolve_device
     from pygcn_tpu_torch.nn.models import KipfGCN
     from pygcn_tpu_torch.train.loop import EarlyStopping, bool_mask, make_classifier_steps
     from pygcn_tpu_torch.train.optim import adam_l2

@@ -40,7 +40,6 @@ import numpy as np
 import torch
 
 from pygcn_tpu_torch.apps.common import build_synthetic_world, set_process_title
-from pygcn_tpu_torch.apps.train_fullgraph import resolve_device
 from pygcn_tpu_torch.data.features import (assemble_evaluator_features, centrality_features,
                                            standardize)
 from pygcn_tpu_torch.data.loader import ArrayLoader, kfold_splits, make_split_loaders
@@ -53,6 +52,7 @@ from pygcn_tpu_torch.train.loop import EarlyStopping
 from pygcn_tpu_torch.train.metrics import spearman
 from pygcn_tpu_torch.train.optim import ReduceLROnPlateau, adam_l2
 from pygcn_tpu_torch.train.preempt import PreemptionGuard
+from pygcn_tpu_torch.utils.device import resolve_device
 from pygcn_tpu_torch.utils.logging import MetricsLogger
 
 

@@ -50,6 +50,7 @@ from pygcn_tpu_torch.nn.gin import APPNP, GIN
 from pygcn_tpu_torch.nn.layers import GraphConv
 from pygcn_tpu_torch.nn.sage import SAGE
 from pygcn_tpu_torch.train.loop import masked_nll
+from pygcn_tpu_torch.utils.device import resolve_device
 
 # --model sage|gin|appnp: the JAX package's 2-layer extension families
 EXTENSION_MODELS = {"sage": SAGE, "gin": GIN, "appnp": APPNP}
@@ -96,17 +97,6 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, x, labels, mask, gr
     loss.backward()
     opt.step()
     return loss.detach()
-
-
-def resolve_device(name: str) -> torch.device:
-    """``torch.device(name)``; raises for a CUDA request on a machine without a card."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available (pass --device cpu "
-            "to run the plain versions on the CPU)"
-        )
-    return device
 
 
 def parse_args(argv=None) -> argparse.Namespace:

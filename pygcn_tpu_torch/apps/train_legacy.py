@@ -24,10 +24,10 @@ import torch
 
 from pygcn_tpu_torch.apps.common import build_synthetic_world, set_process_title
 from pygcn_tpu_torch.apps.train_evaluator import build_predictor_features
-from pygcn_tpu_torch.apps.train_fullgraph import resolve_device
 from pygcn_tpu_torch.data.vac_results import load_vac_results
 from pygcn_tpu_torch.nn.models import GCNRegressor
 from pygcn_tpu_torch.train.optim import adam_l2
+from pygcn_tpu_torch.utils.device import resolve_device
 from pygcn_tpu_torch.utils.logging import MetricsLogger
 
 

@@ -118,9 +118,12 @@ class GCNOverMLP(nn.Module):
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
         d = self.dim_touched
-        g = self.gcn(x[:, :, :d], graph)
-        h = torch.cat([g, x[:, :, d:]], dim=2)
-        return self.mlp(masked_mean_pool(h))
+        return self.head(self.gcn(x[:, :, :d], graph), x[:, :, d:])
+
+    def head(self, g: torch.Tensor, untouched: torch.Tensor) -> torch.Tensor:
+        """The pool and the MLP on the GCN's output ``g`` and the untouched
+        features (the flag last): what the input's flag reaches."""
+        return self.mlp(masked_mean_pool(torch.cat([g, untouched], dim=2)))
 
 
 def topk_flag_straight_through(scores: torch.Tensor, nn_select: int) -> torch.Tensor:

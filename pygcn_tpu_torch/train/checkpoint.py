@@ -104,6 +104,20 @@ def load_model_params(model: torch.nn.Module, params) -> None:
     model.load_state_dict(evaluator_params_to_state_dict(params))
 
 
+def load_evaluator(path: str, device, impl: str = "auto"):
+    """``(evaluator, record)``: the frozen ``GCNOverMLP`` of an
+    ``evaluator.pkl`` (either package's ``train_evaluator``: both keep
+    ``params`` as the JAX-shaped tree) on ``device``, its graph convolutions
+    on ``impl``, and the file's record."""
+    from pygcn_tpu_torch.nn.models import GCNOverMLP
+
+    ev = load_plain_pickle(path)
+    evaluator = GCNOverMLP(**ev["model_config"], impl=impl,
+                           generator=torch.Generator().manual_seed(0))
+    load_model_params(evaluator, ev["params"])
+    return evaluator.to(device).requires_grad_(False), ev
+
+
 def _named_params(opt: torch.optim.Optimizer, model: torch.nn.Module):
     names = {p: name for name, p in model.named_parameters()}
     return [(names[p], p) for group in opt.param_groups for p in group["params"]]

@@ -33,17 +33,19 @@ def test_every_module_imports_without_jax_or_pygcn_tpu():
               "nn.models", "data.vac_results", "data.loader", "data.demographics",
               "utils.logging", "utils.config", "train.checkpoint", "train.preempt",
               "train.sweep", "apps.train_evaluator", "apps.baselines", "apps.train_legacy",
-              "apps.sweep"):
+              "apps.sweep", "policy", "policy.cache", "policy.reinforce", "policy.topk",
+              "apps.train_generator", "apps.train_rl", "apps.predict", "train.export",
+              "utils.visualize", "utils.device"):
         assert f"pygcn_tpu_torch.{m}" in mods
-    assert len(mods) >= 64
+    assert len(mods) >= 74
     # the evaluator's slice reads CSVs and computes centralities without
     # pandas, networkx or scikit-learn (only `baselines summary-mlp` imports
-    # scikit-learn, when it runs)
+    # scikit-learn, when it runs); matplotlib is imported when a plot is drawn
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'pygcn_tpu', 'pandas', 'networkx', 'sklearn'))\n"
+        "             ('jax', 'pygcn_tpu', 'pandas', 'networkx', 'sklearn', 'matplotlib'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -66,6 +68,23 @@ def test_cli_default_device_raises_without_cuda(monkeypatch):
 def test_evaluator_clis_default_device_raises_without_cuda(monkeypatch, tmp_path, app, argv):
     """The evaluator's CLIs default to the card and raise before reading
     anything when there is none."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(f"pygcn_tpu_torch.apps.{app}").main(argv)
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("app, argv", [
+    ("train_generator", ["--evaluator", "evaluator.pkl", "--out_dir", "out"]),
+    ("train_rl", ["--out_dir", "out"]),
+    ("predict", ["--evaluator", "evaluator.pkl", "--random", "2", "--out", "p.csv"]),
+])
+def test_policy_clis_default_device_raises_without_cuda(monkeypatch, tmp_path, app, argv):
+    """The policy generators' CLIs and the server default to the card and
+    raise before reading or writing anything when there is none."""
     import importlib
 
     monkeypatch.chdir(tmp_path)
