@@ -53,7 +53,17 @@ the ``impl="bcsr"`` step against the dense one and B1 at ``[2943, 32]``),
 cache) and ``apps/predict`` (from the pickle, writing a ``torch.export``
 artifact, then from the artifact in a process that imports no model code;
 padding changes no row); it prints ``policy {...}`` and ``serve {...}``
-lines. It prints each phase's wall time. Its last line is
+lines. The layouts for graphs above a million nodes, which reach no tile
+kernel but the hybrid's: at the arxiv graph the column panels, the panels
+and the hybrid with a column-panel residual (B1 on its tiles, timed as a
+``kernels`` entry) against the segment SpMM with repeating bits, and the
+column-panel GAT/GATv2 against the COO attention in f64
+(``colpanel_arxiv``); then the ogbn-products cell (2,449,029 nodes, about
+63M edges): its dataset built once and saved as ``.npz``, and
+``train_fullgraph --clustered --npz`` for the GCN, GAT and GATv2 on the
+column panels with no tile kernel launched, each printing ms/step, peak
+memory and a profiled step's split (``products {...}``). It prints each
+phase's wall time. Its last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -2525,6 +2535,274 @@ def run_serve_main_path(torch, evaluator_path, world):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# The layouts for graphs above a million nodes: column panels, panels, the
+# hybrid's column-panel residual and the column-panel attention, checked at
+# the arxiv flagship graph, then trained at ogbn-products scale.
+# ---------------------------------------------------------------------- #
+
+
+def check_colpanel_arxiv(torch, graph):
+    """On the arxiv flagship graph (the GCN main path's, ordered ids), with the
+    column panels, the panels and the hybrid's column-panel residual built:
+    ``spmm``, its gradient and ``spmm_t`` of each against ``impl="segment"``
+    (within RTOL/ATOL, the same bits on a second call; the hybrid launching
+    B1 three times a call, as a kernel), B1 on that route's tiles timed
+    beside its plain version, ``torch.sparse.mm`` and its bound, and
+    ``gat_conv_colpanel``/``gatv2_conv_colpanel`` at 8 heads of 8, outputs
+    and gradients, against the COO attention path run in f64 (each tensor
+    within RTOL and ATOL times its largest magnitude; the f32 COO path's own
+    error is printed beside; forward bits repeat). Returns the B1 timing
+    row, with its launches."""
+    from pygcn_tpu_torch.apps.time_spmm import spmm_bound
+    from pygcn_tpu_torch.graph.graph import Graph
+    from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.gat import attention_aggregate, gat_attention, gatv2_attention
+    from pygcn_tpu_torch.ops.gat_colpanel import gat_conv_colpanel, gatv2_conv_colpanel
+    from pygcn_tpu_torch.ops.spmm import spmm, spmm_t
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    g = Graph.from_scipy(graph.to_scipy(), is_symmetric=True, build_dense=False,
+                         build_bcsr=False, build_ell=False, build_hybrid=True,
+                         hybrid_residual="colpanel", hybrid_min_edges_per_tile=64,
+                         build_panel=True, build_colpanel=True)
+    build_s = time.perf_counter() - t0
+    g = g.to("cuda")
+    n, cp, hy = g.n_nodes, g.colpanel, g.hybrid
+    out = {"nodes": n, "edges": g.n_edges, "build_s": build_s, "panels": len(cp.panels),
+           "virtual_rows": cp.n_vrows, "tiles": hy.bcsr.data.shape[0],
+           "tile_frac": hy.tile_edges / g.n_edges,
+           "residual_virtual_rows": hy.ell.n_vrows}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+    x, cot = randn(n, 128), randn(n, 128)
+
+    def run(impl):
+        xx = x.clone().requires_grad_()
+        y = spmm(g, xx, impl=impl)
+        (dx,) = torch.autograd.grad(y, xx, cot)
+        return y.detach(), dx, spmm_t(g, x, impl=impl)
+
+    ref = run("segment")
+    saved = b1.launches, b1.stream_launches
+    b1.launches = b1.stream_launches = 0
+    for impl in ("colpanel", "panel", "hybrid"):
+        got, again = run(impl), run(impl)
+        torch.cuda.synchronize()
+        if impl == "hybrid":
+            launches = b1.launches
+        for name, a, r in zip(("spmm", "grad", "spmm_t"), got, ref):
+            try:
+                torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL)
+            except AssertionError as e:
+                fail(f"{impl} {name} at the arxiv graph against segment: {e}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{impl} SpMM at the arxiv graph gave other bits in a second call")
+        out[impl] = {"max_abs_err": max(float((a - r).abs().max()) for a, r in zip(got, ref)),
+                     "ms": cuda_ms(lambda: spmm(g, x, impl=impl), iters=10)}
+    b1.launches, b1.stream_launches = saved
+    out["segment_ms"] = cuda_ms(lambda: spmm(g, x, impl="segment"), iters=10)
+    if launches != 6 or b1.stream_launches:
+        fail(f"hybrid(residual='colpanel') launched B1 {launches} times in two calls "
+             "(forward, gradient, spmm_t), expected 6")
+
+    bcsr = hy.bcsr
+    saved = b1.launches
+    got = b1.bcsr_spmm_cuda(bcsr, x, n_rows=n)
+    ref_b = b1.bcsr_spmm_plain(bcsr, x, n_rows=n)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref_b, rtol=RTOL, atol=ATOL)
+    csr = _tile_csr(torch, bcsr, n, n)
+    bound_ms, bound_by, nbytes, flops = spmm_bound(bcsr, n, 128)
+    ms = [cuda_ms(lambda: b1.bcsr_spmm_cuda(bcsr, x, n_rows=n), iters=50) for _ in range(2)]
+    b1_row = {"kernel": "B1", "H": 128, "tiles": bcsr.data.shape[0], "launches": launches,
+              "ms": min(ms), "ms_runs": ms,
+              "plain_ms": cuda_ms(lambda: b1.bcsr_spmm_plain(bcsr, x, n_rows=n), iters=10),
+              "library_ms": cuda_ms(lambda: torch.sparse.mm(csr, x), iters=50),
+              "library": "torch.sparse.mm", "bound_ms": bound_ms, "bound_by": bound_by,
+              "bytes": nbytes, "flops": flops, "max_abs_err": float((got - ref_b).abs().max())}
+    b1.launches = saved
+    del got, ref_b, csr, x, cot
+
+    h, f = 8, 8
+    s, s_r, gcot = randn(n, h, f), randn(n, h, f), randn(n, h, f)
+    a1, a2, a3 = randn(h, f, scale=0.3), randn(h, f, scale=0.3), randn(h, f, scale=0.3)
+    cases = {
+        "gat": ((s, a1, a2), lambda t: gat_conv_colpanel(g, *t, SLOPE),
+                lambda t: attention_aggregate(g, t[0], gat_attention(g, *t, SLOPE))),
+        "gatv2": ((s, s_r, a3), lambda t: gatv2_conv_colpanel(g, *t, SLOPE),
+                  lambda t: attention_aggregate(g, t[0], gatv2_attention(g, *t, SLOPE))),
+    }
+    for name, (inputs, colpanel, coo) in cases.items():
+        def fwd_bwd(fn, dtype=torch.float32):
+            t = [v.to(dtype).requires_grad_() for v in inputs]
+            y = fn(t)
+            return [y.detach()] + list(torch.autograd.grad(y, t, gcot.to(dtype)))
+        got, again = fwd_bwd(colpanel), fwd_bwd(colpanel)
+        ref, coo32 = fwd_bwd(coo, torch.float64), fwd_bwd(coo)
+        torch.cuda.synchronize()
+        errs, coo_errs = [], []
+        for i, (a, r, c) in enumerate(zip(got, ref, coo32)):
+            # the gradients of a and a_src sum terms over all 4.45M edges in
+            # f32: each tensor is held to 1e-4 of its own largest magnitude
+            scale = max(1.0, float(r.abs().max()))
+            errs.append(float((a.double() - r).abs().max()) / scale)
+            coo_errs.append(float((c.double() - r).abs().max()) / scale)
+            try:
+                torch.testing.assert_close(a.double(), r, rtol=RTOL, atol=ATOL * scale)
+            except AssertionError as e:
+                fail(f"{name}_conv_colpanel {'output' if i == 0 else f'gradient {i}'} "
+                     f"against the COO attention path in f64: {e}")
+        if not torch.equal(got[0], again[0]):
+            fail(f"{name}_conv_colpanel gave other output bits in a second call")
+        out[name] = {"scaled_err_vs_f64": errs, "coo_f32_scaled_err_vs_f64": coo_errs,
+                     "grad_repeat_max_abs_diff": max(float((a - b).abs().max())
+                                                     for a, b in zip(got[1:], again[1:])),
+                     "ms_fwd_bwd": cuda_ms(lambda: fwd_bwd(colpanel), iters=3),
+                     "coo_ms_fwd_bwd": cuda_ms(lambda: fwd_bwd(coo), iters=3)}
+        del got, again, ref, coo32
+    print("colpanel arxiv " + json.dumps(out), flush=True)
+    print("B1 timing (hybrid colpanel residual): " + json.dumps(b1_row), flush=True)
+    return b1_row
+
+
+# The ogbn-products cell (tools/bench_products.py:36-38): 2,449,029 nodes,
+# average degree 13 (about 63M directed edges), 128 features, hidden 128, 40
+# classes, the 3-layer GCN; GAT and GATv2 at 8 heads of 8, the configuration
+# JAX ran at this scale (tools/bench_gat_products_r4.py:9).
+PRODUCTS_NODES, PRODUCTS_DEGREE = 2_449_029, 13.0
+PRODUCTS_EPOCHS = 2
+
+
+def build_products_dataset(torch, path):
+    """The products convergence dataset, built once on the host as
+    ``tools/products_ds_cache.py`` does (community graph with shuffled ids,
+    locality order, relabelled) and saved to ``path`` in the ``.npz`` format;
+    prints each stage's host seconds."""
+    from pygcn_tpu_torch.graph.datasets import community_classification, save_npz_dataset
+    from pygcn_tpu_torch.parallel.partition import locality_order, reorder_dataset
+    from pygcn_tpu_torch.utils import native
+
+    bare = dict(build_dense=False, build_bcsr=False, build_ell=False, build_hybrid=False,
+                build_colpanel=False)
+    host_s = {}
+    t0 = time.perf_counter()
+    data = community_classification(n=PRODUCTS_NODES, avg_degree=PRODUCTS_DEGREE, n_classes=40,
+                                    feat_dim=128, seed=0, **bare)
+    host_s["community_classification"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = reorder_dataset(data, locality_order(data.graph, "auto"))
+    host_s["locality_order"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_npz_dataset(path, data)
+    host_s["save_npz_dataset"] = time.perf_counter() - t0
+    out = {"nodes": data.graph.n_nodes, "edges": data.graph.n_edges,
+           "graphkit": native.available(), "npz_bytes": os.path.getsize(path), "host_s": host_s}
+    print("products dataset " + json.dumps(out), flush=True)
+    return out
+
+
+# Kernel-name fragments of each group of ``_step_split``, tried in order: the
+# adds by index (``index_add_``, ``scatter_reduce_``, whose kernel is
+# ``_scatter_gather_elementwise_kernel``, ``segment_reduce``), the gathers of
+# ``index_select`` (``vectorized_gather_kernel``), the elementwise products,
+# exponentials and masks, the reductions over a bucket's slots, and the GEMMs.
+STEP_GROUPS = (("index_add", ("indexFunc", "index_add", "scatter", "segment")),
+               ("gather", ("gather", "indexSelect", "index_select")),
+               ("elementwise", ("elementwise", "Elementwise")),
+               ("reduce", ("reduce_kernel", "Reduce")),
+               ("gemm", ("gemm", "Gemm", "xmma", "cutlass", "cublas")))
+
+
+def _step_split(torch, step):
+    """One more training step under torch.profiler, the card's activity only
+    (tracing the host's operators too cost a minute of post-processing at
+    the GAT's tens of thousands of launches): its wall ms, the device's busy
+    ms (kernels and copies) and the device ms by kernel group
+    (:data:`STEP_GROUPS`, the rest "other"), with the top kernels by time."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, launches = Counter(), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name[e.name] += e.device_time_total / 1e3
+            launches += 1
+    split = dict.fromkeys([g for g, _ in STEP_GROUPS] + ["other"], 0.0)
+    for name, ms in by_name.items():
+        group = next((g for g, frags in STEP_GROUPS if any(f in name for f in frags)), "other")
+        split[group] += ms
+    busy_ms = sum(by_name.values())
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_launches": launches,
+            "device_ms_by_group": split,
+            "top_kernels_ms": {k[:80]: v for k, v in by_name.most_common(8)}}
+
+
+def run_products_path(torch, npz, model):
+    """``train_fullgraph --clustered --npz`` at products scale for ``model``
+    (GAT/GATv2 at 8 heads of 8), PRODUCTS_EPOCHS epochs: the column panels and
+    no ELL or hybrid layout, GAT/GATv2 on the column-panel attention path, no
+    tile kernel launched, a finite loss; ms/step, peak memory and one more
+    step profiled."""
+    from pygcn_tpu_torch.apps import train_fullgraph
+
+    count = _reset_tile_launches()
+    argv = ["--clustered", "--npz", npz, "--model", model, "--max_epochs",
+            str(PRODUCTS_EPOCHS), "--memstats", "--device", "cuda"]
+    if model != "gcn":
+        argv += ["--hidden", "8"]
+    t0 = time.perf_counter()
+    r = train_fullgraph.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = count()
+    g = r["graph"]
+    if g.colpanel is None or g.ell is not None or g.hybrid is not None:
+        fail(f"products {model}: layouts colpanel={g.colpanel is not None}, "
+             f"ell={g.ell is not None}, hybrid={g.hybrid is not None}; expected the "
+             "column panels alone")
+    if model != "gcn" and not r["colpanel"]:
+        fail(f"products {model} did not take the column-panel attention path")
+    if launches:
+        fail(f"products {model} launched {launches} tile kernels, expected none")
+    if not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
+        fail(f"products {model}: non-finite loss {r['loss']} or val {r['val']}")
+    out = {"nodes": g.n_nodes, "edges": g.n_edges, "panels": len(g.colpanel.panels),
+           "virtual_rows": g.colpanel.n_vrows, "steps": r["steps"], "evals": r["evals"],
+           "ms_per_step": r["epoch_s"] * 1e3, "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
+           "loss": r["loss"], "val": r["val"], "run_wall_s": wall_s,
+           "profiled_step": _step_split(torch, r["step"])}
+    # the profiler slows the host's launches: the busy share of an unprofiled step
+    out["busy_share_of_step"] = out["profiled_step"]["busy_ms"] / out["ms_per_step"]
+    print(f"products {model} " + json.dumps(out), flush=True)
+    del r, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_products(torch):
+    """The products cell: the dataset once, then the GCN, GAT and GATv2."""
+    with tempfile.TemporaryDirectory() as d:
+        npz = os.path.join(d, "products.npz")
+        out = {"dataset": build_products_dataset(torch, npz)}
+        for model in ("gcn", "gat", "gatv2"):
+            t0 = time.perf_counter()
+            out[model] = run_products_path(torch, npz, model)
+            print(f"phase products_{model} wall: {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
 # Epochs of each main path: enough for a step and an evaluation after the
 # warm-up pair; the launch checks hold at any count. The runs at --hidden 128
 # take one.
@@ -2563,6 +2841,7 @@ def main() -> None:
     phase("gat_dropout", run_gat_dropout, torch)
     graph, launches = phase("gcn_main_path", run_main_path, torch, EPOCHS)
     timing = phase("time_b1_b2", time_b1, torch, graph)
+    colpanel_b1 = phase("colpanel_arxiv", check_colpanel_arxiv, torch, graph)
     del graph
     gat_result, gat_launches = phase("gat_main_path", run_gat_main_path, torch, False, EPOCHS)
     gat_timing = phase("time_gat", time_gat, torch, gat_result["graph"], gat_result["tiles_t"],
@@ -2594,6 +2873,8 @@ def main() -> None:
         phase("serve_main_path", run_serve_main_path, torch, evaluator, world)
         del world
     print("policy " + json.dumps({"generator": gen_out, "rl": rl_out}), flush=True)
+    products = phase("products", run_products, torch)
+    print("products " + json.dumps(products), flush=True)
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),
@@ -2601,6 +2882,8 @@ def main() -> None:
                           f" (evaluator, H={eval_b1['H']})"),
         spmm_kernel_entry([gen_b1], "B1", gen_b1["launches"], 50,
                           f" (generator, H={gen_b1['H']})"),
+        spmm_kernel_entry([colpanel_b1], "B1", colpanel_b1["launches"], 50,
+                          " (hybrid, column-panel residual, H=128)"),
     ]}
     kernels["kernels"] += gat_kernel_entries(
         gat_timing, gat_launches, "pygcn_tpu_torch/csrc/gat_tile_attn.cu",

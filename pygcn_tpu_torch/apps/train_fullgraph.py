@@ -16,7 +16,11 @@ ordering (native label propagation when graphkit loads, else BFS), the
 hybrid BCSR+ELL layout whose tiles run on kernel B1 (GCN, SAGE, GIN, APPNP;
 B2 with ``BCSR_STREAM``) or on the tile-attention kernels B3/B5/B6 (GAT;
 B4/B5s/B6s with ``TILE_REVISIT = False``) or B7/B8/B9 (GATv2), per-epoch
-validation and early stopping.
+validation and early stopping. Above ``COLPANEL_MIN_NODES`` nodes (1M,
+the ogbn-products scale of ``chip_smoke.py``) the layout is the
+``Graph.from_coo`` auto-policy's column panels: the GCN, SAGE, GIN and APPNP
+SpMMs run ``ops/colpanel.py`` and GAT/GATv2 the column-panel attention sweeps
+(``ops/gat_colpanel.py``), with no tile kernel.
 
 Runs on ``--device cuda`` (the default; raises when no card is present) or,
 when asked, ``--device cpu``, where the kernels are replaced by their plain
@@ -167,7 +171,7 @@ class Setup:
     model: nn.Module  # GCN, GAT (v1 or v2), SAGE, GIN or APPNP
     opt: torch.optim.Optimizer
     tile_frac: Optional[float]  # share of edges on hybrid tiles (--clustered)
-    fwd_kw: dict  # extra forward arguments: the GAT's edge_map, hybrid_tiles, tiles_t
+    fwd_kw: dict  # extra forward arguments: the GAT's edge_map, hybrid_tiles, tiles_t, colpanel
 
 
 def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim: int,
@@ -176,8 +180,11 @@ def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim:
     shuffled ids and locality ordering (or, when ``npz`` names a file, that
     pre-built, already ordered dataset as it is), then the layouts of the
     ``Graph.from_coo`` auto-policy on the ordered ids (the hybrid layout at
-    ``hybrid_min_edges_per_tile=64`` between 8K and 1M nodes). ``attention``
-    builds what the GAT needs as well: the ELL slot path and the hybrid tiles."""
+    ``hybrid_min_edges_per_tile=64`` between 8K nodes and
+    ``COLPANEL_MIN_NODES``, the column panels above). ``attention`` builds
+    what the GAT needs as well: below the threshold the ELL slot path and the
+    hybrid tiles, above it the column panels alone. The threshold is read
+    when called."""
     import os
 
     from pygcn_tpu_torch.graph.datasets import community_classification, load_npz_dataset
@@ -195,21 +202,20 @@ def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim:
             seed=seed, **bare)
         data = reorder_dataset(data, locality_order(data.graph, "auto"))
     kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
-              hybrid_min_edges_per_tile=64)
+              hybrid_min_edges_per_tile=64, colpanel_min_nodes=COLPANEL_MIN_NODES)
     if attention:
-        if data.graph.n_nodes > COLPANEL_MIN_NODES:
-            raise NotImplementedError(
-                f"attention above {COLPANEL_MIN_NODES} nodes runs on the column-panel "
-                "attention path, which is not ported yet")
-        kw.update(build_ell=True, build_hybrid=True, build_colpanel=False)
+        big = data.graph.n_nodes > COLPANEL_MIN_NODES
+        kw.update(build_ell=not big, build_hybrid=not big, build_colpanel=big)
     graph = Graph.from_scipy(data.graph.to_scipy(), **kw)
     data.graph = graph
-    hy = graph.hybrid
+    hy, cp = graph.hybrid, graph.colpanel
     print(f"clustered pipeline: locality order (graphkit "
           f"{'loaded' if native.available() else 'missing'}) + layouts built in "
           f"{time.time() - t0:.1f}s"
           + (f", tile_frac={hy.tile_edges / graph.n_edges:.4f}, tiles="
-             f"{0 if hy.bcsr is None else hy.bcsr.data.shape[0]}" if hy is not None else ""))
+             f"{0 if hy.bcsr is None else hy.bcsr.data.shape[0]}" if hy is not None else "")
+          + (f", column panels: {len(cp.panels)} panels, {cp.n_vrows} virtual rows"
+             if cp is not None else ""))
     return data
 
 
@@ -249,7 +255,8 @@ def prepare(args: argparse.Namespace) -> Setup:
     else:
         adj = sym_normalize(symmetrize_max(
             chung_lu_graph(args.n_nodes, args.avg_degree, seed=args.seed)))
-        graph = Graph.from_scipy(adj, is_symmetric=True, build_dense=False, build_bcsr=False)
+        graph = Graph.from_scipy(adj, is_symmetric=True, build_dense=False, build_bcsr=False,
+                                 colpanel_min_nodes=COLPANEL_MIN_NODES)
         x = torch.from_numpy(rng.normal(size=(graph.n_nodes, args.feat_dim)).astype(np.float32))
         labels = torch.from_numpy(rng.integers(0, args.n_classes, graph.n_nodes).astype(np.int64))
         mask = torch.from_numpy((rng.uniform(size=graph.n_nodes) < 0.1).astype(np.float32))
@@ -284,26 +291,38 @@ def _gat_layouts(graph: Graph, v2: bool) -> dict:
     """The GAT's attention layouts, built on the host: the ELL edge map and,
     when the hybrid layout has tiles and an ELL residual, the exact transpose
     tiles of the tile-attention path (kernels B3/B5/B6, or B7/B8/B9 with
-    ``v2``)."""
+    ``v2``); on a graph with column panels and no ELL (above
+    ``COLPANEL_MIN_NODES``), the column-panel attention path, its edges
+    checked by ``check_gat_colpanel`` here on the host."""
     from pygcn_tpu_torch.ops.ell import ELL
     from pygcn_tpu_torch.ops.gat import build_edge_map, build_gat_tiles_t
 
+    model = "gatv2" if v2 else "gat"
     kw = {"edge_map": build_edge_map(graph) if graph.ell is not None else None,
-          "hybrid_tiles": False, "tiles_t": None}
-    hy = graph.hybrid
+          "hybrid_tiles": False, "tiles_t": None, "colpanel": False}
+    hy, cp = graph.hybrid, graph.colpanel
     if hy is not None and hy.bcsr is not None and isinstance(hy.ell, ELL):
         kw.update(hybrid_tiles=True, tiles_t=build_gat_tiles_t(graph))
-        print(f"{'gatv2' if v2 else 'gat'}: tile-attention path (kernels "
+        print(f"{model}: tile-attention path (kernels "
               f"{'B7/B8/B9' if v2 else 'B3/B5/B6'} on {hy.bcsr.data.shape[0]} "
               f"tiles, {hy.tile_edges / graph.n_edges:.1%} of edges; ELL residual)")
+    elif cp is not None and graph.ell is None:
+        from pygcn_tpu_torch.ops.gat_colpanel import check_gat_colpanel
+
+        check_gat_colpanel(graph)
+        kw["colpanel"] = True
+        print(f"{model}: colpanel attention path ({len(cp.panels)} panels, "
+              f"{cp.n_vrows} virtual rows)")
     return kw
 
 
 def main(argv=None):
     """Run the CLI. With ``--clustered`` returns a dict of the run's results
     (accuracies, step and evaluation counts, ``tile_frac``, the ``graph`` on
-    its device, for the GAT its ``edge_map``, ``hybrid_tiles`` and
-    ``tiles_t``, and, with ``--memstats``, ``peak_mem_bytes``); on a
+    its device, its training ``step`` (a function that runs one more and
+    returns its loss, for profiling), for the GAT its ``edge_map``,
+    ``hybrid_tiles``, ``tiles_t`` and ``colpanel``, and, with ``--memstats``,
+    ``peak_mem_bytes``); on a
     labelled dataset (``--npz``, ``--content``/``--cites``) the dict
     ``{"dt", "val", "test"}``; else the seconds per epoch."""
     args = parse_args(argv)
@@ -322,7 +341,7 @@ def main(argv=None):
         torch.cuda.reset_peak_memory_stats(device)
     if args.clustered:
         result = _run_convergence(args, run.data, run_step, predict)
-        result.update(tile_frac=run.tile_frac, graph=run.graph, **run.fwd_kw)
+        result.update(tile_frac=run.tile_frac, graph=run.graph, step=run_step, **run.fwd_kw)
     else:
         result = _time_epochs(args, run.graph, run_step)
         if run.data is not None:

@@ -1,6 +1,6 @@
 """Graph containers for the PyTorch/CUDA sparse engine.
 
-A :class:`Graph` holds a weighted sparse adjacency in up to four physical
+A :class:`Graph` holds a weighted sparse adjacency in up to six physical
 layouts, each feeding a different SpMM implementation (``ops/spmm.py``):
 
 - **COO** (``senders``/``receivers``/``weights``, receiver-sorted, zero-padded
@@ -11,12 +11,14 @@ layouts, each feeding a different SpMM implementation (``ops/spmm.py``):
   (``ops/cuda/bcsr_spmm.py``).
 - **ELL** / **hybrid** (BCSR tiles for dense regions + ELL for the rest) →
   ``ops/ell.py`` / ``ops/hybrid.py``.
+- **panel** (diagonal blocks + an off-diagonal ELL) / **colpanel** (one
+  bucketed ELL per sender range) → ``ops/panel.py`` / ``ops/colpanel.py``;
+  the column panels are the auto-policy's layout above a million nodes.
 
 Construction runs on the host with NumPy/SciPy; the stored arrays are CPU
 torch tensors, moved to the card with :meth:`Graph.to`. Every builder mirrors
 ``pygcn_tpu/graph/graph.py`` array for array, so the same COO gives the same
-layouts in both packages. Panel and column-panel layouts are not ported yet:
-asking for one, explicitly or through the >1M-node auto-policy, raises.
+layouts in both packages.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ import torch
 EDGE_PAD = 512
 
 # Layout-by-scale policy of the JAX package: dense up to ``dense_max_nodes``,
-# hybrid BCSR+ELL in the mid band, column panels above this many rows. The
-# column-panel layout is not ported yet, so the auto-policy raises there.
+# hybrid BCSR+ELL in the mid band, column panels (and no ELL or hybrid) above
+# this many rows. ``Graph.from_coo`` reads it when called, so it can be lowered.
 COLPANEL_MIN_NODES = 1_000_000
 
 
@@ -117,6 +119,10 @@ class Graph:
     # Layout-shaping build kwargs, so ``transpose()`` rebuilds with the same
     # hyperparameters the caller chose.
     build_meta: tuple = ()
+    panel: Optional[object] = None  # ops/panel.py PanelELL
+    panel_t: Optional[object] = None
+    colpanel: Optional[object] = None  # ops/colpanel.py ColPanelELL
+    colpanel_t: Optional[object] = None
 
     @staticmethod
     def from_coo(
@@ -141,17 +147,17 @@ class Graph:
         tile: tuple[int, int] = (128, 128),
         bcsr_budget_bytes: int = 2 * 1024**3,
         dense_max_nodes: int = 8192,
-        colpanel_min_nodes: int = COLPANEL_MIN_NODES,
+        colpanel_min_nodes: Optional[int] = None,
         dtype=np.float32,
     ) -> "Graph":
         """Build a :class:`Graph` from host-side COO arrays.
 
         Unset build flags follow the JAX package's layout-by-scale policy:
-        dense up to ``dense_max_nodes``, hybrid BCSR+ELL above. ``build_bcsr``
-        defaults to whether the tiles fit ``bcsr_budget_bytes``.
+        dense up to ``dense_max_nodes``, hybrid BCSR+ELL above, column panels
+        (no ELL, no hybrid) above ``colpanel_min_nodes`` (default
+        :data:`COLPANEL_MIN_NODES`). ``build_bcsr`` defaults to whether the
+        tiles fit ``bcsr_budget_bytes``. Every flag is an explicit override.
         """
-        if build_panel:
-            raise NotImplementedError("panel layout not ported yet")
         senders = np.asarray(senders, dtype=np.int64)
         receivers = np.asarray(receivers, dtype=np.int64)
         if weights is None:
@@ -162,11 +168,17 @@ class Graph:
         n_edges = int(senders.shape[0])
 
         # Receiver-major sort: sorted segments for the COO path and a cheap
-        # pass for the CSR/BCSR derivations.
-        order = np.lexsort((senders, receivers))
-        senders = senders[order]
-        receivers = receivers[order]
-        weights = weights[order]
+        # pass for the CSR/BCSR derivations. One stable sort on a combined key
+        # orders as np.lexsort((senders, receivers)) does (ties keep their
+        # input order); edges that arrive sorted (a scipy matrix's COO, a
+        # saved graph) are not moved.
+        key = receivers * np.int64(n_nodes) + senders
+        if np.any(key[1:] < key[:-1]):
+            order = np.argsort(key, kind="stable")
+            senders = senders[order]
+            receivers = receivers[order]
+            weights = weights[order]
+        del key
 
         e_pad = max(EDGE_PAD, -(-n_edges // EDGE_PAD) * EDGE_PAD)
         pad = e_pad - n_edges
@@ -185,15 +197,12 @@ class Graph:
             build_dense = n_nodes <= dense_max_nodes
         dense = torch.from_numpy(coo.toarray()) if build_dense else None
 
+        if colpanel_min_nodes is None:
+            colpanel_min_nodes = COLPANEL_MIN_NODES
         if build_colpanel is None:
             build_colpanel = (not build_dense) and n_nodes > colpanel_min_nodes
-        if build_colpanel:
-            raise NotImplementedError(
-                f"column-panel layout not ported yet (the auto-policy picks it "
-                f"above {colpanel_min_nodes} nodes; this graph has {n_nodes})"
-            )
         if build_hybrid is None:
-            build_hybrid = not build_dense
+            build_hybrid = not build_dense and not build_colpanel
 
         if build_bcsr is None:
             build_bcsr = _bcsr_fits(coo, tile, bcsr_budget_bytes)
@@ -203,7 +212,7 @@ class Graph:
             bcsr_t = _build_bcsr(coo.T.tocoo(), tile)
 
         if build_ell is None:
-            build_ell = not build_dense
+            build_ell = not build_dense and not build_colpanel
         ell = ell_t = None
         if build_ell:
             from pygcn_tpu_torch.ops.ell import build_ell as _mk_ell
@@ -215,11 +224,28 @@ class Graph:
         if build_hybrid:
             from pygcn_tpu_torch.ops.hybrid import build_hybrid as _mk_hybrid
 
-            kw = dict(tile_budget_bytes=hybrid_tile_budget_bytes,
-                      residual=hybrid_residual, tile_dtype=hybrid_tile_dtype)
+            kw = dict(tile_budget_bytes=hybrid_tile_budget_bytes, residual=hybrid_residual,
+                      panel_width=panel_width, tile_dtype=hybrid_tile_dtype)
             hybrid = _mk_hybrid(coo, tile, hybrid_min_edges_per_tile, ell_ks, **kw)
             hybrid_t = hybrid if is_symmetric else _mk_hybrid(
                 coo.T.tocoo(), tile, hybrid_min_edges_per_tile, ell_ks, **kw)
+
+        panel = panel_t = None
+        if build_panel:
+            from pygcn_tpu_torch.ops.panel import build_panel_ell
+
+            panel = build_panel_ell(coo, panel_width, ell_ks)
+            panel_t = panel if is_symmetric else build_panel_ell(
+                coo.T.tocoo(), panel_width, ell_ks)
+
+        colpanel = colpanel_t = None
+        if build_colpanel:
+            from pygcn_tpu_torch.ops.colpanel import COLPANEL_KS, build_col_panel_ell
+
+            # the column panels take their own fine bucket ladder, as in JAX
+            colpanel = build_col_panel_ell(coo, panel_width, COLPANEL_KS)
+            colpanel_t = colpanel if is_symmetric else build_col_panel_ell(
+                coo.T.tocsr(), panel_width, COLPANEL_KS)
 
         build_meta = (
             ("panel_width", panel_width),
@@ -248,6 +274,10 @@ class Graph:
             n_edges=n_edges,
             is_symmetric=bool(is_symmetric),
             build_meta=build_meta,
+            panel=panel,
+            panel_t=panel_t,
+            colpanel=colpanel,
+            colpanel_t=colpanel_t,
         )
 
     @staticmethod
@@ -277,7 +307,8 @@ class Graph:
             build_bcsr=self.bcsr is not None,
             build_ell=self.ell is not None,
             build_hybrid=self.hybrid is not None,
-            build_colpanel=False,
+            build_panel=self.panel is not None,
+            build_colpanel=self.colpanel is not None,
             **dict(self.build_meta),
         ).to(self.device)
 

@@ -22,6 +22,7 @@ from pygcn_tpu_torch.nn.layers import dropout
 from pygcn_tpu_torch.ops.gat import (attention_aggregate, gat_attention, gat_conv_ell,
                                      gat_conv_hybrid, gatv2_attention, gatv2_conv_ell,
                                      gatv2_conv_hybrid)
+from pygcn_tpu_torch.ops.gat_colpanel import gat_conv_colpanel, gatv2_conv_colpanel
 
 
 class GATConv(nn.Module):
@@ -48,8 +49,10 @@ class GATConv(nn.Module):
             if bias else None
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
-                tiles_t=None, attn_dropout=None) -> torch.Tensor:
-        """Tile attention on the hybrid layout when ``hybrid_tiles`` (with
+                tiles_t=None, attn_dropout=None, colpanel: bool = False) -> torch.Tensor:
+        """The column-panel sweeps when ``colpanel`` (``ops/gat_colpanel.py``;
+        run ``check_gat_colpanel`` on the host graph once), else tile
+        attention on the hybrid layout when ``hybrid_tiles`` (with
         ``tiles_t`` from ``ops.gat.build_gat_tiles_t``), else the ELL path
         when an ``edge_map`` is given, else the COO path. ``attn_dropout``
         drops attention coefficients; the tile path takes none, so with it
@@ -57,7 +60,10 @@ class GATConv(nn.Module):
         n = x.shape[0]
         h, f = self.heads, self.out_features
         s = torch.matmul(x, self.w).view(n, h, f)
-        if hybrid_tiles and attn_dropout is None:
+        if colpanel:
+            out = gat_conv_colpanel(graph, s, self.a_src, self.a_dst, self.negative_slope,
+                                    attn_dropout)
+        elif hybrid_tiles and attn_dropout is None:
             out = gat_conv_hybrid(graph, tiles_t, s, self.a_src, self.a_dst, self.negative_slope)
         elif edge_map is not None:
             out = gat_conv_ell(graph, edge_map, s, self.a_src, self.a_dst, self.negative_slope,
@@ -102,14 +108,16 @@ class GATv2Conv(nn.Module):
             if bias else None
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
-                tiles_t=None, attn_dropout=None) -> torch.Tensor:
+                tiles_t=None, attn_dropout=None, colpanel: bool = False) -> torch.Tensor:
         """The paths of :meth:`GATConv.forward`; on the hybrid layout the
         tile edges run on kernels B7/B8/B9."""
         n = x.shape[0]
         h, f = self.heads, self.out_features
         s_l = torch.matmul(x, self.w_l).view(n, h, f)
         s_r = torch.matmul(x, self.w_l if self.w_r is None else self.w_r).view(n, h, f)
-        if hybrid_tiles and attn_dropout is None:
+        if colpanel:
+            out = gatv2_conv_colpanel(graph, s_l, s_r, self.a, self.negative_slope, attn_dropout)
+        elif hybrid_tiles and attn_dropout is None:
             out = gatv2_conv_hybrid(graph, tiles_t, s_l, s_r, self.a, self.negative_slope)
         elif edge_map is not None:
             out = gatv2_conv_ell(graph, edge_map, s_l, s_r, self.a, self.negative_slope,
@@ -132,7 +140,9 @@ class GAT(nn.Module):
     when :meth:`forward` gets a ``dropout_generator`` in training mode (the
     JAX model's ``dropout_rng``); then the layers leave the hybrid tile path
     for the slot path, as JAX's do, and input dropout still applies.
-    Evaluation (no generator, or eval mode) runs the tile path."""
+    Evaluation (no generator, or eval mode) runs the tile path. ``colpanel``
+    runs both layers on the column-panel sweeps (graphs above a million
+    nodes), with or without attention dropout."""
 
     def __init__(self, nfeat: int, nhid: int, nclass: int, heads: int = 8, out_heads: int = 1,
                  negative_slope: float = 0.2, dropout: float = 0.0, v2: bool = False, *,
@@ -146,13 +156,13 @@ class GAT(nn.Module):
                          negative_slope=negative_slope, generator=generator)
 
     def forward(self, x: torch.Tensor, graph: Graph, edge_map=None, hybrid_tiles: bool = False,
-                tiles_t=None, dropout_generator=None) -> torch.Tensor:
+                tiles_t=None, dropout_generator=None, colpanel: bool = False) -> torch.Tensor:
         drop = None
         if dropout_generator is not None and self.training and self.dropout > 0.0:
             def drop(a):
                 return dropout(a, self.dropout, dropout_generator)
         kw = dict(edge_map=edge_map, hybrid_tiles=hybrid_tiles, tiles_t=tiles_t,
-                  attn_dropout=drop)
+                  attn_dropout=drop, colpanel=colpanel)
         if drop is not None:
             x = drop(x)
         x = F.elu(self.gat1(x, graph, **kw))

@@ -2,7 +2,8 @@
 
 ``build_hybrid`` routes every ``tm×tk`` tile holding at least
 ``min_edges_per_tile`` edges to a BCSR layout and the remaining edges to a
-bucketed ELL; ``hybrid_spmm_raw`` adds the two partial products. On graphs
+bucketed ELL, or with ``residual="colpanel"`` to a column-panel ELL
+(``ops/colpanel.py``); ``hybrid_spmm_raw`` adds the two partial products. On graphs
 with community structure (after locality ordering) most edges fall on such
 tiles. Symmetric graphs reuse the forward layout in the backward; asymmetric
 graphs prebuild the transpose.
@@ -11,13 +12,14 @@ graphs prebuild the transpose.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
 from pygcn_tpu_torch.graph.graph import BCSR, _build_bcsr, tree_to
+from pygcn_tpu_torch.ops.colpanel import ColPanelELL, build_col_panel_ell, col_panel_spmm_raw
 from pygcn_tpu_torch.ops.cuda.bcsr_spmm import bcsr_spmm
 from pygcn_tpu_torch.ops.ell import ELL, build_ell, ell_spmm_raw
 
@@ -25,7 +27,7 @@ from pygcn_tpu_torch.ops.ell import ELL, build_ell, ell_spmm_raw
 @dataclasses.dataclass(frozen=True)
 class HybridLayout:
     bcsr: Optional[BCSR]  # None when no tile is dense enough
-    ell: ELL  # residual edges (all edges if bcsr is None)
+    ell: Union[ELL, ColPanelELL]  # residual edges (all edges if bcsr is None)
     n_rows: int
     tile_edges: int  # edges routed to BCSR (diagnostics)
 
@@ -40,6 +42,7 @@ def build_hybrid(
     ks: Tuple[int, ...] = (4, 8, 16, 32, 64, 128, 256),
     tile_budget_bytes: Optional[int] = None,
     residual: str = "ell",
+    panel_width: int = 65536,
     tile_dtype=None,
 ) -> HybridLayout:
     """Route tiles with ≥ ``min_edges_per_tile`` edges to BCSR, the rest to ELL.
@@ -48,10 +51,10 @@ def build_hybrid(
     when the qualifying tiles exceed it, the densest are kept and the rest
     spill to the ELL side. ``tile_dtype`` (``"bfloat16"`` or a torch dtype) stores the
     tiles in that type; kernel B1 then rounds x to it and sums in f32.
+    ``residual="colpanel"`` stores the other edges as a column-panel ELL of
+    ``panel_width``-wide sender panels, on the same bucket ladder ``ks``.
     """
-    if residual == "colpanel":
-        raise NotImplementedError("column-panel residual not ported yet")
-    if residual != "ell":
+    if residual not in ("ell", "colpanel"):
         raise ValueError(f"unknown residual layout {residual!r}")
     coo = mat.tocoo()
     n = coo.shape[0]
@@ -88,12 +91,17 @@ def build_hybrid(
     rest = sp.csr_matrix(
         (coo.data[rest_mask], (coo.row[rest_mask], coo.col[rest_mask])), shape=coo.shape
     )
-    return HybridLayout(bcsr=bcsr, ell=build_ell(rest, ks), n_rows=n, tile_edges=tile_edges)
+    rest_layout = (build_col_panel_ell(rest, panel_width, ks) if residual == "colpanel"
+                   else build_ell(rest, ks))
+    return HybridLayout(bcsr=bcsr, ell=rest_layout, n_rows=n, tile_edges=tile_edges)
 
 
 def hybrid_spmm_raw(h: HybridLayout, x: torch.Tensor) -> torch.Tensor:
-    """ELL half plus (when there are tiles) the B1 half."""
-    out = ell_spmm_raw(h.ell, x)
+    """Residual half (ELL or column panels) plus, when there are tiles, the B1 half."""
+    if isinstance(h.ell, ColPanelELL):
+        out = col_panel_spmm_raw(h.ell, x)
+    else:
+        out = ell_spmm_raw(h.ell, x)
     if h.bcsr is not None:
         out = out + bcsr_spmm(h.bcsr, x, n_rows=h.n_rows)
     return out

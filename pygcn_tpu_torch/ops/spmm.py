@@ -1,6 +1,6 @@
 """SpMM / SDDMM — the sparse matmul engine.
 
-``spmm(graph, x)`` computes ``A @ x`` with one of five implementations:
+``spmm(graph, x)`` computes ``A @ x`` with one of seven implementations:
 
 - ``"dense"``   — ``torch.mm`` on the densified adjacency (small graphs).
 - ``"segment"`` — ``index_select`` over COO senders + ``index_add_`` into
@@ -9,10 +9,13 @@
 - ``"ell"``     — bucketed ELL (``ops/ell.py``).
 - ``"hybrid"``  — BCSR tiles on kernel B1 + ELL residual (``ops/hybrid.py``);
   the auto choice for graphs too large to densify.
+- ``"colpanel"`` — column-panel ELL (``ops/colpanel.py``); the auto choice
+  above a million nodes, where ``Graph.from_coo`` builds no hybrid layout.
+- ``"panel"``   — diagonal panels + an off-diagonal ELL (``ops/panel.py``).
 - ``"bcsr"``    — kernel B1 alone over ``graph.bcsr`` (``ops/cuda/bcsr_spmm.py``).
 
-The ELL, hybrid and BCSR paths pair the forward with the transpose layout in
-an ``autograd.Function``. ``panel``/``colpanel`` are not ported yet.
+The ELL, hybrid, panel, column-panel and BCSR paths pair the forward with
+the transpose layout in an ``autograd.Function``.
 """
 
 from __future__ import annotations
@@ -20,9 +23,6 @@ from __future__ import annotations
 import torch
 
 from pygcn_tpu_torch.graph.graph import Graph
-
-_NOT_PORTED = ("panel", "colpanel")
-
 
 def _transpose_layout(graph: Graph, fwd, t, name: str):
     """The transpose layout for the backward/``spmm_t`` direction.
@@ -43,14 +43,16 @@ def _transpose_layout(graph: Graph, fwd, t, name: str):
 
 
 def _resolve_impl(graph: Graph, impl: str) -> str:
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"spmm impl {impl!r} not ported yet")
     if impl != "auto":
         return impl
     if graph.dense is not None:
         return "dense"
     if graph.hybrid is not None and graph.hybrid_t is not None:
         return "hybrid"
+    if graph.colpanel is not None and (graph.is_symmetric or graph.colpanel_t is not None):
+        return "colpanel"
+    if graph.panel is not None and (graph.is_symmetric or graph.panel_t is not None):
+        return "panel"
     if graph.ell is not None and graph.ell_t is not None:
         return "ell"
     if graph.bcsr is not None and (graph.is_symmetric or graph.bcsr_t is not None):
@@ -94,6 +96,21 @@ def spmm(graph: Graph, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
             graph.hybrid, _transpose_layout(graph, graph.hybrid, graph.hybrid_t, "hybrid"),
             x.contiguous(),
         )
+    elif impl == "panel":
+        if graph.panel is None:
+            raise ValueError("graph has no panel layout; build with build_panel=True")
+        from pygcn_tpu_torch.ops.panel import panel_spmm_pair
+
+        out = panel_spmm_pair(
+            graph.panel, _transpose_layout(graph, graph.panel, graph.panel_t, "panel"), x)
+    elif impl == "colpanel":
+        if graph.colpanel is None:
+            raise ValueError("graph has no colpanel layout; build with build_colpanel=True")
+        from pygcn_tpu_torch.ops.colpanel import col_panel_spmm_pair
+
+        out = col_panel_spmm_pair(
+            graph.colpanel,
+            _transpose_layout(graph, graph.colpanel, graph.colpanel_t, "colpanel"), x)
     elif impl == "bcsr":
         if graph.bcsr is None:
             raise ValueError("graph has no BCSR layout; build with build_bcsr=True")
@@ -113,7 +130,7 @@ def spmm_t(graph: Graph, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     if x.dim() == 3:
         return _fold(spmm_t, graph, x, impl)
     impl = _resolve_impl(graph, impl)
-    if impl in ("ell", "hybrid") and getattr(graph, impl) is None:
+    if impl in ("ell", "hybrid", "panel", "colpanel") and getattr(graph, impl) is None:
         raise ValueError(f"graph has no {impl} layout; build with build_{impl}=True")
     squeeze = x.dim() == 1
     if squeeze:
@@ -135,6 +152,17 @@ def spmm_t(graph: Graph, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
             _transpose_layout(graph, graph.hybrid, graph.hybrid_t, "hybrid"), graph.hybrid,
             x.contiguous(),
         )
+    elif impl == "panel":
+        from pygcn_tpu_torch.ops.panel import panel_spmm_pair
+
+        out = panel_spmm_pair(
+            _transpose_layout(graph, graph.panel, graph.panel_t, "panel"), graph.panel, x)
+    elif impl == "colpanel":
+        from pygcn_tpu_torch.ops.colpanel import col_panel_spmm_pair
+
+        out = col_panel_spmm_pair(
+            _transpose_layout(graph, graph.colpanel, graph.colpanel_t, "colpanel"),
+            graph.colpanel, x)
     elif impl == "bcsr":
         if graph.bcsr is None or graph.bcsr_t is None:
             raise ValueError("graph has no transpose BCSR layout")

@@ -106,7 +106,8 @@ def reorder_graph(graph: Graph, perm: np.ndarray) -> tuple:
         build_bcsr=graph.bcsr is not None,
         build_ell=graph.ell is not None,
         build_hybrid=graph.hybrid is not None,
-        build_colpanel=False,
+        build_panel=graph.panel is not None,
+        build_colpanel=graph.colpanel is not None,
         **dict(graph.build_meta),
     )
     return new_graph, inv

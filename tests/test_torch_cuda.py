@@ -1049,3 +1049,89 @@ def test_evaluator_bcsr_step_matches_dense(dev):
     for (k, p), (_, q) in zip(models["dense"][1].named_parameters(),
                               models["bcsr"][1].named_parameters()):
         torch.testing.assert_close(q, p, rtol=1e-4, atol=1e-4, msg=k)
+
+
+def _colpanel_graph():
+    """An asymmetric 3000-node graph in three 1024-node sender panels with
+    every layout of queue A item 5: the column panels (row 0 receives 700
+    edges from panel 0, so the widest bucket repeats it), the panels, and
+    the hybrid with a column-panel residual; edges distinct and weighted
+    (the attention's checks hold)."""
+    from pygcn_tpu_torch.ops.gat_colpanel import check_gat_colpanel
+
+    rng = np.random.default_rng(21)
+    n = 3000
+    src, dst = rng.integers(0, n, 30000), rng.integers(1, n, 30000)
+    near = rng.integers(0, 64, 20000)  # tile-dense stretches for the hybrid
+    src = np.concatenate([src, (near * 40) % n, np.arange(700)])
+    dst = np.concatenate([dst, (near * 40 + rng.integers(0, 64, 20000)) % n,
+                          np.zeros(700, np.int64)])
+    src, dst = np.unique(np.stack([src, dst]), axis=1)
+    w = rng.uniform(0.1, 1.0, src.size).astype(np.float32)
+    g = Graph.from_coo(src, dst, w, n_nodes=n, build_dense=False, build_bcsr=False,
+                       build_ell=False, build_hybrid=True, hybrid_residual="colpanel",
+                       hybrid_min_edges_per_tile=32, build_panel=True, build_colpanel=True,
+                       panel_width=1024)
+    assert any(m is not None for p in g.colpanel.panels for m in p.merge)
+    assert 0 < g.hybrid.tile_edges < g.n_edges
+    check_gat_colpanel(g)
+    return g
+
+
+@pytest.mark.parametrize("impl", ["colpanel", "panel", "hybrid"])
+def test_colpanel_spmm_on_the_card_matches_the_cpu(dev, impl):
+    """``spmm``/``spmm_t`` and the gradient on the card against the same
+    calls on the CPU (1e-4), with the same bits on a second call; the
+    hybrid launches B1 once a product, as a kernel."""
+    from pygcn_tpu_torch.ops.spmm import spmm, spmm_t
+
+    g = _colpanel_graph()
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((g.n_nodes, 64)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((g.n_nodes, 64)).astype(np.float32))
+
+    def run(graph, x, cot):
+        xx = x.clone().requires_grad_()
+        y = spmm(graph, xx, impl=impl)
+        (dx,) = torch.autograd.grad(y, xx, cot)
+        return y.detach(), dx, spmm_t(graph, x, impl=impl)
+
+    want = run(g, x, cot)
+    gd, xd, cd = g.to(dev), x.to(dev), cot.to(dev)
+    before = b1.launches
+    got, again = run(gd, xd, cd), run(gd, xd, cd)
+    torch.cuda.synchronize()
+    assert b1.launches - before == (6 if impl == "hybrid" else 0)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("v2", [False, True], ids=["v1", "v2"])
+def test_colpanel_attention_on_the_card_matches_the_cpu(dev, v2):
+    """``gat_conv_colpanel``/``gatv2_conv_colpanel`` at 4 heads of 8 on the
+    card against the CPU, output and gradients (1e-4); the output's bits
+    repeat on a second call (the gradients add sender terms by atomics)."""
+    from pygcn_tpu_torch.ops.gat_colpanel import gat_conv_colpanel, gatv2_conv_colpanel
+
+    g = _colpanel_graph()
+    rng = np.random.default_rng(23)
+    n, h, f = g.n_nodes, 4, 8
+    args = [rng.standard_normal(s).astype(np.float32) * c
+            for s, c in (((n, h, f), 1.0), ((n, h, f) if v2 else (h, f), 1.0 if v2 else 0.3),
+                         ((h, f), 0.3))]
+    cot = torch.from_numpy(rng.standard_normal((n, h, f)).astype(np.float32))
+    conv = gatv2_conv_colpanel if v2 else gat_conv_colpanel
+
+    def run(graph, device):
+        t = [torch.from_numpy(a).to(device).requires_grad_() for a in args]
+        y = conv(graph, *t, 0.2)
+        return [y.detach()] + list(torch.autograd.grad(y, t, cot.to(device)))
+
+    want = run(g, "cpu")
+    gd = g.to(dev)
+    got, again = run(gd, dev), run(gd, dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0])
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)

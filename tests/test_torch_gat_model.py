@@ -204,13 +204,15 @@ def test_gatv2_share_weights_matches_jax():
 
 
 def test_gat_options_not_ported_raise(monkeypatch):
-    """Attention above the column-panel threshold (the JAX package's
-    ``ops/gat_colpanel`` path) is still not ported; the threshold is lowered
-    here so that a small graph meets it. (Dropout, refused here before, is
-    ported: ``tests/test_torch_cora.py`` holds it.)"""
+    """Attention above the column-panel threshold, once refused here, is
+    ported: with the threshold lowered so that a small graph meets it, the
+    GAT's data carries the column panels and no ELL or hybrid layout
+    (``tests/test_torch_gat_colpanel.py`` holds the path against JAX).
+    (Dropout, refused here before, is ported: ``tests/test_torch_cora.py``
+    holds it.)"""
     monkeypatch.setattr(tapp, "COLPANEL_MIN_NODES", 100)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tapp.clustered_dataset(400, 8.0, 4, 16, 0, attention=True)
+    g = tapp.clustered_dataset(400, 8.0, 4, 16, 0, attention=True).graph
+    assert g.colpanel is not None and g.ell is None and g.hybrid is None
 
 
 @pytest.mark.parametrize("model", ["gat", "gatv2"])

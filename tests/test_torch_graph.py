@@ -160,17 +160,25 @@ def test_device_move_keeps_symmetric_layouts_shared():
 
 
 def test_unported_layouts_raise():
+    """The layouts this test once found refused are ported: the panels and
+    column panels build on request, the >colpanel_min_nodes auto choice picks
+    the column panels (and no ELL or hybrid), and the hybrid takes a
+    column-panel residual; an unknown residual still raises
+    (``tests/test_torch_colpanel.py`` holds them against JAX)."""
+    from pygcn_tpu_torch.ops.colpanel import ColPanelELL
+    from pygcn_tpu_torch.ops.panel import PanelELL
+
     src, dst, w = coo_arrays()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TGraph.from_coo(src, dst, w, n_nodes=300, build_panel=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TGraph.from_coo(src, dst, w, n_nodes=300, build_colpanel=True)
-    # the >colpanel_min_nodes auto choice raises instead of picking another layout
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TGraph.from_coo(src, dst, w, n_nodes=300, dense_max_nodes=100, colpanel_min_nodes=200)
+    assert isinstance(TGraph.from_coo(src, dst, w, n_nodes=300, build_panel=True).panel,
+                      PanelELL)
+    assert isinstance(TGraph.from_coo(src, dst, w, n_nodes=300, build_colpanel=True).colpanel,
+                      ColPanelELL)
+    auto = TGraph.from_coo(src, dst, w, n_nodes=300, dense_max_nodes=100, colpanel_min_nodes=200)
+    assert auto.colpanel is not None and auto.ell is None and auto.hybrid is None
     m = sp.coo_matrix((w, (dst, src)), shape=(300, 300))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_hybrid(m, residual="colpanel")
+    assert isinstance(build_hybrid(m, residual="colpanel").ell, ColPanelELL)
+    with pytest.raises(ValueError, match="unknown residual"):
+        build_hybrid(m, residual="nope")
 
 
 def test_transforms_match_jax():

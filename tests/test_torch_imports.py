@@ -35,9 +35,10 @@ def test_every_module_imports_without_jax_or_pygcn_tpu():
               "train.sweep", "apps.train_evaluator", "apps.baselines", "apps.train_legacy",
               "apps.sweep", "policy", "policy.cache", "policy.reinforce", "policy.topk",
               "apps.train_generator", "apps.train_rl", "apps.predict", "train.export",
-              "utils.visualize", "utils.device"):
+              "utils.visualize", "utils.device", "ops.colpanel", "ops.panel",
+              "ops.gat_colpanel"):
         assert f"pygcn_tpu_torch.{m}" in mods
-    assert len(mods) >= 74
+    assert len(mods) >= 77
     # the evaluator's slice reads CSVs and computes centralities without
     # pandas, networkx or scikit-learn (only `baselines summary-mlp` imports
     # scikit-learn, when it runs); matplotlib is imported when a plot is drawn

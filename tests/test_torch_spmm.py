@@ -146,10 +146,15 @@ def test_asymmetric_transpose_guard(layout):
 
 
 def test_unported_impls_raise():
+    """``panel`` and ``colpanel``, once refused here, are ported: on a graph
+    built without their layouts they raise as every layout does
+    (``tests/test_torch_colpanel.py`` holds them against JAX)."""
     _, tg = graphs()
     for impl in ("panel", "colpanel"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match=f"no {impl} layout"):
             t_spmm(tg, torch.ones(N, 2), impl=impl)
+        with pytest.raises(ValueError, match=f"no {impl} layout"):
+            t_spmm_t(tg, torch.ones(N, 2), impl=impl)
     with pytest.raises(ValueError, match="unknown spmm impl"):
         t_spmm(tg, torch.ones(N, 2), impl="nope")
 
