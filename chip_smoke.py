@@ -62,7 +62,17 @@ column-panel GAT/GATv2 against the COO attention in f64
 63M edges): its dataset built once and saved as ``.npz``, and
 ``train_fullgraph --clustered --npz`` for the GCN, GAT and GATv2 on the
 column panels with no tile kernel launched, each printing ms/step, peak
-memory and a profiled step's split (``products {...}``). It prints each
+memory and a profiled step's split (``products {...}``). Then
+neighbourhood-sampled training (``apps/train_sampled``), which reaches no
+hand-written kernel: on a 2000-node graph the native sampler's blocks at 1
+and 4 threads against the NumPy fallback's, bit for bit, and one step of
+the sampled GCN, GAT and GATv2 on the card against the CPU
+(``sampled_reference``); then BASELINE.json's Reddit configuration
+(232,965 nodes, average degree 489, 602 features, fanouts 25/10, batches
+of 1024): the GCN for an epoch with prefetch 2 and again serially (the same
+blocks bit for bit), GAT and GATv2 for an epoch each, no tile kernel
+launched, printing the host set-up, ms/batch and its split, a profiled
+step and peak memory (``sampled {...}``). It prints each
 phase's wall time. Its last line is
 ``{"ok": true, "device": {...}}``; any failure exits non-zero before it.
 Without a CUDA card, or outside a checkout, it exits non-zero and prints no
@@ -2803,6 +2813,343 @@ def run_products(torch):
     return out
 
 
+# Neighbourhood-sampled training (apps/train_sampled): a small SBM graph for
+# the reference checks, and BASELINE.json's Reddit configuration
+# (PERF_NOTES.md:477-479; the CLI's --hidden 64 and --gat_heads 4) for the
+# main path: 232,965 nodes, average degree 489 (about 114M directed edges),
+# 602 features, 41 classes, fanouts 25 then 10, batches of 1024.
+SAMPLED_SMALL = ["--n_nodes", "2000", "--fanouts", "5", "5", "--batch_size", "128"]
+REDDIT = ["--n_nodes", "232965", "--avg_degree", "489", "--feat_dim", "602", "--n_classes",
+          "41", "--fanouts", "25", "10", "--batch_size", "1024", "--prefetch", "2",
+          "--epochs", "1", "--device", "cuda"]
+SAMPLED_MODELS = {"gcn": [], "gat": ["--model", "gat"], "gatv2": ["--model", "gatv2"]}
+# Adam divides each gradient entry by its own magnitude plus eps = 1e-8, so
+# an entry whose gradient is near eps moves by up to lr on its rounding alone
+# (GATv2's last-layer w_r has gradient entries down to 3e-13, where the
+# receiver's term cancels in the softmax). The card's gradients are held to
+# the CPU's before Adam; the updated parameters only where the CPU's gradient
+# is at least GRAD_FLOOR, where Adam's first step scales a gradient's error
+# by at most lr * eps / GRAD_FLOOR**2 = 100.
+GRAD_FLOOR = 1e-6
+
+
+def _sample_stream(adj, fanouts, seed_batches, threads=None):
+    """Three batches' ``(blocks, input_nodes)`` from a fresh sampler;
+    ``threads`` pins the native kernel's thread count."""
+    from pygcn_tpu_torch.ops.sampling import NeighborSampler
+    from pygcn_tpu_torch.utils import native
+
+    real = native.sample_layer
+    if threads is not None:
+        native.sample_layer = lambda *a, **kw: real(*a, **{**kw, "threads": threads})
+    try:
+        sampler = NeighborSampler(adj, fanouts, seed=0)
+        return [sampler.sample_np(seeds) for seeds in seed_batches]
+    finally:
+        native.sample_layer = real
+
+
+def _stream_arrays(stream):
+    return [a for blocks, nodes in stream for a in (nodes, *itertools.chain(*blocks))]
+
+
+def sampled_reference(torch):
+    """The sampler's bits and one sampled step, card against CPU, on a
+    2000-node SBM graph with fanouts [5, 5] and batches of 128: the native
+    sampler at 1 and 4 threads gives the NumPy fallback's blocks bit for bit;
+    for gcn, gat (2 heads of 8) and gatv2, one Adam step of
+    ``train_sampled.train_step`` on the card from the CPU's blocks and
+    weights gives the CPU's loss, logits and gradients within 1e-4, and its
+    updated parameters where the CPU's gradient is at least ``GRAD_FLOOR``."""
+    from pygcn_tpu_torch.apps import train_sampled as tapp
+    from pygcn_tpu_torch.ops.sampling import NeighborSampler
+    from pygcn_tpu_torch.utils import native
+
+    if not native.available():
+        fail("sampled_reference: graphkit did not build, so the native sampler is not checked")
+    args = tapp.parse_args(["--device", "cpu", *SAMPLED_SMALL])
+    prep = tapp.prepare(args, torch.device("cpu"))
+    seed_batches = [prep.data.idx_train[i * 128:(i + 1) * 128] for i in range(3)]
+    real_load = native._load
+    native._load = lambda: None
+    try:
+        fallback = _stream_arrays(_sample_stream(prep.adj, args.fanouts, seed_batches))
+    finally:
+        native._load = real_load
+    for threads in (1, 4):
+        got = _stream_arrays(_sample_stream(prep.adj, args.fanouts, seed_batches, threads))
+        if not all(np.array_equal(a, b) for a, b in zip(got, fallback)):
+            fail(f"sampled_reference: native blocks at {threads} threads differ from NumPy's")
+    out = {"blocks_bitwise": True}
+    count = _reset_tile_launches()
+    for model, flags in SAMPLED_MODELS.items():
+        margs = tapp.parse_args(["--device", "cpu", *SAMPLED_SMALL, *flags, "--gat_heads", "2",
+                                 "--hidden", "8"])
+        batch = NeighborSampler(prep.adj, args.fanouts, seed=0).sample(seed_batches[0])
+        idx = torch.from_numpy(batch.input_nodes)
+        y = torch.from_numpy(prep.labels[seed_batches[0]])
+        runs = []
+        for device in ("cpu", "cuda"):
+            net = tapp.build_model(margs, prep.data.n_classes).to(device)
+            opt = tapp.adam_l2(net.parameters(), margs.lr)  # the CLI's optimizer
+            blocks = [b.to(device) for b in batch.blocks]
+            x_in = prep.x_full.to(device).index_select(0, idx.to(device))
+            with torch.no_grad():
+                logits = net(blocks, x_in)
+            loss = tapp.train_step(net, opt, blocks, x_in, y.to(device))
+            params = list(net.parameters())
+            runs.append(([loss, logits], [p.grad.cpu() for p in params],
+                         [p.detach().cpu() for p in params]))
+        (c_out, c_grads, c_params), (g_out, g_grads, g_params) = runs
+        held = [g.abs() >= GRAD_FLOOR for g in c_grads]
+        pairs = [*zip(g_out, c_out), *zip(g_grads, c_grads),
+                 *((g[h], c[h]) for g, c, h in zip(g_params, c_params, held))]
+        err = 0.0
+        for g, c in pairs:
+            if not torch.allclose(g.cpu(), c, rtol=RTOL, atol=ATOL):
+                fail(f"sampled_reference {model}: the card's step differs from the CPU's")
+            err = max(err, float((g.cpu() - c).abs().max()))
+        below = [g[~h].abs() for g, h in zip(c_grads, held)]
+        out[model] = {
+            "loss": float(g_out[0]), "max_abs_err": err,
+            "entries": sum(h.numel() for h in held),
+            "entries_below_grad_floor": sum(int(b.numel()) for b in below),
+            "largest_grad_below_floor": max((float(b.max()) for b in below if b.numel()),
+                                            default=None),
+            "smallest_held_grad": min((float(g[h].abs().min()) for g, h in zip(c_grads, held)
+                                       if h.any()), default=None),
+            "param_gap_below_floor": max((float((g - c)[~h].abs().max()) for g, c, h
+                                          in zip(g_params, c_params, held) if (~h).any()),
+                                         default=None)}
+    if count():
+        fail(f"sampled_reference launched {count()} tile kernels, expected none")
+    print("sampled reference " + json.dumps(out), flush=True)
+    return out
+
+
+# Kernel-name fragments of the sampled step's groups, tried in order: Adam's
+# foreach kernels, the host-to-device copies, then :data:`STEP_GROUPS`. The
+# kernels launched inside the ``sampled.feature_gather`` range (the
+# ``index_select`` of the feature rows, a ``_scatter_gather`` kernel that the
+# names would put among the adds by index) form a group of their own.
+SAMPLED_GROUPS = (("adam", ("multi_tensor_apply",)), ("copies", ("Memcpy", "memcpy")),
+                  *STEP_GROUPS)
+
+
+def _kernels_under(event):
+    """``(name, ms)`` of every kernel launched inside a profiled CPU range."""
+    for k in event.kernels:
+        yield k.name, k.duration / 1e3
+    for child in event.cpu_children:
+        yield from _kernels_under(child)
+
+
+def _cpu_under(event):
+    """A profiled CPU range and every CPU range inside it."""
+    yield event
+    for child in event.cpu_children:
+        yield from _cpu_under(child)
+
+
+def _sampled_step_split(torch, step):
+    """Sampled training steps under torch.profiler: the last step's device
+    busy ms and its ms by group (the feature gather apart)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # a warm-up step, then two recorded ones, of which the last is read: late
+    # in the smoke, after many profiler sessions, a recorded window lost its
+    # first kernels (a GCN step kept 6 of its 48 launches; a GATv2 step after
+    # one warm-up step lost its feature gather). Each step ends in a device
+    # sync, so its kernels run inside its ProfilerStep range; they are taken
+    # by time, since the backward's ops run on autograd's own thread, outside
+    # that range's CPU children.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1)) as prof:
+        for _ in range(3):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    events = prof.events()
+    last = max((e for e in events if e.device_type == DeviceType.CPU
+                and e.name.startswith("ProfilerStep")), key=lambda e: e.time_range.start)
+    lo, hi = last.time_range.start, last.time_range.end
+    by_name, in_range, gather_kernels, gather_ms = Counter(), Counter(), Counter(), 0.0
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and lo <= e.time_range.start and e.time_range.end <= hi):
+            by_name[e.name] += e.device_time_total / 1e3
+            in_range[e.name] += 1
+    # every kernel launched from the step's own thread must fall in its range
+    if not Counter(name for name, _ in _kernels_under(last)) <= in_range:
+        fail("sampled step split: kernels launched in the last step fall outside its range")
+    for e in _cpu_under(last):
+        if e.name == "sampled.feature_gather":
+            gather_ms += e.device_time_total / 1e3
+            for name, ms in _kernels_under(e):
+                gather_kernels[name] += ms
+    if not gather_ms or abs(sum(gather_kernels.values()) - gather_ms) > 1e-3:
+        fail(f"sampled step split: the feature gather's kernels sum to "
+             f"{sum(gather_kernels.values()):.4f} ms, its range to {gather_ms:.4f} ms "
+             "(none: the profiler recorded no feature gather)")
+    split = dict.fromkeys([g for g, _ in SAMPLED_GROUPS] + ["other"], 0.0)
+    for name, ms in (by_name - gather_kernels).items():
+        group = next((g for g, frags in SAMPLED_GROUPS if any(f in name for f in frags)), "other")
+        split[group] += ms
+    split["feature_gather"] = gather_ms
+    split["block_gathers"] = split.pop("gather")
+    return {"busy_ms": sum(by_name.values()),
+            "device_launches": sum(in_range.values()), "device_ms_by_group": split,
+            "top_kernels_ms": {k[:80]: v for k, v in by_name.most_common(6)}}
+
+
+def _same_batches(a, b) -> bool:
+    """Whether two runs drew the same batches, bit for bit."""
+    def arrays(batch):
+        yield batch.input_nodes
+        for blk in batch.blocks:
+            yield from (blk.cols.numpy(), blk.weights.numpy(), blk.self_idx.numpy())
+
+    return len(a) == len(b) and all(np.array_equal(x, y) for p, q in zip(a, b)
+                                    for x, y in zip(arrays(p), arrays(q)))
+
+
+def _sampled_run(torch, tapp, model, record=None, extra=(), prepared=None):
+    """``train_sampled.main`` at the Reddit shape for ``model`` (one epoch);
+    with ``record``, a list, each batch drawn is appended to it (a reference
+    only: the timed loop does no more work; the batches are compared after
+    the run). Gates: finite losses and no tile kernel."""
+    count = _reset_tile_launches()
+    real_iter = tapp.iter_sampled_batches
+
+    def recording(*a, **kw):
+        for seeds, batch in real_iter(*a, **kw):
+            record.append(batch)
+            yield seeds, batch
+
+    if record is not None:
+        tapp.iter_sampled_batches = recording
+    t0 = time.perf_counter()
+    try:
+        r = tapp.main([*REDDIT, *SAMPLED_MODELS[model], *extra], prepared=prepared)
+    finally:
+        tapp.iter_sampled_batches = real_iter
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    if count():
+        fail(f"sampled_main_path {model} launched {count()} tile kernels, expected none")
+    if not np.isfinite(r["losses"]).all() or not math.isfinite(r["acc"]):
+        fail(f"sampled_main_path {model}: non-finite loss or accuracy")
+    return r, wall_s
+
+
+def _fixed_step(tapp, r, batch_size=1024):
+    """One more training step of a finished run, on a fixed batch (the first
+    of epoch 0's order, drawn from the run's sampler), for profiling."""
+    prep = r["prepared"]
+    seeds = next(tapp.epoch_seed_batches(prep.data.idx_train, batch_size, 0, 0))
+    batch = r["sampler"].sample(seeds)
+    return lambda: tapp.run_batch(r["model"], r["opt"], prep, seeds, batch)
+
+
+def _host_sampling(tapp, prep, batch_size, reps=5):
+    """Host ms of one batch sampled serially (a fresh sampler, the first
+    ``reps`` batches of epoch 0's order)."""
+    from pygcn_tpu_torch.ops.sampling import NeighborSampler
+
+    sampler = NeighborSampler(prep.adj, [25, 10], seed=0)
+    ms = []
+    for seeds in itertools.islice(
+            tapp.epoch_seed_batches(prep.data.idx_train, batch_size, 0, 0), reps):
+        t0 = time.perf_counter()
+        sampler.sample_np(seeds)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def run_sampled_main_path(torch):
+    """BASELINE.json's Reddit configuration through ``apps/train_sampled``:
+    the GCN for one epoch with prefetch 2, again with ``--prefetch 0`` (the
+    same blocks bit for bit, losses within 1e-5 relative), then GAT and
+    GATv2 (4 heads of 64) for one epoch each on the same prepared data (the
+    host set-up is paid once). Prints the host set-up by stage, ms/batch and
+    its split, host sampling, layer sizes, bytes copied per batch, a
+    profiled step's device split, the idle share of an unprofiled step, peak
+    memory and test accuracy (``sampled {...}``)."""
+    from pygcn_tpu_torch.apps import train_sampled as tapp
+    from pygcn_tpu_torch.graph import datasets
+    from pygcn_tpu_torch.utils import native
+
+    finalize_s = []
+    real_finalize = datasets._finalize
+
+    def timed_finalize(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_finalize(*a, **kw)
+        finalize_s.append(time.perf_counter() - t0)
+        return out
+
+    datasets._finalize = timed_finalize
+    drawn = []
+    try:
+        gcn, gcn_wall = _sampled_run(torch, tapp, "gcn", drawn)
+    finally:
+        datasets._finalize = real_finalize
+    prep = gcn["prepared"]
+    s = prep.setup_s
+    out = {"sampler": "graphkit" if native.available() else "numpy fallback",
+           "nodes": prep.data.graph.n_nodes, "edges": prep.data.graph.n_edges,
+           "train_nodes": len(prep.data.idx_train),
+           "host_setup_s": {"sbm_generation": s["data"] - finalize_s[0],
+                            "finalize": finalize_s[0], "sampler_csr": s["sampler_csr"],
+                            "features_to_device": s["features_to_device"]}}
+    print(f"sampled setup ({out['sampler']}): " + json.dumps(out), flush=True)
+    drawn_serial = []
+    serial, _ = _sampled_run(torch, tapp, "gcn", drawn_serial, ["--prefetch", "0"], prep)
+    if not _same_batches(drawn, drawn_serial):
+        fail("sampled_main_path: --prefetch 0 drew other blocks than --prefetch 2")
+    del drawn, drawn_serial
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gcn["losses"], serial["losses"]))
+    if len(gcn["losses"]) != len(serial["losses"]) or loss_rel > 1e-5:
+        fail(f"sampled_main_path: prefetch 0 and 2 losses differ by {loss_rel:.3g} relative")
+    out["prefetch_off_vs_on"] = {"blocks_bitwise": True, "max_loss_rel_diff": loss_rel,
+                                 "serial_ms_per_batch": serial["ms_per_batch"],
+                                 "serial_wait_ms": serial["wait_ms"],
+                                 "serial_step_ms": serial["step_ms"]}
+    del serial
+    host_ms = _host_sampling(tapp, prep, 1024)
+    counts = np.asarray(gcn["node_counts"])  # per batch: input nodes, then each block's rows
+    out["host_sampling_ms"] = host_ms
+    out["layer_input_nodes"] = {"layer0": {"mean": float(counts[:, 0].mean()),
+                                           "max": int(counts[:, 0].max())},
+                                "layer1": {"mean": float(counts[:, 1].mean()),
+                                           "max": int(counts[:, 1].max())}}
+    runs = {"gcn": (gcn, gcn_wall)}
+    for model in ("gat", "gatv2"):
+        runs[model] = _sampled_run(torch, tapp, model, prepared=prep)
+    for model, (r, wall_s) in runs.items():
+        step = _fixed_step(tapp, r)
+        split = _sampled_step_split(torch, step)
+        # warm, unprofiled steps (each ends in its device sync)
+        unprofiled = float(np.median([_event_ms(torch, step)[1] for _ in range(5)]))
+        out[model] = {"batches": r["n_batches"], "ms_per_batch": r["ms_per_batch"],
+                      "sampler_wait_ms": r["wait_ms"], "step_ms": r["step_ms"],
+                      "h2d_bytes_per_batch": r["h2d_bytes"],
+                      "peak_mem_gib": r["peak_mem_bytes"] / 2**30, "test_acc": r["acc"],
+                      "first_loss": r["losses"][0], "last_loss": r["losses"][-1],
+                      "run_wall_s": wall_s, "unprofiled_step_ms": unprofiled,
+                      "profiled_step": split,
+                      "idle_share_of_step": 1.0 - split["busy_ms"] / unprofiled}
+        print(f"sampled {model} " + json.dumps(out[model]), flush=True)
+    del runs, gcn, prep
+    torch.cuda.empty_cache()
+    print("sampled " + json.dumps(out), flush=True)
+    return out
+
+
 # Epochs of each main path: enough for a step and an evaluation after the
 # warm-up pair; the launch checks hold at any count. The runs at --hidden 128
 # take one.
@@ -2875,6 +3222,8 @@ def main() -> None:
     print("policy " + json.dumps({"generator": gen_out, "rl": rl_out}), flush=True)
     products = phase("products", run_products, torch)
     print("products " + json.dumps(products), flush=True)
+    phase("sampled_reference", sampled_reference, torch)
+    phase("sampled_main_path", run_sampled_main_path, torch)
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),

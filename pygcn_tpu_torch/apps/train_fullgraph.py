@@ -125,6 +125,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--remat", action="store_true",
                     help="recompute layer activations in the backward pass (GCN only)")
     ap.add_argument("--model", default="gcn",
+                    choices=["gcn", "gat", "gatv2", *EXTENSION_MODELS],
                     help="gcn; gat or gatv2: the 2-layer multi-head GAT with v1 or "
                          "GATv2 layers (--hidden is the per-head width); sage, gin or "
                          "appnp: the 2-layer extension families (GIN runs on the "
@@ -148,9 +149,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="Planetoid .content file (with --cites: Cora-format data)")
     ap.add_argument("--cites", default=None, help="Planetoid .cites file")
     args = ap.parse_args(argv)
-    if args.model not in ("gcn", "gat", "gatv2", *EXTENSION_MODELS):
-        raise SystemExit(f"--model {args.model}: not ported yet "
-                         "(gcn, gat, gatv2, sage, gin and appnp are)")
     if args.shards != 1:
         raise SystemExit("--shards > 1: not ported yet")
     if args.avg_degree is None:

@@ -22,7 +22,12 @@ and so on (:func:`kipf_params_to_state_dict`). Any tree of
 ``pool_mlp``) maps onto the state dicts of
 :mod:`pygcn_tpu_torch.nn.models` with ``w`` as ``weight`` and ``b`` as
 ``bias`` (:func:`evaluator_params_to_state_dict`); the port's
-``evaluator.pkl`` and checkpoints keep their weights in that tree. The two random generators
+``evaluator.pkl`` and checkpoints keep their weights in that tree. The
+sampled trainer's lists (``pygcn_tpu/apps/train_sampled.py``: per layer
+``{"w", "b"}`` for the GCN, ``{"w", "a_src", "a_dst", "b"}`` for the GAT,
+``{"w_l", "w_r", "a", "b"}`` for GATv2) map onto ``layers.<i>.<name>`` of
+the port's ``SampledGCN``, ``SampledGAT`` and ``SampledGATv2``, under the
+same names (:func:`sampled_params_to_state_dict`). The two random generators
 differ, so tests start both packages from one set of weights carried across
 here. The simulator's inputs cross the same way: :func:`fields_of` reads any
 of the JAX package's dataclasses (``EpidemicParams``, ``VisitSeq``,
@@ -120,11 +125,29 @@ def evaluator_params_to_state_dict(params) -> dict:
     return {_rename_leaf(k, EVALUATOR_LEAVES): v for k, v in tree_to_state_dict(params).items()}
 
 
+def evaluator_leaf_key(key: str) -> str:
+    """A key of the port's state dict under the JAX tree's leaf names
+    (``weight``/``bias`` as ``w``/``b``; other names unchanged)."""
+    return _rename_leaf(key, {v: k for k, v in EVALUATOR_LEAVES.items()})
+
+
 def state_dict_to_evaluator_params(state) -> dict:
     """The port's state dict (or named parameters) → the JAX-side tree of
     NumPy arrays (:func:`evaluator_params_to_state_dict`'s inverse)."""
-    back = {v: k for k, v in EVALUATOR_LEAVES.items()}
-    return state_dict_to_tree({_rename_leaf(k, back): v for k, v in state.items()})
+    return state_dict_to_tree({evaluator_leaf_key(k): v for k, v in state.items()})
+
+
+def sampled_params_to_state_dict(params) -> dict:
+    """JAX-side sampled param list (``[{"w", "b", ...}, ...]``) → state dict
+    of the port's sampled models: ``layers.<i>.<name>``, names unchanged."""
+    return tree_to_state_dict({"layers": {str(i): p for i, p in enumerate(params)}})
+
+
+def state_dict_to_sampled_params(state) -> list:
+    """A sampled model's state dict → the JAX-side param list of NumPy arrays
+    (:func:`sampled_params_to_state_dict`'s inverse)."""
+    layers = state_dict_to_tree(state)["layers"]
+    return [layers[str(i)] for i in range(len(layers))]
 
 
 KIPF_LAYERS = ("gc1", "gc2")

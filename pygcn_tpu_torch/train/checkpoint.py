@@ -27,7 +27,12 @@ from typing import Any, Dict
 
 import torch
 
-from pygcn_tpu_torch.convert import evaluator_params_to_state_dict, state_dict_to_evaluator_params
+from pygcn_tpu_torch.convert import (
+    evaluator_leaf_key,
+    evaluator_params_to_state_dict,
+    state_dict_to_evaluator_params,
+    tree_to_state_dict,
+)
 
 FORMAT = "pygcn_tpu_torch/1"
 
@@ -142,12 +147,12 @@ def adam_state(opt: torch.optim.Optimizer, model: torch.nn.Module) -> dict:
 def load_adam_state(opt: torch.optim.Optimizer, model: torch.nn.Module, state: dict) -> None:
     """Restore :func:`adam_state`'s output into ``opt`` (moments, step and
     learning rate)."""
-    moments = {key: evaluator_params_to_state_dict(state[key])
-               for key in ("exp_avg", "exp_avg_sq")}
+    # the moments by the JAX names they were saved under
+    moments = {key: tree_to_state_dict(state[key]) for key in ("exp_avg", "exp_avg_sq")}
     sd = opt.state_dict()
     sd["state"] = {
         i: {"step": torch.tensor(float(state["step"]), dtype=torch.float32),
-            "exp_avg": moments["exp_avg"][name], "exp_avg_sq": moments["exp_avg_sq"][name]}
+            **{key: moments[key][evaluator_leaf_key(name)] for key in moments}}
         for i, (name, _) in enumerate(_named_params(opt, model))
     }
     for group in sd["param_groups"]:

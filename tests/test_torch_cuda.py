@@ -1135,3 +1135,43 @@ def test_colpanel_attention_on_the_card_matches_the_cpu(dev, v2):
     assert torch.equal(got[0], again[0])
     for a, w in zip(got, want):
         torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat", "gatv2"])
+def test_sampled_step_on_the_card_matches_the_cpu(dev, model):
+    """``apps/train_sampled.train_step`` (feature gather, the sampled
+    forward, backward, the CLI's Adam) on one batch of a 2000-node SBM
+    graph, fanouts [5, 5], on the card against the CPU from the same blocks
+    and weights: the loss, the logits and the gradients within 1e-4, and
+    the updated parameters where the CPU's gradient is at least 1e-6 (Adam
+    moves an entry whose gradient is near its eps = 1e-8 by up to lr on its
+    rounding alone: ``chip_smoke.GRAD_FLOOR``)."""
+    from pygcn_tpu_torch.apps import train_sampled as tapp
+    from pygcn_tpu_torch.ops.sampling import NeighborSampler
+
+    args = tapp.parse_args(["--device", "cpu", "--n_nodes", "2000", "--fanouts", "5", "5",
+                            "--batch_size", "128", "--model", model, "--gat_heads", "2",
+                            "--hidden", "8"])
+    prep = tapp.prepare(args, torch.device("cpu"))
+    seeds = prep.data.idx_train[:128]
+    batch = NeighborSampler(prep.adj, args.fanouts, seed=0).sample(seeds)
+    y = torch.from_numpy(prep.labels[seeds])
+    idx = torch.from_numpy(batch.input_nodes)
+    runs = []
+    for device in ("cpu", dev):
+        net = tapp.build_model(args, prep.data.n_classes).to(device)
+        opt = tapp.adam_l2(net.parameters(), args.lr)
+        blocks = [b.to(device) for b in batch.blocks]
+        x_in = prep.x_full.to(device).index_select(0, idx.to(device))
+        with torch.no_grad():
+            logits = net(blocks, x_in)
+        loss = tapp.train_step(net, opt, blocks, x_in, y.to(device))
+        params = list(net.parameters())
+        runs.append(([loss, logits], [p.grad.cpu() for p in params],
+                     [p.detach().cpu() for p in params]))
+    (c_out, c_grads, c_params), (g_out, g_grads, g_params) = runs
+    for g, c in [*zip(g_out, c_out), *zip(g_grads, c_grads)]:
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+    for g, c, grad in zip(g_params, c_params, c_grads):
+        held = grad.abs() >= 1e-6
+        torch.testing.assert_close(g[held], c[held], rtol=1e-4, atol=1e-4)

@@ -184,6 +184,24 @@ def test_cli_unported_options_exit(flags):
         tapp.main(["--device", "cpu", *flags])
 
 
+def test_unknown_model_exits_2_as_in_jax(capsys):
+    """``--model`` takes JAX's choices: an unknown name is argparse's
+    "invalid choice" with exit code 2 in both packages (fault C7: the port
+    said "not ported yet" and exited 1)."""
+    from pygcn_tpu.apps import train_fullgraph as japp
+
+    for run in (lambda: tapp.parse_args(["--model", "foo"]),
+                lambda: tapp.main(["--device", "cpu", "--model", "foo"]),
+                lambda: japp.main(["--model", "foo"])):
+        with pytest.raises(SystemExit) as e:
+            run()
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "invalid choice: 'foo'" in err and "not ported" not in err
+    for model in ("gcn", "gat", "gatv2", "sage", "gin", "appnp"):
+        assert tapp.parse_args(["--model", model]).model == model
+
+
 def test_throughput_line_matches_jax(monkeypatch, capsys):
     """The same epoch time prints the same Medge-traversals/s as the JAX CLI:
     3 SpMM-equivalents per layer (the forward, and two in the backward)."""
