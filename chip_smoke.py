@@ -29,7 +29,18 @@ hybrid layout) for a few epochs each through ``apps/train_fullgraph
 - ``--model sage``, ``gin`` and ``appnp`` (128 -> 128 -> 40): kernel B1.
 
 It checks that each path launched its kernels exactly as often as it must
-and no other tile kernel, runs ``apps/ab_kernel_stream`` (revisit against
+and no other tile kernel. On the GCN path's arxiv data it then runs the
+graph-parallel path of ``train_fullgraph --shards`` at world size 1 over
+NCCL (``dist_main_path``; one card, and NCCL runs no two ranks on one
+device): ``DistGCN``, ``DistSAGE``, ``DistAPPNP``, ``DistGAT`` and its
+GATv2 form for a warm-up step and 2 epochs each through
+``train_fullgraph.run_sharded``, with finite losses, no tile kernel launched,
+each forward within 1e-4 of the single-device model's at the same weights,
+and ``--shards 2 --device cuda`` refused on the one card with the mesh
+message; it prints a ``dist {...}`` line (the plan's build seconds, halo
+rows, ms/step, device-busy ms and peak memory per model beside the
+single-device GCN's ms/step) and destroys its process group. It runs
+``apps/ab_kernel_stream`` (revisit against
 stream on the flagship graph) once, and times each kernel at its path's
 shapes beside its bound. Then the epidemic simulator, which reaches no
 hand-written kernel: the card's samplers against the exact pmfs, a small
@@ -1009,7 +1020,124 @@ def run_main_path(torch, epochs):
              f"B2 {b1.stream_launches} times, expected 0")
     if not math.isfinite(result["loss"]) or not math.isfinite(result["val"]):
         fail(f"non-finite loss {result['loss']} or val {result['val']}")
-    return graph, launches
+    return graph, launches, result
+
+
+# The graph-parallel path at world size 1 (one card; NCCL runs no two ranks
+# on one device): the models of train_fullgraph --shards at the CLI's widths
+# (the GCN 3 layers of 128/128/40; SAGE and APPNP 128 -> 128 -> 40, APPNP's
+# K = 10; GAT and GATv2 8 heads of 8, then 1 of 40), each through
+# run_sharded, the runner every rank of --shards runs.
+DIST_MODELS = {"gcn": [], "sage": ["--model", "sage"], "appnp": ["--model", "appnp"],
+               "gat": ["--model", "gat", "--hidden", "8"],
+               "gatv2": ["--model", "gatv2", "--hidden", "8"]}
+
+
+def _single_device_model(torch, tapp, model, args):
+    """The port's single-device model of ``model`` at ``args``' widths."""
+    from pygcn_tpu_torch.nn.gat import GAT
+
+    gen = torch.Generator().manual_seed(0)
+    if model in ("gat", "gatv2"):
+        return GAT(args.feat_dim, args.hidden, args.n_classes, heads=args.gat_heads,
+                   v2=model == "gatv2", generator=gen)
+    if model in tapp.EXTENSION_MODELS:
+        return tapp.EXTENSION_MODELS[model](args.feat_dim, args.hidden, args.n_classes,
+                                            generator=gen)
+    dims = [args.feat_dim] + [args.hidden] * (args.layers - 1) + [args.n_classes]
+    return tapp.GCN(dims, generator=gen)
+
+
+def run_dist_main_path(torch, gcn_result):
+    """``dist_main_path``: the models of ``train_fullgraph --shards`` at world
+    size 1 over NCCL (a ``file://`` rendezvous) on the GCN phase's arxiv
+    dataset (its ``prepared`` data, not built again), each for a warm-up step
+    and EPOCHS epochs through ``train_fullgraph.run_sharded``: finite losses,
+    no tile kernel launched (the counts set to 0 before the five runs and
+    read after them), each forward at its trained weights equal to the
+    port's single-device model on the card within 1e-4 (those forwards run
+    after the counts are read: the single-device GCN, SAGE and APPNP take B1
+    on the hybrid tiles), then ``--shards 2 --device cuda`` on this one card
+    refused with the mesh message. Prints a ``dist {...}`` line: the plan's
+    host build seconds, halo rows, ms/step (host clock and CUDA events),
+    device-busy ms of a profiled step and peak memory per model, beside the
+    single-device GCN's ms/step from the GCN phase. The process group is
+    destroyed before it returns."""
+    import torch.distributed as dist
+
+    from pygcn_tpu_torch.apps import train_fullgraph as tapp
+    from pygcn_tpu_torch.parallel.launcher import initialize_multihost
+
+    prepared = gcn_result["prepared"]
+    count = _reset_tile_launches()
+    runs, out = {}, {"card": card_line(), "nodes": prepared.graph.n_nodes,
+                     "edges": prepared.graph.n_edges,
+                     "single_device_gcn_ms_per_step": gcn_result["epoch_s"] * 1e3}
+    with tempfile.TemporaryDirectory() as rdv:
+        info = initialize_multihost(f"file://{rdv}/rendezvous", 1, 0, device="cuda")
+        try:
+            if not info.distributed or dist.get_backend() != "nccl":
+                fail(f"dist_main_path: no NCCL group ({info})")
+            for model, flags in DIST_MODELS.items():
+                args = tapp.parse_args(["--clustered", "--max_epochs", str(EPOCHS), "--memstats",
+                                        "--device", "cuda", *flags])
+                t0 = time.perf_counter()
+                r = tapp.run_sharded(args, prepared)
+                torch.cuda.synchronize()
+                r["wall_s"] = time.perf_counter() - t0
+                r["args"] = args
+                if not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
+                    fail(f"dist {model}: non-finite loss {r['loss']} or val {r['val']}")
+                runs[model] = r
+            launches = count()
+            if launches:
+                fail(f"dist_main_path launched {launches} tile kernels, expected none")
+            x = prepared.x
+            splits, out["kernel_ms_outside_the_profiled_steps"] = _dist_step_splits(
+                torch, {model: r["step"] for model, r in runs.items()})
+            for model, r in runs.items():
+                ms = sorted(_event_ms(torch, r["step"])[1] for _ in range(3))
+                split = splits[model]
+                dm = r["model"]
+                with torch.no_grad():
+                    got = dm(dm.shard_x(x))[: prepared.graph.n_nodes]
+                    single = _single_device_model(torch, tapp, model, r["args"]).cuda()
+                    single.load_state_dict(dm.state_dict(), strict=True)
+                    want = single(x, prepared.graph)
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                    fail(f"dist {model}: world-size-1 forward differs from the single-device "
+                         f"model by {err} (limit 1e-4)")
+                out[model] = {
+                    "plan_s": r["plan_s"], "shard_size": r["shard_size"], "halo": r["halo"],
+                    "halo_rows": r["halo_rows"], "steps": r["steps"], "loss": r["loss"],
+                    "val": r["val"], "ms_per_step": r["epoch_s"] * 1e3,
+                    "event_ms_per_step_median": ms[1], "device_busy_ms": split["busy_ms"],
+                    "profiled_wall_ms": split["wall_ms"],
+                    "device_launches": split["device_launches"],
+                    "device_ms_by_group": split["device_ms_by_group"],
+                    "top_kernels_ms": split["top_kernels_ms"],
+                    "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
+                    "forward_max_abs_err_vs_single_device": err, "run_wall_s": r["wall_s"]}
+                del single, got, want
+            out["tile_kernel_launches"] = launches
+        finally:
+            runs.clear()
+            dist.destroy_process_group()
+    if dist.is_initialized():
+        fail("dist_main_path left a process group behind")
+    torch.cuda.empty_cache()
+    refused = subprocess.run(
+        [sys.executable, "-m", "pygcn_tpu_torch.apps.train_fullgraph", "--shards", "2",
+         "--device", "cuda", "--n_nodes", "1000"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    want_msg = f"mesh needs 2 devices, have {torch.cuda.device_count()}"
+    if refused.returncode == 0 or want_msg not in refused.stderr:
+        fail(f"train_fullgraph --shards 2 --device cuda: rc {refused.returncode}, stderr tail "
+             f"{refused.stderr[-400:]!r}; expected a non-zero exit with {want_msg!r}")
+    out["shards2_refusal"] = {"rc": refused.returncode, "message": want_msg}
+    print("dist " + json.dumps(out), flush=True)
+    return out
 
 
 def run_gat_main_path(torch, v2: bool, epochs, hidden=8):
@@ -2749,14 +2877,63 @@ def _step_split(torch, step):
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] += e.device_time_total / 1e3
             launches += 1
+    busy_ms = sum(by_name.values())
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_launches": launches,
+            "device_ms_by_group": _by_group(by_name),
+            "top_kernels_ms": {k[:80]: v for k, v in by_name.most_common(8)}}
+
+
+def _by_group(by_name):
+    """Device ms by kernel name summed by :data:`STEP_GROUPS` (the rest "other")."""
     split = dict.fromkeys([g for g, _ in STEP_GROUPS] + ["other"], 0.0)
     for name, ms in by_name.items():
         group = next((g for g, frags in STEP_GROUPS if any(f in name for f in frags)), "other")
         split[group] += ms
-    busy_ms = sum(by_name.values())
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "device_launches": launches,
-            "device_ms_by_group": split,
-            "top_kernels_ms": {k[:80]: v for k, v in by_name.most_common(8)}}
+    return split
+
+
+def _dist_step_splits(torch, steps):
+    """One more step of each of ``steps`` (name → step) in a single
+    torch.profiler session, each in a ``dist.<name>`` range that ends in a
+    device sync (one session, not one a model: late in the smoke, recorded
+    windows have lost kernels after many sessions, ``_sampled_step_split``).
+    Per step: its wall ms, and of the kernels inside its range the device's
+    busy ms, their count, ms by :data:`STEP_GROUPS` and the top kernels;
+    beside them, the ms of kernels outside every range (0 when each kernel
+    was attributed)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    walls = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, step in steps.items():
+            with record_function(f"dist.{name}"):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                walls[name] = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    ranges = {e.name[len("dist."):]: e.time_range for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("dist.")}
+    by_name, launches, outside_ms = {n: Counter() for n in steps}, Counter(), 0.0
+    for e in events:
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        owner = next((n for n, r in ranges.items()
+                      if r.start <= e.time_range.start and e.time_range.end <= r.end), None)
+        if owner is None:
+            outside_ms += e.device_time_total / 1e3
+            continue
+        by_name[owner][e.name] += e.device_time_total / 1e3
+        launches[owner] += 1
+    splits = {n: {"wall_ms": walls[n], "busy_ms": sum(by_name[n].values()),
+                  "device_launches": launches[n], "device_ms_by_group": _by_group(by_name[n]),
+                  "top_kernels_ms": {k[:80]: v for k, v in by_name[n].most_common(6)}}
+              for n in steps}
+    return splits, outside_ms
 
 
 def run_products_path(torch, npz, model):
@@ -2984,8 +3161,13 @@ def _sampled_step_split(torch, step):
             by_name[e.name] += e.device_time_total / 1e3
             in_range[e.name] += 1
     # every kernel launched from the step's own thread must fall in its range
-    if not Counter(name for name, _ in _kernels_under(last)) <= in_range:
-        fail("sampled step split: kernels launched in the last step fall outside its range")
+    missing = Counter(name for name, _ in _kernels_under(last)) - in_range
+    if missing:
+        fail(f"sampled step split: kernels launched in the last step fall outside its range "
+             f"[{lo}, {hi}] us: {dict(missing)}; kernels of those names outside it at "
+             + str(sorted((e.time_range.start, e.time_range.end) for e in events
+                          if e.device_type == DeviceType.CUDA and e.name in missing
+                          and not lo <= e.time_range.start <= e.time_range.end <= hi)[-8:]))
     for e in _cpu_under(last):
         if e.name == "sampled.feature_gather":
             gather_ms += e.device_time_total / 1e3
@@ -3186,7 +3368,9 @@ def main() -> None:
     phase("check_tile_shapes", check_tile_shapes, torch)
     phase("cora", run_cora, torch)
     phase("gat_dropout", run_gat_dropout, torch)
-    graph, launches = phase("gcn_main_path", run_main_path, torch, EPOCHS)
+    graph, launches, gcn_result = phase("gcn_main_path", run_main_path, torch, EPOCHS)
+    phase("dist_main_path", run_dist_main_path, torch, gcn_result)
+    del gcn_result
     timing = phase("time_b1_b2", time_b1, torch, graph)
     colpanel_b1 = phase("colpanel_arxiv", check_colpanel_arxiv, torch, graph)
     del graph

@@ -22,6 +22,15 @@ the ogbn-products scale of ``chip_smoke.py``) the layout is the
 SpMMs run ``ops/colpanel.py`` and GAT/GATv2 the column-panel attention sweeps
 (``ops/gat_colpanel.py``), with no tile kernel.
 
+``--shards N`` (N > 1) partitions the graph over N ranks, one process each
+(``parallel/``, the port of the JAX package's graph-parallel path): the
+halo-exchange GCN, GAT, GATv2, SAGE or APPNP (not GIN, as in JAX) on the
+clustered build without the hybrid layout or column panels, with no tile
+kernel. It starts the N ranks itself (gloo on ``--device cpu``; NCCL with
+one card per rank on ``cuda``, refused before starting anything when fewer
+cards are visible), or, started by ``torchrun``, runs as one of them. Rank
+0 reports, and ``main`` returns its result.
+
 Runs on ``--device cuda`` (the default; raises when no card is present) or,
 when asked, ``--device cpu``, where the kernels are replaced by their plain
 versions.
@@ -33,12 +42,15 @@ Usage::
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model gatv2 --hidden 8
     python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --model sage
     python -m pygcn_tpu_torch.apps.train_fullgraph --npz data/arxiv.npz --epochs 50
+    python -m pygcn_tpu_torch.apps.train_fullgraph --clustered --shards 4 --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import sys
 import time
 from typing import Optional
 
@@ -132,7 +144,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "normalised adjacency). --layers and --remat apply to gcn only")
     ap.add_argument("--gat_heads", type=int, default=8)
     ap.add_argument("--shards", type=int, default=1,
-                    help="only 1 is ported")
+                    help="partition the graph over this many ranks (one process each: "
+                         "gloo on --device cpu, NCCL with one card each on cuda) and train "
+                         "the halo-exchange model (gcn/gat/gatv2/sage/appnp)")
     ap.add_argument("--clustered", action="store_true",
                     help="the convergence flagship: community-classification "
                          "data with shuffled ids, locality ordering, hybrid "
@@ -149,11 +163,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="Planetoid .content file (with --cites: Cora-format data)")
     ap.add_argument("--cites", default=None, help="Planetoid .cites file")
     args = ap.parse_args(argv)
-    if args.shards != 1:
-        raise SystemExit("--shards > 1: not ported yet")
     if args.avg_degree is None:
         args.avg_degree = 13.3 if args.clustered else 7.1
     return args
+
+
+@dataclasses.dataclass
+class Data:
+    """The run's data: the graph, the labelled dataset (``--clustered``,
+    ``--npz``, ``--content``/``--cites``; else ``None``), features, labels
+    and the training mask (on the host from :func:`load_data`)."""
+
+    graph: Graph
+    data: object  # NodeClassificationData or None
+    x: torch.Tensor
+    labels: torch.Tensor
+    mask: torch.Tensor
+    tile_frac: Optional[float]  # share of edges on hybrid tiles (--clustered)
 
 
 @dataclasses.dataclass
@@ -173,7 +199,8 @@ class Setup:
 
 
 def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim: int,
-                      seed: int, *, attention: bool, npz: Optional[str] = None):
+                      seed: int, *, attention: bool, npz: Optional[str] = None,
+                      sharded: bool = False):
     """The ``--clustered`` data on the host: community classification with
     shuffled ids and locality ordering (or, when ``npz`` names a file, that
     pre-built, already ordered dataset as it is), then the layouts of the
@@ -181,8 +208,10 @@ def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim:
     ``hybrid_min_edges_per_tile=64`` between 8K nodes and
     ``COLPANEL_MIN_NODES``, the column panels above). ``attention`` builds
     what the GAT needs as well: below the threshold the ELL slot path and the
-    hybrid tiles, above it the column panels alone. The threshold is read
-    when called."""
+    hybrid tiles, above it the column panels alone. ``sharded`` (``--shards``
+    above 1) builds neither the hybrid layout nor column panels, whose
+    whole-graph tiles the ranks do not use, and for attention the ELL
+    layout, as the JAX package does. The threshold is read when called."""
     import os
 
     from pygcn_tpu_torch.graph.datasets import community_classification, load_npz_dataset
@@ -201,7 +230,11 @@ def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim:
         data = reorder_dataset(data, locality_order(data.graph, "auto"))
     kw = dict(is_symmetric=True, build_dense=False, build_bcsr=False,
               hybrid_min_edges_per_tile=64, colpanel_min_nodes=COLPANEL_MIN_NODES)
-    if attention:
+    if sharded:
+        kw.update(build_hybrid=False, build_colpanel=False)
+        if attention:
+            kw.update(build_ell=True)
+    elif attention:
         big = data.graph.n_nodes > COLPANEL_MIN_NODES
         kw.update(build_ell=not big, build_hybrid=not big, build_colpanel=big)
     graph = Graph.from_scipy(data.graph.to_scipy(), **kw)
@@ -217,13 +250,11 @@ def clustered_dataset(n_nodes: int, avg_degree: float, n_classes: int, feat_dim:
     return data
 
 
-def prepare(args: argparse.Namespace) -> Setup:
-    """Build the graph, features, model and optimizer that ``args`` describe."""
-    device = resolve_device(args.device)
-
+def load_data(args: argparse.Namespace) -> Data:
+    """Build the graph, features, labels and mask that ``args`` describe, on
+    the host."""
     from pygcn_tpu_torch.graph.datasets import chung_lu_graph
     from pygcn_tpu_torch.graph.transform import sym_normalize, symmetrize_max
-    from pygcn_tpu_torch.train.optim import adam_l2
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
@@ -232,7 +263,7 @@ def prepare(args: argparse.Namespace) -> Setup:
     if args.clustered:
         data = clustered_dataset(args.n_nodes, args.avg_degree, args.n_classes, args.feat_dim,
                                  args.seed, attention=args.model in ("gat", "gatv2"),
-                                 npz=args.npz)
+                                 npz=args.npz, sharded=args.shards > 1)
         if data.graph.hybrid is not None:
             tile_frac = data.graph.hybrid.tile_edges / data.graph.n_edges
     elif args.npz:
@@ -260,7 +291,16 @@ def prepare(args: argparse.Namespace) -> Setup:
         mask = torch.from_numpy((rng.uniform(size=graph.n_nodes) < 0.1).astype(np.float32))
     print(f"graph: {graph.n_nodes} nodes, {graph.n_edges} edges "
           f"(built in {time.time() - t0:.1f}s)")
+    return Data(graph, data, x, labels, mask, tile_frac)
 
+
+def prepare(args: argparse.Namespace) -> Setup:
+    """Build the graph, features, model and optimizer that ``args`` describe."""
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    device = resolve_device(args.device)
+    d = load_data(args)
+    graph = d.graph
     gen = torch.Generator().manual_seed(args.seed)
     fwd_kw = {}
     if args.model in ("gat", "gatv2"):
@@ -279,10 +319,10 @@ def prepare(args: argparse.Namespace) -> Setup:
         model = GCN(dims, generator=gen, remat=args.remat)
     graph = graph.to(device)
     fwd_kw = {k: v.to(device) if hasattr(v, "to") else v for k, v in fwd_kw.items()}
-    x, labels, mask = x.to(device), labels.to(device), mask.to(device)
     model = model.to(device)
     opt = adam_l2(model.parameters(), args.lr, args.weight_decay)
-    return Setup(device, graph, data, x, labels, mask, model, opt, tile_frac, fwd_kw)
+    return Setup(device, graph, d.data, d.x.to(device), d.labels.to(device), d.mask.to(device),
+                 model, opt, d.tile_frac, fwd_kw)
 
 
 def _gat_layouts(graph: Graph, v2: bool) -> dict:
@@ -318,14 +358,19 @@ def main(argv=None):
     """Run the CLI. With ``--clustered`` returns a dict of the run's results
     (accuracies, step and evaluation counts, ``tile_frac``, the ``graph`` on
     its device, its training ``step`` (a function that runs one more and
-    returns its loss, for profiling), for the GAT its ``edge_map``,
+    returns its loss, for profiling), the run's data as ``prepared`` (a
+    :class:`Data` on the device, which :func:`run_sharded` takes), for the
+    GAT its ``edge_map``,
     ``hybrid_tiles``, ``tiles_t`` and ``colpanel``, and, with ``--memstats``,
     ``peak_mem_bytes``); on a
     labelled dataset (``--npz``, ``--content``/``--cites``) the dict
-    ``{"dt", "val", "test"}``; else the seconds per epoch."""
+    ``{"dt", "val", "test"}``; else the seconds per epoch. With ``--shards``
+    above 1, rank 0's result (:func:`run_sharded`; its plain values when
+    the ranks were started here)."""
     args = parse_args(argv)
+    if args.shards > 1:
+        return _main_sharded(args, sys.argv[1:] if argv is None else list(argv))
     run = prepare(args)
-    device = run.device
 
     def run_step():
         return train_step(run.model, run.opt, run.x, run.labels, run.mask, run.graph,
@@ -335,15 +380,28 @@ def main(argv=None):
     def predict():
         return run.model(run.x, run.graph, **run.fwd_kw)
 
+    result = _train(args, run.device, run.graph, run.data, run_step, predict)
+    if args.clustered:
+        result.update(tile_frac=run.tile_frac, graph=run.graph, step=run_step,
+                      prepared=Data(run.graph, run.data, run.x, run.labels, run.mask,
+                                    run.tile_frac), **run.fwd_kw)
+    return result
+
+
+def _train(args, device: torch.device, graph: Graph, data, run_step, predict, agree=None):
+    """Train and report, on one device or on one rank (every rank runs it,
+    in step): the early-stopped run with ``--clustered``, else timed epochs
+    and, on a labelled dataset, its accuracies; with ``--memstats`` the peak
+    device memory. ``agree`` makes a per-rank decision (the wall budget)
+    the ranks' common one."""
     if args.memstats and device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     if args.clustered:
-        result = _run_convergence(args, run.data, run_step, predict)
-        result.update(tile_frac=run.tile_frac, graph=run.graph, step=run_step, **run.fwd_kw)
+        result = _run_convergence(args, data, run_step, predict, agree)
     else:
-        result = _time_epochs(args, run.graph, run_step)
-        if run.data is not None:
-            result = {"dt": result, **_report_accuracy(run.data, predict)}
+        result = _time_epochs(args, graph, run_step)
+        if data is not None:
+            result = {"dt": result, **_report_accuracy(data, predict)}
     if args.memstats:
         if device.type == "cuda":
             peak = torch.cuda.max_memory_allocated(device)
@@ -355,6 +413,121 @@ def main(argv=None):
         if isinstance(result, dict):
             result["peak_mem_bytes"] = peak
     return result
+
+
+def _main_sharded(args, argv: list):
+    """``--shards N``: run as a rank of the group this process belongs to
+    (one ``torchrun`` started, or :class:`LocalRanks`), else start N ranks
+    here, each running this CLI with ``argv``, and return rank 0's result.
+    Refused before anything starts: GIN (as in JAX), and more ranks than
+    visible cards on ``cuda``."""
+    from pygcn_tpu_torch.parallel.launcher import LocalRanks, initialize_multihost
+    from pygcn_tpu_torch.parallel.mesh import require_devices
+
+    if args.model == "gin":
+        raise SystemExit("--shards supports gcn/gat/gatv2/sage/appnp")
+    if initialize_multihost(device=args.device).distributed:
+        return run_sharded(args)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        require_devices(args.shards, torch.cuda.device_count())
+    with LocalRanks(args.shards, device=device.type, timeout_s=None) as ranks:
+        return ranks.run(_rank_main, argv)[0]
+
+
+def _rank_main(argv: list):
+    """A started rank's job: the CLI inside the group, its result reduced
+    to plain values (the step and model stay in the rank)."""
+    result = main(argv)
+    if isinstance(result, dict):
+        return {k: v for k, v in result.items()
+                if v is None or isinstance(v, (bool, int, float, str))}
+    return result
+
+
+def run_sharded(args, d: Optional[Data] = None):
+    """This rank's part of ``--shards``: partition the graph of ``d`` (built
+    from ``args`` when ``None``) over the ``"graph"`` axis of the process
+    group's ranks (``args.shards`` of them; 1 runs the whole plumbing with an
+    empty halo), build the distributed model (``DistGCN``, ``DistGAT`` v1 or
+    v2, ``DistSAGE`` or ``DistAPPNP``) from the ``--seed`` generator, and
+    train and report it as :func:`main` does on one device, the loss and
+    the predictions global. Only rank 0 prints; a rank outside the mesh
+    returns ``None``. A dict result also carries
+    ``plan_s`` (the plan's host build seconds), ``shard_size``, ``halo``
+    (slots a peer), ``halo_rows`` (boundary rows the exchange moves), the
+    ``model`` and ``step``."""
+    import contextlib
+    import io
+
+    from pygcn_tpu_torch.parallel import build_dist_plan, make_mesh
+    from pygcn_tpu_torch.parallel.dist_gcn import DistGCN, make_dist_classifier_step
+    from pygcn_tpu_torch.parallel.dist_spmm import gather_features
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    device = resolve_device(args.device)
+    mesh = make_mesh([args.shards], ["graph"], device=device)
+    if mesh.coords is None:  # a rank of a larger group, outside the mesh
+        return None
+    quiet = contextlib.redirect_stdout(io.StringIO()) if mesh.rank else contextlib.nullcontext()
+    with quiet:
+        d = load_data(args) if d is None else d
+        t0 = time.perf_counter()
+        plan = build_dist_plan(d.graph, args.shards)
+        plan_s = time.perf_counter() - t0
+        if d.data is not None:
+            args.feat_dim, args.n_classes = d.x.shape[1], d.data.n_classes
+        gen = torch.Generator().manual_seed(args.seed)
+        dims = [args.feat_dim] + [args.hidden] * (args.layers - 1) + [args.n_classes]
+        widths = (args.feat_dim, args.hidden, args.n_classes)
+        if args.model in ("gat", "gatv2"):
+            from pygcn_tpu_torch.parallel.dist_gat import DistGAT
+
+            model = DistGAT(mesh, plan, *widths, heads=args.gat_heads,
+                            v2=args.model == "gatv2", generator=gen)
+        elif args.model == "sage":
+            from pygcn_tpu_torch.parallel.dist_sage import DistSAGE
+
+            model = DistSAGE(mesh, plan, *widths, generator=gen)
+        elif args.model == "appnp":
+            from pygcn_tpu_torch.parallel.dist_sage import DistAPPNP
+
+            model = DistAPPNP(mesh, plan, *widths, generator=gen)
+        else:
+            model = DistGCN(mesh, plan, dims, final_activation=functools.partial(
+                F.log_softmax, dim=1), remat=args.remat, generator=gen)
+        model = model.to(device)
+        opt = adam_l2(model.parameters(), args.lr, args.weight_decay)
+        step = make_dist_classifier_step(model, opt)
+        xs, labels, mask = (model.shard_x(t) for t in (d.x, d.labels, d.mask))
+        print(f"sharded over {args.shards} devices: {plan.shard_size} nodes/shard, "
+              f"halo {plan.halo} rows/peer ({plan.halo_rows} boundary rows in all; "
+              f"plan built in {plan_s:.2f}s)")
+
+        def run_step():
+            return step(xs, labels, mask)
+
+        @torch.no_grad()
+        def predict():
+            return gather_features(model(xs), mesh)[: d.graph.n_nodes]
+
+        result = _train(args, device, d.graph, d.data, run_step, predict,
+                        functools.partial(any_rank, mesh=mesh))
+        if isinstance(result, dict):
+            result.update(plan_s=plan_s, shard_size=plan.shard_size, halo=plan.halo,
+                          halo_rows=plan.halo_rows, model=model, step=run_step)
+        return result
+
+
+def any_rank(flag: bool, mesh) -> bool:
+    """True on every rank when ``flag`` is true on any rank of the mesh's
+    graph axis."""
+    import torch.distributed as dist
+
+    t = torch.tensor([float(flag)], device=mesh.device)
+    if dist.is_initialized():
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group("graph"))
+    return bool(t.item())
 
 
 def _time_epochs(args, graph, run_step):
@@ -383,12 +556,13 @@ def _report_accuracy(data, predict) -> dict:
     return accs
 
 
-def _run_convergence(args, data, run_step, predict):
+def _run_convergence(args, data, run_step, predict, agree=None):
     """Early-stopped training; reports ms/epoch, best val and test at best.
 
     Returns a dict with the accuracies, the number of training ``steps`` and
     evaluation forwards (``evals``) run, including the first (warm-up) pair,
-    and the last ``loss``.
+    and the last ``loss``. ``agree`` turns each rank's reading of the wall
+    budget into the ranks' common decision.
     """
     labels = np.asarray(data.labels)
     idx_val = np.asarray(data.idx_val)
@@ -414,6 +588,8 @@ def _run_convergence(args, data, run_step, predict):
         steps += 1
         epochs += 1
         out_of_time = args.max_wall_s is not None and time.time() - t_wall > args.max_wall_s
+        if agree is not None and args.max_wall_s is not None:
+            out_of_time = agree(out_of_time)
         if ep % eval_every == 0 or out_of_time or ep == args.max_epochs - 1:
             preds = preds_now()
             evals += 1

@@ -27,7 +27,11 @@ sampled trainer's lists (``pygcn_tpu/apps/train_sampled.py``: per layer
 ``{"w", "b"}`` for the GCN, ``{"w", "a_src", "a_dst", "b"}`` for the GAT,
 ``{"w_l", "w_r", "a", "b"}`` for GATv2) map onto ``layers.<i>.<name>`` of
 the port's ``SampledGCN``, ``SampledGAT`` and ``SampledGATv2``, under the
-same names (:func:`sampled_params_to_state_dict`). The two random generators
+same names (:func:`sampled_params_to_state_dict`). The distributed models of
+``pygcn_tpu/parallel`` keep the same trees (``DistGCN`` the list, ``DistSAGE``
+and ``DistAPPNP`` SAGE's and APPNP's, ``DistGAT`` the GAT's, v1 and v2), and
+the port's ``pygcn_tpu_torch/parallel`` models keep the single-device state
+dicts, so the functions above carry them too. The two random generators
 differ, so tests start both packages from one set of weights carried across
 here. The simulator's inputs cross the same way: :func:`fields_of` reads any
 of the JAX package's dataclasses (``EpidemicParams``, ``VisitSeq``,

@@ -115,3 +115,45 @@ class ELLSpMM(torch.autograd.Function):
 
 def ell_spmm_pair(ell: ELL, ell_t: ELL, x: torch.Tensor) -> torch.Tensor:
     return ELLSpMM.apply(x, ell, ell_t)
+
+
+def build_ell_stacked(mats, ks: Tuple[int, ...] = (4, 8, 16, 32, 64, 128, 256)):
+    """Shard-uniform ELL layouts of equally shaped sparse matrices, one per
+    shard of a distributed plan (``parallel/partition.py``), as host NumPy:
+    per bucket ``cols``/``vals`` flat ``[P, Nb_max·K]`` and ``rows``
+    ``[P, Nb_max]``, each shard's blocks zero-padded to the largest block
+    count. Returns ``(cols, vals, rows, n_rows)``, the buckets as tuples."""
+    built = [build_ell(m, ks) for m in mats]
+    n_rows = built[0].n_rows
+    cols_out, vals_out, rows_out = [], [], []
+    for j, k in enumerate(ks):
+        nb_max = max(e.rows[j].shape[0] for e in built)
+        cols = np.zeros((len(mats), nb_max * k), np.int32)
+        vals = np.zeros((len(mats), nb_max * k), np.float32)
+        rows = np.zeros((len(mats), nb_max), np.int32)
+        for p, e in enumerate(built):
+            nb = e.rows[j].shape[0]
+            cols[p, : nb * k] = e.cols[j].numpy().reshape(-1)
+            vals[p, : nb * k] = e.vals[j].numpy().reshape(-1)
+            rows[p, :nb] = e.rows[j].numpy()
+        cols_out.append(cols)
+        vals_out.append(vals)
+        rows_out.append(rows)
+    return tuple(cols_out), tuple(vals_out), tuple(rows_out), n_rows
+
+
+def ell_apply_arrays(cols, vals, rows, n_rows: int, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` from one shard's flat per-bucket arrays (``cols``/``vals``
+    ``[Nb·K]``, ``rows`` ``[Nb]``, as :func:`build_ell_stacked` stacks them):
+    a gather, a sum over K and one ``index_add`` of the partial rows. Padding
+    blocks carry value 0 and add nothing. Autograd differentiates it (the
+    gather's gradient is a scatter into ``x``)."""
+    partials, vrows = [], []
+    for c, v, r in zip(cols, vals, rows):
+        nb = r.shape[0]
+        k = c.shape[0] // nb
+        g = x.index_select(0, c).view(nb, k, x.shape[1])
+        partials.append((g * v.view(nb, k, 1)).sum(dim=1))
+        vrows.append(r)
+    out = x.new_zeros((n_rows, x.shape[1]))
+    return out.index_add(0, torch.cat(vrows), torch.cat(partials))

@@ -1,1 +1,34 @@
-"""Host-side node ordering for locality."""
+"""Graph-parallel training over ``torch.distributed`` (queue A item 8a).
+
+The port of ``pygcn_tpu/parallel``: the mesh, the launcher, the partition
+plan with its halo exchange, the distributed SpMM and the distributed GCN,
+SAGE, APPNP and GAT/GATv2 models. The graph×data, tensor-, pipeline- and
+expert-parallel modules of the JAX package come with queue A items 8b and
+8c. The models are imported when first named, as in the JAX package.
+"""
+
+from pygcn_tpu_torch.parallel.dist_spmm import make_dist_spmm
+from pygcn_tpu_torch.parallel.mesh import make_mesh
+from pygcn_tpu_torch.parallel.partition import DistPlan, build_dist_plan
+
+__all__ = [
+    "make_mesh",
+    "DistPlan",
+    "build_dist_plan",
+    "make_dist_spmm",
+    "DistGCN",
+    "DistGAT",
+    "DistSAGE",
+    "DistAPPNP",
+]
+
+_LAZY = {"DistGCN": "dist_gcn", "DistGAT": "dist_gat", "DistSAGE": "dist_sage",
+         "DistAPPNP": "dist_sage"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f"pygcn_tpu_torch.parallel.{_LAZY[name]}"), name)
+    raise AttributeError(name)

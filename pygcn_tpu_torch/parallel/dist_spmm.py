@@ -1,0 +1,160 @@
+"""Distributed SpMM over the ranks of a mesh axis: halo exchange plus local
+aggregation.
+
+The port of ``pygcn_tpu/parallel/dist_spmm.py``. ``make_dist_spmm(mesh,
+plan)`` returns ``f(x) -> A @ x`` on this rank's rows: ``x`` is its
+``[S, F]`` block of the padded ``[P·S, F]`` features (:func:`shard_features`)
+and so is the result. On each rank:
+
+1. gather its boundary rows for every peer (``send_idx``): ``[P, halo, F]``;
+2. one ``all_to_all_single`` delivers each rank its halo table (slice *o*:
+   the rows rank *o* sent);
+3. the local edges aggregate from the resident rows and the remote edges
+   from the halo table, on the plan's stacked ELL layouts
+   (``ops/ell.ell_apply_arrays``) or, without them, on its COO edge arrays.
+
+``torch.distributed``'s collectives have no gradient, so the exchange is a
+:class:`torch.autograd.Function` whose backward runs the reverse
+all-to-all and adds each received gradient into the row it was sent from;
+JAX derives the same from ``all_to_all``'s transpose. The aggregation's
+gradient is autograd's. No tile kernel runs on this path, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from pygcn_tpu_torch.ops.ell import ell_apply_arrays
+from pygcn_tpu_torch.ops.gat import _segment_sum
+from pygcn_tpu_torch.parallel.mesh import Mesh
+from pygcn_tpu_torch.parallel.partition import DistPlan, PlanShard
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Slice *i* of ``t``'s first axis goes to rank *i*; slice *o* of the
+    result came from rank *o*. Without a process group (one rank) a copy."""
+    if not dist.is_initialized():
+        return t.clone()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t.contiguous(), group=group)
+    return out
+
+
+class HaloExchange(torch.autograd.Function):
+    """``x [S, F]`` → the incoming halo table ``[P, halo, F]``: each rank
+    ships ``x[send_idx[i]]`` to rank *i*. The backward ships the table's
+    gradient back the same way and adds it into the rows sent."""
+
+    @staticmethod
+    def forward(ctx, x, send_idx, group):
+        p, halo = send_idx.shape
+        outgoing = x.index_select(0, send_idx.reshape(-1)).view(p, halo, x.shape[1])
+        ctx.save_for_backward(send_idx)
+        ctx.group, ctx.n_rows = group, x.shape[0]
+        return _all_to_all(outgoing, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        (send_idx,) = ctx.saved_tensors
+        back = _all_to_all(g, ctx.group)  # slice i: the gradient of the rows sent to rank i
+        dx = g.new_zeros((ctx.n_rows, g.shape[-1]))
+        return dx.index_add_(0, send_idx.reshape(-1), back.reshape(-1, g.shape[-1])), None, None
+
+
+def halo_exchange(x: torch.Tensor, send_idx: torch.Tensor, group=None) -> torch.Tensor:
+    return HaloExchange.apply(x, send_idx, group)
+
+
+def plan_shard(mesh: Mesh, plan, axis: str = "graph") -> PlanShard:
+    """This rank's row of ``plan`` on the mesh's device (``plan`` as it is
+    when it is one rank's already)."""
+    if isinstance(plan, PlanShard):
+        return plan
+    if mesh.size(axis) != plan.n_shards:
+        raise ValueError(f"plan of {plan.n_shards} shards on a {axis!r} axis of "
+                         f"{mesh.size(axis)} ranks")
+    return plan.shard(mesh.coord(axis), mesh.device)
+
+
+def make_dist_spmm(mesh: Mesh, plan, axis: str = "graph", parts: str = "full"):
+    """The distributed SpMM on this rank: ``f(x [S, F]) -> (A @ X)[S, F]``.
+
+    ``parts`` selects a component for cost attribution: ``"local"`` skips
+    the halo exchange and the remote aggregation; ``"halo"`` runs only the
+    boundary gather, the all-to-all and the remote aggregation; ``"full"``
+    (the default) is the real op, and the two components sum to it. JAX's
+    ``col_axis`` (a second mesh axis over feature columns) serves only the
+    graph×data evaluator of queue A item 8b and comes with it."""
+    if parts not in ("full", "local", "halo"):
+        raise ValueError(f"unknown parts {parts!r}")
+    shard = plan_shard(mesh, plan, axis)
+    group = mesh.group(axis)
+    use_ell = shard.loc_ell is not None and shard.rem_ell is not None
+    s = shard.shard_size
+
+    def f(x: torch.Tensor) -> torch.Tensor:
+        y = None
+        if parts != "halo":
+            y = (ell_apply_arrays(*shard.loc_ell, s, x) if use_ell else
+                 _segment_sum(x.index_select(0, shard.loc_s) * shard.loc_w[:, None],
+                              shard.loc_r, s))
+        if parts != "local":
+            table = halo_exchange(x, shard.send_idx, group).reshape(-1, x.shape[1])
+            y_remote = (ell_apply_arrays(*shard.rem_ell, s, table) if use_ell else
+                        _segment_sum(table.index_select(0, shard.rem_h) * shard.rem_w[:, None],
+                                     shard.rem_r, s))
+            y = y_remote if y is None else y + y_remote
+        return y
+
+    return f
+
+
+def pad_node_features(x, plan: DistPlan | PlanShard) -> torch.Tensor:
+    """Zero-pad ``[N, ...]`` node values (a tensor or an array) to the
+    plan's ``[P·S, ...]``."""
+    x = torch.as_tensor(x)
+    pad = plan.n_nodes_padded - x.shape[0]
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]) if pad else x
+
+
+def shard_features(x, mesh: Mesh, axis: str = "graph") -> torch.Tensor:
+    """This rank's rows of the padded ``[P·S, ...]`` ``x``, on its device."""
+    x = torch.as_tensor(x)
+    rows = x.shape[0] // mesh.size(axis)
+    c = mesh.coord(axis)
+    return x[c * rows:(c + 1) * rows].contiguous().to(mesh.device)
+
+
+def gather_features(x: torch.Tensor, mesh: Mesh, axis: str = "graph") -> torch.Tensor:
+    """Every rank's rows of the axis, in rank order: the padded ``[P·S, ...]``
+    that :func:`shard_features` split (a collective: every rank calls it)."""
+    if not dist.is_initialized():
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.size(axis))]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group(axis))
+    return torch.cat(parts)
+
+
+def seeded(generator: Optional[torch.Generator]) -> torch.Generator:
+    """``generator``, or one seeded with 0 (the layers' own default)."""
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+class DistModule(nn.Module):
+    """What the distributed models share: the mesh, the graph axis, this
+    rank's row of the plan (``shard``) and the distributed SpMM over it.
+    Weights are replicated: every rank holds them all."""
+
+    def __init__(self, mesh: Mesh, plan, axis: str = "graph"):
+        super().__init__()
+        self.mesh, self.axis = mesh, axis
+        self.shard = plan_shard(mesh, plan, axis)
+        self.spmm = make_dist_spmm(mesh, self.shard, axis)
+
+    def shard_x(self, x) -> torch.Tensor:
+        """This rank's rows of ``[N, ...]`` node values, zero-padded, on its device."""
+        return shard_features(pad_node_features(x, self.shard), self.mesh, self.axis)

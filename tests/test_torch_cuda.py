@@ -1175,3 +1175,83 @@ def test_sampled_step_on_the_card_matches_the_cpu(dev, model):
     for g, c, grad in zip(g_params, c_params, c_grads):
         held = grad.abs() >= 1e-6
         torch.testing.assert_close(g[held], c[held], rtol=1e-4, atol=1e-4)
+
+
+def _dist_graph():
+    from pygcn_tpu_torch.graph.transform import sym_normalize, symmetrize_max
+
+    rng = np.random.default_rng(5)
+    n, e = 500, 4000
+    m = sp.coo_matrix((rng.uniform(0.1, 1.0, e), (rng.integers(0, n, e), rng.integers(0, n, e))),
+                      shape=(n, n))
+    a = sym_normalize(symmetrize_max(m))
+    return Graph.from_scipy(a, is_symmetric=True, build_dense=False, build_bcsr=False), a
+
+
+def _one_rank_nccl_group(tmp_path):
+    """A process group of this process alone over NCCL (``file://``
+    rendezvous, no network); the caller destroys it."""
+    from pygcn_tpu_torch.parallel.launcher import initialize_multihost
+
+    info = initialize_multihost(f"file://{tmp_path}/rendezvous", 1, 0, device="cuda")
+    assert info.distributed and torch.distributed.get_backend() == "nccl"
+
+
+def test_dist_spmm_and_step_on_one_nccl_rank_match_the_cpu(dev, tmp_path):
+    """World size 1 over NCCL (the card's halo exchange is an NCCL
+    all-to-all of an empty halo): the distributed SpMM, with and without
+    the plan's ELL layouts, equals the dense product and its gradient, and
+    three ``DistGCN`` classifier steps equal the same steps on the CPU
+    (run first, with no process group) within 1e-4."""
+    import torch.nn.functional as F
+
+    from pygcn_tpu_torch.parallel import build_dist_plan, make_dist_spmm, make_mesh
+    from pygcn_tpu_torch.parallel.dist_gcn import DistGCN, make_dist_classifier_step
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    g, a = _dist_graph()
+    plans = {ell: build_dist_plan(g, 1, build_ell=ell) for ell in (True, False)}
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(g.n_nodes, 40)).astype(np.float32)
+    labels = torch.from_numpy(rng.integers(0, 4, g.n_nodes))
+    mask = torch.from_numpy((rng.uniform(size=g.n_nodes) < 0.3).astype(np.float32))
+
+    def gcn_steps(device):
+        mesh = make_mesh([1], ["graph"], device=device)
+        model = DistGCN(mesh, plans[True], [40, 16, 4],
+                        final_activation=lambda h: F.log_softmax(h, dim=1),
+                        generator=torch.Generator().manual_seed(0)).to(device)
+        step = make_dist_classifier_step(model, adam_l2(model.parameters(), 0.01, 5e-4))
+        xs, ys, ms = (model.shard_x(t) for t in (x, labels, mask))
+        losses = [step(xs, ys, ms).cpu() for _ in range(3)]
+        return losses, [p.detach().cpu() for p in model.parameters()]
+
+    cpu_losses, cpu_params = gcn_steps("cpu")
+    _one_rank_nccl_group(tmp_path)
+    try:
+        mesh = make_mesh([1], ["graph"])
+        assert mesh.device.type == "cuda"
+        for ell, plan in plans.items():
+            xs = torch.from_numpy(x).to(dev).requires_grad_()
+            y = make_dist_spmm(mesh, plan)(xs)
+            y.sum().backward()
+            torch.testing.assert_close(y.cpu()[: g.n_nodes], torch.from_numpy(a @ x).float(),
+                                       rtol=1e-4, atol=1e-4, msg=f"ell={ell}")
+            torch.testing.assert_close(
+                xs.grad.cpu(), torch.from_numpy(a.T @ np.ones_like(x)).float(), rtol=1e-4,
+                atol=1e-4, msg=f"ell={ell}")
+        card_losses, card_params = gcn_steps(mesh.device)
+    finally:
+        torch.distributed.destroy_process_group()
+    for g_, c in [*zip(card_losses, cpu_losses), *zip(card_params, cpu_params)]:
+        torch.testing.assert_close(g_, c, rtol=1e-4, atol=1e-4)
+
+
+def test_shards_beyond_the_visible_cards_are_refused(dev):
+    """``train_fullgraph --shards N --device cuda`` with N above the visible
+    cards exits with the mesh message before it builds or starts anything."""
+    from pygcn_tpu_torch.apps import train_fullgraph as tapp
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"mesh needs {n} devices, have {n - 1}"):
+        tapp.main(["--shards", str(n), "--device", "cuda", "--n_nodes", "300"])

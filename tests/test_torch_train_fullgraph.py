@@ -176,12 +176,30 @@ def test_cli_synthetic_timing():
     assert dt > 0
 
 
+@pytest.fixture(scope="module")
+def ranks4():
+    from pygcn_tpu_torch.parallel.launcher import LocalRanks
+
+    with LocalRanks(4, timeout_s=180) as ranks:
+        yield ranks
+
+
 @pytest.mark.parametrize("flags", [["--model", "sage", "--shards", "2"], ["--shards", "2"],
                                    ["--model", "gat", "--shards", "4"],
                                    ["--model", "appnp", "--shards", "2"]])
-def test_cli_unported_options_exit(flags):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tapp.main(["--device", "cpu", *flags])
+def test_cli_unported_options_exit(ranks4, flags):
+    """The ``--shards`` flag sets the port once refused as "not ported yet"
+    now train: each runs as ranks of a gloo group of 4 (as under
+    ``torchrun``; ``tests/test_torch_dist_models.py`` holds the models
+    against JAX's), rank 0 returning its seconds per epoch and the ranks
+    outside the mesh nothing."""
+    import torch_dist_ranks
+
+    shards = int(flags[flags.index("--shards") + 1])
+    out = ranks4.run(torch_dist_ranks.cli_job,
+                     [*CLI_SMALL, "--epochs", "1", "--gat_heads", "2", *flags])
+    assert out[0] > 0 and all(r is None for r in out[shards:])
+    assert all(r > 0 for r in out[:shards])
 
 
 def test_unknown_model_exits_2_as_in_jax(capsys):
