@@ -1063,79 +1063,61 @@ def run_dist_main_path(torch, gcn_result):
     device-busy ms of a profiled step and peak memory per model, beside the
     single-device GCN's ms/step from the GCN phase. The process group is
     destroyed before it returns."""
-    import torch.distributed as dist
-
     from pygcn_tpu_torch.apps import train_fullgraph as tapp
-    from pygcn_tpu_torch.parallel.launcher import initialize_multihost
 
     prepared = gcn_result["prepared"]
     count = _reset_tile_launches()
     runs, out = {}, {"card": card_line(), "nodes": prepared.graph.n_nodes,
                      "edges": prepared.graph.n_edges,
                      "single_device_gcn_ms_per_step": gcn_result["epoch_s"] * 1e3}
-    with tempfile.TemporaryDirectory() as rdv:
-        info = initialize_multihost(f"file://{rdv}/rendezvous", 1, 0, device="cuda")
-        try:
-            if not info.distributed or dist.get_backend() != "nccl":
-                fail(f"dist_main_path: no NCCL group ({info})")
-            for model, flags in DIST_MODELS.items():
-                args = tapp.parse_args(["--clustered", "--max_epochs", str(EPOCHS), "--memstats",
-                                        "--device", "cuda", *flags])
-                t0 = time.perf_counter()
-                r = tapp.run_sharded(args, prepared)
-                torch.cuda.synchronize()
-                r["wall_s"] = time.perf_counter() - t0
-                r["args"] = args
-                if not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
-                    fail(f"dist {model}: non-finite loss {r['loss']} or val {r['val']}")
-                runs[model] = r
-            launches = count()
-            if launches:
-                fail(f"dist_main_path launched {launches} tile kernels, expected none")
-            x = prepared.x
-            splits, out["kernel_ms_outside_the_profiled_steps"] = _dist_step_splits(
-                torch, {model: r["step"] for model, r in runs.items()})
-            for model, r in runs.items():
-                ms = sorted(_event_ms(torch, r["step"])[1] for _ in range(3))
-                split = splits[model]
-                dm = r["model"]
-                with torch.no_grad():
-                    got = dm(dm.shard_x(x))[: prepared.graph.n_nodes]
-                    single = _single_device_model(torch, tapp, model, r["args"]).cuda()
-                    single.load_state_dict(dm.state_dict(), strict=True)
-                    want = single(x, prepared.graph)
-                err = float((got - want).abs().max())
-                if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
-                    fail(f"dist {model}: world-size-1 forward differs from the single-device "
-                         f"model by {err} (limit 1e-4)")
-                out[model] = {
-                    "plan_s": r["plan_s"], "shard_size": r["shard_size"], "halo": r["halo"],
-                    "halo_rows": r["halo_rows"], "steps": r["steps"], "loss": r["loss"],
-                    "val": r["val"], "ms_per_step": r["epoch_s"] * 1e3,
-                    "event_ms_per_step_median": ms[1], "device_busy_ms": split["busy_ms"],
-                    "profiled_wall_ms": split["wall_ms"],
-                    "device_launches": split["device_launches"],
-                    "device_ms_by_group": split["device_ms_by_group"],
-                    "top_kernels_ms": split["top_kernels_ms"],
-                    "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
-                    "forward_max_abs_err_vs_single_device": err, "run_wall_s": r["wall_s"]}
-                del single, got, want
-            out["tile_kernel_launches"] = launches
-        finally:
-            runs.clear()
-            dist.destroy_process_group()
-    if dist.is_initialized():
-        fail("dist_main_path left a process group behind")
+    with _OneRankGroup("dist_main_path"):
+        for model, flags in DIST_MODELS.items():
+            args = tapp.parse_args(["--clustered", "--max_epochs", str(EPOCHS), "--memstats",
+                                    "--device", "cuda", *flags])
+            t0 = time.perf_counter()
+            r = tapp.run_sharded(args, prepared)
+            torch.cuda.synchronize()
+            r["wall_s"] = time.perf_counter() - t0
+            r["args"] = args
+            if not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
+                fail(f"dist {model}: non-finite loss {r['loss']} or val {r['val']}")
+            runs[model] = r
+        launches = count()
+        if launches:
+            fail(f"dist_main_path launched {launches} tile kernels, expected none")
+        x = prepared.x
+        splits, out["kernel_ms_outside_the_profiled_steps"] = _dist_step_splits(
+            torch, {model: r["step"] for model, r in runs.items()})
+        for model, r in runs.items():
+            ms = sorted(_event_ms(torch, r["step"])[1] for _ in range(3))
+            split = splits[model]
+            dm = r["model"]
+            with torch.no_grad():
+                got = dm(dm.shard_x(x))[: prepared.graph.n_nodes]
+                single = _single_device_model(torch, tapp, model, r["args"]).cuda()
+                single.load_state_dict(dm.state_dict(), strict=True)
+                want = single(x, prepared.graph)
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                fail(f"dist {model}: world-size-1 forward differs from the single-device "
+                     f"model by {err} (limit 1e-4)")
+            out[model] = {
+                "plan_s": r["plan_s"], "shard_size": r["shard_size"], "halo": r["halo"],
+                "halo_rows": r["halo_rows"], "steps": r["steps"], "loss": r["loss"],
+                "val": r["val"], "ms_per_step": r["epoch_s"] * 1e3,
+                "event_ms_per_step_median": ms[1], "device_busy_ms": split["busy_ms"],
+                "profiled_wall_ms": split["wall_ms"],
+                "device_launches": split["device_launches"],
+                "device_ms_by_group": split["device_ms_by_group"],
+                "top_kernels_ms": split["top_kernels_ms"],
+                "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
+                "forward_max_abs_err_vs_single_device": err, "run_wall_s": r["wall_s"]}
+            del single, got, want
+        out["tile_kernel_launches"] = launches
+        runs.clear()
     torch.cuda.empty_cache()
-    refused = subprocess.run(
-        [sys.executable, "-m", "pygcn_tpu_torch.apps.train_fullgraph", "--shards", "2",
-         "--device", "cuda", "--n_nodes", "1000"],
-        cwd=HERE, capture_output=True, text=True, timeout=300)
-    want_msg = f"mesh needs 2 devices, have {torch.cuda.device_count()}"
-    if refused.returncode == 0 or want_msg not in refused.stderr:
-        fail(f"train_fullgraph --shards 2 --device cuda: rc {refused.returncode}, stderr tail "
-             f"{refused.stderr[-400:]!r}; expected a non-zero exit with {want_msg!r}")
-    out["shards2_refusal"] = {"rc": refused.returncode, "message": want_msg}
+    out["shards2_refusal"] = _mesh_refusal("pygcn_tpu_torch.apps.train_fullgraph",
+                                           ["--n_nodes", "1000"])
     print("dist " + json.dumps(out), flush=True)
     return out
 
@@ -2109,8 +2091,10 @@ def run_evaluator_main_path(torch, keep_dir):
     folded ``[2943, 640]`` product against its plain version, ``torch.mm``
     on the dense matrix and its bound; ``baselines mlp``, ``summary-ols``
     and ``train_legacy`` take a few epochs. Prints an ``evaluator {...}``
-    line; returns B1's row for the ``kernels`` line. The trained
-    ``evaluator.pkl`` is copied into ``keep_dir`` for the phases after."""
+    line; returns B1's row for the ``kernels`` line and the evaluator's
+    inputs (world, split, features, targets) for ``dp_evaluator``. The
+    trained ``evaluator.pkl`` and the ground truth ``vac.csv`` are copied
+    into ``keep_dir`` for the phases after."""
     import pickle
     import shutil
     import signal
@@ -2189,6 +2173,7 @@ def run_evaluator_main_path(torch, keep_dir):
                  "layout has none")
         world, res, feats, dim, y, out["world_s"], out["centralities_s"] = \
             _evaluator_setup(torch, csv_path)
+        shutil.copy(csv_path, keep_dir)
 
     graph = world.graph
     feats_dev, y_dev = torch.from_numpy(feats).cuda(), torch.from_numpy(y).cuda()
@@ -2243,7 +2228,8 @@ def run_evaluator_main_path(torch, keep_dir):
           f"[{n}, {h}] {min(ms):.4f} ms against torch.mm {min(mm_ms):.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}); no tile kernel on the CLIs", flush=True)
     print("evaluator " + json.dumps(out), flush=True)
-    return b1_row
+    return b1_row, {"world": world, "res": res, "feats": feats, "dim": dim, "y": y,
+                    "csv": os.path.join(keep_dir, "vac.csv")}
 
 
 def _bcsr_route(torch, tev, b1, adam_l2, graph, bx, by, dim, n_features):
@@ -2815,7 +2801,7 @@ PRODUCTS_NODES, PRODUCTS_DEGREE = 2_449_029, 13.0
 PRODUCTS_EPOCHS = 2
 
 
-def build_products_dataset(torch, path):
+def build_products_dataset(path):
     """The products convergence dataset, built once on the host as
     ``tools/products_ds_cache.py`` does (community graph with shuffled ids,
     locality order, relabelled) and saved to ``path`` in the ``.npz`` format;
@@ -2893,46 +2879,49 @@ def _by_group(by_name):
 
 
 def _dist_step_splits(torch, steps):
-    """One more step of each of ``steps`` (name → step) in a single
-    torch.profiler session, each in a ``dist.<name>`` range that ends in a
-    device sync (one session, not one a model: late in the smoke, recorded
-    windows have lost kernels after many sessions, ``_sampled_step_split``).
-    Per step: its wall ms, and of the kernels inside its range the device's
-    busy ms, their count, ms by :data:`STEP_GROUPS` and the top kernels;
-    beside them, the ms of kernels outside every range (0 when each kernel
-    was attributed)."""
+    """Three more steps of each of ``steps`` (name → step) in a single
+    torch.profiler session, a round of one step each at a time, each step
+    in a ``dist.<name>`` range that ends in a device sync; the last round is
+    read, as :func:`_sampled_step_split` reads its last step (the first
+    recorded step of a session has lost most of its kernels' records). Per
+    step: its wall ms, and of the kernels launched inside its range
+    (:func:`_launched_in`, the host's clock alone: the device's timeline can
+    sit milliseconds off it) the device's busy ms, their count, ms by
+    :data:`STEP_GROUPS` and the top kernels; beside them, the ms of kernels
+    launched outside the last round's ranges. Fails if a launch in a read
+    range left no device record."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     walls = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for name, step in steps.items():
-            with record_function(f"dist.{name}"):
-                t0 = time.perf_counter()
-                step()
-                torch.cuda.synchronize()
-                walls[name] = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    ranges = {e.name[len("dist."):]: e.time_range for e in events
-              if e.device_type == DeviceType.CPU and e.name.startswith("dist.")}
-    by_name, launches, outside_ms = {n: Counter() for n in steps}, Counter(), 0.0
-    for e in events:
-        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        owner = next((n for n, r in ranges.items()
-                      if r.start <= e.time_range.start and e.time_range.end <= r.end), None)
-        if owner is None:
-            outside_ms += e.device_time_total / 1e3
-            continue
-        by_name[owner][e.name] += e.device_time_total / 1e3
-        launches[owner] += 1
-    splits = {n: {"wall_ms": walls[n], "busy_ms": sum(by_name[n].values()),
-                  "device_launches": launches[n], "device_ms_by_group": _by_group(by_name[n]),
-                  "top_kernels_ms": {k[:80]: v for k, v in by_name[n].most_common(6)}}
-              for n in steps}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1)) as prof:
+        for _ in range(3):
+            for name, step in steps.items():
+                with record_function(f"dist.{name}"):
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    walls[name] = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    rows = _raw_events(prof)
+    splits, attributed = {}, 0.0
+    for name in steps:
+        lo, hi = max((r[3], r[4]) for r in rows if not r[1] and r[0] == f"dist.{name}")
+        kernels, lost = _launched_in(rows, lo, hi)
+        if lost:
+            fail(f"step split {name}: {len(lost)} launches left no device record")
+        by_name = Counter()
+        for k, us in kernels:
+            by_name[k] += us / 1e3
+        attributed += sum(by_name.values())
+        splits[name] = {"wall_ms": walls[name], "busy_ms": sum(by_name.values()),
+                        "device_launches": len(kernels), "device_ms_by_group": _by_group(by_name),
+                        "top_kernels_ms": {k[:80]: v for k, v in by_name.most_common(6)}}
+    start = min(max(r[3] for r in rows if not r[1] and r[0] == f"dist.{n}") for n in steps)
+    outside_ms = _launched_ms(rows, start) - attributed
     return splits, outside_ms
 
 
@@ -2978,15 +2967,44 @@ def run_products_path(torch, npz, model):
     return out
 
 
-def run_products(torch):
-    """The products cell: the dataset once, then the GCN, GAT and GATv2."""
-    with tempfile.TemporaryDirectory() as d:
-        npz = os.path.join(d, "products.npz")
-        out = {"dataset": build_products_dataset(torch, npz)}
-        for model in ("gcn", "gat", "gatv2"):
-            t0 = time.perf_counter()
-            out[model] = run_products_path(torch, npz, model)
-            print(f"phase products_{model} wall: {time.perf_counter() - t0:.1f}s", flush=True)
+def _build_products_child(path):
+    """A child process's job: :func:`build_products_dataset` into ``path``
+    (host work alone, on one core), its numbers beside it as JSON."""
+    out = build_products_dataset(path)
+    with open(path + ".json", "w") as f:
+        json.dump(out, f)
+
+
+def start_products_build(workdir):
+    """Start building the products dataset in a child process, beside the
+    phases before ``products`` (its host set-up, about 180–280 s, then costs
+    the smoke's wall nothing); the child is a daemon, stopped if the smoke
+    exits first."""
+    import multiprocessing
+
+    npz = os.path.join(workdir, "products.npz")
+    proc = multiprocessing.get_context("spawn").Process(target=_build_products_child,
+                                                        args=(npz,), daemon=True)
+    proc.start()
+    return proc, npz
+
+
+def run_products(torch, build):
+    """The products cell: the dataset the child of
+    :func:`start_products_build` built, then the GCN, GAT and GATv2."""
+    proc, npz = build
+    t0 = time.perf_counter()
+    proc.join()
+    if proc.exitcode != 0:
+        fail(f"building the products dataset failed (child exit code {proc.exitcode})")
+    with open(npz + ".json") as f:
+        out = {"dataset": json.load(f)}
+    out["dataset"]["waited_s"] = time.perf_counter() - t0
+    for model in ("gcn", "gat", "gatv2"):
+        t0 = time.perf_counter()
+        out[model] = run_products_path(torch, npz, model)
+        print(f"phase products_{model} wall: {time.perf_counter() - t0:.1f}s", flush=True)
+    os.remove(npz)
     return out
 
 
@@ -3137,37 +3155,37 @@ def _sampled_step_split(torch, step):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    # a warm-up step, then two recorded ones, of which the last is read: late
-    # in the smoke, after many profiler sessions, a recorded window lost its
-    # first kernels (a GCN step kept 6 of its 48 launches; a GATv2 step after
-    # one warm-up step lost its feature gather). Each step ends in a device
-    # sync, so its kernels run inside its ProfilerStep range; they are taken
-    # by time, since the backward's ops run on autograd's own thread, outside
-    # that range's CPU children.
+    # a warm-up step, then two recorded ones, of which the last is read. Its
+    # kernels are those launched inside its range (:func:`_launched_in`): the
+    # device's timeline can sit some ms off the host's, so kernels taken by
+    # their device times could fall outside the step. The backward's ops run
+    # on autograd's own thread, outside the range's CPU children, and are
+    # taken all the same. Checked: every launch of the last step left a
+    # device record, and every kernel launched from the step's own thread is
+    # among them.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=torch.profiler.schedule(wait=0, warmup=1, active=2, repeat=1)) as prof:
         for _ in range(3):
             step()
             torch.cuda.synchronize()
             prof.step()
-    events = prof.events()
-    last = max((e for e in events if e.device_type == DeviceType.CPU
+    rows = _raw_events(prof)
+    lo, hi = max((r[3], r[4]) for r in rows if not r[1] and r[0].startswith("ProfilerStep"))
+    kernels, lost = _launched_in(rows, lo, hi)
+    if lost:
+        fail(f"sampled step split: {len(lost)} launches in the last step left no device "
+             f"record: {dict(Counter(lost))}")
+    by_name, count = Counter(), Counter()
+    for name, us in kernels:
+        by_name[name] += us / 1e3
+        count[name] += 1
+    last = max((e for e in prof.events() if e.device_type == DeviceType.CPU
                 and e.name.startswith("ProfilerStep")), key=lambda e: e.time_range.start)
-    lo, hi = last.time_range.start, last.time_range.end
-    by_name, in_range, gather_kernels, gather_ms = Counter(), Counter(), Counter(), 0.0
-    for e in events:
-        if (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-                and lo <= e.time_range.start and e.time_range.end <= hi):
-            by_name[e.name] += e.device_time_total / 1e3
-            in_range[e.name] += 1
-    # every kernel launched from the step's own thread must fall in its range
-    missing = Counter(name for name, _ in _kernels_under(last)) - in_range
+    missing = Counter(name for name, _ in _kernels_under(last)) - count
     if missing:
-        fail(f"sampled step split: kernels launched in the last step fall outside its range "
-             f"[{lo}, {hi}] us: {dict(missing)}; kernels of those names outside it at "
-             + str(sorted((e.time_range.start, e.time_range.end) for e in events
-                          if e.device_type == DeviceType.CUDA and e.name in missing
-                          and not lo <= e.time_range.start <= e.time_range.end <= hi)[-8:]))
+        fail(f"sampled step split: kernels launched from the last step's thread are missing "
+             f"from its launches: {dict(missing)}")
+    gather_kernels, gather_ms = Counter(), 0.0
     for e in _cpu_under(last):
         if e.name == "sampled.feature_gather":
             gather_ms += e.device_time_total / 1e3
@@ -3183,9 +3201,48 @@ def _sampled_step_split(torch, step):
         split[group] += ms
     split["feature_gather"] = gather_ms
     split["block_gathers"] = split.pop("gather")
-    return {"busy_ms": sum(by_name.values()),
-            "device_launches": sum(in_range.values()), "device_ms_by_group": split,
+    return {"busy_ms": sum(by_name.values()), "device_launches": sum(count.values()),
+            "device_ms_by_group": split,
             "top_kernels_ms": {k[:80]: v for k, v in by_name.most_common(6)}}
+
+
+def _raw_events(prof):
+    """Every event of a profiler session from its raw (kineto) records:
+    ``(name, on_device, correlation id, start µs, end µs)``. A kernel (or a
+    copy, a fill) and the runtime call that launched it share their
+    correlation id."""
+    rows = []
+    for k in prof.profiler.kineto_results.events():
+        on_device = "CUDA" in str(k.device_type())
+        if on_device and getattr(k, "is_user_annotation", lambda: False)():
+            continue  # a range's mirror on the device's timeline, not a kernel
+        start = k.start_ns() / 1e3 if hasattr(k, "start_ns") else float(k.start_us())
+        dur = k.duration_ns() / 1e3 if hasattr(k, "duration_ns") else float(k.duration_us())
+        rows.append((k.name(), on_device, k.correlation_id(), start, start + dur))
+    return rows
+
+
+def _launched_in(rows, lo, hi):
+    """``(kernels, lost)`` of a CPU range ``[lo, hi]`` of :func:`_raw_events`'
+    rows, taken by launch, on the host's clock alone: each device record,
+    ``(name, µs)``, whose runtime call (a kernel launch, a copy or a fill)
+    started in the range, and the kernel launches of the range that left no
+    device record."""
+    device = {}
+    for r in rows:
+        if r[1]:
+            device.setdefault(r[2], []).append((r[0], r[4] - r[3]))
+    launches = [(r[2], r[0]) for r in rows if not r[1] and lo <= r[3] <= hi
+                and any(t in r[0] for t in ("Launch", "Memcpy", "Memset"))]
+    kernels = [k for corr, _ in launches for k in device.get(corr, [])]
+    lost = [name for corr, name in launches if "Launch" in name and corr not in device]
+    return kernels, lost
+
+
+def _launched_ms(rows, start):
+    """Device ms of every record launched at or after ``start`` (µs)."""
+    launched = {r[2] for r in rows if not r[1] and r[3] >= start}
+    return sum(r[4] - r[3] for r in rows if r[1] and r[2] in launched) / 1e3
 
 
 def _same_batches(a, b) -> bool:
@@ -3260,7 +3317,8 @@ def run_sampled_main_path(torch):
     host set-up is paid once). Prints the host set-up by stage, ms/batch and
     its split, host sampling, layer sizes, bytes copied per batch, a
     profiled step's device split, the idle share of an unprofiled step, peak
-    memory and test accuracy (``sampled {...}``)."""
+    memory and test accuracy (``sampled {...}``). Returns the prepared
+    data, which ``dp_sampled`` reuses."""
     from pygcn_tpu_torch.apps import train_sampled as tapp
     from pygcn_tpu_torch.graph import datasets
     from pygcn_tpu_torch.utils import native
@@ -3326,9 +3384,320 @@ def run_sampled_main_path(torch):
                       "profiled_step": split,
                       "idle_share_of_step": 1.0 - split["busy_ms"] / unprofiled}
         print(f"sampled {model} " + json.dumps(out[model]), flush=True)
-    del runs, gcn, prep
+    del runs, gcn
     torch.cuda.empty_cache()
     print("sampled " + json.dumps(out), flush=True)
+    return prep
+
+
+# ---------------------------------------------------------------------- #
+# Data parallelism (queue A item 8b) at world size 1 over NCCL: the
+# evaluator on a graph × data mesh and train_evaluator --data_parallel, the
+# simulator's fan-out (gt_gen / train_rl --shards) and data-parallel sampled
+# training. One card: every collective runs over one rank, with nothing to
+# exchange; the paths reach no hand-written kernel, as in JAX.
+# ---------------------------------------------------------------------- #
+
+# the steps of each data-parallel evaluator check, and those timed by CUDA
+# events (after EVAL_WARMUP untimed)
+DP_EVAL_STEPS, DP_EVAL_TIMED = 3, 20
+# dp_sim: policies and simulator seeds of its gt_gen runs, and its train_rl
+# episode
+DP_SIM_POLICIES, DP_SIM_SEEDS = 16, 2
+DP_RL_ARGS = ["--episodes", "1", "--epoch_width", "16", "--num_seeds", "2"]
+
+
+class _OneRankGroup:
+    """A process group of this process alone over NCCL (``file://``
+    rendezvous in a temporary directory), destroyed on exit."""
+
+    def __init__(self, phase):
+        self.phase = phase
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        from pygcn_tpu_torch.parallel.launcher import initialize_multihost
+
+        self._dir = tempfile.TemporaryDirectory()
+        info = initialize_multihost(f"file://{self._dir.name}/rendezvous", 1, 0, device="cuda")
+        if not info.distributed or dist.get_backend() != "nccl":
+            fail(f"{self.phase}: no NCCL group ({info})")
+        # NCCL builds its communicator at the first collective: not inside a timed step
+        dist.all_reduce(torch.zeros(1, device="cuda"))
+        torch.cuda.synchronize()
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        self._dir.cleanup()
+        if dist.is_initialized():
+            fail(f"{self.phase} left a process group behind")
+
+
+def _mesh_refusal(module, argv):
+    """``python -m <module> --shards 2 --device cuda <argv>`` on this one
+    card, run after the phase's timed work: a non-zero exit with the mesh
+    message, before anything started."""
+    import torch
+
+    proc = subprocess.run([sys.executable, "-m", module, "--shards", "2", "--device", "cuda",
+                           *argv], cwd=HERE, capture_output=True, text=True, timeout=300)
+    want = f"mesh needs 2 devices, have {torch.cuda.device_count()}"
+    if proc.returncode == 0 or want not in proc.stderr:
+        fail(f"{module} --shards 2 --device cuda: rc {proc.returncode}, stderr tail "
+             f"{proc.stderr[-400:]!r}; expected a non-zero exit with {want!r}")
+    return {"rc": proc.returncode, "message": want}
+
+
+def run_dp_evaluator(torch, ev, evaluator_path):
+    """``dp_evaluator``: on ``evaluator_main_path``'s world and ground truth
+    (SafeGraph width), ``DistGCNOverMLP`` on a 1×1 ``graph × data`` mesh at
+    the trained evaluator's weights: its forward on a batch within 1e-4 of
+    ``GCNOverMLP``'s dense forward, and DP_EVAL_STEPS
+    ``make_dist_evaluator_step`` steps finite; then ``train_evaluator
+    --data_parallel`` for 2 epochs (finite), and a ``--data_parallel`` step
+    against the single-device step on the same batch from the same weights
+    (loss and weights within 1e-6), timed by CUDA events and profiled in one
+    session. No tile kernel. Returns its numbers."""
+    import pickle
+
+    from pygcn_tpu_torch.apps import train_evaluator as tev
+    from pygcn_tpu_torch.parallel import DistGCNOverMLP, build_dist_plan, make_mesh
+    from pygcn_tpu_torch.parallel.dist_evaluator import make_dist_evaluator_step
+    from pygcn_tpu_torch.train.checkpoint import load_model_params
+    from pygcn_tpu_torch.train.optim import adam_l2
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    world, res, feats, dim, y = (ev[k] for k in ("world", "res", "feats", "dim", "y"))
+    graph = world.graph
+    with open(evaluator_path, "rb") as f:
+        handoff = pickle.load(f)
+    single = tev.make_model(dim, feats.shape[2], EVAL_HIDDEN, 0, device="cuda")
+    load_model_params(single, handoff["params"])
+    idx = np.asarray(res.idx_train)[:EVAL_BATCH]
+    bx, by = torch.from_numpy(feats[idx]).cuda(), torch.from_numpy(y[idx]).cuda()
+    count = _reset_tile_launches()
+    out = {"cbgs": graph.n_nodes, "edges": graph.n_edges, "batch": EVAL_BATCH}
+    with _OneRankGroup("dp_evaluator"), tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        plan = build_dist_plan(graph, 1)
+        out["plan_s"] = time.perf_counter() - t0
+        cfg = {k: getattr(single, k) for k in (
+            "gcn_nfeat", "gcn_nhid", "gcn_nclass", "dim_touched", "linear_nin", "linear_nhid1",
+            "linear_nhid2", "linear_nout")}
+        dm = DistGCNOverMLP(make_mesh([1, 1], ["graph", "data"]), plan, **cfg)
+        dm.load_state_dict(single.state_dict())
+        sx, sy = dm.shard_batch(feats[idx]), dm.shard_targets(y[idx])
+        with torch.no_grad():
+            got, want = dm(sx), single(bx, graph)
+        out["forward_max_abs_err"] = err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            fail(f"dp_evaluator: DistGCNOverMLP differs from GCNOverMLP by {err} (limit 1e-4)")
+        step = make_dist_evaluator_step(dm, adam_l2(dm.parameters(), 0.01, 5e-4,
+                                                    grad_clip_norm=0.1))
+        out["dist_losses"] = [float(step(sx, sy)) for _ in range(DP_EVAL_STEPS)]
+        if not all(math.isfinite(v) for v in out["dist_losses"]):
+            fail(f"dp_evaluator: make_dist_evaluator_step losses {out['dist_losses']}")
+        del dm, step, got, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, corr = tev.main(["--vac_result_path", ev["csv"], *EVAL_WORLD, "--out_dir", d,
+                               "--epochs", "2", "--data_parallel"])
+        out["cli_2_epochs_s"] = time.perf_counter() - t0
+        out["cli_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if not (math.isfinite(loss) and -1 <= corr <= 1):
+            fail(f"train_evaluator --data_parallel: test loss {loss}, Spearman {corr}")
+        out.update(cli_test_loss=loss, cli_test_spearman=corr)
+
+        mesh = make_mesh([1], ["data"])
+        models = [tev.make_model(dim, feats.shape[2], EVAL_HIDDEN, 42, device="cuda")
+                  for _ in range(2)]
+        steps = [tev.make_train_step(m, adam_l2(m.parameters(), 0.01, 5e-4, grad_clip_norm=0.1),
+                                     graph, mesh=dp) for m, dp in zip(models, (mesh, None))]
+        dp_loss, one_loss = (float(s(bx, by)) for s in steps)
+        diffs = [float((a - b).detach().abs().max())
+                 for a, b in zip(*(m.parameters() for m in models))]
+        out["dp_vs_single_step"] = {"loss_diff": abs(dp_loss - one_loss),
+                                    "max_weight_diff": max(diffs)}
+        if abs(dp_loss - one_loss) > 1e-6 or max(diffs) > 1e-6:
+            fail(f"dp_evaluator: the --data_parallel step differs from the single-device step: "
+                 f"loss {dp_loss} against {one_loss}, weights by {max(diffs)} (limit 1e-6)")
+        # the two steps in turns: single, dp, dp, single
+        one_step, dp_step = steps[1], steps[0]
+        single_ms = [cuda_ms(lambda: one_step(bx, by), iters=DP_EVAL_TIMED, warmup=EVAL_WARMUP)]
+        ms = [cuda_ms(lambda: dp_step(bx, by), iters=DP_EVAL_TIMED, warmup=EVAL_WARMUP)
+              for _ in range(2)]
+        single_ms.append(cuda_ms(lambda: one_step(bx, by), iters=DP_EVAL_TIMED,
+                                 warmup=EVAL_WARMUP))
+        busy, n_kernels, top = _kernel_time_split(
+            torch, lambda: [dp_step(bx, by) for _ in range(EVAL_PROFILED)])
+        out.update(ms_per_step=min(ms), ms_per_step_runs=ms,
+                   single_device_ms_per_step=min(single_ms), single_device_ms_runs=single_ms,
+                   device_busy_ms_per_step=busy / EVAL_PROFILED,
+                   kernels_per_step=n_kernels / EVAL_PROFILED,
+                   top_kernels_ms_per_step={k: v / EVAL_PROFILED for k, v in top.items()})
+    out["tile_kernel_launches"] = count()
+    if out["tile_kernel_launches"]:
+        fail(f"dp_evaluator launched {out['tile_kernel_launches']} tile kernels, expected none")
+    torch.cuda.empty_cache()
+    print("dp_evaluator " + json.dumps(out), flush=True)
+    return out
+
+
+def run_dp_sim(torch):
+    """``dp_sim``: at SafeGraph width (EVAL_WORLD), ``gt_gen --shards 1``
+    (one NCCL rank) and the unsharded ``gt_gen`` on the same
+    DP_SIM_POLICIES policies write the same CSV, byte for byte; one
+    ``train_rl --shards 1`` episode and one unsharded give the same result
+    and the same cached outcomes; ``gt_gen --shards 2 --device cuda`` is
+    refused in a subprocess with the mesh message, after the timed runs. The
+    two ``gt_gen`` runs are timed twice each, in turns. No tile kernel.
+    Returns its numbers."""
+    from pygcn_tpu_torch.apps import gt_gen, train_rl
+    from pygcn_tpu_torch.train.checkpoint import load_plain_pickle
+
+    flags = ["--num_samples", str(DP_SIM_POLICIES), "--num_seeds", str(DP_SIM_SEEDS),
+             "--batch", "8", *EVAL_WORLD]
+    count = _reset_tile_launches()
+    out = {"policies": DP_SIM_POLICIES, "sim_seeds": DP_SIM_SEEDS}
+    with tempfile.TemporaryDirectory() as d:
+        rl = {k: os.path.join(d, f"rl_{k}") for k in ("plain", "sharded")}
+        walls, texts = {"plain": [], "sharded": []}, {"plain": [], "sharded": []}
+
+        def generate(kind):
+            # a file of its own for each run: gt_gen appends to an existing CSV
+            path = os.path.join(d, f"{kind}{len(walls[kind])}.csv")
+            t0 = time.perf_counter()
+            gt_gen.main([*flags, "--out", path, *(["--shards", "1"] if kind == "sharded" else [])])
+            walls[kind].append(time.perf_counter() - t0)
+            with open(path, "rb") as f:
+                texts[kind].append(f.read())
+
+        # the two runs timed in turns: plain, sharded, sharded, plain
+        generate("plain")
+        results = {"plain": train_rl.main(["--out_dir", rl["plain"], *DP_RL_ARGS, *EVAL_WORLD])}
+        with _OneRankGroup("dp_sim"):
+            generate("sharded")
+            generate("sharded")
+            results["sharded"] = train_rl.main(["--out_dir", rl["sharded"], *DP_RL_ARGS,
+                                                *EVAL_WORLD, "--shards", "1"])
+        generate("plain")
+        out.update(gt_gen_s=walls["plain"], gt_gen_shards1_s=walls["sharded"])
+        want = texts["plain"][0]
+        if (any(t != want for t in texts["plain"] + texts["sharded"])
+                or want.count(b"\n") != 2 + DP_SIM_POLICIES):
+            fail("dp_sim: gt_gen --shards 1 wrote another CSV than the unsharded run")
+        caches = {k: load_plain_pickle(os.path.join(p, "sim_cache_42.pkl")) for k, p in rl.items()}
+        if caches["plain"] != caches["sharded"] or results["plain"] != results["sharded"]:
+            fail(f"dp_sim: train_rl --shards 1 cached {len(caches['sharded'])} outcomes, "
+                 f"result {results['sharded']}; unsharded {len(caches['plain'])}, "
+                 f"{results['plain']}")
+        out.update(csv_bytes=len(want), rl_cached_outcomes=len(caches["plain"]),
+                   rl_result=list(results["plain"]))
+    out["tile_kernel_launches"] = count()
+    if out["tile_kernel_launches"]:
+        fail(f"dp_sim launched {out['tile_kernel_launches']} tile kernels, expected none")
+    out["shards2_refusal"] = _mesh_refusal("pygcn_tpu_torch.apps.gt_gen", ["--out", "x.csv"])
+    print("dp_sim " + json.dumps(out), flush=True)
+    return out
+
+
+def run_dp_sampled(torch, prep):
+    """``dp_sampled``: on ``sampled_main_path``'s prepared Reddit-shape data
+    (not built again), an epoch of the GCN and of the GAT on one device,
+    then through the data-parallel runner (``train_sampled.train`` on a
+    one-rank ``data`` mesh over NCCL), replicated and ``--feature_sharded
+    --align_seeds``: the blocks equal the single-device run's bit for bit
+    (shard 0 of one draws the same counters), the losses within 1e-5 of it,
+    the feature-sharded run moves no row and its losses are within 1e-6 of
+    the replicated run's; no tile kernel; one more step of each run
+    profiled in one session; ``--shards 2 --device cuda`` refused. Returns
+    its numbers."""
+    from pygcn_tpu_torch.apps import train_sampled as tapp
+    from pygcn_tpu_torch.parallel import make_mesh
+
+    out, steps, tile = {}, {}, 0
+    real_iter = tapp.iter_sampled_batches
+    for model in ("gcn", "gat"):
+        single_drawn = []
+        single, _ = _sampled_run(torch, tapp, model, single_drawn, prepared=prep)
+        count = _reset_tile_launches()
+        with _OneRankGroup("dp_sampled"):
+            mesh = make_mesh([1], ["data"])
+            runs = {}
+            for mode in ("replicated", "feature_sharded"):
+                args = tapp.parse_args([*REDDIT, *SAMPLED_MODELS[model]])
+                args.feature_sharded = args.align_seeds = mode == "feature_sharded"
+                drawn = []
+
+                def recording(*a, **kw):
+                    for seeds, batch in real_iter(*a, **kw):
+                        drawn.append(batch)
+                        yield seeds, batch
+
+                tapp.iter_sampled_batches = recording
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                try:
+                    r = tapp.train(args, prep, mesh)
+                finally:
+                    tapp.iter_sampled_batches = real_iter
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if not _same_batches(single_drawn, drawn):
+                    fail(f"dp_sampled {model} {mode}: other blocks than the single-device run")
+                gap = max(abs(a - b) for a, b in zip(r["losses"], single["losses"]))
+                if len(r["losses"]) != len(single["losses"]) or gap > 1e-5:
+                    fail(f"dp_sampled {model} {mode}: losses differ from the single-device "
+                         f"run's by {gap} (limit 1e-5)")
+                seeds = next(tapp.epoch_seed_batches(prep.data.idx_train, 1024, 0, 0))
+                batch = r["sample"](seeds)
+                steps[f"{model}_{mode}"] = (lambda rs=r["run_step"], s=seeds, b=batch: rs(s, b))
+                runs[mode] = r
+                out[f"{model}_{mode}"] = {
+                    "batches": r["n_batches"], "ms_per_batch": r["ms_per_batch"],
+                    "sampler_wait_ms": r["wait_ms"], "step_ms": r["step_ms"],
+                    "peak_mem_gib": r["peak_mem_bytes"] / 2**30, "test_acc": r["acc"],
+                    "last_loss": r["losses"][-1], "max_loss_diff_vs_single_device": gap,
+                    "fetch_rows_moved": r["fetch_rows_moved"], "run_wall_s": wall}
+            moved = runs["feature_sharded"]["fetch_rows_moved"]
+            gap = max(abs(a - b) for a, b in zip(runs["feature_sharded"]["losses"],
+                                                 runs["replicated"]["losses"]))
+            if moved or gap > 1e-6:
+                fail(f"dp_sampled {model}: --feature_sharded moved {moved} rows and its losses "
+                     f"differ from the replicated run's by {gap} (limits 0, 1e-6)")
+            out[f"{model}_feature_sharded"]["max_loss_diff_vs_replicated"] = gap
+            out[f"{model}_single_device"] = {"ms_per_batch": single["ms_per_batch"],
+                                             "sampler_wait_ms": single["wait_ms"],
+                                             "step_ms": single["step_ms"]}
+            del runs, r
+        tile += count()
+    count = _reset_tile_launches()
+    with _OneRankGroup("dp_sampled"):
+        splits, out["kernel_ms_outside_the_profiled_steps"] = _dist_step_splits(torch, steps)
+    for name, split in splits.items():
+        out[name].update(profiled_step_busy_ms=split["busy_ms"],
+                         profiled_step_wall_ms=split["wall_ms"],
+                         profiled_step_launches=split["device_launches"])
+    steps.clear()
+    out["tile_kernel_launches"] = tile + count()
+    if out["tile_kernel_launches"]:
+        fail(f"dp_sampled launched {out['tile_kernel_launches']} tile kernels, expected none")
+    try:
+        tapp.main(["--shards", "2", "--device", "cuda", *REDDIT[:-2]])
+        fail("train_sampled --shards 2 --device cuda ran on one card")
+    except ValueError as e:
+        if f"mesh needs 2 devices, have {torch.cuda.device_count()}" not in str(e):
+            raise
+        out["shards2_refusal"] = str(e)
+    torch.cuda.empty_cache()
+    print("dp_sampled " + json.dumps(out), flush=True)
     return out
 
 
@@ -3356,6 +3725,8 @@ def main() -> None:
           f"count {torch.cuda.device_count()}", flush=True)
     card = card_line()
     print(card, flush=True)
+    products_dir = tempfile.TemporaryDirectory()
+    products_build = start_products_build(products_dir.name)
     phase("build", build_kernels)
     phase("check_b1", check_b1, torch)
     phase("check_gat_tiles", check_gat_tiles, torch, False)
@@ -3395,19 +3766,26 @@ def main() -> None:
     phase("policy_batch", policy_batch, torch, *sim_world)
     del sim_world
     phase("sim_clis", run_sim_clis, torch)
+    dp = {"card": card, "sim": phase("dp_sim", run_dp_sim, torch)}
     with tempfile.TemporaryDirectory() as kept:
-        eval_b1 = phase("evaluator_main_path", run_evaluator_main_path, torch, kept)
+        eval_b1, ev = phase("evaluator_main_path", run_evaluator_main_path, torch, kept)
         evaluator = os.path.join(kept, "evaluator.pkl")
+        dp["evaluator"] = phase("dp_evaluator", run_dp_evaluator, torch, ev, evaluator)
+        del ev
         gen_b1, gen_out, world = phase("generator_main_path", run_generator_main_path, torch,
                                        evaluator)
         rl_out = phase("rl_main_path", run_rl_main_path, torch)
         phase("serve_main_path", run_serve_main_path, torch, evaluator, world)
         del world
     print("policy " + json.dumps({"generator": gen_out, "rl": rl_out}), flush=True)
-    products = phase("products", run_products, torch)
+    products = phase("products", run_products, torch, products_build)
+    products_dir.cleanup()
     print("products " + json.dumps(products), flush=True)
     phase("sampled_reference", sampled_reference, torch)
-    phase("sampled_main_path", run_sampled_main_path, torch)
+    prep = phase("sampled_main_path", run_sampled_main_path, torch)
+    dp["sampled"] = phase("dp_sampled", run_dp_sampled, torch, prep)
+    del prep
+    print("dp " + json.dumps(dp), flush=True)
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),

@@ -18,6 +18,15 @@ becomes the batch axis — and policy row ``j`` (row 0 the no-vaccination
 baseline) simulates on seed ``derive_seed(random_seed, j)``, which no
 policy draw consumes.
 
+``--shards N`` fans each batch out over N ranks (the JAX CLI's ``data``
+mesh axis): every rank runs this CLI's host code in lockstep from the same
+seeds, simulates its slice of each batch
+(``sim.dist.simulate_policy_batch(mesh=...)``) and gets the whole batch
+back; rank 0 alone prints and writes the CSV, which equals the unsharded
+run's bit for bit. The ranks are those of the process group this process
+belongs to (``torchrun``), or N started here (gloo on ``--device cpu``,
+one card each on ``cuda``: more than the visible cards are refused).
+
 Usage::
 
     python -m pygcn_tpu_torch.apps.gt_gen --num_samples 32 --NN 5 \
@@ -27,8 +36,10 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
+import io
 import os
 from typing import Optional
 
@@ -47,14 +58,15 @@ from pygcn_tpu_torch.sim.policies import (
 
 
 def batch_policy_outcomes(world: World, vac_vectors: np.ndarray, num_seeds: int, seeds,
-                          approx: bool = False, return_cbg: bool = False):
+                          approx: bool = False, mesh=None, return_cbg: bool = False):
     """Simulate a batch of vaccination vectors, one policy per row with its
     post-vaccination attack rates and its seed from ``seeds``, on the
-    world's device."""
+    world's device; with ``mesh``, fanned out over its ``data`` ranks (every
+    rank calls this with the same batch)."""
     p = dataclasses.replace(world.params, approx_draws=approx)
     attack_vacs = torch.from_numpy(attack_after_vaccination(world, vac_vectors)).to(
         p.attack_orig.device)
-    out = simulate_policy_batch(p, world.visits, attack_vacs, seeds, num_seeds)
+    out = simulate_policy_batch(p, world.visits, attack_vacs, seeds, num_seeds, mesh=mesh)
     hist_c, hist_d = out["cases_cbg"].cpu().numpy(), out["deaths_cbg"].cpu().numpy()
 
     rows = []
@@ -180,7 +192,7 @@ def gini_equity_columns(
     return out
 
 
-def run_randombag(args, world: World):
+def run_randombag(args, world: World, mesh=None, writes: bool = True):
     """The G8 stratified-randombag mode (reference
     ``gt-gen-vac-randombag.py:490-545``): for every non-empty hybrid bag,
     draw ``num_groupwise`` policies by flooding the vaccination budget down a
@@ -212,14 +224,13 @@ def run_randombag(args, world: World):
         "Essential_Worker_Gini_Abs", "Essential_Worker_Gini_Rel",
     ]
     rng = np.random.default_rng(args.random_seed)
-    new_file = not os.path.exists(args.out)
-    fh = open(args.out, "a", newline="")
+    new_file, fh = open_rows(args.out, mesh, writes)
     writer = csv.DictWriter(fh, fieldnames=fields)
 
     # no-vaccination baseline: row 0 and the reference point for *_Rel
     rows, deaths = batch_policy_outcomes(
         world, np.zeros((1, world.n_cbgs)), args.num_seeds, [derive_seed(args.random_seed, 0)],
-        args.approx, return_cbg=True,
+        args.approx, mesh=mesh, return_cbg=True,
     )
     novac = gini_equity_columns(world, deaths[0], gini_quantiles, novac=None)
     if new_file:
@@ -249,7 +260,7 @@ def run_randombag(args, world: World):
         seeds = [derive_seed(args.random_seed, 1 + done + i) for i in range(len(chunk))]
         rows, deaths = batch_policy_outcomes(
             world, np.stack([c[2] for c in chunk]), args.num_seeds, seeds,
-            args.approx, return_cbg=True,
+            args.approx, mesh=mesh, return_cbg=True,
         )
         for (bag, idxs, _), r, d in zip(chunk, rows, deaths):
             writer.writerow({
@@ -264,6 +275,17 @@ def run_randombag(args, world: World):
 
     fh.close()
     print("done:", args.out)
+
+
+def open_rows(path: str, mesh, writes: bool):
+    """``(new_file, fh)``: whether ``path`` is new (rank 0's answer on every
+    rank, taken before any rank writes) and the handle rows go to — the file,
+    opened for appending, on the rank that writes, else a buffer nothing
+    reads."""
+    from pygcn_tpu_torch.parallel.launcher import rank0_value
+
+    new_file = rank0_value(not os.path.exists(path), mesh)
+    return new_file, (open(path, "a", newline="") if writes else io.StringIO())
 
 
 def sample_policy(
@@ -350,12 +372,24 @@ def main(argv=None):
     ap.add_argument("--approx", action="store_true",
                     help="hybrid fast count sampling (see sim.model.approx_draws)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="shard the policy batch over N devices: not ported yet")
+                    help="fan each batch of policies out over N ranks (the reference's "
+                         "multiprocessing pool as a mesh data axis); see above")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
-    if args.shards:
-        raise SystemExit("--shards: not ported yet (queue A, item 8)")
 
+    mesh = None
+    if args.shards:
+        from pygcn_tpu_torch.parallel.launcher import shard_mesh
+
+        mesh, result = shard_mesh(args.shards, args.device, argv, main)
+        if mesh is None or mesh.coords is None:  # ranks started here, or outside the mesh
+            return result
+    writes = mesh is None or mesh.rank == 0
+    with contextlib.redirect_stdout(io.StringIO()) if not writes else contextlib.nullcontext():
+        return _run(args, mesh, writes)
+
+
+def _run(args, mesh, writes: bool):
     from pygcn_tpu_torch.apps.common import set_process_title
     from pygcn_tpu_torch.utils.device import resolve_device
 
@@ -374,7 +408,7 @@ def main(argv=None):
     if args.randombag:
         if args.quick_test:
             args.num_groupwise = 1
-        return run_randombag(args, world)
+        return run_randombag(args, world, mesh, writes)
 
     group_ids = hybrid_groups(world)
     from pygcn_tpu_torch.data.features import standardize
@@ -383,14 +417,13 @@ def main(argv=None):
     rng = np.random.default_rng(args.random_seed)
 
     fields = ["Vaccinated_Idxs", "Total_Cases", "Case_Rates_STD", "Total_Deaths", "Death_Rates_STD"]
-    new_file = not os.path.exists(args.out)
-    fh = open(args.out, "a", newline="")
+    new_file, fh = open_rows(args.out, mesh, writes)
     writer = csv.DictWriter(fh, fieldnames=fields)
     if new_file:
         writer.writeheader()
         # row 0: no-vaccination baseline
         rows = batch_policy_outcomes(world, np.zeros((1, world.n_cbgs)), args.num_seeds,
-                                     [derive_seed(args.random_seed, 0)], args.approx)
+                                     [derive_seed(args.random_seed, 0)], args.approx, mesh=mesh)
         writer.writerow(dict(zip(fields, ["[]"] + list(rows[0]))))
         fh.flush()
 
@@ -437,7 +470,8 @@ def main(argv=None):
                 for p in batch_policies
             ])
         seeds = [derive_seed(args.random_seed, 1 + done + i) for i in range(len(vectors))]
-        rows = batch_policy_outcomes(world, vectors, args.num_seeds, seeds, args.approx)
+        rows = batch_policy_outcomes(world, vectors, args.num_seeds, seeds, args.approx,
+                                     mesh=mesh)
         for p, r in zip(batch_policies, rows):
             writer.writerow(dict(zip(
                 fields, ["[" + ", ".join(map(str, p.tolist())) + "]"] + list(r)

@@ -23,6 +23,17 @@ run kernel B1 on the graph's tiles. A finished run writes ``evaluator.pkl``
 with the JAX CLI's keys, ``params`` the JAX-shaped tree of NumPy arrays, so
 either package's policy scripts can load it.
 
+``--data_parallel`` splits each batch's policy samples over the ranks of a
+1-D ``data`` mesh, as the JAX CLI splits them over its devices: the ranks of
+the process group this process belongs to (``torchrun``), else one per
+visible card on ``cuda`` (started here, as ``train_fullgraph --shards``
+starts them) and one on the CPU. Every rank reads the same batches from the
+training loader (the JAX CLI's path under this flag, short batches
+dropped), computes the single-device model on its slice, and one
+all-reduce sums the gradients and the loss before Adam; the loss is the
+global batch's mean. Rank 0 alone prints and writes the checkpoints, the
+metrics and ``evaluator.pkl``.
+
 Usage::
 
     python -m pygcn_tpu_torch.apps.train_evaluator --vac_result_path vac.csv \
@@ -32,9 +43,12 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
 import pickle
+import sys
 
 import numpy as np
 import torch
@@ -45,6 +59,7 @@ from pygcn_tpu_torch.data.features import (assemble_evaluator_features, centrali
 from pygcn_tpu_torch.data.loader import ArrayLoader, kfold_splits, make_split_loaders
 from pygcn_tpu_torch.data.vac_results import load_vac_results
 from pygcn_tpu_torch.nn.models import GCNOverMLP
+from pygcn_tpu_torch.parallel.launcher import any_rank
 from pygcn_tpu_torch.train.checkpoint import (adam_state, load_adam_state, load_checkpoint,
                                               load_model_params, model_params,
                                               save_checkpoint_state)
@@ -97,14 +112,22 @@ def make_model(dim_touched: int, n_features: int, hidden: int, seed: int,
     ).to(device)
 
 
-def make_train_step(model: GCNOverMLP, opt: torch.optim.Optimizer, graph, bf16: bool = False):
+def make_train_step(model: GCNOverMLP, opt: torch.optim.Optimizer, graph, bf16: bool = False,
+                    mesh=None):
     """``train_step(bx, by) -> loss``: MSE of the evaluator's predictions,
     backward, one optimizer step; the loss (before the update) stays on the
     device. With ``bf16`` the parameters, the batch and the dense adjacency
     are cast to bf16 for the forward, the loss computed in f32, and the
     gradients flow back through the casts to the f32 parameters (the JAX
     trainer's explicit casts; autocast would keep the standardisation in
-    f32)."""
+    f32).
+
+    With ``mesh`` (a 1-D ``data`` mesh) ``bx, by`` is the global batch, the
+    same on every rank, its size a multiple of the ranks (else
+    ``ValueError``, as JAX's placement of the batch raises): each rank
+    computes its contiguous slice of the samples, its squared errors summed
+    over the global batch size, and one all-reduce sums the gradients and
+    the loss before the optimizer steps."""
     compute_graph = graph
     if bf16 and graph.dense is not None:
         compute_graph = dataclasses.replace(graph, dense=graph.dense.to(torch.bfloat16))
@@ -115,12 +138,27 @@ def make_train_step(model: GCNOverMLP, opt: torch.optim.Optimizer, graph, bf16: 
         params = {name: p.to(torch.bfloat16) for name, p in model.named_parameters()}
         return torch.func.functional_call(model, params, (bx.to(torch.bfloat16), compute_graph))
 
+    params = [p for p in model.parameters() if p.requires_grad]
+
     def train_step(bx: torch.Tensor, by: torch.Tensor) -> torch.Tensor:
         opt.zero_grad(set_to_none=True)
-        loss = torch.mean((predict(bx)[:, 0].float() - by) ** 2)
+        if mesh is None:
+            loss = torch.mean((predict(bx)[:, 0].float() - by) ** 2)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        from pygcn_tpu_torch.parallel.dist_gcn import reduce_gradients
+
+        q = mesh.size("data")
+        if bx.shape[0] % q:
+            raise ValueError(f"batch of {bx.shape[0]} samples over {q} data ranks")
+        b = bx.shape[0] // q
+        mine = slice(mesh.coord("data") * b, (mesh.coord("data") + 1) * b)
+        loss = ((predict(bx[mine])[:, 0].float() - by[mine]) ** 2).sum() / bx.shape[0]
         loss.backward()
+        loss = reduce_gradients(params, loss, mesh.group("data"))
         opt.step()
-        return loss.detach()
+        return loss
 
     return train_step
 
@@ -178,8 +216,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "dense adjacency cast inside the step), f32 master "
                          "parameters, loss and updates")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard the policy-sample batch over devices: not "
-                         "ported yet (queue A, item 8)")
+                    help="split each batch's policy samples over ranks (see above)")
     ap.add_argument("--out_dir", required=True)
     return ap.parse_args(argv)
 
@@ -188,13 +225,31 @@ def main(argv=None):
     """Run the CLI; returns ``(test_loss, test_spearman)`` (k-fold: the
     folds' means), or ``None`` after a preemption save."""
     args = parse_args(argv)
+    mesh = None
+    if args.data_parallel:
+        from pygcn_tpu_torch.parallel.launcher import initialize_multihost, start_ranks
+        from pygcn_tpu_torch.parallel.mesh import make_mesh
+
+        info = initialize_multihost(device=args.device)
+        cards = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+        if not info.distributed and cards > 1:
+            return start_ranks(cards, args.device, main,
+                               sys.argv[1:] if argv is None else list(argv))
+        n_dev = info.process_count
+        if args.batch_size % n_dev:
+            raise SystemExit(f"--data_parallel needs batch_size divisible by {n_dev} devices")
+        mesh = make_mesh([n_dev], ["data"], device=resolve_device(args.device))
+    writes = mesh is None or mesh.rank == 0
+    with contextlib.redirect_stdout(io.StringIO()) if not writes else contextlib.nullcontext():
+        return _run(args, mesh, writes)
+
+
+def _run(args, mesh, writes: bool):
     set_process_title("train_evaluator")
     device = resolve_device(args.device)
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel: not ported yet (queue A, item 8)")
     os.makedirs(args.out_dir, exist_ok=True)
 
-    if not os.path.exists(args.vac_result_path):
+    if not os.path.exists(args.vac_result_path) and writes:
         print("gt CSV missing: generating synthetic ground truth first")
         from pygcn_tpu_torch.apps import gt_gen
 
@@ -203,6 +258,7 @@ def main(argv=None):
             "--NN", str(args.NN), "--n_cbgs", str(args.n_cbgs),
             "--hours", str(args.hours), "--num_seeds", "4", "--device", args.device,
         ])
+    any_rank(False, mesh)  # the other ranks read the CSV once rank 0 has written it
 
     world = build_synthetic_world(
         n_cbgs=args.n_cbgs, n_pois=args.n_pois, hours=args.hours, msa_name=args.msa_name,
@@ -221,13 +277,15 @@ def main(argv=None):
         feats, y, res.idx_train, res.idx_val, res.idx_test,
         args.batch_size, quicktest=args.quicktest, seed=args.seed,
     )
+    if mesh is not None:
+        train_loader.drop_last = True  # every rank's slice the same size
     graph = world.graph
 
-    def new_model(seed):
+    def new_model(seed, dp_mesh=None):
         model = make_model(dim_touched, feats.shape[2], args.hidden, seed, device=device)
         opt = adam_l2(model.parameters(), args.lr, args.weight_decay,
                       grad_clip_norm=args.grad_clip)
-        return model, opt, make_train_step(model, opt, graph, args.bf16)
+        return model, opt, make_train_step(model, opt, graph, args.bf16, dp_mesh)
 
     def to_device(*arrays):
         return [torch.from_numpy(a).to(device) for a in arrays]
@@ -251,7 +309,7 @@ def main(argv=None):
         print(f"kfold mean: val_loss={mean_loss:.4f} val_spearman={mean_corr:.4f}")
         return mean_loss, mean_corr
 
-    model, opt, train_step = new_model(args.seed)
+    model, opt, train_step = new_model(args.seed, mesh)
     sched = ReduceLROnPlateau(mode="max", factor=0.5, patience=8, min_lr=1e-8)
     stopper = EarlyStopping(patience=args.patience)
     feats_dev, y_dev = to_device(feats, y)
@@ -261,8 +319,9 @@ def main(argv=None):
     ckpt_last = os.path.join(args.out_dir, "checkpoint_last.pkl")
 
     def save(path, epoch, extra=None):
-        save_checkpoint_state(model_params(model), epoch, adam_state(opt, model),
-                              sched.state_dict(), path, extra=extra)
+        if writes:
+            save_checkpoint_state(model_params(model), epoch, adam_state(opt, model),
+                                  sched.state_dict(), path, extra=extra)
 
     start_epoch = 0
     min_val_loss, max_val_corr = np.inf, -np.inf
@@ -287,14 +346,14 @@ def main(argv=None):
             min_val_loss, max_val_corr = evaluate(model, graph, val_loader, device)
         print(f"resumed from epoch {start_epoch} ({os.path.basename(resume_path)})")
 
-    logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl") if writes else None)
     order = np.array(res.idx_train)
     for epoch in range(start_epoch):  # the order an uninterrupted run reaches
         shuffle_epoch(order, args.seed, epoch)
     with PreemptionGuard() as guard:
         for epoch in range(start_epoch, start_epoch + args.epochs):
-            if args.quicktest:
-                # the loader path for shrunken batches
+            if args.quicktest or mesh is not None:
+                # the loader path for shrunken batches and split ones
                 train_losses = [float(train_step(*to_device(bx, by)))
                                 for bx, by in train_loader]
             else:
@@ -315,7 +374,7 @@ def main(argv=None):
                 max_val_corr = val_corr
                 save(ckpt_maxcorr, epoch)
             sched.step(max_val_corr, opt)
-            if guard.requested:
+            if any_rank(guard.requested, mesh):
                 # preemption: persist the exact loop state (next epoch, sched,
                 # best-metric watermarks, early-stop counters) in the explicit
                 # `extra` slot and exit cleanly for a --resume rerun
@@ -326,7 +385,7 @@ def main(argv=None):
                 print(f"preempted at epoch {epoch}: saved {ckpt_last}; "
                       "rerun with --resume to continue")
                 return None
-            if stopper(val_loss):
+            if any_rank(stopper(val_loss), mesh):
                 print("Early stopping")
                 break
 
@@ -334,6 +393,9 @@ def main(argv=None):
     print(f"test loss: {test_loss}")
     print(f"Spearman correlation: {test_corr}")
 
+    if not writes:
+        logger.close()
+        return test_loss, test_corr
     # the run completed: drop the preemption checkpoint so a supervisor's
     # redundant `--resume` relaunch can't rewind to a stale mid-run epoch
     if os.path.exists(ckpt_last):

@@ -421,28 +421,21 @@ def _main_sharded(args, argv: list):
     here, each running this CLI with ``argv``, and return rank 0's result.
     Refused before anything starts: GIN (as in JAX), and more ranks than
     visible cards on ``cuda``."""
-    from pygcn_tpu_torch.parallel.launcher import LocalRanks, initialize_multihost
-    from pygcn_tpu_torch.parallel.mesh import require_devices
+    from pygcn_tpu_torch.parallel.launcher import initialize_multihost, start_ranks
 
     if args.model == "gin":
         raise SystemExit("--shards supports gcn/gat/gatv2/sage/appnp")
     if initialize_multihost(device=args.device).distributed:
         return run_sharded(args)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        require_devices(args.shards, torch.cuda.device_count())
-    with LocalRanks(args.shards, device=device.type, timeout_s=None) as ranks:
-        return ranks.run(_rank_main, argv)[0]
+    return start_ranks(args.shards, args.device, _rank_main, argv)
 
 
 def _rank_main(argv: list):
     """A started rank's job: the CLI inside the group, its result reduced
     to plain values (the step and model stay in the rank)."""
-    result = main(argv)
-    if isinstance(result, dict):
-        return {k: v for k, v in result.items()
-                if v is None or isinstance(v, (bool, int, float, str))}
-    return result
+    from pygcn_tpu_torch.parallel.launcher import plain_values
+
+    return plain_values(main(argv))
 
 
 def run_sharded(args, d: Optional[Data] = None):
@@ -463,6 +456,7 @@ def run_sharded(args, d: Optional[Data] = None):
     from pygcn_tpu_torch.parallel import build_dist_plan, make_mesh
     from pygcn_tpu_torch.parallel.dist_gcn import DistGCN, make_dist_classifier_step
     from pygcn_tpu_torch.parallel.dist_spmm import gather_features
+    from pygcn_tpu_torch.parallel.launcher import any_rank
     from pygcn_tpu_torch.train.optim import adam_l2
 
     device = resolve_device(args.device)
@@ -517,17 +511,6 @@ def run_sharded(args, d: Optional[Data] = None):
             result.update(plan_s=plan_s, shard_size=plan.shard_size, halo=plan.halo,
                           halo_rows=plan.halo_rows, model=model, step=run_step)
         return result
-
-
-def any_rank(flag: bool, mesh) -> bool:
-    """True on every rank when ``flag`` is true on any rank of the mesh's
-    graph axis."""
-    import torch.distributed as dist
-
-    t = torch.tensor([float(flag)], device=mesh.device)
-    if dist.is_initialized():
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group("graph"))
-    return bool(t.item())
 
 
 def _time_epochs(args, graph, run_step):

@@ -24,6 +24,15 @@ episode (loss, average reward, cache size, the episode's seconds, and the
 simulator's seconds and misses in it) and a last one with the greedy policy,
 its cases, the baseline, and the baseline batch's seconds and misses.
 
+``--shards N`` fans each miss batch out over N ranks
+(``gt_gen.batch_policy_outcomes(mesh=...)``): every rank runs this CLI in
+lockstep from the same seeds, rank 0's sampled policies are handed to all
+(so the ranks' caches and miss batches agree whatever the card's rounding),
+every rank keeps the same cache in memory, and rank 0 alone prints and
+writes the cache shards, the checkpoint and ``metrics.jsonl``. The ranks
+are those of the process group this process belongs to (``torchrun``), or
+N started here, as ``gt_gen --shards`` starts them.
+
 Usage::
 
     python -m pygcn_tpu_torch.apps.train_rl --out_dir rl_run --episodes 5
@@ -32,6 +41,8 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import os
 import pickle
 import time
@@ -42,6 +53,7 @@ import torch
 from pygcn_tpu_torch.apps.common import build_synthetic_world, set_process_title
 from pygcn_tpu_torch.apps.gt_gen import batch_policy_outcomes
 from pygcn_tpu_torch.data.features import centrality_features, generator_features, standardize
+from pygcn_tpu_torch.parallel.launcher import rank0_value
 from pygcn_tpu_torch.policy import ReplayBuffer, SimCache, make_reinforce_episode
 from pygcn_tpu_torch.policy.reinforce import greedy_policy
 from pygcn_tpu_torch.sim.model import derive_seed
@@ -71,7 +83,8 @@ def main(argv=None):
     ap.add_argument("--approx", action="store_true",
                     help="fast count sampling for the simulation oracle")
     ap.add_argument("--shards", type=int, default=0,
-                    help="shard the simulator's policy batch over N devices: not ported yet")
+                    help="fan the simulator's miss batches out over N ranks (the reference's "
+                         "multiprocessing pool as a mesh data axis); see above")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--n_cbgs", type=int, default=64)
     ap.add_argument("--n_pois", type=int, default=20)
@@ -79,9 +92,20 @@ def main(argv=None):
     ap.add_argument("--save_checkpoint", action="store_true", default=True)
     ap.add_argument("--out_dir", required=True)
     args = ap.parse_args(argv)
-    if args.shards:
-        raise SystemExit("--shards: not ported yet (queue A, item 8)")
 
+    mesh = None
+    if args.shards:
+        from pygcn_tpu_torch.parallel.launcher import shard_mesh
+
+        mesh, result = shard_mesh(args.shards, args.device, argv, main)
+        if mesh is None or mesh.coords is None:  # ranks started here, or outside the mesh
+            return result
+    writes = mesh is None or mesh.rank == 0
+    with contextlib.redirect_stdout(io.StringIO()) if not writes else contextlib.nullcontext():
+        return _run(args, mesh, writes)
+
+
+def _run(args, mesh, writes: bool):
     set_process_title("train_rl")
     device = resolve_device(args.device)
 
@@ -130,7 +154,8 @@ def main(argv=None):
                 for p in missing
             ])
             seeds = [derive_seed(args.seed, *p) for p in missing]
-            rows = batch_policy_outcomes(world, vectors, args.num_seeds, seeds, args.approx)
+            rows = batch_policy_outcomes(world, vectors, args.num_seeds, seeds, args.approx,
+                                         mesh=mesh)
             sim["s"] += time.perf_counter() - t0
             sim["misses"] += len(missing)
             return [(r[0], r[1]) for r in rows]
@@ -145,12 +170,13 @@ def main(argv=None):
     print(f"random-policy baseline cases: {baseline:.1f}")
     baseline_sim = dict(sim)
 
-    logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl"))
+    logger = MetricsLogger(os.path.join(args.out_dir, "metrics.jsonl") if writes else None)
     ckpt_path = os.path.join(args.out_dir, "checkpoint_rl.pkl")
     max_avg_reward = -np.inf
     for episode in range(args.episodes):
         t0, sim0 = time.perf_counter(), dict(sim)
-        actions = sample_actions(gen_feats_t, draws, args.epoch_width, args.NN).cpu().numpy()
+        actions = rank0_value(
+            sample_actions(gen_feats_t, draws, args.epoch_width, args.NN).cpu().numpy(), mesh)
         policies = [tuple(sorted(a.tolist())) for a in actions]
         outcomes = simulate_policies(policies)
         rewards = np.array([baseline - c for c, _ in outcomes], np.float32)
@@ -176,19 +202,20 @@ def main(argv=None):
                    misses=sim["misses"] - sim0["misses"])
         if episode == 0 or avg_reward > max_avg_reward:
             max_avg_reward = avg_reward
-            if args.save_checkpoint:
+            if args.save_checkpoint and writes:
                 with open(ckpt_path, "wb") as f:
                     pickle.dump({
                         "episode": episode,
                         "params": model_params(model),
                         "avg_rewards": avg_reward,
                     }, f)
-        cache.dump(str(args.seed))
+        if writes:
+            cache.dump(str(args.seed))
 
     # final greedy policy + validation (reference :629-659)
     with torch.no_grad():
         probs = model(gen_feats_t, world.graph)
-    best = sorted(greedy_policy(probs, args.NN).tolist())
+    best = rank0_value(sorted(greedy_policy(probs, args.NN).tolist()), mesh)
     (final_cases, final_std), = simulate_policies([tuple(best)])
     print(f"greedy policy {best}: cases={final_cases:.1f} (baseline {baseline:.1f})")
     logger.log(args.episodes, greedy=best, final_cases=final_cases, baseline=baseline,

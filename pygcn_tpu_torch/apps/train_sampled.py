@@ -16,9 +16,23 @@ cross from the host. ``--out_dir`` writes ``checkpoint_last.pkl`` at every
 epoch boundary and, on SIGTERM/SIGINT, mid-epoch (the epoch then restarts on
 ``--resume``); the checkpoint keeps the sampler's draw counter as it stood
 at the start of that epoch, so a resumed run draws the neighbourhoods an
-uninterrupted one draws. The data-parallel flags (``--shards``,
-``--sample_workers``, ``--feature_sharded``, ``--align_seeds``) are not
-ported yet.
+uninterrupted one draws.
+
+``--shards N`` (above 1) trains data-parallel over N ranks
+(``parallel/dp_sampled.py``): ``--batch_size`` is the global batch, each
+rank samples its shard (``ShardedNeighborSampler(shards=[rank])``; the
+draw counter advances by ``N`` times the layers a batch, and the checkpoint
+keeps it), steps on it, and one all-reduce averages the loss and the
+gradients before Adam. ``--feature_sharded`` row-shards the features over
+the ranks, each step fetching its input rows with one all-to-all;
+``--align_seeds`` routes each seed to the rank owning its rows. The ranks
+are those of the process group this process belongs to (``torchrun``), or
+N started here (gloo on ``--device cpu``, one card each on ``cuda``: more
+than the visible cards are refused); rank 0 alone prints and writes the
+checkpoint. ``--sample_workers`` is the thread pool of
+``ShardedNeighborSampler`` when one process samples several shards (a rank
+samples one, so it changes nothing here, and with ``--shards 1`` it is
+ignored, as in the JAX CLI); the blocks are the same bits either way.
 
 Runs on ``--device cuda`` (the default; raises when no card is present) or,
 when asked, ``--device cpu``.
@@ -36,6 +50,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import os
 import time
 from typing import Optional
@@ -57,6 +72,7 @@ from pygcn_tpu_torch.ops.sampling import (
     sampled_gatv2_forward,
     sampled_gcn_forward,
 )
+from pygcn_tpu_torch.parallel.launcher import any_rank
 from pygcn_tpu_torch.train.checkpoint import (
     adam_state,
     load_adam_state,
@@ -170,7 +186,7 @@ class Prepared:
     device: torch.device
     data: object  # NodeClassificationData, no layout built
     adj: sp.csr_matrix  # the sampler's adjacency (int64 indices)
-    x_full: torch.Tensor  # [N, F] features on the device
+    x_full: Optional[torch.Tensor]  # [N, F] features on the device (None: row-sharded)
     labels: np.ndarray  # [N] int64
     setup_s: dict  # host seconds by stage
 
@@ -213,9 +229,11 @@ def prepare(args: argparse.Namespace, device: torch.device) -> Prepared:
     del csr
     setup_s["sampler_csr"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    x_full = torch.from_numpy(data.features).to(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    x_full = None  # with --feature_sharded each rank takes its own rows
+    if not (args.feature_sharded and args.shards > 1):
+        x_full = torch.from_numpy(data.features).to(device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     setup_s["features_to_device"] = time.perf_counter() - t0
     return Prepared(flags, device, data, adj, x_full, np.asarray(data.labels, np.int64), setup_s)
 
@@ -251,13 +269,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--npz", default=None,
                     help="train on a dataset in the .npz interchange format instead of "
                          "synthetic SBM data")
-    ap.add_argument("--shards", type=int, default=1, help="not ported yet (queue A, item 8b)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="data-parallel ranks over a 'data' mesh; --batch_size is the GLOBAL "
+                         "batch (must divide)")
     ap.add_argument("--sample_workers", type=int, default=0,
-                    help="not ported yet (queue A, item 8b)")
+                    help="threads of the sharded sampler when one process samples several "
+                         "shards (a rank samples one; bit-identical to serial; ignored with "
+                         "--shards 1)")
     ap.add_argument("--feature_sharded", action="store_true",
-                    help="not ported yet (queue A, item 8b)")
+                    help="row-shard node features over the ranks instead of replicating "
+                         "them; each step fetches its input rows with one all_to_all "
+                         "(needs --shards > 1)")
     ap.add_argument("--align_seeds", action="store_true",
-                    help="not ported yet (queue A, item 8b)")
+                    help="route each seed to the rank owning its feature rows (same global "
+                         "gradient, fewer rows moved on locality-ordered graphs; needs "
+                         "--feature_sharded)")
     ap.add_argument("--locality", action="store_true",
                     help="relabel nodes community-contiguously (locality_order) first")
     ap.add_argument("--eval_every", type=int, default=0,
@@ -274,9 +300,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit("--feature_sharded needs --shards > 1")
     if args.align_seeds and not args.feature_sharded:
         raise SystemExit("--align_seeds needs --feature_sharded")
-    if args.shards > 1 or args.sample_workers:
-        raise SystemExit("--shards > 1, --sample_workers, --feature_sharded and --align_seeds: "
-                         "not ported yet (dp_sampled, queue A, item 8b)")
     return args
 
 
@@ -303,6 +326,24 @@ def epoch_seed_batches(idx_train: np.ndarray, batch_size: int, seed: int, epoch:
         yield seeds
 
 
+def run_dp_batch(dp_step, prep: Prepared, batch: SampledBatch, x_train: torch.Tensor,
+                 mesh, shard_size: Optional[int] = None):
+    """One data-parallel step on this rank's shard ``batch``: its blocks,
+    ids and labels to the device and ``dp_step`` (``parallel/dp_sampled``),
+    which gathers its rows from the replicated ``x_train`` or, with
+    ``shard_size``, fetches them from every rank's row block ``x_train``
+    after building the plan of every rank's input nodes (collectives every
+    rank joins). Returns the loss and the rows the fetch moved between
+    ranks (0 when replicated)."""
+    from pygcn_tpu_torch.parallel.dp_sampled import build_fetch_plan, gather_input_nodes
+
+    blocks, input_nodes, y = _to_device(batch, prep.labels[batch.output_nodes], prep.device)
+    if shard_size is None:
+        return dp_step(blocks, input_nodes, x_train, y), 0
+    plan = build_fetch_plan(gather_input_nodes(batch.input_nodes, mesh), shard_size)
+    return dp_step(blocks, plan, x_train, y), int(plan.send_counts.sum())
+
+
 def run_batch(model: SampledModel, opt: torch.optim.Optimizer, prep: Prepared,
               seeds: np.ndarray, batch: SampledBatch) -> torch.Tensor:
     """One training step on a sampled batch: its blocks, ids and labels to
@@ -319,7 +360,9 @@ def evaluate(model: SampledModel, prep: Prepared, sampler: NeighborSampler, idx)
     idx = np.asarray(idx)
     batch = sampler.sample(idx)
     blocks, input_nodes, _ = _to_device(batch, prep.labels[idx], prep.device)
-    logits = model(blocks, prep.x_full.index_select(0, input_nodes))
+    x_in = (prep.x_full.index_select(0, input_nodes) if prep.x_full is not None else
+            torch.from_numpy(prep.data.features[batch.input_nodes]).to(prep.device))
+    logits = model(blocks, x_in)
     return float((logits.argmax(1).cpu().numpy() == prep.labels[idx]).mean())
 
 
@@ -330,22 +373,54 @@ def main(argv=None, prepared: Optional[Prepared] = None):
     ``wait_ms`` and ``step_ms`` (per batch: waiting on the sampler, and the
     step up to its device sync), ``h2d_bytes`` (mean per batch),
     ``node_counts`` (per batch, the node count of each layer's input,
-    innermost first), ``peak_mem_bytes`` (CUDA), the ``model``, its ``opt``,
-    the training ``sampler`` and the ``prepared`` data. ``prepared``: a
+    innermost first), ``peak_mem_bytes`` (CUDA), ``fetch_rows_moved`` (rows
+    the row-sharded fetch moved between ranks), the ``model``, its ``opt``,
+    the training ``sampler``, the ``prepared`` data, and for one more step
+    ``sample`` (seeds → this rank's batch) and ``run_step(seeds, batch)``
+    (→ its loss). ``prepared``: a
     dataset from an earlier run with the same data flags (its host set-up
-    is then not paid again)."""
+    is then not paid again). With ``--shards`` above 1, this rank's result
+    (:func:`train`), or rank 0's plain values when the ranks were started
+    here."""
     args = parse_args(argv)
+    mesh = None
+    if args.shards > 1:
+        from pygcn_tpu_torch.parallel.launcher import shard_mesh
+
+        mesh, result = shard_mesh(args.shards, args.device, argv, _rank_main)
+        if mesh is None or mesh.coords is None:  # ranks started here, or outside the mesh
+            return result
     device = resolve_device(args.device)
     from pygcn_tpu_torch.apps.common import set_process_title
 
     set_process_title("train_sampled")
-    if prepared is None:
-        prepared = prepare(args, device)
-    elif prepared.flags != _data_flags(args) or prepared.device != device:
-        raise ValueError("prepared data was built from other data flags or for another device")
-    prep = prepared
+    quiet = mesh is not None and mesh.rank != 0
+    with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+        if prepared is None:
+            prepared = prepare(args, device)
+        elif prepared.flags != _data_flags(args) or prepared.device != device:
+            raise ValueError("prepared data was built from other data flags or for another "
+                             "device")
+        return train(args, prepared, mesh)
+
+
+def _rank_main(argv):
+    """A started rank's job: the CLI inside the group, its plain values."""
+    from pygcn_tpu_torch.parallel.launcher import plain_values
+
+    return plain_values(main(argv))
+
+
+def train(args: argparse.Namespace, prep: Prepared, mesh=None):
+    """Train on ``prep`` as :func:`main` reports it: on one device, or with
+    ``mesh`` (a 1-D ``data`` mesh, every rank calling this) data-parallel,
+    replicated or, with ``args.feature_sharded``, row-sharded features
+    (``args.align_seeds`` routing each seed to its rows' rank); ``args.shards``
+    is read by :func:`main` alone. Only rank 0 writes the checkpoint."""
+    device = prep.device
     data = prep.data
-    args.feat_dim = prep.x_full.shape[1]
+    args.feature_sharded = args.feature_sharded and mesh is not None
+    args.feat_dim = data.features.shape[1]
     print(f"data: {data.graph.n_nodes} nodes, {data.graph.n_edges} edges, "
           f"{args.feat_dim} features; host set-up "
           + ", ".join(f"{k} {v:.1f}s" for k, v in prep.setup_s.items()), flush=True)
@@ -370,9 +445,41 @@ def main(argv=None, prepared: Optional[Prepared] = None):
         print(f"resumed from epoch {start_epoch}")
 
     def save(epoch: int, n_draws: int) -> None:
-        save_checkpoint_state(convert.state_dict_to_sampled_params(model.state_dict()), epoch,
-                              adam_state(opt, model), {}, ckpt_last,
-                              extra={"n_draws": int(n_draws)})
+        if mesh is None or mesh.rank == 0:
+            save_checkpoint_state(convert.state_dict_to_sampled_params(model.state_dict()),
+                                  epoch, adam_state(opt, model), {}, ckpt_last,
+                                  extra={"n_draws": int(n_draws)})
+
+    sample_fn = None
+    moved = [0]  # rows the feature fetch moved between ranks
+
+    def step_on(seeds, batch):
+        return run_batch(model, opt, prep, seeds, batch)
+
+    if mesh is not None:
+        from pygcn_tpu_torch.parallel.dp_sampled import (ShardedNeighborSampler,
+                                                         make_dp_sampled_step,
+                                                         shard_feature_rows)
+
+        shard_size = None
+        if args.feature_sharded:
+            # this rank's block of rows; the whole matrix stays on the host
+            x_train, shard_size = shard_feature_rows(mesh, data.features)
+        else:
+            x_train = prep.x_full
+        sharded = ShardedNeighborSampler(
+            sampler, mesh.size("data"), workers=args.sample_workers,
+            align_shard_size=shard_size if args.align_seeds else None,
+            shards=[mesh.coord("data")])
+        dp_step = make_dp_sampled_step(mesh, model, opt, feature_sharded=args.feature_sharded)
+
+        def sample_fn(seeds):
+            return sharded(seeds)[0]
+
+        def step_on(seeds, batch):
+            loss, rows = run_dp_batch(dp_step, prep, batch, x_train, mesh, shard_size)
+            moved[0] += rows
+            return loss
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -388,7 +495,7 @@ def main(argv=None, prepared: Optional[Prepared] = None):
             epoch_draws = sampler.n_draws
             batches = iter_sampled_batches(
                 sampler, epoch_seed_batches(data.idx_train, args.batch_size, args.seed, epoch),
-                prefetch=args.prefetch)
+                prefetch=args.prefetch, sample_fn=sample_fn)
             with contextlib.closing(batches):
                 while True:
                     t_w = time.perf_counter()
@@ -398,18 +505,19 @@ def main(argv=None, prepared: Optional[Prepared] = None):
                         break
                     wait_s += time.perf_counter() - t_w
                     t_s = time.perf_counter()
-                    if guard is not None and guard.requested:
+                    # the ranks stop together
+                    if guard is not None and any_rank(guard.requested, mesh):
                         # preempted mid-epoch: this epoch restarts on --resume,
                         # from the draw counter it started with
                         save(epoch, epoch_draws)
                         print(f"preempted in epoch {epoch}: saved {ckpt_last}; "
                               "rerun with --resume to continue")
                         return None
-                    loss = run_batch(model, opt, prep, seeds, batch)
+                    loss = step_on(seeds, batch)
                     losses.append(loss.item())  # the device sync
                     step_s += time.perf_counter() - t_s
                     n_batches += 1
-                    copied += h2d_bytes(batch, prep.labels[seeds])
+                    copied += h2d_bytes(batch, prep.labels[batch.output_nodes])
                     node_counts.append((batch.input_nodes.size,
                                         *(b.cols.shape[0] for b in batch.blocks)))
             if args.eval_every and (epoch + 1) % args.eval_every == 0:
@@ -436,8 +544,9 @@ def main(argv=None, prepared: Optional[Prepared] = None):
     return {"acc": acc, "loss": loss_val, "losses": losses, "n_batches": n_batches, "dt": dt,
             "ms_per_batch": dt / n * 1e3, "wait_ms": wait_s / n * 1e3,
             "step_ms": step_s / n * 1e3, "h2d_bytes": copied / n, "node_counts": node_counts,
-            "peak_mem_bytes": peak, "model": model, "opt": opt, "sampler": sampler,
-            "prepared": prep}
+            "peak_mem_bytes": peak, "fetch_rows_moved": moved[0], "model": model, "opt": opt,
+            "sampler": sampler, "prepared": prep, "run_step": step_on,
+            "sample": sample_fn or sampler.sample}
 
 
 if __name__ == "__main__":

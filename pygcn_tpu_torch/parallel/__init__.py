@@ -1,10 +1,11 @@
-"""Graph-parallel training over ``torch.distributed`` (queue A item 8a).
+"""Graph- and data-parallel training over ``torch.distributed``.
 
 The port of ``pygcn_tpu/parallel``: the mesh, the launcher, the partition
 plan with its halo exchange, the distributed SpMM and the distributed GCN,
-SAGE, APPNP and GAT/GATv2 models. The graph×data, tensor-, pipeline- and
-expert-parallel modules of the JAX package come with queue A items 8b and
-8c. The models are imported when first named, as in the JAX package.
+SAGE, APPNP and GAT/GATv2 models (queue A item 8a); the evaluator over a
+graph×data mesh and data-parallel sampled training (item 8b). The tensor-,
+pipeline- and expert-parallel modules of the JAX package come with item 8c.
+The models are imported when first named, as in the JAX package.
 """
 
 from pygcn_tpu_torch.parallel.dist_spmm import make_dist_spmm
@@ -17,13 +18,14 @@ __all__ = [
     "build_dist_plan",
     "make_dist_spmm",
     "DistGCN",
+    "DistGCNOverMLP",
     "DistGAT",
     "DistSAGE",
     "DistAPPNP",
 ]
 
-_LAZY = {"DistGCN": "dist_gcn", "DistGAT": "dist_gat", "DistSAGE": "dist_sage",
-         "DistAPPNP": "dist_sage"}
+_LAZY = {"DistGCN": "dist_gcn", "DistGCNOverMLP": "dist_evaluator", "DistGAT": "dist_gat",
+         "DistSAGE": "dist_sage", "DistAPPNP": "dist_sage"}
 
 
 def __getattr__(name):

@@ -68,6 +68,20 @@ def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def reduce_gradients(params, loss: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum the gradients of ``params`` (zero where a parameter has none) and
+    ``loss`` over the group's ranks in one flat all-reduce; each ``.grad``
+    becomes its sum and the summed loss is returned."""
+    flat = all_reduce_sum(torch.cat(
+        [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+         for p in params] + [loss.detach().reshape(1)]), group)
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return flat[-1]
+
+
 def make_dist_classifier_step(model: DistModule, optimizer: torch.optim.Optimizer):
     """``step(x, labels, mask) -> loss``: one full-batch distributed step of
     a log-softmax node classifier on this rank's rows (``labels`` and the
@@ -90,14 +104,8 @@ def make_dist_classifier_step(model: DistModule, optimizer: torch.optim.Optimize
         per_node = -logp.gather(1, labels[:, None].long())[:, 0]
         loss = (per_node * mask).sum() / count
         loss.backward()
-        flat = all_reduce_sum(torch.cat(
-            [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-             for p in params] + [loss.detach().reshape(1)]), group)
-        offset = 0
-        for p in params:
-            p.grad = flat[offset:offset + p.numel()].view_as(p)
-            offset += p.numel()
+        loss = reduce_gradients(params, loss, group)
         optimizer.step()
-        return flat[-1]
+        return loss
 
     return step

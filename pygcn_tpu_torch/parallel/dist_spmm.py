@@ -69,6 +69,28 @@ def halo_exchange(x: torch.Tensor, send_idx: torch.Tensor, group=None) -> torch.
     return HaloExchange.apply(x, send_idx, group)
 
 
+class AllReduceSum(torch.autograd.Function):
+    """``t`` summed over the group's ranks, with a gradient: the backward
+    is the sum of the incoming gradients over the same ranks (each rank's
+    ``t`` reaches every rank's result). Without a process group, ``t``."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        out = t.clone()
+        if dist.is_initialized():
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return AllReduceSum.apply(g.contiguous(), ctx.group), None
+
+
+def all_reduce_with_grad(t: torch.Tensor, group=None) -> torch.Tensor:
+    return AllReduceSum.apply(t, group)
+
+
 def plan_shard(mesh: Mesh, plan, axis: str = "graph") -> PlanShard:
     """This rank's row of ``plan`` on the mesh's device (``plan`` as it is
     when it is one rank's already)."""
@@ -80,17 +102,26 @@ def plan_shard(mesh: Mesh, plan, axis: str = "graph") -> PlanShard:
     return plan.shard(mesh.coord(axis), mesh.device)
 
 
-def make_dist_spmm(mesh: Mesh, plan, axis: str = "graph", parts: str = "full"):
+def make_dist_spmm(mesh: Mesh, plan, axis: str = "graph", col_axis: Optional[str] = None,
+                   parts: str = "full"):
     """The distributed SpMM on this rank: ``f(x [S, F]) -> (A @ X)[S, F]``.
+
+    ``col_axis`` names a second mesh axis over which the feature columns
+    are split (the graph×data evaluator, ``parallel/dist_evaluator.py``):
+    ``x`` is then this rank's ``[S, F_local]`` block of rows and columns.
+    Every step here is column-wise independent, so nothing is gathered over
+    that axis: the halo exchange runs over ``axis``'s group of this rank's
+    line alone and moves only its columns.
 
     ``parts`` selects a component for cost attribution: ``"local"`` skips
     the halo exchange and the remote aggregation; ``"halo"`` runs only the
     boundary gather, the all-to-all and the remote aggregation; ``"full"``
-    (the default) is the real op, and the two components sum to it. JAX's
-    ``col_axis`` (a second mesh axis over feature columns) serves only the
-    graph×data evaluator of queue A item 8b and comes with it."""
+    (the default) is the real op, and the two components sum to it."""
     if parts not in ("full", "local", "halo"):
         raise ValueError(f"unknown parts {parts!r}")
+    if col_axis is not None and (col_axis == axis or col_axis not in mesh.axis_names):
+        raise ValueError(f"col_axis {col_axis!r} is not a second axis of the mesh "
+                         f"{mesh.axis_names}")
     shard = plan_shard(mesh, plan, axis)
     group = mesh.group(axis)
     use_ell = shard.loc_ell is not None and shard.rem_ell is not None

@@ -14,8 +14,12 @@ process per rank joins a ``torch.distributed`` process group:
   ``torch.multiprocessing``'s ``spawn`` context that meet through a
   ``file://`` rendezvous in a temporary directory (no port to pick), then
   run the jobs they are handed, one at a time and all ranks together, until
-  closed. ``train_fullgraph --shards N`` starts its ranks with it, and the
-  tests reuse one group for many cases.
+  closed. :func:`start_ranks` runs one job on N of them: the CLIs'
+  ``--shards``/``--data_parallel`` start their ranks with it, and the tests
+  reuse one group for many cases.
+- :func:`rank0_value` and :func:`any_rank` make a decision that a rank
+  takes alone (a file's existence, a preemption signal) the ranks' common
+  one, so that they keep calling their collectives in one order.
 
 Typical use::
 
@@ -202,3 +206,68 @@ class LocalRanks:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def start_ranks(n_ranks: int, device, fn, *args):
+    """Run ``fn(*args)`` on ``n_ranks`` new local ranks (one card each on
+    ``cuda``, refused before anything starts beyond the visible cards) and
+    return rank 0's result."""
+    from pygcn_tpu_torch.parallel.mesh import require_devices
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        require_devices(n_ranks, torch.cuda.device_count())
+    with LocalRanks(n_ranks, device=device.type, timeout_s=None) as ranks:
+        return ranks.run(fn, *args)[0]
+
+
+def shard_mesh(shards: int, device_name: str, argv, rank_main, axis: str = "data"):
+    """A CLI's ``--shards``: ``(mesh, None)``, a 1-D mesh of ``shards``
+    ranks over ``axis``, when this process is a rank of a group (or
+    ``shards`` is 1: one rank, this process); else ``(None, result)``, rank
+    0's result of ``rank_main(argv)`` on ``shards`` ranks started here
+    (``argv`` ``None``: this process's arguments). Refused before anything
+    starts: more ranks than visible cards on ``cuda``."""
+    import sys
+
+    from pygcn_tpu_torch.parallel.mesh import make_mesh, require_devices
+    from pygcn_tpu_torch.utils.device import resolve_device
+
+    if torch.device(device_name).type == "cuda":
+        require_devices(shards, torch.cuda.device_count())
+    if not initialize_multihost(device=device_name).distributed and shards > 1:
+        return None, start_ranks(shards, device_name, rank_main,
+                                 sys.argv[1:] if argv is None else list(argv))
+    return make_mesh([shards], [axis], device=resolve_device(device_name)), None
+
+
+def plain_values(result):
+    """A CLI's result as a rank hands it back: a dict keeps its plain values
+    (numbers, strings, ``None`` and lists or tuples of them); the models and
+    tensors stay in the rank."""
+    plain = (bool, int, float, str, list, tuple, type(None))
+    if isinstance(result, dict):
+        return {k: v for k, v in result.items() if isinstance(v, plain)}
+    return result
+
+
+def rank0_value(value, mesh):
+    """Rank 0's ``value`` (any picklable object) on every rank of the mesh
+    (``value`` itself without a mesh or a process group)."""
+    if mesh is None or not dist.is_initialized():
+        return value
+    box = [value]
+    group = mesh.group_all()
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0) if group else 0,
+                               group=group)
+    return box[0]
+
+
+def any_rank(flag: bool, mesh) -> bool:
+    """True on every rank of the mesh when ``flag`` is true on any
+    (``flag`` itself without a mesh or a process group)."""
+    if mesh is None or not dist.is_initialized():
+        return bool(flag)
+    t = torch.tensor([float(flag)], device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group_all())
+    return bool(t.item())

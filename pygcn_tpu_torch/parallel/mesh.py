@@ -49,6 +49,13 @@ class Mesh:
     def group(self, axis: str = "graph"):
         return self.groups.get(axis)
 
+    def group_all(self):
+        """The process group of every rank of the mesh (``None``: the
+        default group)."""
+        if "*" in self.groups:
+            return self.groups["*"]
+        return self.groups.get(self.axis_names[0]) if len(self.shape) == 1 else None
+
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str] = ("graph",),
               device=None) -> Mesh:
@@ -59,7 +66,9 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str] = ("graph",),
     ``device`` defaults to this rank's current card under NCCL, else the
     CPU. A 1-D mesh over every rank uses
     the default group; any other shape makes one group per line of each axis
-    (every rank must call this, in the same order, as ``new_group`` asks)."""
+    and, for a mesh of several axes on part of the ranks, one of the whole
+    mesh (every rank must call this, in the same order, as ``new_group``
+    asks)."""
     sizes = tuple(int(s) for s in axis_sizes)
     names = tuple(axis_names)
     if len(sizes) != len(names):
@@ -80,5 +89,7 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str] = ("graph",),
                 group = dist.new_group(ranks=line)
                 if rank in line:
                     groups[name] = group
+        if len(sizes) > 1 and n < world:
+            groups["*"] = dist.new_group(ranks=list(range(n)))
     coords = tuple(int(c) for c in np.unravel_index(rank, sizes)) if rank < n else None
     return Mesh(names, sizes, rank, coords, torch.device(device), groups)

@@ -9,6 +9,7 @@ Run on a machine with an H100 from the repo root (``--noconftest`` because
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1255,3 +1256,111 @@ def test_shards_beyond_the_visible_cards_are_refused(dev):
     n = torch.cuda.device_count() + 1
     with pytest.raises(ValueError, match=f"mesh needs {n} devices, have {n - 1}"):
         tapp.main(["--shards", str(n), "--device", "cuda", "--n_nodes", "300"])
+
+
+def test_dist_evaluator_and_dp_sampled_on_one_nccl_rank_match_the_cpu(dev, tmp_path):
+    """World size 1 over NCCL: ``DistGCNOverMLP`` on a 1×1 ``graph × data``
+    mesh (forward and three ``make_dist_evaluator_step`` steps) and three
+    replicated and feature-sharded ``make_dp_sampled_step`` steps equal the
+    same on the CPU (run first, with no process group) within 1e-4."""
+    from pygcn_tpu_torch.apps import train_sampled as tapp
+    from pygcn_tpu_torch.ops.sampling import NeighborSampler
+    from pygcn_tpu_torch.parallel import DistGCNOverMLP, build_dist_plan, make_mesh
+    from pygcn_tpu_torch.parallel.dist_evaluator import make_dist_evaluator_step
+    from pygcn_tpu_torch.parallel.dp_sampled import (ShardedNeighborSampler, build_fetch_plan,
+                                                     gather_input_nodes, make_dp_sampled_step,
+                                                     shard_feature_rows)
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    g, a = _dist_graph()
+    plan = build_dist_plan(g, 1)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4, g.n_nodes, 9)).astype(np.float32)
+    x[:, :, -1] = rng.uniform(size=(4, g.n_nodes)) < 0.05
+    y = rng.normal(size=4).astype(np.float32)
+    kw = dict(gcn_nfeat=8, gcn_nhid=12, gcn_nclass=12, dim_touched=8, linear_nin=12,
+              linear_nhid1=16, linear_nhid2=8)
+    feats = rng.normal(size=(g.n_nodes, 16)).astype(np.float32)
+    labels = rng.integers(0, 4, g.n_nodes)
+    seeds = [rng.choice(g.n_nodes, 64, replace=False) for _ in range(3)]
+
+    def run(device):
+        mesh = make_mesh([1, 1], ["graph", "data"], device=device)
+        model = DistGCNOverMLP(mesh, plan, **kw, generator=torch.Generator().manual_seed(0))
+        step = make_dist_evaluator_step(model, adam_l2(model.parameters(), 0.01, 5e-4))
+        bx, by = model.shard_batch(x), model.shard_targets(y)
+        with torch.no_grad():
+            out = [model(bx).cpu()]
+        out += [step(bx, by).cpu() for _ in range(3)]
+        out += [p.detach().cpu() for p in model.parameters()]
+        data_mesh = make_mesh([1], ["data"], device=device)
+        for sharded in (False, True):
+            net = tapp.SampledGCN.init([16, 8, 4], generator=torch.Generator().manual_seed(0))
+            net = net.to(device)
+            dp = make_dp_sampled_step(data_mesh, net, adam_l2(net.parameters(), 0.01),
+                                      feature_sharded=sharded)
+            x_shard, s = shard_feature_rows(data_mesh, feats)
+            group = ShardedNeighborSampler(NeighborSampler(a.tocsr(), [4, 3], seed=1), 1,
+                                           align_shard_size=s if sharded else None)
+            for sd in seeds:
+                (b,) = group(sd)
+                blocks = [k.to(device) for k in b.blocks]
+                yb = torch.from_numpy(labels[b.output_nodes]).to(device)
+                if sharded:
+                    p = build_fetch_plan(gather_input_nodes(b.input_nodes, data_mesh), s)
+                    out.append(dp(blocks, p, x_shard, yb).cpu())
+                else:
+                    ids = torch.from_numpy(b.input_nodes).to(device)
+                    out.append(dp(blocks, ids, torch.from_numpy(feats).to(device), yb).cpu())
+            out += [p.detach().cpu() for p in net.parameters()]
+        return out
+
+    cpu = run("cpu")
+    _one_rank_nccl_group(tmp_path)
+    try:
+        card = run(torch.device("cuda"))
+    finally:
+        torch.distributed.destroy_process_group()
+    for c, w in zip(card, cpu):
+        torch.testing.assert_close(c, w, rtol=1e-4, atol=1e-4)
+
+
+def test_sharded_simulator_on_one_nccl_rank_equals_unsharded(dev, tmp_path):
+    """``simulate_policy_batch(mesh=...)`` at world size 1 over NCCL gives
+    the unsharded batch on the card bit for bit."""
+    from pygcn_tpu_torch.apps.common import build_synthetic_world
+    from pygcn_tpu_torch.parallel import make_mesh
+    from pygcn_tpu_torch.sim.dist import simulate_policy_batch
+
+    world = build_synthetic_world(n_cbgs=48, n_pois=20, hours=48, seed=3, device=dev)
+    p = world.params
+    attack = p.attack_orig[None] * torch.linspace(0.4, 1.0, 5, device=dev)[:, None]
+    seeds = [11, 12, 13, 14, 15]
+    want = simulate_policy_batch(p, world.visits, attack, seeds, 2)
+    _one_rank_nccl_group(tmp_path)
+    try:
+        got = simulate_policy_batch(p, world.visits, attack, seeds, 2,
+                                    mesh=make_mesh([1], ["data"]))
+    finally:
+        torch.distributed.destroy_process_group()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("app, argv", [
+    ("gt_gen", ["--out", "x.csv"]),
+    ("train_rl", ["--out_dir", "rl"]),
+    ("train_sampled", ["--n_nodes", "300"]),
+])
+def test_data_parallel_shards_beyond_the_visible_cards_are_refused(dev, app, argv, tmp_path,
+                                                                   monkeypatch):
+    """``--shards N --device cuda`` with N above the visible cards exits
+    with the mesh message before it writes or starts anything."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"mesh needs {n} devices, have {n - 1}"):
+        importlib.import_module(f"pygcn_tpu_torch.apps.{app}").main(
+            ["--shards", str(n), "--device", "cuda", *argv])
+    assert not os.listdir(tmp_path)

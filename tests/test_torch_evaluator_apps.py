@@ -188,7 +188,7 @@ def test_resumed_run_equals_an_uninterrupted_one(gt_csv, trained, tmp_path, monk
 def test_cli_modes_run(gt_csv, tmp_path):
     """``--quicktest``, ``--kfold 2``, ``--bf16``, a best-metric ``--resume``
     and a missing CSV (generated by the port's ``gt_gen``) run to finite
-    metrics; ``--data_parallel`` is not ported and says so."""
+    metrics, and so does ``--data_parallel`` as one rank."""
     for extra in (["--quicktest"], ["--kfold", "2"], ["--bf16", "--with_original_feat"]):
         loss, corr = tev.main(["--vac_result_path", gt_csv, "--out_dir",
                                str(tmp_path / extra[0][2:]), "--epochs", "2", *EVAL, *extra])
@@ -201,9 +201,10 @@ def test_cli_modes_run(gt_csv, tmp_path):
                         "--epochs", "1", *EVAL])
     assert os.path.exists(missing) and np.isfinite(loss)
     assert len(load_vac_results(missing).vac_tags) == 48
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        tev.main(["--vac_result_path", gt_csv, "--out_dir", str(tmp_path / "dp"),
-                  "--data_parallel", *EVAL])
+    # --data_parallel without a process group on the CPU: one rank
+    loss, corr = tev.main(["--vac_result_path", gt_csv, "--out_dir", str(tmp_path / "dp"),
+                           "--epochs", "1", "--data_parallel", *EVAL])
+    assert np.isfinite(loss) and -1 <= corr <= 1
 
 
 def test_numpy_ols_matches_jax():

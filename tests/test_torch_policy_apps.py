@@ -117,9 +117,9 @@ def test_train_rl_quicktest_and_a_rerun_from_its_cache(tmp_path, monkeypatch):
     batches = []
     real = train_rl.batch_policy_outcomes
 
-    def counted(world, vectors, num_seeds, seeds, approx=False):
+    def counted(world, vectors, num_seeds, seeds, approx=False, mesh=None):
         batches.append([tuple(np.nonzero(v)[0].tolist()) for v in vectors])
-        return real(world, vectors, num_seeds, seeds, approx)
+        return real(world, vectors, num_seeds, seeds, approx, mesh=mesh)
 
     monkeypatch.setattr(train_rl, "batch_policy_outcomes", counted)
     out = str(tmp_path / "rl")
@@ -153,9 +153,12 @@ def test_train_rl_quicktest_and_a_rerun_from_its_cache(tmp_path, monkeypatch):
     assert batches == ([[greedy]] if missing else [])
 
 
-def test_train_rl_shards_is_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        train_rl.main(["--device", "cpu", "--out_dir", str(tmp_path), "--shards", "2"])
+def test_train_rl_shards_beyond_the_cards_is_refused(tmp_path):
+    """``--shards 2`` on ``cuda`` beyond the visible cards is refused before
+    anything starts (2 gloo ranks: ``tests/test_torch_data_parallel.py``)."""
+    with pytest.raises(ValueError, match="mesh needs 2 devices, have"):
+        train_rl.main(["--device", "cuda", "--out_dir", str(tmp_path), "--shards", "2"])
+    assert not os.listdir(tmp_path)
 
 
 def read_preds(path):

@@ -2,7 +2,8 @@
 package's test shapes, its step against JAX's over three steps (1e-5 on the
 loss, 1e-4 on the parameters, from JAX's parameters carried over by
 ``convert``), a preempted and resumed run against an uninterrupted one
-(1e-6), and the flags not ported yet."""
+(1e-6), and the data-parallel flags' refusals (their runs:
+``tests/test_torch_dp_sampled.py``)."""
 
 import os
 
@@ -299,17 +300,32 @@ def test_instant_preemption_restarts_the_first_epoch(tmp_path, monkeypatch):
         tapp.main([*SMALL, "--resume"])
 
 
-@pytest.mark.parametrize("flags, message", [
-    (["--shards", "2"], "item 8b"),
-    (["--sample_workers", "2"], "item 8b"),
-    (["--shards", "2", "--feature_sharded"], "item 8b"),
-    (["--shards", "2", "--feature_sharded", "--align_seeds"], "item 8b"),
-    (["--feature_sharded"], "--feature_sharded needs --shards > 1"),
-    (["--shards", "2", "--align_seeds"], "--align_seeds needs --feature_sharded"),
+@pytest.mark.parametrize("flags, error, message", [
+    (["--shards", "2", "--device", "cuda"], ValueError, "mesh needs 2 devices, have"),
+    (["--shards", "2", "--feature_sharded", "--device", "cuda"], ValueError,
+     "mesh needs 2 devices, have"),
+    (["--shards", "2", "--feature_sharded", "--align_seeds", "--device", "cuda"], ValueError,
+     "mesh needs 2 devices, have"),
+    (["--feature_sharded"], SystemExit, "--feature_sharded needs --shards > 1"),
+    (["--shards", "2", "--align_seeds"], SystemExit, "--align_seeds needs --feature_sharded"),
 ])
-def test_data_parallel_flags_are_refused(flags, message):
-    with pytest.raises(SystemExit, match=message):
+def test_data_parallel_flags_are_refused(flags, error, message, monkeypatch):
+    """JAX's two refusals, in its order; ``--shards`` beyond the visible
+    cards (none here, one on the card's machine) before anything starts."""
+    started = []
+    monkeypatch.setattr("pygcn_tpu_torch.parallel.launcher.LocalRanks",
+                        lambda *a, **kw: started.append(a))
+    with pytest.raises(error, match=message):
         tapp.main([*CPU, *flags])
+    assert not started
+
+
+def test_sample_workers_with_one_shard_trains():
+    """``--sample_workers`` with ``--shards 1`` is ignored, as in JAX: the
+    run equals one without it."""
+    argv = [*SMALL, "--epochs", "1", "--prefetch", "0"]
+    r = tapp.main([*argv, "--sample_workers", "2"])
+    assert r["losses"] == tapp.main(argv, prepared=r["prepared"])["losses"]
 
 
 def test_unknown_model_exits_2(capsys):

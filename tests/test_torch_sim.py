@@ -344,7 +344,14 @@ def test_policy_batch_freezes_per_policy():
     assert dead + 1 < alive < 95
 
 
-def test_policy_batch_mesh_not_ported():
+def test_policy_batch_mesh_of_one_rank_equals_unsharded():
+    """A ``data`` mesh of one rank (no process group) gives the unsharded
+    batch bit for bit (4 ranks: ``tests/test_torch_data_parallel.py``)."""
+    from pygcn_tpu_torch.parallel import make_mesh
+
     params, visits = port_world()
-    with pytest.raises(NotImplementedError, match="queue A, item 8"):
-        simulate_policy_batch(params, visits, params.attack_orig[None], [0], 2, mesh=object())
+    attack = attack_rows(params, [0.4, 1.0, 0.7])
+    want = simulate_policy_batch(params, visits, attack, [5, 6, 7], 2)
+    got = simulate_policy_batch(params, visits, attack, [5, 6, 7], 2,
+                                mesh=make_mesh([1], ["data"]))
+    assert_same(got, want)

@@ -136,9 +136,18 @@ def test_default_device_raises_without_cuda(app, tmp_path, monkeypatch):
         app.main(["--quick_test", flag, str(tmp_path / "x")])
 
 
-def test_gt_gen_shards_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tgt.main(["--shards", "2", "--device", "cpu", "--out", str(tmp_path / "x.csv")])
+def test_gt_gen_shards(tmp_path):
+    """``--shards 1`` runs as one rank in this process and writes the
+    unsharded CSV; ``--shards 2`` beyond the visible cards is refused before
+    anything starts (2 ranks: ``tests/test_torch_data_parallel.py``)."""
+    flags = ["--device", "cpu", "--quick_test", "--n_cbgs", "24"]
+    tgt.main([*flags, "--out", str(tmp_path / "plain.csv")])
+    tgt.main([*flags, "--out", str(tmp_path / "one.csv"), "--shards", "1"])
+    with open(tmp_path / "plain.csv") as a, open(tmp_path / "one.csv") as b:
+        assert a.read() == b.read()
+    with pytest.raises(ValueError, match="mesh needs 2 devices, have"):
+        tgt.main(["--shards", "2", "--device", "cuda", "--out", str(tmp_path / "x.csv")])
+    assert not os.path.exists(tmp_path / "x.csv")
 
 
 def test_safegraph_visits_generator():
