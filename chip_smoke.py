@@ -56,7 +56,20 @@ for 4 epochs and again for 3 ended by SIGTERM and resumed for the fourth
 (equal weights), a step timed and profiled, the model's ``impl="bcsr"``
 step (kernel B1) against the dense one, B1 at the folded ``[2943, 640]``
 product beside ``torch.mm``, and ``apps/baselines`` and
-``apps/train_legacy``; it prints an ``evaluator {...}`` line. Then, against
+``apps/train_legacy``; it prints an ``evaluator {...}`` line. Beside it, at
+world size 1 over NCCL on data that earlier phases built, the model axes
+(``model_axes``), which reach no hand-written kernel, as in JAX: the
+tensor-parallel GCN (``parallel/tp_gcn.py``, 128 -> 128 -> 128 -> 40 on
+the arxiv data, col/row/full) trained through the distributed step and held
+within 1e-4 of ``DistGCN`` at its weights, its parameters and Adam state
+saved by ``train/checkpoint_dist.py`` asynchronously and restored bit for
+bit; the GPipe pipeline (``parallel/pipeline.py``, 4 stages of width 32 on
+the evaluator's dense graph) against its loop, forward and gradients; the
+expert-parallel MoE (``parallel/moe.py``, 8 experts of 128 -> 512 on the
+169,343 arxiv nodes) against a plain per-expert loop and the einsum form on
+a slice; ``parallel/dryrun.dryrun_multichip(1)``; and the dry run's
+``--ranks 2 --device cuda`` refused on the one card; it prints an ``axes
+{...}`` line. Then, against
 that evaluator, the policy generators and the server: ``apps/train_generator``
 (plain and ``--hierarchical``; NN-node policies, a step timed and profiled,
 the ``impl="bcsr"`` step against the dense one and B1 at ``[2943, 32]``),
@@ -1062,7 +1075,8 @@ def run_dist_main_path(torch, gcn_result):
     host build seconds, halo rows, ms/step (host clock and CUDA events),
     device-busy ms of a profiled step and peak memory per model, beside the
     single-device GCN's ms/step from the GCN phase. The process group is
-    destroyed before it returns."""
+    destroyed before it returns. Returns its numbers and the DistGCN's plan
+    shard, which ``model_axes`` reuses."""
     from pygcn_tpu_torch.apps import train_fullgraph as tapp
 
     prepared = gcn_result["prepared"]
@@ -1114,12 +1128,13 @@ def run_dist_main_path(torch, gcn_result):
                 "forward_max_abs_err_vs_single_device": err, "run_wall_s": r["wall_s"]}
             del single, got, want
         out["tile_kernel_launches"] = launches
+        gcn_shard = runs["gcn"]["model"].shard
         runs.clear()
     torch.cuda.empty_cache()
     out["shards2_refusal"] = _mesh_refusal("pygcn_tpu_torch.apps.train_fullgraph",
                                            ["--n_nodes", "1000"])
     print("dist " + json.dumps(out), flush=True)
-    return out
+    return out, gcn_shard
 
 
 def run_gat_main_path(torch, v2: bool, epochs, hidden=8):
@@ -3438,17 +3453,17 @@ class _OneRankGroup:
             fail(f"{self.phase} left a process group behind")
 
 
-def _mesh_refusal(module, argv):
-    """``python -m <module> --shards 2 --device cuda <argv>`` on this one
+def _mesh_refusal(module, argv, flag="--shards"):
+    """``python -m <module> <flag> 2 --device cuda <argv>`` on this one
     card, run after the phase's timed work: a non-zero exit with the mesh
     message, before anything started."""
     import torch
 
-    proc = subprocess.run([sys.executable, "-m", module, "--shards", "2", "--device", "cuda",
+    proc = subprocess.run([sys.executable, "-m", module, flag, "2", "--device", "cuda",
                            *argv], cwd=HERE, capture_output=True, text=True, timeout=300)
     want = f"mesh needs 2 devices, have {torch.cuda.device_count()}"
     if proc.returncode == 0 or want not in proc.stderr:
-        fail(f"{module} --shards 2 --device cuda: rc {proc.returncode}, stderr tail "
+        fail(f"{module} {flag} 2 --device cuda: rc {proc.returncode}, stderr tail "
              f"{proc.stderr[-400:]!r}; expected a non-zero exit with {want!r}")
     return {"rc": proc.returncode, "message": want}
 
@@ -3701,6 +3716,258 @@ def run_dp_sampled(torch, prep):
     return out
 
 
+# model_axes: the tensor-parallel GCN at the CLI's widths (3 layers, 128 ->
+# 128 -> 40: col, row, full), the pipeline on the evaluator's dense graph
+# (hidden 32, 4 stages on the one rank, a batch of EVAL_BATCH in
+# microbatches of AXES_MICROBATCH), the MoE at the arxiv width (8 experts,
+# 128 -> 512 -> 128) and its einsum form on AXES_DENSE_TOKENS tokens.
+AXES_STAGES, AXES_MICROBATCH, AXES_PIPE_HIDDEN, AXES_PIPE_STEPS = 4, 4, 32, 3
+AXES_EXPERTS, AXES_EXPERT_HIDDEN, AXES_DENSE_TOKENS = 8, 512, 4096
+
+
+def _moe_plain(torch, moe, x):
+    """The MoE by a plain loop over the experts: each expert's kept tokens
+    (first come first in, at most ``capacity``) through its MLP, weighted
+    by the router's probability."""
+    probs = torch.softmax(x @ moe.gate, dim=1)
+    p, expert = probs.max(dim=1)
+    out = torch.zeros_like(x)
+    cap = moe.capacity(x.shape[0])
+    for e in range(moe.n_experts):
+        idx = torch.nonzero(expert == e)[:cap, 0]
+        h1 = torch.relu(x[idx] @ moe.w1[e] + moe.b1[e])
+        out[idx] = (h1 @ moe.w2[e] + moe.b2[e]) * p[idx, None]
+    return out
+
+
+def _tp_axes(torch, arxiv, shard, dist_ms, out):
+    """TPDistGCN on a 1×1 graph × model mesh on the arxiv data and the
+    dist phase's plan shard: a warm-up step and EPOCHS steps, the forward
+    against DistGCN's at the same weights, ms/step; returns the model, its
+    optimizer, step and inputs."""
+    import torch.nn.functional as F
+
+    from pygcn_tpu_torch.parallel import make_mesh
+    from pygcn_tpu_torch.parallel.dist_gcn import DistGCN, make_dist_classifier_step
+    from pygcn_tpu_torch.parallel.tp_gcn import TPDistGCN
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    dims = [arxiv.x.shape[1], 128, 128, arxiv.data.n_classes]
+    log_softmax = lambda h: F.log_softmax(h, dim=1)  # noqa: E731
+    mesh = make_mesh([1, 1], ["graph", "model"])
+    tp = TPDistGCN(mesh, shard, dims, final_activation=log_softmax,
+                   generator=torch.Generator().manual_seed(0))
+    opt = adam_l2(tp.parameters(), 0.01, 5e-4)
+    step = make_dist_classifier_step(tp, opt)
+    xs, labels, mask = (tp.shard_x(t) for t in (arxiv.x, arxiv.labels, arxiv.mask))
+    losses = [float(step(xs, labels, mask))]  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(EPOCHS):
+        losses.append(float(step(xs, labels, mask)))
+    host_ms = (time.perf_counter() - t0) * 1e3 / EPOCHS
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"model_axes: TPDistGCN losses {losses}")
+    event_ms = sorted(_event_ms(torch, lambda: step(xs, labels, mask))[1] for _ in range(3))
+    gcn = DistGCN(make_mesh([1], ["graph"]), shard, dims, final_activation=log_softmax).cuda()
+    gcn.load_state_dict(tp.state_dict())
+    with torch.no_grad():
+        got, want = tp(xs), gcn(gcn.shard_x(arxiv.x))
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+        fail(f"model_axes: TPDistGCN differs from DistGCN at the same weights by {err} "
+             f"(limit 1e-4)")
+    out["tp"] = {"dims": dims, "modes": tp.modes, "losses": losses,
+                 "ms_per_step": host_ms, "event_ms_per_step": event_ms,
+                 "dist_gcn_ms_per_step": dist_ms, "forward_max_abs_err_vs_dist_gcn": err}
+    del gcn, got, want
+    return tp, opt, step, (xs, labels, mask), mesh
+
+
+def _checkpoint_axes(torch, tp, opt, step, inputs, mesh, out):
+    """The TP model's parameters and Adam state saved asynchronously (twice,
+    each save timed to its return and its ``wait()``), then restored into a
+    fresh model and optimizer, bit for bit."""
+    from pygcn_tpu_torch.parallel.dist_gcn import make_dist_classifier_step
+    from pygcn_tpu_torch.parallel.tp_gcn import TPDistGCN
+    from pygcn_tpu_torch.train.checkpoint_dist import (DistCheckpointer, load_state_tree,
+                                                       state_tree)
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    with tempfile.TemporaryDirectory() as d:
+        ck = DistCheckpointer(mesh)
+        live = state_tree(tp, opt, mesh, "model", tp.split_dims())
+        saves = []
+        for _ in range(2):  # the first save also starts DCP's machinery
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(os.path.join(d, "tp"), live)
+            t1 = time.perf_counter()
+            ck.wait()
+            saves.append((t1 - t0, time.perf_counter() - t1))
+        files = [os.path.join(d, "tp", f) for f in os.listdir(os.path.join(d, "tp"))]
+        fresh = TPDistGCN(mesh, tp.shard, tp.dims, final_activation=tp.final_activation,
+                          generator=torch.Generator().manual_seed(1))
+        fresh_opt = adam_l2(fresh.parameters(), 0.01, 5e-4)
+        t3 = time.perf_counter()
+        load_state_tree(fresh, ck.restore(os.path.join(d, "tp"), like=live), fresh_opt)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        ck.close()
+        differ = [k for (k, a), b in zip(tp.named_parameters(), fresh.parameters())
+                  if not torch.equal(a, b)]
+        differ += [f"{k}.{s}" for (k, a), b in zip(tp.named_parameters(), fresh.parameters())
+                   for s in opt.state[a] if not torch.equal(opt.state[a][s], fresh_opt.state[b][s])]
+        if differ:
+            fail(f"model_axes: the restored TP model differs from the saved one in {differ}")
+        loss = float(step(*inputs))
+        fresh_loss = float(make_dist_classifier_step(fresh, fresh_opt)(*inputs))
+        if loss != fresh_loss:
+            fail(f"model_axes: the restored model's next loss {fresh_loss} != {loss}")
+        out["checkpoint"] = {"save_return_s": [a for a, _ in saves],
+                             "wait_s": [b for _, b in saves],
+                             "restore_s": t4 - t3, "files": len(files),
+                             "bytes_on_disk": sum(os.path.getsize(f) for f in files),
+                             "next_loss": loss}
+
+
+def _pipeline_axes(torch, ev, out):
+    """PipelinedDeepGCN on the evaluator's dense co-visitation graph:
+    forward and gradients against the unpipelined loop, a few Adam steps."""
+    from pygcn_tpu_torch.parallel import make_mesh
+    from pygcn_tpu_torch.parallel.pipeline import PipelinedDeepGCN
+    from pygcn_tpu_torch.train.optim import adam_l2
+
+    world, feats, dim, y = (ev[k] for k in ("world", "feats", "dim", "y"))
+    idx = np.asarray(ev["res"].idx_train)[:EVAL_BATCH]
+    x = torch.from_numpy(np.ascontiguousarray(feats[idx][:, :, :dim])).cuda()
+    by = torch.from_numpy(y[idx]).cuda()
+    model = PipelinedDeepGCN(make_mesh([1], ["pipe"]), world.graph.dense, dim, AXES_PIPE_HIDDEN,
+                             1, n_stages=AXES_STAGES, generator=torch.Generator().manual_seed(0))
+
+    def loss_of(pred):
+        return torch.mean((pred.mean(dim=(1, 2)) - by) ** 2)
+
+    results = []
+    for fn in (lambda: model(x, AXES_MICROBATCH), lambda: model.forward_unpipelined(x)):
+        model.zero_grad()
+        pred = fn()
+        loss_of(pred).backward()
+        results.append((pred.detach(), [p.grad.clone() for p in model.parameters()]))
+    (pipe, pipe_g), (loop, loop_g) = results
+    err = float((pipe - loop).abs().max())
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(pipe_g, loop_g))
+    if not torch.allclose(pipe, loop, rtol=1e-4, atol=1e-4) or not all(
+            torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in zip(pipe_g, loop_g)):
+        fail(f"model_axes: the pipeline differs from its loop: forward {err}, gradients "
+             f"{grad_err} (limit 1e-4)")
+    opt = adam_l2(model.parameters(), 0.01)
+
+    def one_step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(model(x, AXES_MICROBATCH))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(one_step()) for _ in range(AXES_PIPE_STEPS)]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"model_axes: pipeline losses {losses}")
+    event_ms = sorted(_event_ms(torch, one_step)[1] for _ in range(3))
+    out["pipeline"] = {"nodes": int(x.shape[1]), "f_in": dim, "hidden": AXES_PIPE_HIDDEN,
+                       "stages": AXES_STAGES, "batch": EVAL_BATCH,
+                       "microbatch": AXES_MICROBATCH, "forward_max_abs_err_vs_loop": err,
+                       "grad_max_abs_err_vs_loop": grad_err, "losses": losses,
+                       "event_ms_per_step": event_ms}
+
+
+def _moe_axes(torch, tp, inputs, n_nodes, out):
+    """ExpertParallelMLP at the arxiv width on the TP model's first hidden
+    activations: forward and backward, the index route against the plain
+    loop, the einsum form on a slice against the index route; ms and peak
+    memory."""
+    from pygcn_tpu_torch.parallel import make_mesh
+    from pygcn_tpu_torch.parallel.moe import ExpertParallelMLP, top1_route
+
+    with torch.no_grad():
+        first = tp.layers[0]
+        h = torch.relu(tp.spmm(inputs[0] @ first.weight) + first.bias)[:n_nodes]
+    moe = ExpertParallelMLP(make_mesh([1], ["expert"]), AXES_EXPERTS, h.shape[1],
+                            AXES_EXPERT_HIDDEN, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got, want = moe(h), _moe_plain(torch, moe, h)
+        dense_got = moe.forward_dense(h[:AXES_DENSE_TOKENS])
+        dense_want = moe(h[:AXES_DENSE_TOKENS])
+        kept = int(top1_route(h @ moe.gate, moe.capacity(h.shape[0]))[2].sum())
+    err = float((got - want).abs().max())
+    dense_err = float((dense_got - dense_want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4) or not torch.allclose(
+            dense_got, dense_want, rtol=1e-4, atol=1e-4):
+        fail(f"model_axes: MoE index route against the loop {err}, einsum form against the "
+             f"index route {dense_err} (limit 1e-4)")
+    del got, want, dense_got, dense_want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+
+    def fwd_bwd():
+        moe.zero_grad(set_to_none=True)
+        loss = torch.mean((h + moe(h)) ** 2)
+        loss.backward()
+        return loss.detach()
+
+    loss = float(fwd_bwd())
+    peak = torch.cuda.max_memory_allocated() - base
+    if not math.isfinite(loss) or not all(
+            float(p.grad.abs().sum()) > 0 for p in (moe.gate, moe.w1, moe.w2)):
+        fail(f"model_axes: MoE loss {loss}, or no gradient reached the gate or the experts")
+    ms = sorted(_event_ms(torch, fwd_bwd)[1] for _ in range(3))
+    with torch.no_grad():
+        fwd_ms = sorted(_event_ms(torch, lambda: moe(h))[1] for _ in range(3))
+    out["moe"] = {"tokens": int(h.shape[0]), "h": int(h.shape[1]), "experts": AXES_EXPERTS,
+                  "hidden": AXES_EXPERT_HIDDEN, "capacity": moe.capacity(h.shape[0]),
+                  "kept_tokens": kept, "loss": loss,
+                  "max_abs_err_vs_plain_loop": err,
+                  "einsum_vs_index_max_abs_err": dense_err,
+                  "einsum_tokens": AXES_DENSE_TOKENS, "fwd_bwd_ms": ms, "fwd_ms": fwd_ms,
+                  "peak_mem_gib_over_inputs": peak / 2**30}
+
+
+def run_model_axes(torch, arxiv, shard, dist_ms, ev):
+    """``model_axes``: the model axes at world size 1 over NCCL, on data
+    that earlier phases built (the arxiv ``prepared`` data and
+    ``dist_main_path``'s plan shard; the evaluator's world and features):
+    ``TPDistGCN`` [128, 128, 128, 40] for a warm-up step and EPOCHS steps
+    through ``make_dist_classifier_step`` (finite, its forward within 1e-4
+    of ``DistGCN`` at the same weights, ms/step beside DistGCN's), its
+    parameters and Adam state saved by ``DistCheckpointer`` asynchronously
+    and restored bit for bit; ``PipelinedDeepGCN`` on the evaluator's dense
+    graph (forward and gradients within 1e-4 of its loop, Adam steps);
+    ``ExpertParallelMLP`` on 169,343 tokens (against a plain loop, the
+    einsum form on a slice; ms, peak); ``dryrun_multichip(1)``. Then the
+    dry run's ``--ranks 2 --device cuda`` refused on this one card. No tile
+    kernel. Prints an ``axes {...}`` line."""
+    from pygcn_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    count = _reset_tile_launches()
+    out = {"card": card_line(), "nodes": arxiv.graph.n_nodes}
+    with _OneRankGroup("model_axes"):
+        tp, opt, step, inputs, mesh = _tp_axes(torch, arxiv, shard, dist_ms, out)
+        _checkpoint_axes(torch, tp, opt, step, inputs, mesh, out)
+        _pipeline_axes(torch, ev, out)
+        _moe_axes(torch, tp, inputs, arxiv.graph.n_nodes, out)
+        del tp, opt, step, inputs
+        t0 = time.perf_counter()
+        out["dryrun_1"] = dryrun_multichip(1)
+        out["dryrun_1_s"] = time.perf_counter() - t0
+    out["tile_kernel_launches"] = count()
+    if out["tile_kernel_launches"]:
+        fail(f"model_axes launched {out['tile_kernel_launches']} tile kernels, expected none")
+    torch.cuda.empty_cache()
+    out["ranks2_refusal"] = _mesh_refusal("pygcn_tpu_torch.parallel.dryrun", [], flag="--ranks")
+    print("axes " + json.dumps(out), flush=True)
+    return out
+
+
 # Epochs of each main path: enough for a step and an evaluation after the
 # warm-up pair; the launch checks hold at any count. The runs at --hidden 128
 # take one.
@@ -3740,7 +4007,8 @@ def main() -> None:
     phase("cora", run_cora, torch)
     phase("gat_dropout", run_gat_dropout, torch)
     graph, launches, gcn_result = phase("gcn_main_path", run_main_path, torch, EPOCHS)
-    phase("dist_main_path", run_dist_main_path, torch, gcn_result)
+    dist_out, arxiv_shard = phase("dist_main_path", run_dist_main_path, torch, gcn_result)
+    arxiv = gcn_result["prepared"]  # for model_axes, beside dp_evaluator
     del gcn_result
     timing = phase("time_b1_b2", time_b1, torch, graph)
     colpanel_b1 = phase("colpanel_arxiv", check_colpanel_arxiv, torch, graph)
@@ -3771,7 +4039,9 @@ def main() -> None:
         eval_b1, ev = phase("evaluator_main_path", run_evaluator_main_path, torch, kept)
         evaluator = os.path.join(kept, "evaluator.pkl")
         dp["evaluator"] = phase("dp_evaluator", run_dp_evaluator, torch, ev, evaluator)
-        del ev
+        phase("model_axes", run_model_axes, torch, arxiv, arxiv_shard,
+              dist_out["gcn"]["ms_per_step"], ev)
+        del ev, arxiv, arxiv_shard
         gen_b1, gen_out, world = phase("generator_main_path", run_generator_main_path, torch,
                                        evaluator)
         rl_out = phase("rl_main_path", run_rl_main_path, torch)

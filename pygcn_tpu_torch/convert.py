@@ -31,7 +31,13 @@ same names (:func:`sampled_params_to_state_dict`). The distributed models of
 ``pygcn_tpu/parallel`` keep the same trees (``DistGCN`` the list, ``DistSAGE``
 and ``DistAPPNP`` SAGE's and APPNP's, ``DistGAT`` the GAT's, v1 and v2), and
 the port's ``pygcn_tpu_torch/parallel`` models keep the single-device state
-dicts, so the functions above carry them too. The two random generators
+dicts, so the functions above carry them too. The model axes' trees
+(``TPDistGCN``'s list, ``PipelinedDeepGCN``'s ``{"pre", "stages",
+"head"}``, ``ExpertParallelMLP``'s ``{"gate", "w1", "b1", "w2", "b2"}``)
+map onto one rank's state dict by its coordinate on the axis, each keeping
+its share (:func:`tp_params_to_state_dict`,
+:func:`pipeline_params_to_state_dict`, :func:`moe_params_to_state_dict`),
+and the line's state dicts back onto the whole tree. The two random generators
 differ, so tests start both packages from one set of weights carried across
 here. The simulator's inputs cross the same way: :func:`fields_of` reads any
 of the JAX package's dataclasses (``EpidemicParams``, ``VisitSeq``,
@@ -172,6 +178,89 @@ def state_dict_to_kipf_params(state) -> dict:
     return {layer: {"w": state[f"{layer}.weight"].detach().cpu().numpy().copy(),
                     "b": state[f"{layer}.bias"].detach().cpu().numpy().copy()}
             for layer in KIPF_LAYERS}
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def tp_params_to_state_dict(params, coord: int, tp: int) -> dict:
+    """JAX ``TPDistGCN``'s whole param list (``[{"w", "b"}, ...]``, as
+    ``init`` returns it) → the state dict of the port's ``TPDistGCN`` rank
+    at model coordinate ``coord`` of ``tp``: each layer's share in its mode
+    (``parallel/tp_gcn.py``)."""
+    from pygcn_tpu_torch.parallel.tp_gcn import shard_layer, tp_modes
+
+    state = {}
+    for i, (layer, mode) in enumerate(zip(params, tp_modes(len(params)))):
+        w, b = shard_layer(_f32(layer["w"]), _f32(layer["b"]), mode, coord, tp)
+        state[f"layers.{i}.weight"], state[f"layers.{i}.bias"] = w.contiguous(), b.contiguous()
+    return state
+
+
+def tp_state_dicts_to_params(states) -> list:
+    """The state dicts of one model line's ranks, in model-coordinate order
+    → JAX's whole param list of NumPy arrays (:func:`tp_params_to_state_dict`'s
+    inverse)."""
+    from pygcn_tpu_torch.parallel.tp_gcn import tp_modes
+
+    lines = [state_dict_to_params(s) for s in states]
+    out = []
+    for i, mode in enumerate(tp_modes(len(lines[0]))):
+        ws = [line[i]["w"] for line in lines]
+        bs = [line[i]["b"] for line in lines]
+        if mode == "col":
+            out.append({"w": np.concatenate(ws, axis=1), "b": np.concatenate(bs)})
+        elif mode == "row":
+            out.append({"w": np.concatenate(ws, axis=0), "b": bs[0]})
+        else:
+            out.append({"w": ws[0], "b": bs[0]})
+    return out
+
+
+def pipeline_params_to_state_dict(params, coord: int, n_ranks: int) -> dict:
+    """JAX ``PipelinedDeepGCN``'s tree ``{"pre", "stages", "head"}`` (the
+    stages stacked) → the state dict of the port's model on ``pipe`` rank
+    ``coord`` of ``n_ranks``: ``pre`` and ``head`` whole, this rank's
+    consecutive stages of ``stages``."""
+    stages = {k: np.asarray(v) for k, v in params["stages"].items()}
+    per = next(iter(stages.values())).shape[0] // n_ranks
+    return tree_to_state_dict({
+        "pre": params["pre"], "head": params["head"],
+        "stages": {k: v[coord * per:(coord + 1) * per] for k, v in stages.items()}})
+
+
+def state_dicts_to_pipeline_params(states) -> dict:
+    """The ``pipe`` line's state dicts, in rank order → JAX's tree of NumPy
+    arrays, the stages stacked again."""
+    trees = [state_dict_to_tree(s) for s in states]
+    return {"pre": trees[0]["pre"], "head": trees[0]["head"],
+            "stages": {k: np.concatenate([t["stages"][k] for t in trees])
+                       for k in trees[0]["stages"]}}
+
+
+MOE_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
+
+
+def moe_params_to_state_dict(params, coord: int, n_ranks: int) -> dict:
+    """JAX ``ExpertParallelMLP``'s tree → the state dict of the port's
+    layer on ``expert`` rank ``coord`` of ``n_ranks``: the gate whole, this
+    rank's experts' slices of ``w1``, ``b1``, ``w2``, ``b2``."""
+    per = np.asarray(params["w1"]).shape[0] // n_ranks
+    state = {"gate": _f32(params["gate"])}
+    for k in MOE_EXPERT_LEAVES:
+        state[k] = _f32(np.asarray(params[k])[coord * per:(coord + 1) * per])
+    return state
+
+
+def state_dicts_to_moe_params(states) -> dict:
+    """The ``expert`` line's state dicts, in rank order → JAX's tree of
+    NumPy arrays."""
+    trees = [state_dict_to_tree(s) for s in states]
+    out = {"gate": trees[0]["gate"]}
+    for k in MOE_EXPERT_LEAVES:
+        out[k] = np.concatenate([t[k] for t in trees])
+    return out
 
 
 def fields_of(obj) -> dict:

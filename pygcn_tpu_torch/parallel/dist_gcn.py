@@ -93,9 +93,17 @@ def make_dist_classifier_step(model: DistModule, optimizer: torch.optim.Optimize
     is all zeros too: its halo exchanges are collectives), then one
     all-reduce sums the gradients and the loss; the update follows, the same
     on every rank. Returns the global loss before the update, as JAX's step
-    does."""
+    does.
+
+    A model that splits its weights over another axis
+    (:class:`~pygcn_tpu_torch.parallel.tp_gcn.TPDistGCN`) clips by the
+    global norm itself (its ``clip_grad_norm_``) when the optimizer clips;
+    the optimizer's own clip, by the norm of this rank's leaves, which is
+    no larger, then leaves the gradients as they are."""
     group = model.mesh.group(model.axis)
     params = [p for p in model.parameters() if p.requires_grad]
+    clip = getattr(optimizer, "grad_clip_norm", None)
+    global_clip = clip is not None and hasattr(model, "clip_grad_norm_")
 
     def step(x: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -105,6 +113,8 @@ def make_dist_classifier_step(model: DistModule, optimizer: torch.optim.Optimize
         loss = (per_node * mask).sum() / count
         loss.backward()
         loss = reduce_gradients(params, loss, group)
+        if global_clip:
+            model.clip_grad_norm_(clip)
         optimizer.step()
         return loss
 

@@ -91,6 +91,108 @@ def all_reduce_with_grad(t: torch.Tensor, group=None) -> torch.Tensor:
     return AllReduceSum.apply(t, group)
 
 
+# The model axes (``tp_gcn.py``, ``pipeline.py``, ``moe.py``) share one
+# convention for the loss over a line of ranks: every rank of the line holds
+# the whole loss, computed from the line's replicated output. A collective
+# that builds a replicated value from per-rank parts then passes its
+# gradient through unsummed (each rank keeps the gradient of its own part),
+# and a replicated value that feeds per-rank partial work all-reduces its
+# gradient: Megatron's ``g`` and ``f``. Replicated weights used whole then
+# get their whole gradient on every rank, with no reduction.
+
+
+def _group_rank(group) -> int:
+    return dist.get_rank(group) if group is not None else dist.get_rank()
+
+
+class CopyToGroup(torch.autograd.Function):
+    """Megatron's ``f``: ``t`` unchanged; the backward sums the gradient
+    over the group's ranks (each rank's partial work saw only its part)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        if dist.is_initialized():
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+class ReduceFromGroup(torch.autograd.Function):
+    """Megatron's ``g``: ``t`` summed over the group's ranks; the backward
+    hands each rank the gradient of the sum unchanged."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.contiguous().clone()
+        if dist.is_initialized():
+            dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class GatherFromGroup(torch.autograd.Function):
+    """Every rank's ``t`` (equal shapes) concatenated along axis 0 in group
+    rank order; the backward keeps this rank's slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.n = t.shape[0]
+        if not dist.is_initialized():
+            ctx.index = 0
+            return t.clone()
+        ctx.index = _group_rank(group)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index * ctx.n:(ctx.index + 1) * ctx.n], None
+
+
+class SplitToGroup(torch.autograd.Function):
+    """This rank's block of a replicated ``t``'s axis 0 (group rank ``i``
+    of ``P``: rows ``i·n/P`` to ``(i+1)·n/P``); the backward gathers every
+    rank's block gradient into the whole gradient, the same on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        if not dist.is_initialized():
+            return t.clone()
+        n = t.shape[0] // dist.get_world_size(group)
+        i = _group_rank(group)
+        return t[i * n:(i + 1) * n].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return GatherFromGroup.apply(g, ctx.group), None
+
+
+def copy_to_group(t: torch.Tensor, group=None) -> torch.Tensor:
+    return CopyToGroup.apply(t, group)
+
+
+def reduce_from_group(t: torch.Tensor, group=None) -> torch.Tensor:
+    return ReduceFromGroup.apply(t, group)
+
+
+def gather_from_group(t: torch.Tensor, group=None) -> torch.Tensor:
+    return GatherFromGroup.apply(t, group)
+
+
+def split_to_group(t: torch.Tensor, group=None) -> torch.Tensor:
+    return SplitToGroup.apply(t, group)
+
+
 def plan_shard(mesh: Mesh, plan, axis: str = "graph") -> PlanShard:
     """This rank's row of ``plan`` on the mesh's device (``plan`` as it is
     when it is one rank's already)."""
