@@ -67,6 +67,7 @@ from pygcn_tpu_torch.nn.layers import GraphConv
 from pygcn_tpu_torch.nn.sage import SAGE
 from pygcn_tpu_torch.train.loop import masked_nll
 from pygcn_tpu_torch.utils.device import resolve_device
+from pygcn_tpu_torch.utils.logging import span
 
 # --model sage|gin|appnp: the JAX package's 2-layer extension families
 EXTENSION_MODELS = {"sage": SAGE, "gin": GIN, "appnp": APPNP}
@@ -92,14 +93,15 @@ class GCN(nn.Module):
         return h if is_last else torch.relu(h)
 
     def forward(self, x: torch.Tensor, graph: Graph) -> torch.Tensor:
-        h = x
-        for i, layer in enumerate(self.layers):
-            is_last = i == len(self.layers) - 1
-            if self.remat and torch.is_grad_enabled():
-                h = checkpoint(self._layer, layer, h, graph, is_last, use_reentrant=False)
-            else:
-                h = self._layer(layer, h, graph, is_last)
-        return F.log_softmax(h, dim=1)
+        with span("model.forward"):
+            h = x
+            for i, layer in enumerate(self.layers):
+                is_last = i == len(self.layers) - 1
+                if self.remat and torch.is_grad_enabled():
+                    h = checkpoint(self._layer, layer, h, graph, is_last, use_reentrant=False)
+                else:
+                    h = self._layer(layer, h, graph, is_last)
+            return F.log_softmax(h, dim=1)
 
 
 def train_step(model: nn.Module, opt: torch.optim.Optimizer, x, labels, mask, graph,
@@ -108,11 +110,12 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer, x, labels, mask, gr
 
     ``fwd_kw`` goes to the model's forward (the GAT's attention layouts).
     """
-    opt.zero_grad(set_to_none=True)
-    loss = masked_nll(model(x, graph, **fwd_kw), labels, mask)
-    loss.backward()
-    opt.step()
-    return loss.detach()
+    with span("train_step"):
+        opt.zero_grad(set_to_none=True)
+        loss = masked_nll(model(x, graph, **fwd_kw), labels, mask)
+        loss.backward()
+        opt.step()
+        return loss.detach()
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -336,21 +339,22 @@ def _gat_layouts(graph: Graph, v2: bool) -> dict:
     from pygcn_tpu_torch.ops.gat import build_edge_map, build_gat_tiles_t
 
     model = "gatv2" if v2 else "gat"
-    kw = {"edge_map": build_edge_map(graph) if graph.ell is not None else None,
-          "hybrid_tiles": False, "tiles_t": None, "colpanel": False}
-    hy, cp = graph.hybrid, graph.colpanel
-    if hy is not None and hy.bcsr is not None and isinstance(hy.ell, ELL):
-        kw.update(hybrid_tiles=True, tiles_t=build_gat_tiles_t(graph))
-        print(f"{model}: tile-attention path (kernels "
-              f"{'B7/B8/B9' if v2 else 'B3/B5/B6'} on {hy.bcsr.data.shape[0]} "
-              f"tiles, {hy.tile_edges / graph.n_edges:.1%} of edges; ELL residual)")
-    elif cp is not None and graph.ell is None:
-        from pygcn_tpu_torch.ops.gat_colpanel import check_gat_colpanel
+    with span("pipeline.layouts"):
+        kw = {"edge_map": build_edge_map(graph) if graph.ell is not None else None,
+              "hybrid_tiles": False, "tiles_t": None, "colpanel": False}
+        hy, cp = graph.hybrid, graph.colpanel
+        if hy is not None and hy.bcsr is not None and isinstance(hy.ell, ELL):
+            kw.update(hybrid_tiles=True, tiles_t=build_gat_tiles_t(graph))
+            print(f"{model}: tile-attention path (kernels "
+                  f"{'B7/B8/B9' if v2 else 'B3/B5/B6'} on {hy.bcsr.data.shape[0]} "
+                  f"tiles, {hy.tile_edges / graph.n_edges:.1%} of edges; ELL residual)")
+        elif cp is not None and graph.ell is None:
+            from pygcn_tpu_torch.ops.gat_colpanel import check_gat_colpanel
 
-        check_gat_colpanel(graph)
-        kw["colpanel"] = True
-        print(f"{model}: colpanel attention path ({len(cp.panels)} panels, "
-              f"{cp.n_vrows} virtual rows)")
+            check_gat_colpanel(graph)
+            kw["colpanel"] = True
+            print(f"{model}: colpanel attention path ({len(cp.panels)} panels, "
+                  f"{cp.n_vrows} virtual rows)")
     return kw
 
 

@@ -30,6 +30,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from pygcn_tpu_torch.utils.logging import span
+
 # Edge buffers are padded to a multiple of this (kept from the JAX package so
 # both build identical COO arrays).
 EDGE_PAD = 512
@@ -193,59 +195,60 @@ class Graph:
             dtype=dtype,
         )
 
-        if build_dense is None:
-            build_dense = n_nodes <= dense_max_nodes
-        dense = torch.from_numpy(coo.toarray()) if build_dense else None
+        with span("pipeline.layouts"):
+            if build_dense is None:
+                build_dense = n_nodes <= dense_max_nodes
+            dense = torch.from_numpy(coo.toarray()) if build_dense else None
 
-        if colpanel_min_nodes is None:
-            colpanel_min_nodes = COLPANEL_MIN_NODES
-        if build_colpanel is None:
-            build_colpanel = (not build_dense) and n_nodes > colpanel_min_nodes
-        if build_hybrid is None:
-            build_hybrid = not build_dense and not build_colpanel
+            if colpanel_min_nodes is None:
+                colpanel_min_nodes = COLPANEL_MIN_NODES
+            if build_colpanel is None:
+                build_colpanel = (not build_dense) and n_nodes > colpanel_min_nodes
+            if build_hybrid is None:
+                build_hybrid = not build_dense and not build_colpanel
 
-        if build_bcsr is None:
-            build_bcsr = _bcsr_fits(coo, tile, bcsr_budget_bytes)
-        bcsr = _build_bcsr(coo, tile) if build_bcsr else None
-        bcsr_t = None
-        if build_bcsr and not is_symmetric:
-            bcsr_t = _build_bcsr(coo.T.tocoo(), tile)
+            if build_bcsr is None:
+                build_bcsr = _bcsr_fits(coo, tile, bcsr_budget_bytes)
+            bcsr = _build_bcsr(coo, tile) if build_bcsr else None
+            bcsr_t = None
+            if build_bcsr and not is_symmetric:
+                bcsr_t = _build_bcsr(coo.T.tocoo(), tile)
 
-        if build_ell is None:
-            build_ell = not build_dense and not build_colpanel
-        ell = ell_t = None
-        if build_ell:
-            from pygcn_tpu_torch.ops.ell import build_ell as _mk_ell
+            if build_ell is None:
+                build_ell = not build_dense and not build_colpanel
+            ell = ell_t = None
+            if build_ell:
+                from pygcn_tpu_torch.ops.ell import build_ell as _mk_ell
 
-            ell = _mk_ell(coo, ell_ks)
-            ell_t = ell if is_symmetric else _mk_ell(coo.T.tocsr(), ell_ks)
+                ell = _mk_ell(coo, ell_ks)
+                ell_t = ell if is_symmetric else _mk_ell(coo.T.tocsr(), ell_ks)
 
-        hybrid = hybrid_t = None
-        if build_hybrid:
-            from pygcn_tpu_torch.ops.hybrid import build_hybrid as _mk_hybrid
+            hybrid = hybrid_t = None
+            if build_hybrid:
+                from pygcn_tpu_torch.ops.hybrid import build_hybrid as _mk_hybrid
 
-            kw = dict(tile_budget_bytes=hybrid_tile_budget_bytes, residual=hybrid_residual,
-                      panel_width=panel_width, tile_dtype=hybrid_tile_dtype)
-            hybrid = _mk_hybrid(coo, tile, hybrid_min_edges_per_tile, ell_ks, **kw)
-            hybrid_t = hybrid if is_symmetric else _mk_hybrid(
-                coo.T.tocoo(), tile, hybrid_min_edges_per_tile, ell_ks, **kw)
+                kw = dict(tile_budget_bytes=hybrid_tile_budget_bytes, residual=hybrid_residual,
+                          panel_width=panel_width, tile_dtype=hybrid_tile_dtype)
+                hybrid = _mk_hybrid(coo, tile, hybrid_min_edges_per_tile, ell_ks, **kw)
+                hybrid_t = hybrid if is_symmetric else _mk_hybrid(
+                    coo.T.tocoo(), tile, hybrid_min_edges_per_tile, ell_ks, **kw)
 
-        panel = panel_t = None
-        if build_panel:
-            from pygcn_tpu_torch.ops.panel import build_panel_ell
+            panel = panel_t = None
+            if build_panel:
+                from pygcn_tpu_torch.ops.panel import build_panel_ell
 
-            panel = build_panel_ell(coo, panel_width, ell_ks)
-            panel_t = panel if is_symmetric else build_panel_ell(
-                coo.T.tocoo(), panel_width, ell_ks)
+                panel = build_panel_ell(coo, panel_width, ell_ks)
+                panel_t = panel if is_symmetric else build_panel_ell(
+                    coo.T.tocoo(), panel_width, ell_ks)
 
-        colpanel = colpanel_t = None
-        if build_colpanel:
-            from pygcn_tpu_torch.ops.colpanel import COLPANEL_KS, build_col_panel_ell
+            colpanel = colpanel_t = None
+            if build_colpanel:
+                from pygcn_tpu_torch.ops.colpanel import COLPANEL_KS, build_col_panel_ell
 
-            # the column panels take their own fine bucket ladder, as in JAX
-            colpanel = build_col_panel_ell(coo, panel_width, COLPANEL_KS)
-            colpanel_t = colpanel if is_symmetric else build_col_panel_ell(
-                coo.T.tocsr(), panel_width, COLPANEL_KS)
+                # the column panels take their own fine bucket ladder, as in JAX
+                colpanel = build_col_panel_ell(coo, panel_width, COLPANEL_KS)
+                colpanel_t = colpanel if is_symmetric else build_col_panel_ell(
+                    coo.T.tocsr(), panel_width, COLPANEL_KS)
 
         build_meta = (
             ("panel_width", panel_width),

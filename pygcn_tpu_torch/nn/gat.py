@@ -23,6 +23,7 @@ from pygcn_tpu_torch.ops.gat import (attention_aggregate, gat_attention, gat_con
                                      gat_conv_hybrid, gatv2_attention, gatv2_conv_ell,
                                      gatv2_conv_hybrid)
 from pygcn_tpu_torch.ops.gat_colpanel import gat_conv_colpanel, gatv2_conv_colpanel
+from pygcn_tpu_torch.utils.logging import span
 
 
 class GATConv(nn.Module):
@@ -163,9 +164,10 @@ class GAT(nn.Module):
                 return dropout(a, self.dropout, dropout_generator)
         kw = dict(edge_map=edge_map, hybrid_tiles=hybrid_tiles, tiles_t=tiles_t,
                   attn_dropout=drop, colpanel=colpanel)
-        if drop is not None:
-            x = drop(x)
-        x = F.elu(self.gat1(x, graph, **kw))
-        if drop is not None:
-            x = drop(x)
-        return F.log_softmax(self.gat2(x, graph, **kw), dim=1)
+        with span("model.forward"):
+            if drop is not None:
+                x = drop(x)
+            x = F.elu(self.gat1(x, graph, **kw))
+            if drop is not None:
+                x = drop(x)
+            return F.log_softmax(self.gat2(x, graph, **kw), dim=1)

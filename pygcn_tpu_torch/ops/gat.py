@@ -39,6 +39,7 @@ import torch
 from pygcn_tpu_torch.graph.graph import Graph, tree_to
 from pygcn_tpu_torch.ops.cuda.gat_tile_attn import (NEG, gat_tile_partials, gatv2_tile_partials,
                                                     transpose_bcsr)
+from pygcn_tpu_torch.utils.logging import span
 
 
 def _leaky(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -431,10 +432,14 @@ def gat_conv_hybrid(graph: Graph, tiles_t, s: torch.Tensor, a_src: torch.Tensor,
     n, h, f = s.shape
     lsrc_n, ldst_n = _node_logits(s, a_src, a_dst)  # [N, H]
     s2 = s.reshape(n, h * f)
-    edge = _ell_attn_partials(ell, lsrc_n, ldst_n, s2, h, f, negative_slope,
-                              [v != 0 for v in ell.vals])
-    tile = None if graph.hybrid.bcsr is None else gat_tile_partials(
-        (h, f, negative_slope), graph.hybrid.bcsr, tiles_t, lsrc_n, ldst_n, s2)
+    with span("gat.ell"):
+        edge = _ell_attn_partials(ell, lsrc_n, ldst_n, s2, h, f, negative_slope,
+                                  [v != 0 for v in ell.vals])
+    tile = None
+    if graph.hybrid.bcsr is not None:
+        with span("gat.tile"):
+            tile = gat_tile_partials((h, f, negative_slope), graph.hybrid.bcsr, tiles_t,
+                                     lsrc_n, ldst_n, s2)
     return _flash_merge(tile, edge, n, h, f)
 
 

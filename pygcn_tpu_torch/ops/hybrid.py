@@ -22,6 +22,7 @@ from pygcn_tpu_torch.graph.graph import BCSR, _build_bcsr, tree_to
 from pygcn_tpu_torch.ops.colpanel import ColPanelELL, build_col_panel_ell, col_panel_spmm_raw
 from pygcn_tpu_torch.ops.cuda.bcsr_spmm import bcsr_spmm
 from pygcn_tpu_torch.ops.ell import ELL, build_ell, ell_spmm_raw
+from pygcn_tpu_torch.utils.logging import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,12 +99,15 @@ def build_hybrid(
 
 def hybrid_spmm_raw(h: HybridLayout, x: torch.Tensor) -> torch.Tensor:
     """Residual half (ELL or column panels) plus, when there are tiles, the B1 half."""
-    if isinstance(h.ell, ColPanelELL):
-        out = col_panel_spmm_raw(h.ell, x)
-    else:
-        out = ell_spmm_raw(h.ell, x)
+    with span("spmm.ell"):
+        if isinstance(h.ell, ColPanelELL):
+            out = col_panel_spmm_raw(h.ell, x)
+        else:
+            out = ell_spmm_raw(h.ell, x)
     if h.bcsr is not None:
-        out = out + bcsr_spmm(h.bcsr, x, n_rows=h.n_rows)
+        with span("spmm.tile"):
+            tile = bcsr_spmm(h.bcsr, x, n_rows=h.n_rows)
+        out = out + tile
     return out
 
 

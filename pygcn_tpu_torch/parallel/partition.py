@@ -28,6 +28,7 @@ import scipy.sparse as sp
 import torch
 
 from pygcn_tpu_torch.graph.graph import Graph
+from pygcn_tpu_torch.utils.logging import span
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -218,6 +219,11 @@ def locality_order(graph: Graph, method: str = "auto") -> np.ndarray:
     path, chosen above 1M edges when graphkit loads); ``'bfs'`` keeps
     neighbourhoods contiguous and needs only SciPy.
     """
+    with span("pipeline.locality_order"):
+        return _locality_order(graph, method)
+
+
+def _locality_order(graph: Graph, method: str) -> np.ndarray:
     from pygcn_tpu_torch.utils import native
 
     if method == "auto":

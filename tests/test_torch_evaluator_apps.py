@@ -42,7 +42,7 @@ from pygcn_tpu_torch.data.vac_results import load_vac_results
 from pygcn_tpu_torch.train import checkpoint as tckpt
 from pygcn_tpu_torch.train.sweep import expand_grid, run_sweep
 from pygcn_tpu_torch.utils.config import Config
-from pygcn_tpu_torch.utils.logging import MetricsLogger, timed, trace
+from pygcn_tpu_torch.utils.logging import MetricsLogger
 
 torch.set_num_threads(1)
 
@@ -275,11 +275,6 @@ def test_metrics_logger_writes_jax_records(tmp_path, capsys):
     for r in recs:
         r.pop("time")
     assert recs[0] == recs[1]
-    with timed("nothing", echo=False), trace(None):
-        pass
-    with trace(str(tmp_path / "trace")):
-        torch.ones(3).sum()
-    assert os.listdir(tmp_path / "trace")
 
 
 def toy_trial(cfg):
