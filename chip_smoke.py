@@ -20,13 +20,16 @@ hybrid layout) for a few epochs each through ``apps/train_fullgraph
 --clustered``:
 
 - the 3-layer GCN (widths 128/128/40): kernel B1, and with ``BCSR_STREAM``
-  kernel B2;
+  kernel B2, and kernel E1 on the ELL residual (``check_e1`` holds E1
+  against its plain version at widths 1 to 640, bit for bit in two launches;
+  ``time_e1`` on the main path's residual at H = 128 and 40);
 - ``--model gat --hidden 8`` (2-layer GAT, 8 heads of 8 then 1 head of 40):
   kernels B3/B5/B6, and with ``TILE_REVISIT = False`` B4/B5s/B6s;
 - ``--model gatv2 --hidden 8``: kernels B7/B8/B9;
 - ``--model gat`` and ``--model gatv2`` at the CLI's default ``--hidden 128``
   (8 heads of 128): the same kernels on wide heads, for one epoch;
-- ``--model sage``, ``gin`` and ``appnp`` (128 -> 128 -> 40): kernel B1.
+- ``--model sage``, ``gin`` and ``appnp`` (128 -> 128 -> 40): kernels B1
+  and E1.
 
 It checks that each path launched its kernels exactly as often as it must
 and no other tile kernel. On the GCN path's arxiv data it then runs the
@@ -287,6 +290,88 @@ def check_b1(torch):
           f"BCSRSpMM value and gradient on an asymmetric graph; block rows of "
           f"{long_row_counts(b1.MAX_TILES)} tiles, bitwise equal in two launches) "
           f"within rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
+
+
+# Widths of E1's checks: one column (4-byte loads, 32 rows a warp), the GCN's
+# last layer (10 lanes a row, 3 rows a warp), 128 and 256 (the GCN cells'
+# hidden width: one warp a row, 1 and 2 float4 a lane) and a folded batch of
+# 640 (4 float4 a lane, two column chunks).
+E1_WIDTHS = (1, 40, 128, 256, 640)
+
+
+def _random_ell_matrix(rng, n_rows, n_cols):
+    """A CSR matrix of unit-normal values whose rows have 1 to 40 edges, but
+    row 0, which has none, and 12 rows of 257 to 1,100 edges: split over the
+    widest bucket, their tails in smaller ones. Every bucket has trailing
+    padding."""
+    import scipy.sparse as sp
+
+    deg = rng.integers(1, 41, n_rows)
+    deg[0] = 0
+    deg[rng.choice(np.arange(1, n_rows), 12, replace=False)] = rng.integers(257, 1101, 12)
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    indices = np.concatenate([np.sort(rng.choice(n_cols, d, replace=False)) for d in deg])
+    data = rng.standard_normal(indices.size).astype(np.float32)
+    return sp.csr_matrix((data, indices, indptr), shape=(n_rows, n_cols))
+
+
+def check_e1(torch):
+    """Kernel E1 against its plain version on the card at :data:`E1_WIDTHS`
+    on a random ELL layout with split rows and trailing padding (the same
+    bits in two launches, the row without edges zero), on an x whose rows
+    are not 16-byte aligned (the 4-byte path at H = 256), and ``ELLSpMM``'s
+    value and gradient on an asymmetric pair of layouts."""
+    from pygcn_tpu_torch.ops import ell as ell_mod
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    n_rows, n_cols = 3000, 2500
+    m = _random_ell_matrix(rng, n_rows, n_cols)
+    ell = ell_mod.build_ell(m).to(dev)
+    ell_t = ell_mod.build_ell(m.T.tocsr()).to(dev)
+    worst, cases = 0.0, 0
+
+    def hold(got, ref, label):
+        nonlocal worst, cases
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"E1 {label}: shape {tuple(got.shape)} or non-finite values")
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        worst = max(worst, float((got - ref).abs().max()))
+        cases += 1
+
+    for h in E1_WIDTHS:
+        x = torch.from_numpy(rng.standard_normal((n_cols, h)).astype(np.float32)).to(dev)
+        before = e1.launches
+        got = ell_mod.ell_spmm_raw(ell, x)
+        again = ell_mod.ell_spmm_raw(ell, x)
+        hold(got, ell_mod.ell_spmm_plain(ell, x), f"H={h}")
+        if e1.launches != before + 2:
+            fail(f"E1 H={h}: {e1.launches - before} launches for two products")
+        if not torch.equal(got, again) or got[0].any():
+            fail(f"E1 H={h}: two launches differ, or the row without edges is not zero")
+    flat = torch.from_numpy(rng.standard_normal(n_cols * 256 + 1).astype(np.float32)).to(dev)
+    x = flat[1:].view(n_cols, 256)  # rows 4 bytes off a 16-byte boundary
+    hold(ell_mod.ell_spmm_raw(ell, x), ell_mod.ell_spmm_plain(ell, x), "H=256 unaligned")
+    for h in (40, 256):
+        x = torch.from_numpy(rng.standard_normal((n_cols, h)).astype(np.float32)).to(dev)
+        cot = torch.from_numpy(rng.standard_normal((n_rows, h)).astype(np.float32)).to(dev)
+        xg = x.clone().requires_grad_(True)
+        y = ell_mod.ell_spmm_pair(ell, ell_t, xg)
+        (dx,) = torch.autograd.grad(y, xg, cot)
+        hold(y.detach(), ell_mod.ell_spmm_plain(ell, x), f"ELLSpMM H={h}")
+        hold(dx, ell_mod.ell_spmm_plain(ell_t, cot), f"ELLSpMM gradient H={h}")
+    try:
+        ell_mod.ell_spmm_raw(ell, torch.ones(n_cols, 4, device=dev, dtype=torch.bfloat16))
+    except TypeError:
+        pass
+    else:
+        fail("E1 took a bf16 x")
+    print(f"E1 vs plain on the card: {cases} cases ({n_rows} x {n_cols}, 12 split rows, a row "
+          f"without edges, H in {'/'.join(map(str, E1_WIDTHS))}, bitwise equal in two launches; "
+          f"an unaligned x at H = 256; ELLSpMM value and gradient at H = 40 and 256) within "
+          f"rtol=atol={RTOL}; max abs err {worst:.3e}", flush=True)
 
 
 def _gat_tiles(rng, symmetric, dtype, drop_padding, density=0.05):
@@ -1009,28 +1094,34 @@ def run_gat_dropout(torch):
 def run_main_path(torch, epochs):
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
     from pygcn_tpu_torch.utils import native
 
     print(f"graphkit native library: {'loaded' if native.available() else 'missing (NumPy/BFS fallbacks)'}",
           flush=True)
-    b1.launches = b1.stream_launches = 0
+    b1.launches = b1.stream_launches = e1.launches = 0
     result = train_fullgraph.main(["--clustered", "--max_epochs", str(epochs), "--memstats",
                                    "--device", "cuda"])
     torch.cuda.synchronize()
     launches = b1.launches
     graph = result["graph"]
+    # each of the 3 layers' products: one launch of each half forward and,
+    # in the step, one of each in the backward; E1 takes one launch a product
     expected = 6 * result["steps"] + 3 * result["evals"]
     print(f"main path: {graph.n_nodes} nodes, {graph.n_edges} edges, tile_frac="
           f"{result['tile_frac']}, {graph.hybrid.bcsr.data.shape[0] if graph.hybrid.bcsr is not None else 0} tiles, "
-          f"{result['steps']} steps + {result['evals']} evals, B1 launches {launches} "
-          f"(expected 6/step + 3/eval = {expected}), ms/step {result['epoch_s'] * 1e3:.3f}, "
-          f"peak memory {result['peak_mem_bytes'] / 2**30:.3f} GiB, last loss {result['loss']}, "
-          f"best val {result['val']}", flush=True)
+          f"{result['steps']} steps + {result['evals']} evals, B1 launches {launches}, E1 "
+          f"launches {e1.launches} (each expected 6/step + 3/eval = {expected}), ms/step "
+          f"{result['epoch_s'] * 1e3:.3f}, peak memory {result['peak_mem_bytes'] / 2**30:.3f} GiB, "
+          f"last loss {result['loss']}, best val {result['val']}", flush=True)
     if not result["tile_frac"] or result["tile_frac"] <= 0:
         fail(f"tile_frac={result['tile_frac']}: the hybrid layout has no tiles")
     if launches != expected or launches == 0 or b1.stream_launches:
         fail(f"B1 launched {launches} times on the main path, expected {expected}; "
              f"B2 {b1.stream_launches} times, expected 0")
+    if e1.launches != expected:
+        fail(f"E1 launched {e1.launches} times on the main path, expected {expected}")
+    result["e1_launches"] = e1.launches
     if not math.isfinite(result["loss"]) or not math.isfinite(result["val"]):
         fail(f"non-finite loss {result['loss']} or val {result['val']}")
     return graph, launches, result
@@ -1175,24 +1266,27 @@ def run_gat_main_path(torch, v2: bool, epochs, hidden=8):
 
 def run_stream_main_paths(torch, epochs):
     """The GCN main path with ``BCSR_STREAM = True`` (B2 6 per step + 3 per
-    evaluation, B1 none) and the GAT main path with ``TILE_REVISIT = False``
-    (B4 2 per step + 2 per evaluation, B5s and B6s 2 per step, every other
-    tile kernel none). Both flags are restored whatever happens."""
+    evaluation, B1 none, E1 as often as B2: one launch a product's ELL half)
+    and the GAT main path with ``TILE_REVISIT = False`` (B4 2 per step + 2
+    per evaluation, B5s and B6s 2 per step, every other tile kernel and E1
+    none). Both flags are restored whatever happens."""
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
     saved = (b1.BCSR_STREAM, gta.TILE_REVISIT)
     try:
         b1.BCSR_STREAM = True
-        b1.launches = b1.stream_launches = 0
+        b1.launches = b1.stream_launches = e1.launches = 0
         r = train_fullgraph.main(["--clustered", "--max_epochs", str(epochs), "--memstats",
                                   "--device", "cuda"])
         torch.cuda.synchronize()
-        gcn = {"B1": b1.launches, "B2": b1.stream_launches}
-        want = {"B1": 0, "B2": 6 * r["steps"] + 3 * r["evals"]}
+        gcn = {"B1": b1.launches, "B2": b1.stream_launches, "E1": e1.launches}
+        per = 6 * r["steps"] + 3 * r["evals"]
+        want = {"B1": 0, "B2": per, "E1": per}
         print(f"GCN stream main path (BCSR_STREAM): {r['steps']} steps + {r['evals']} evals, "
-              f"launches {gcn} (expected B2 6/step + 3/eval, B1 0: {want}), ms/step "
+              f"launches {gcn} (expected B2 and E1 6/step + 3/eval, B1 0: {want}), ms/step "
               f"{r['epoch_s'] * 1e3:.3f}, peak memory {r['peak_mem_bytes'] / 2**30:.3f} GiB, "
               f"last loss {r['loss']}, best val {r['val']}", flush=True)
         if gcn != want or not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
@@ -1203,7 +1297,7 @@ def run_stream_main_paths(torch, epochs):
         gta.TILE_REVISIT = False
         for k in gta.launches:
             gta.launches[k] = 0
-        b1.launches = b1.stream_launches = 0
+        b1.launches = b1.stream_launches = e1.launches = 0
         r = train_fullgraph.main(["--clustered", "--model", "gat", "--hidden", "8",
                                   "--max_epochs", str(epochs), "--memstats", "--device", "cuda"])
         torch.cuda.synchronize()
@@ -1216,10 +1310,11 @@ def run_stream_main_paths(torch, epochs):
               f"ms/step {r['epoch_s'] * 1e3:.3f}, peak memory "
               f"{r['peak_mem_bytes'] / 2**30:.3f} GiB, last loss {r['loss']}, best val "
               f"{r['val']}", flush=True)
-        if (gat != want_gat or (b1.launches, b1.stream_launches) != (0, 0)
+        if (gat != want_gat or (b1.launches, b1.stream_launches, e1.launches) != (0, 0, 0)
                 or not math.isfinite(r["loss"]) or not math.isfinite(r["val"])):
-            fail(f"GAT stream main path: launches {gat}, expected {want_gat}; loss {r['loss']}, "
-                 f"val {r['val']}")
+            fail(f"GAT stream main path: launches {gat}, expected {want_gat}; B1, B2, E1 "
+                 f"{b1.launches}, {b1.stream_launches}, {e1.launches}, expected none; loss "
+                 f"{r['loss']}, val {r['val']}")
         return {"B2": gcn["B2"], **{k: gat[k] for k in ("B4", "B5s", "B6s")}}
     finally:
         b1.BCSR_STREAM, gta.TILE_REVISIT = saved
@@ -1227,7 +1322,8 @@ def run_stream_main_paths(torch, epochs):
 
 # B1 launches of the extension models' training step and evaluation: each
 # spmm is one forward launch, and one backward launch when its input needs a
-# gradient. SAGE and GIN aggregate the input x in layer 1 (no gradient) and
+# gradient. Each such product's ELL half is one E1 launch, so E1 launches as
+# often. SAGE and GIN aggregate the input x in layer 1 (no gradient) and
 # the hidden layer in layer 2: 2 + 1 per step, 2 per evaluation. APPNP runs
 # K = 10 propagation steps on the MLP's output: 10 + 10 per step, 10 per
 # evaluation.
@@ -1236,14 +1332,16 @@ EXTENSION_B1 = {"sage": (3, 2), "gin": (3, 2), "appnp": (20, 10)}
 
 def run_extension_main_paths(torch, epochs):
     """``--model sage``, ``gin`` and ``appnp`` at the default widths (128 ->
-    128 -> 40): B1 exactly :data:`EXTENSION_B1` times, no other kernel."""
+    128 -> 40): B1 and E1 each exactly :data:`EXTENSION_B1` times, no other
+    hand-written kernel."""
     from pygcn_tpu_torch.apps import train_fullgraph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
     from pygcn_tpu_torch.ops.cuda import gat_tile_attn as gta
 
     total = 0
     for model, (per_step, per_eval) in EXTENSION_B1.items():
-        b1.launches = b1.stream_launches = 0
+        b1.launches = b1.stream_launches = e1.launches = 0
         for k in gta.launches:
             gta.launches[k] = 0
         t0 = time.time()
@@ -1252,14 +1350,16 @@ def run_extension_main_paths(torch, epochs):
         torch.cuda.synchronize()
         want = per_step * r["steps"] + per_eval * r["evals"]
         print(f"{model} main path: {r['steps']} steps + {r['evals']} evals, B1 launches "
-              f"{b1.launches} (expected {per_step}/step + {per_eval}/eval = {want}), ms/step "
+              f"{b1.launches}, E1 launches {e1.launches} (each expected {per_step}/step + "
+              f"{per_eval}/eval = {want}), ms/step "
               f"{r['epoch_s'] * 1e3:.3f}, peak memory {r['peak_mem_bytes'] / 2**30:.3f} GiB, "
               f"last loss {r['loss']}, best val {r['val']}, wall {time.time() - t0:.1f}s",
               flush=True)
-        if (b1.launches != want or b1.stream_launches or any(gta.launches.values())
-                or not r["tile_frac"] or not math.isfinite(r["loss"])
-                or not math.isfinite(r["val"])):
-            fail(f"{model} main path: B1 {b1.launches} (expected {want}), B2 "
+        if (b1.launches != want or e1.launches != want or b1.stream_launches
+                or any(gta.launches.values()) or not r["tile_frac"]
+                or not math.isfinite(r["loss"]) or not math.isfinite(r["val"])):
+            fail(f"{model} main path: B1 {b1.launches}, E1 {e1.launches} (each expected "
+                 f"{want}), B2 "
                  f"{b1.stream_launches}, tile kernels {gta.launches}, tile_frac "
                  f"{r['tile_frac']}, loss {r['loss']}, val {r['val']}")
         total += b1.launches
@@ -1371,6 +1471,51 @@ def time_b1(torch, graph):
             print(f"{name} timing: " + json.dumps(row), flush=True)
             rows.append(row)
     b1.launches, b1.stream_launches = saved
+    return rows
+
+
+def time_e1(torch, graph):
+    """E1 at the main path's shapes: the clustered arxiv graph's ELL residual
+    at H = 128 and 40 against its plain version (within RTOL/ATOL, the same
+    bits in two launches), timed beside the plain version, ``torch.sparse.mm``
+    on the residual as a CSR tensor, and its bound (``apps/time_ell``)."""
+    from pygcn_tpu_torch.apps.time_ell import e1_bound, residual_csr
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
+    from pygcn_tpu_torch.ops.ell import ell_spmm_plain
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    ell = graph.hybrid.ell
+    sched = e1._device_schedule(ell)[0]
+    csr = residual_csr(ell)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    saved = e1.launches
+    for h in (128, 40):
+        x = torch.randn((graph.n_nodes, h), device="cuda", generator=gen)
+        ref = ell_spmm_plain(ell, x)
+        got, again = e1.ell_spmm_cuda(ell, x), e1.ell_spmm_cuda(ell, x)
+        lib = torch.sparse.mm(csr, x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(lib, ref, rtol=RTOL, atol=ATOL)
+        if not torch.equal(got, again):
+            fail(f"E1 at H={h} gave other bits in a second launch")
+        err = float((got - ref).abs().max())
+        del got, again, lib
+        ms = cuda_ms(lambda: e1.ell_spmm_cuda(ell, x), iters=50)
+        plain_ms = cuda_ms(lambda: ell_spmm_plain(ell, x), iters=20)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=50)
+        ms2 = cuda_ms(lambda: e1.ell_spmm_cuda(ell, x), iters=50)
+        bound = e1_bound(ell, sched, h)
+        row = {"kernel": "E1", "H": h, "virtual_rows": sum(r.shape[0] for r in ell.rows),
+               "items": sched.items.shape[0], "parts": sched.n_parts, "slots": bound["slots"],
+               "ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound["bound_ms"], "bound_by": "bytes",
+               "bytes": bound["bound_bytes"], "gather_ms": bound["gather_ms"],
+               "max_abs_err": err}
+        print("E1 timing: " + json.dumps(row), flush=True)
+        rows.append(row)
+    e1.launches = saved
     return rows
 
 
@@ -1627,6 +1772,26 @@ def spmm_kernel_entry(timing, name, launches, line, path=""):
         "replaces": f"pygcn_tpu/ops/pallas/bcsr_spmm.py:{line}",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": h128["ms"],
+        "plain_ms": h128["plain_ms"],
+        "bound_ms": h128["bound_ms"],
+        "bound_by": h128["bound_by"],
+        "library_ms": h128["library_ms"],
+    }
+
+
+def e1_kernel_entry(timing, launches):
+    """The ``kernels`` line's entry of E1, from its first row (the main
+    path's H = 128). E1 replaces no TPU kernel: JAX leaves the product to
+    XLA."""
+    h128 = timing[0]
+    return {
+        "name": "E1 ell_spmm",
+        "route": "cuda",
+        "source": "pygcn_tpu_torch/csrc/ell_spmm.cu",
+        "replaces": "none (XLA: pygcn_tpu/ops/ell.py:159 ell_spmm_raw)",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in timing),
         "ms": h128["ms"],
         "plain_ms": h128["plain_ms"],
         "bound_ms": h128["bound_ms"],
@@ -2258,6 +2423,8 @@ def _bcsr_route(torch, tev, b1, adam_l2, graph, bx, by, dim, n_features):
     element whose gradient lies within rounding of zero may step either way
     on the two routes: such elements are counted and reported, and their
     gradients are held to 1e-4 with the rest."""
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
+
     lr, wd = 0.01, 5e-4
     runs = {}
     for impl in ("dense", "bcsr"):
@@ -2267,7 +2434,7 @@ def _bcsr_route(torch, tev, b1, adam_l2, graph, bx, by, dim, n_features):
             fwd = m(bx, graph)
         opt = adam_l2(m.parameters(), lr, wd, grad_clip_norm=0.1)
         step = tev.make_train_step(m, opt, graph)
-        before = b1.launches
+        before, e1_before = b1.launches, e1.launches
         step(bx, by)
         torch.cuda.synchronize()
         # Adam's first moment after one step is (1 - b1) times the gradient it
@@ -2279,8 +2446,11 @@ def _bcsr_route(torch, tev, b1, adam_l2, graph, bx, by, dim, n_features):
             "weights": {n: p.detach().clone() for n, p in m.named_parameters()},
             "expected": {n: w0[n] - lr / 0.1 * st["exp_avg"] / (
                 st["exp_avg_sq"].sqrt() / 0.001 ** 0.5 + 1e-8) for n, st in state.items()},
-            "launches": b1.launches - before}
+            "launches": b1.launches - before, "e1_launches": e1.launches - e1_before}
     d, b = runs["dense"], runs["bcsr"]
+    if d["e1_launches"] or b["e1_launches"]:
+        fail(f"evaluator step: E1 launched {d['e1_launches']} times on the dense layout and "
+             f"{b['e1_launches']} on bcsr (neither has an ELL half)")
     if d["launches"] != 0 or b["launches"] != 6:
         fail(f"evaluator step: B1 launched {d['launches']} times on the dense layout "
              f"and {b['launches']} on bcsr (expected 0 and 6)")
@@ -2476,6 +2646,7 @@ def _generator_bcsr_route(torch, tgen, world, evaluator_path, x, eval_base, n_fe
     evaluator's GCN sees only the constant base, so the step is made with
     its output, and the gradient crosses no evaluator convolution)."""
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
     from pygcn_tpu_torch.policy import make_generator_train_step
     from pygcn_tpu_torch.train.checkpoint import load_evaluator
     from pygcn_tpu_torch.train.optim import adam_l2
@@ -2495,16 +2666,20 @@ def _generator_bcsr_route(torch, tgen, world, evaluator_path, x, eval_base, n_fe
             opt.state.clear()
             with torch.no_grad():
                 scores = gen.scores(x, graph)[:, 0]
-            before = b1.launches
+            before, e1_before = b1.launches, e1.launches
             loss, flag = step(x)
             torch.cuda.synchronize()
             top = torch.topk(scores, GEN_NN + 1).values
             runs[impl] = {"loss": loss, "flag": flag, "gap": float(top[-2] - top[-1]),
                           "grads": {n: p.grad.clone() for n, p in gen.named_parameters()},
-                          "launches": b1.launches - before}
+                          "launches": b1.launches - before,
+                          "e1_launches": e1.launches - e1_before}
         d, b = runs["dense"], runs["bcsr"]
         if d["launches"] != 0:
             fail(f"generator step: B1 launched {d['launches']} times on the dense layout")
+        if d["e1_launches"] or b["e1_launches"]:
+            fail(f"generator step: E1 launched {d['e1_launches']} times on the dense layout "
+                 f"and {b['e1_launches']} on bcsr (neither has an ELL half)")
         launches.add(b["launches"])
         if min(d["gap"], b["gap"]) <= RTOL:
             near.append({"state": k, "gap_dense": d["gap"], "gap_bcsr": b["gap"],
@@ -3996,6 +4171,7 @@ def main() -> None:
     products_build = start_products_build(products_dir.name)
     phase("build", build_kernels)
     phase("check_b1", check_b1, torch)
+    phase("check_e1", check_e1, torch)
     phase("check_gat_tiles", check_gat_tiles, torch, False)
     phase("check_gatv2_tiles", check_gat_tiles, torch, True)
     phase("check_stream_kernels", check_stream_kernels, torch)
@@ -4007,10 +4183,12 @@ def main() -> None:
     phase("cora", run_cora, torch)
     phase("gat_dropout", run_gat_dropout, torch)
     graph, launches, gcn_result = phase("gcn_main_path", run_main_path, torch, EPOCHS)
+    gcn_e1_launches = gcn_result["e1_launches"]
     dist_out, arxiv_shard = phase("dist_main_path", run_dist_main_path, torch, gcn_result)
     arxiv = gcn_result["prepared"]  # for model_axes, beside dp_evaluator
     del gcn_result
     timing = phase("time_b1_b2", time_b1, torch, graph)
+    e1_timing = phase("time_e1", time_e1, torch, graph)
     colpanel_b1 = phase("colpanel_arxiv", check_colpanel_arxiv, torch, graph)
     del graph
     gat_result, gat_launches = phase("gat_main_path", run_gat_main_path, torch, False, EPOCHS)
@@ -4059,6 +4237,7 @@ def main() -> None:
     kernels = {"kernels": [
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),
+        e1_kernel_entry(e1_timing, gcn_e1_launches),
         spmm_kernel_entry([eval_b1], "B1", eval_b1["launches"], 50,
                           f" (evaluator, H={eval_b1['H']})"),
         spmm_kernel_entry([gen_b1], "B1", gen_b1["launches"], 50,

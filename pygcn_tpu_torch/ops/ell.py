@@ -1,11 +1,16 @@
 """Bucketed-ELL SpMM — the gather path for edges off the dense tiles.
 
 Rows are binned into power-of-two degree buckets; each bucket stores a dense
-``[Nb, K]`` column/value block, so aggregation is a gather, a multiply, a
-length-K sum and one ``index_add_`` of ``Nb`` partial rows (not one per edge).
-Rows wider than the largest K are split into virtual rows that the
-``index_add_`` merges. The layout is built by the repo's native graphkit
-library when it loads, else by NumPy, giving the same buckets either way.
+``[Nb, K]`` column/value block, padded at the end of each virtual row with
+column 0 and value 0. Rows wider than the largest K are split into virtual
+rows. The layout is built by the repo's native graphkit library when it
+loads, else by NumPy, giving the same buckets either way.
+
+:func:`ell_spmm_raw` picks the product by the device of ``x``: on the CPU
+the plain version (per bucket a gather, a multiply, a length-K sum and one
+``index_add_`` of ``Nb`` partial rows, which also merges split rows); on a
+CUDA device kernel E1 (``ops/cuda/ell_spmm.py``), which sums each virtual
+row in one pass.
 
 Backward uses the prebuilt transpose layout (symmetric graphs reuse the
 forward one) through :class:`torch.autograd.Function`, so autograd never
@@ -22,17 +27,27 @@ import scipy.sparse as sp
 import torch
 
 from pygcn_tpu_torch.graph.graph import tree_to
+from pygcn_tpu_torch.ops.cuda.ell_spmm import ell_spmm_cuda
 
 
 @dataclasses.dataclass(frozen=True)
 class ELL:
-    """Per-bucket ``(cols [Nb, K], vals [Nb, K], rows [Nb])`` blocks."""
+    """Per-bucket ``(cols [Nb, K], vals [Nb, K], rows [Nb], lens [Nb])``
+    blocks: virtual row ``i`` holds its edges in slots ``0 .. lens[i] - 1``.
+
+    ``cache`` holds what a kernel derives once from this layout (kernel E1's
+    work items). It is not a constructor argument, so every new layout
+    (:meth:`to`, :func:`build_ell`) starts empty.
+    """
 
     cols: Tuple[torch.Tensor, ...]  # int32
     vals: Tuple[torch.Tensor, ...]  # float32
     rows: Tuple[torch.Tensor, ...]  # int32, the (real) row of each virtual row
+    lens: Tuple[torch.Tensor, ...]  # int32, each virtual row's edges (its valid slots)
     ks: Tuple[int, ...]
     n_rows: int
+    cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
 
     def to(self, device) -> "ELL":
         return tree_to(self, device)
@@ -45,16 +60,6 @@ def build_ell(mat: sp.spmatrix, ks: Tuple[int, ...] = (4, 8, 16, 32, 64, 128, 25
 
     from pygcn_tpu_torch.utils import native
 
-    built = native.build_ell_layout(indptr, indices, data, ks)
-    if built is not None:
-        cols, vals, rows = built
-        return ELL(
-            cols=tuple(torch.from_numpy(c) for c in cols),
-            vals=tuple(torch.from_numpy(v) for v in vals),
-            rows=tuple(torch.from_numpy(r) for r in rows),
-            ks=tuple(ks),
-            n_rows=n,
-        )
     deg = np.diff(indptr).astype(np.int64)
     kmax = ks[-1]
 
@@ -66,10 +71,26 @@ def build_ell(mat: sp.spmatrix, ks: Tuple[int, ...] = (4, 8, 16, 32, 64, 128, 25
     vstart = indptr[vrow_row] + chunk_ofs * kmax
     vlen = np.minimum(deg[vrow_row] - chunk_ofs * kmax, kmax)
     bucket = np.searchsorted(ks, np.maximum(vlen, 1))
+    # each bucket's virtual rows in order (the native builder's order too); a
+    # bucket without any holds one row of padding
+    sels = [np.nonzero(bucket == j)[0] for j in range(len(ks))]
+    lens = tuple(torch.from_numpy(vlen[sel].astype(np.int32)) if sel.size
+                 else torch.zeros(1, dtype=torch.int32) for sel in sels)
+
+    built = native.build_ell_layout(indptr, indices, data, ks)
+    if built is not None:
+        cols, vals, rows = built
+        return ELL(
+            cols=tuple(torch.from_numpy(c) for c in cols),
+            vals=tuple(torch.from_numpy(v) for v in vals),
+            rows=tuple(torch.from_numpy(r) for r in rows),
+            lens=lens,
+            ks=tuple(ks),
+            n_rows=n,
+        )
 
     cols_out, vals_out, rows_out = [], [], []
-    for j, k in enumerate(ks):
-        sel = np.nonzero(bucket == j)[0]
+    for sel, k in zip(sels, ks):
         if sel.size == 0:
             cols_out.append(torch.zeros((1, k), dtype=torch.int32))
             vals_out.append(torch.zeros((1, k), dtype=torch.float32))
@@ -85,12 +106,12 @@ def build_ell(mat: sp.spmatrix, ks: Tuple[int, ...] = (4, 8, 16, 32, 64, 128, 25
         vals_out.append(torch.from_numpy(vals.astype(np.float32)))
         rows_out.append(torch.from_numpy(vrow_row[sel].astype(np.int32)))
 
-    return ELL(cols=tuple(cols_out), vals=tuple(vals_out), rows=tuple(rows_out),
+    return ELL(cols=tuple(cols_out), vals=tuple(vals_out), rows=tuple(rows_out), lens=lens,
                ks=tuple(ks), n_rows=n)
 
 
-def ell_spmm_raw(ell: ELL, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for ``x`` of shape ``[n_cols, H]`` (no autograd of its own)."""
+def ell_spmm_plain(ell: ELL, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in plain PyTorch, bucket by bucket."""
     h = x.shape[1]
     out = torch.zeros((ell.n_rows, h), dtype=x.dtype, device=x.device)
     for cols, vals, rows in zip(ell.cols, ell.vals, ell.rows):
@@ -98,6 +119,17 @@ def ell_spmm_raw(ell: ELL, x: torch.Tensor) -> torch.Tensor:
         g = x.index_select(0, cols.reshape(-1)).view(nb, k, h)
         out.index_add_(0, rows, (g * vals[..., None]).sum(dim=1))
     return out
+
+
+def ell_spmm_raw(ell: ELL, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for ``x`` of shape ``[n_cols, H]`` (no autograd of its own):
+    the plain version for a CPU ``x``, kernel E1 for a CUDA one (f32 only:
+    it raises on any other dtype)."""
+    if x.device.type == "cpu":
+        return ell_spmm_plain(ell, x)
+    if x.device.type == "cuda":
+        return ell_spmm_cuda(ell, x)
+    raise ValueError(f"ell_spmm runs on cpu (plain) or cuda (kernel E1), not {x.device}")
 
 
 class ELLSpMM(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""Kernels B1-B9, and the stream modes B5s and B6s, on a CUDA card against
+"""Kernels B1-B9, the stream modes B5s and B6s, and E1 on a CUDA card against
 their plain versions (skipped without a card), on 128 x 128 tiles and on the
 other tile shapes a layout can carry.
 
@@ -49,6 +49,36 @@ def test_b1_kernel_matches_plain(dev, dtype, h):
     assert b1.launches == before + 1
     torch.testing.assert_close(got, b1.bcsr_spmm_plain(b, x, n_rows=300), rtol=1e-4, atol=1e-4)
     assert not got[128:256].any()
+
+
+@pytest.mark.parametrize("h", [1, 3, 40, 256, 640])
+def test_e1_kernel_matches_plain(dev, h):
+    """E1 on a layout with a row without edges and a row split over two
+    buckets (degree 300) against the plain version, bit for bit in two
+    launches; forward and gradient through ``ELLSpMM``."""
+    from pygcn_tpu_torch.ops import ell as ell_mod
+    from pygcn_tpu_torch.ops.cuda import ell_spmm as e1
+
+    rng = np.random.default_rng(h)
+    m = sp.random(300, 270, density=0.05, random_state=rng, format="lil",
+                  data_rvs=rng.standard_normal, dtype=np.float32)
+    m[3, :] = 0
+    m[5, :] = 0
+    m[5, rng.choice(270, 260, replace=False)] = 1.0
+    m = m.tocsr()
+    ell, ell_t = ell_mod.build_ell(m).to(dev), ell_mod.build_ell(m.T.tocsr()).to(dev)
+    x = torch.from_numpy(rng.standard_normal((270, h)).astype(np.float32)).to(dev)
+    before = e1.launches
+    got = ell_mod.ell_spmm_raw(ell, x)
+    again = ell_mod.ell_spmm_raw(ell, x)
+    torch.cuda.synchronize()
+    assert e1.launches == before + 2
+    assert torch.equal(got, again) and not got[3].any()
+    torch.testing.assert_close(got, ell_mod.ell_spmm_plain(ell, x), rtol=1e-4, atol=1e-4)
+    xg = x.clone().requires_grad_(True)
+    cot = torch.from_numpy(rng.standard_normal((300, h)).astype(np.float32)).to(dev)
+    (dx,) = torch.autograd.grad(ell_mod.ell_spmm_pair(ell, ell_t, xg), xg, cot)
+    torch.testing.assert_close(dx, ell_mod.ell_spmm_plain(ell_t, cot), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("h", [1, 40, 128, 200])
