@@ -19,6 +19,10 @@ The JAX layout stores ``cols``/``vals`` flat, ``[nb*k]``, against the TPU's
 tile padding; here they are ``[nb, k]``, the same arrays after a reshape.
 Backward uses the transpose layout through :class:`torch.autograd.Function`
 (symmetric graphs pass the forward layout twice).
+
+Every product runs inside the span ``spmm.colpanel`` (forward and backward
+alike), and ``bucket_products`` counts the bucket products it runs: one per
+live bucket, or per row chunk of a live bucket over the chunk budget.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from pygcn_tpu_torch.graph.graph import tree_to
 from pygcn_tpu_torch.ops.ell import build_ell
+from pygcn_tpu_torch.utils.logging import span
 
 # Fine bucket ladder (the JAX package's): a row's edges split across the
 # panels it touches, so per-panel degrees are small and most slots land in
@@ -43,6 +48,10 @@ COLPANEL_KS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 # its weighted copy) coexist: small beside an 80 GB card, and above every
 # bucket of the ogbn-products graph at H = 128, which therefore runs unchunked.
 COLPANEL_CHUNK_BUDGET_ELEMS = 1 << 28
+
+# Bucket products (row chunks of live buckets) run since import (or since a
+# caller reset it to 0).
+bucket_products = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,13 +153,16 @@ def merge_add(out: torch.Tensor, rows: torch.Tensor, merge, part: torch.Tensor) 
 
 def col_panel_spmm_raw(pe: ColPanelELL, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for ``x [n_cols, H]`` (no autograd of its own)."""
+    global bucket_products
     h = x.shape[1]
-    out = torch.zeros((pe.n_rows, h), dtype=x.dtype, device=x.device)
-    for s, w, cols, vals, rows, merge in buckets(pe):
-        nb, k = cols.shape
-        parts = [bucket_partial(x[s:s + w], cols[sl], vals[sl])
-                 for sl in row_chunks(nb, k * h, COLPANEL_CHUNK_BUDGET_ELEMS)]
-        merge_add(out, rows, merge, parts[0] if len(parts) == 1 else torch.cat(parts))
+    with span("spmm.colpanel"):
+        out = torch.zeros((pe.n_rows, h), dtype=x.dtype, device=x.device)
+        for s, w, cols, vals, rows, merge in buckets(pe):
+            nb, k = cols.shape
+            parts = [bucket_partial(x[s:s + w], cols[sl], vals[sl])
+                     for sl in row_chunks(nb, k * h, COLPANEL_CHUNK_BUDGET_ELEMS)]
+            bucket_products += len(parts)
+            merge_add(out, rows, merge, parts[0] if len(parts) == 1 else torch.cat(parts))
     return out
 
 
