@@ -88,8 +88,10 @@ column-panel GAT/GATv2 against the COO attention in f64
 (``colpanel_arxiv``); then the ogbn-products cell (2,449,029 nodes, about
 63M edges): its dataset built once and saved as ``.npz``, and
 ``train_fullgraph --clustered --npz`` for the GCN, GAT and GATv2 on the
-column panels with no tile kernel launched, each printing ms/step, peak
-memory and a profiled step's split (``products {...}``). Then
+column panels with no tile kernel launched (E2 once a GCN product, never in
+the GAT's), each printing ms/step, peak memory and a profiled step's split,
+and E2 on the GCN's column panels held against its plain version and timed
+(a ``kernels`` entry) (``products {...}``). Then
 neighbourhood-sampled training (``apps/train_sampled``), which reaches no
 hand-written kernel: on a 2000-node graph the native sampler's blocks at 1
 and 4 threads against the NumPy fallback's, bit for bit, and one step of
@@ -1519,6 +1521,70 @@ def time_e1(torch, graph):
     return rows
 
 
+def time_e2(torch, graph):
+    """E2 at the products phase's shapes: the GCN graph's column panels at
+    H = 128 and 40 against the plain chain (within RTOL/ATOL, the same bits
+    in two launches), timed beside the plain chain, ``torch.sparse.mm`` on
+    the operator as a CSR tensor, and its bound (``apps/time_colpanel``);
+    then E2's 4-byte loads, held alone against the plain chain: at H = 47,
+    and at H = 128 on an x whose rows are not 16-byte aligned."""
+    from pygcn_tpu_torch.apps.time_colpanel import e2_bound, layout_csr
+    from pygcn_tpu_torch.ops.colpanel import col_panel_spmm_plain
+    from pygcn_tpu_torch.ops.cuda import colpanel_spmm as e2
+    from pygcn_tpu_torch.utils.timing import cuda_ms
+
+    pe = graph.colpanel
+    sched = e2._device_schedule(pe, torch.device("cuda", torch.cuda.current_device()))[0]
+    a = graph.to_scipy().tocsr()
+    csr = layout_csr(a, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    saved = e2.launches
+
+    def hold(got, ref, label):
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"E2 {label}: shape {tuple(got.shape)} or non-finite values")
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        return float((got - ref).abs().max())
+
+    for h in (128, 40):
+        x = torch.randn((graph.n_nodes, h), device="cuda", generator=gen)
+        ref = col_panel_spmm_plain(pe, x)
+        got, again = e2.colpanel_spmm_cuda(pe, x), e2.colpanel_spmm_cuda(pe, x)
+        lib = torch.sparse.mm(csr, x)
+        err = hold(got, ref, f"H={h}")
+        torch.testing.assert_close(lib, ref, rtol=RTOL, atol=ATOL)
+        if not torch.equal(got, again):
+            fail(f"E2 at H={h} gave other bits in a second launch")
+        del got, again, lib, ref
+        ms = cuda_ms(lambda: e2.colpanel_spmm_cuda(pe, x), iters=20)
+        plain_ms = cuda_ms(lambda: col_panel_spmm_plain(pe, x), iters=3, warmup=1)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, x), iters=20)
+        ms2 = cuda_ms(lambda: e2.colpanel_spmm_cuda(pe, x), iters=20)
+        bound = e2_bound(sched, graph.n_nodes, a.nnz, h)
+        row = {"kernel": "E2", "H": h, "panels": len(pe.panels), "virtual_rows": pe.n_vrows,
+               "parts": sched.n_parts, "slots": bound["slots"], "ms": min(ms, ms2),
+               "ms_runs": [ms, ms2], "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound["bound_ms"], "bound_by": "bytes", "bytes": bound["bound_bytes"],
+               "gather_ms": bound["gather_ms"], "max_abs_err": err}
+        print("E2 timing: " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x
+    x = torch.randn((graph.n_nodes, 47), device="cuda", generator=gen)
+    rows[0]["max_abs_err_h47"] = hold(e2.colpanel_spmm_cuda(pe, x),
+                                      col_panel_spmm_plain(pe, x), "H=47")
+    flat = torch.randn(graph.n_nodes * 128 + 1, device="cuda", generator=gen)
+    x = flat[1:].view(graph.n_nodes, 128)  # rows 4 bytes off a 16-byte boundary
+    rows[0]["max_abs_err_unaligned"] = hold(e2.colpanel_spmm_cuda(pe, x),
+                                            col_panel_spmm_plain(pe, x), "H=128 unaligned")
+    print(f"E2 vs plain at products: H = 128 and 40 (float4), 47 and an unaligned x at H = 128 "
+          f"(4-byte loads) within rtol=atol={RTOL}", flush=True)
+    del x, flat, csr
+    e2.launches = saved
+    return rows
+
+
 def _rows_under(torch, blocks, size, n):
     """Operand rows a tile set reads on one side: the distinct blocks, capped at n."""
     return min(n, int(torch.unique(blocks).numel()) * size)
@@ -1792,6 +1858,27 @@ def e1_kernel_entry(timing, launches):
         "replaces": "none (XLA: pygcn_tpu/ops/ell.py:159 ell_spmm_raw)",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in timing),
+        "ms": h128["ms"],
+        "plain_ms": h128["plain_ms"],
+        "bound_ms": h128["bound_ms"],
+        "bound_by": h128["bound_by"],
+        "library_ms": h128["library_ms"],
+    }
+
+
+def e2_kernel_entry(timing, launches):
+    """The ``kernels`` line's entry of E2, from its first row (the products
+    GCN's H = 128). E2 replaces no TPU kernel: JAX leaves the product to
+    XLA."""
+    h128 = timing[0]
+    return {
+        "name": "E2 colpanel_spmm (products)",
+        "route": "cuda",
+        "source": "pygcn_tpu_torch/csrc/colpanel_spmm.cu",
+        "replaces": "none (XLA: pygcn_tpu/ops/colpanel.py:183 col_panel_spmm_raw)",
+        "launches": launches,
+        "max_abs_err": max(v for r in timing for k, v in r.items()
+                           if k.startswith("max_abs_err")),
         "ms": h128["ms"],
         "plain_ms": h128["plain_ms"],
         "bound_ms": h128["bound_ms"],
@@ -2861,9 +2948,11 @@ def check_colpanel_arxiv(torch, graph):
     column panels, the panels and the hybrid's column-panel residual built:
     ``spmm``, its gradient and ``spmm_t`` of each against ``impl="segment"``
     (within RTOL/ATOL, the same bits on a second call; the hybrid launching
-    B1 three times a call, as a kernel), B1 on that route's tiles timed
-    beside its plain version, ``torch.sparse.mm`` and its bound, and
-    ``gat_conv_colpanel``/``gatv2_conv_colpanel`` at 8 heads of 8, outputs
+    B1 three times a call, as a kernel; the column panels and the hybrid's
+    column-panel residual launching E2 three times a call), B1 on that
+    route's tiles timed beside its plain version, ``torch.sparse.mm`` and
+    its bound, and ``gat_conv_colpanel``/``gatv2_conv_colpanel`` at 8 heads
+    of 8, outputs
     and gradients, against the COO attention path run in f64 (each tensor
     within RTOL and ATOL times its largest magnitude; the f32 COO path's own
     error is printed beside; forward bits repeat). Returns the B1 timing
@@ -2871,6 +2960,7 @@ def check_colpanel_arxiv(torch, graph):
     from pygcn_tpu_torch.apps.time_spmm import spmm_bound
     from pygcn_tpu_torch.graph.graph import Graph
     from pygcn_tpu_torch.ops.cuda import bcsr_spmm as b1
+    from pygcn_tpu_torch.ops.cuda import colpanel_spmm as e2
     from pygcn_tpu_torch.ops.gat import attention_aggregate, gat_attention, gatv2_attention
     from pygcn_tpu_torch.ops.gat_colpanel import gat_conv_colpanel, gatv2_conv_colpanel
     from pygcn_tpu_torch.ops.spmm import spmm, spmm_t
@@ -2903,9 +2993,12 @@ def check_colpanel_arxiv(torch, graph):
     ref = run("segment")
     saved = b1.launches, b1.stream_launches
     b1.launches = b1.stream_launches = 0
+    e2_launches = {}
     for impl in ("colpanel", "panel", "hybrid"):
+        e2_before = e2.launches
         got, again = run(impl), run(impl)
         torch.cuda.synchronize()
+        e2_launches[impl] = e2.launches - e2_before
         if impl == "hybrid":
             launches = b1.launches
         for name, a, r in zip(("spmm", "grad", "spmm_t"), got, ref):
@@ -2922,6 +3015,12 @@ def check_colpanel_arxiv(torch, graph):
     if launches != 6 or b1.stream_launches:
         fail(f"hybrid(residual='colpanel') launched B1 {launches} times in two calls "
              "(forward, gradient, spmm_t), expected 6")
+    # the column panels and the hybrid's column-panel residual run E2, a
+    # launch a product; the panels keep their own path
+    if e2_launches != {"colpanel": 6, "panel": 0, "hybrid": 6}:
+        fail(f"E2 launches in two calls (forward, gradient, spmm_t): {e2_launches}, expected "
+             "6 for colpanel and hybrid, 0 for panel")
+    out["e2_launches"] = e2_launches
 
     bcsr = hy.bcsr
     saved = b1.launches
@@ -3119,11 +3218,15 @@ def run_products_path(torch, npz, model):
     """``train_fullgraph --clustered --npz`` at products scale for ``model``
     (GAT/GATv2 at 8 heads of 8), PRODUCTS_EPOCHS epochs: the column panels and
     no ELL or hybrid layout, GAT/GATv2 on the column-panel attention path, no
-    tile kernel launched, a finite loss; ms/step, peak memory and one more
-    step profiled."""
+    tile kernel launched, E2 launched once a product of the GCN (its 3
+    layers: 6 a step, 3 an evaluation) and never by the GAT's, a finite
+    loss; ms/step, peak memory and one more step profiled; for the GCN, E2
+    on its column panels (:func:`time_e2`)."""
     from pygcn_tpu_torch.apps import train_fullgraph
+    from pygcn_tpu_torch.ops.cuda import colpanel_spmm as e2
 
     count = _reset_tile_launches()
+    e2.launches = 0
     argv = ["--clustered", "--npz", npz, "--model", model, "--max_epochs",
             str(PRODUCTS_EPOCHS), "--memstats", "--device", "cuda"]
     if model != "gcn":
@@ -3133,6 +3236,7 @@ def run_products_path(torch, npz, model):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = count()
+    e2_launches = e2.launches
     g = r["graph"]
     if g.colpanel is None or g.ell is not None or g.hybrid is not None:
         fail(f"products {model}: layouts colpanel={g.colpanel is not None}, "
@@ -3142,15 +3246,20 @@ def run_products_path(torch, npz, model):
         fail(f"products {model} did not take the column-panel attention path")
     if launches:
         fail(f"products {model} launched {launches} tile kernels, expected none")
+    e2_expected = 6 * r["steps"] + 3 * r["evals"] if model == "gcn" else 0
+    if e2_launches != e2_expected:
+        fail(f"products {model} launched E2 {e2_launches} times, expected {e2_expected}")
     if not math.isfinite(r["loss"]) or not math.isfinite(r["val"]):
         fail(f"products {model}: non-finite loss {r['loss']} or val {r['val']}")
     out = {"nodes": g.n_nodes, "edges": g.n_edges, "panels": len(g.colpanel.panels),
            "virtual_rows": g.colpanel.n_vrows, "steps": r["steps"], "evals": r["evals"],
            "ms_per_step": r["epoch_s"] * 1e3, "peak_mem_gib": r["peak_mem_bytes"] / 2**30,
-           "loss": r["loss"], "val": r["val"], "run_wall_s": wall_s,
+           "loss": r["loss"], "val": r["val"], "run_wall_s": wall_s, "e2_launches": e2_launches,
            "profiled_step": _step_split(torch, r["step"])}
     # the profiler slows the host's launches: the busy share of an unprofiled step
     out["busy_share_of_step"] = out["profiled_step"]["busy_ms"] / out["ms_per_step"]
+    if model == "gcn":
+        out["e2_timing"] = time_e2(torch, g)
     print(f"products {model} " + json.dumps(out), flush=True)
     del r, g
     torch.cuda.empty_cache()
@@ -4238,6 +4347,7 @@ def main() -> None:
         spmm_kernel_entry(timing, "B1", launches, 50),
         spmm_kernel_entry(timing, "B2", stream_launches["B2"], 64),
         e1_kernel_entry(e1_timing, gcn_e1_launches),
+        e2_kernel_entry(products["gcn"]["e2_timing"], products["gcn"]["e2_launches"]),
         spmm_kernel_entry([eval_b1], "B1", eval_b1["launches"], 50,
                           f" (evaluator, H={eval_b1['H']})"),
         spmm_kernel_entry([gen_b1], "B1", gen_b1["launches"], 50,

@@ -243,12 +243,14 @@ class Graph:
 
             colpanel = colpanel_t = None
             if build_colpanel:
-                from pygcn_tpu_torch.ops.colpanel import COLPANEL_KS, build_col_panel_ell
+                from pygcn_tpu_torch.ops.colpanel import (COLPANEL_KS, build_col_panel_ell,
+                                                          share_structure)
 
-                # the column panels take their own fine bucket ladder, as in JAX
+                # the column panels take their own fine bucket ladder, as in JAX;
+                # a transpose equal but in its values holds the forward's arrays
                 colpanel = build_col_panel_ell(coo, panel_width, COLPANEL_KS)
-                colpanel_t = colpanel if is_symmetric else build_col_panel_ell(
-                    coo.T.tocsr(), panel_width, COLPANEL_KS)
+                colpanel_t = colpanel if is_symmetric else share_structure(
+                    build_col_panel_ell(coo.T.tocsr(), panel_width, COLPANEL_KS), colpanel)
 
         build_meta = (
             ("panel_width", panel_width),

@@ -20,9 +20,15 @@ tile padding; here they are ``[nb, k]``, the same arrays after a reshape.
 Backward uses the transpose layout through :class:`torch.autograd.Function`
 (symmetric graphs pass the forward layout twice).
 
+:func:`col_panel_spmm_raw` picks the product by the device of ``x``: on the
+CPU the plain chain above; on a CUDA device kernel E2
+(``ops/cuda/colpanel_spmm.py``), which sums each output row over its virtual
+rows in every panel in one launch a product.
+
 Every product runs inside the span ``spmm.colpanel`` (forward and backward
-alike), and ``bucket_products`` counts the bucket products it runs: one per
-live bucket, or per row chunk of a live bucket over the chunk budget.
+alike), and ``bucket_products`` counts the bucket products the plain chain
+runs: one per live bucket, or per row chunk of a live bucket over the chunk
+budget.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import scipy.sparse as sp
 import torch
 
 from pygcn_tpu_torch.graph.graph import tree_to
+from pygcn_tpu_torch.ops.cuda.colpanel_spmm import colpanel_spmm_cuda
 from pygcn_tpu_torch.ops.ell import build_ell
 from pygcn_tpu_torch.utils.logging import span
 
@@ -57,7 +64,10 @@ bucket_products = 0
 @dataclasses.dataclass(frozen=True)
 class PanelBuckets:
     """One panel's buckets: ``cols [nb, k]`` (panel-local), ``vals [nb, k]``,
-    ``rows [nb]`` (global); per bucket ``merge``, None when its rows are
+    ``rows [nb]`` (global), ``lens [nb]`` (each virtual row's edges, in its
+    slots ``0 .. lens - 1``: NumPy arrays, which stay on the host when the
+    layout moves, since only the building of kernel E2's schedule reads
+    them); per bucket ``merge``, None when its rows are
     unique, else ``(lengths, urows)``, the run lengths of its sorted rows and
     the row of each run; and ``live``, False for the one-row all-zero
     placeholder ``build_ell`` gives a width no row has, which the products
@@ -66,6 +76,7 @@ class PanelBuckets:
     cols: Tuple[torch.Tensor, ...]  # int32
     vals: Tuple[torch.Tensor, ...]  # float32
     rows: Tuple[torch.Tensor, ...]  # int32
+    lens: Tuple[np.ndarray, ...]  # int32, on the host
     ks: Tuple[int, ...]
     merge: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...]
     live: Tuple[bool, ...]
@@ -73,11 +84,24 @@ class PanelBuckets:
 
 @dataclasses.dataclass(frozen=True)
 class ColPanelELL:
+    """The sender panels ``[starts[i], starts[i] + widths[i])`` with an edge,
+    each a :class:`PanelBuckets`.
+
+    ``twin``, where set, is a layout whose columns, rows and lengths this one
+    holds (the same tensors: :func:`share_structure`), so that kernel E2 runs
+    both on one schedule. ``cache`` holds what a kernel derives once from
+    this layout (kernel E2's schedule). It is not a constructor argument, so
+    every new layout (:meth:`to`, :func:`build_col_panel_ell`) starts empty.
+    """
+
     panels: Tuple[PanelBuckets, ...]
     starts: Tuple[int, ...]
     widths: Tuple[int, ...]
     n_rows: int
     n_vrows: int  # virtual rows across panels (diagnostics)
+    twin: Optional["ColPanelELL"] = dataclasses.field(default=None, repr=False, compare=False)
+    cache: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
 
     def to(self, device) -> "ColPanelELL":
         return tree_to(self, device)
@@ -116,13 +140,32 @@ def build_col_panel_ell(mat: sp.spmatrix, panel_width: int = 65536,
         rows = [rmap[r.numpy()] for r in ell.rows]
         panels.append(PanelBuckets(
             cols=ell.cols, vals=ell.vals, rows=tuple(torch.from_numpy(r) for r in rows),
-            ks=ell.ks, merge=tuple(merge_of(r) for r in rows),
+            lens=tuple(n.numpy() for n in ell.lens), ks=ell.ks,
+            merge=tuple(merge_of(r) for r in rows),
             live=tuple(bool(v.shape[0] > 1 or v.any()) for v in ell.vals)))
         n_vrows += sum(r.size for r in rows)
         starts.append(s)
         widths.append(w)
     return ColPanelELL(panels=tuple(panels), starts=tuple(starts), widths=tuple(widths),
                        n_rows=n_rows, n_vrows=n_vrows)
+
+
+def share_structure(pe_t: ColPanelELL, pe: ColPanelELL) -> ColPanelELL:
+    """``pe_t`` holding ``pe``'s columns, rows, lengths and merges (the same
+    tensors) in place of its own, with ``twin=pe``, where the two layouts
+    are equal but in their values: the transpose of an operator symmetric in
+    its edges but not bit for bit in its weights. Else ``pe_t`` as it is."""
+    same = ((pe_t.starts, pe_t.widths, pe_t.n_rows, pe_t.n_vrows)
+            == (pe.starts, pe.widths, pe.n_rows, pe.n_vrows)
+            and all(ft.ks == f.ks and ft.live == f.live
+                    and all(torch.equal(a, b) for a, b in zip(ft.cols + ft.rows, f.cols + f.rows))
+                    and all(np.array_equal(a, b) for a, b in zip(ft.lens, f.lens))
+                    for ft, f in zip(pe_t.panels, pe.panels)))
+    if not same:
+        return pe_t
+    panels = tuple(dataclasses.replace(ft, cols=f.cols, rows=f.rows, lens=f.lens, merge=f.merge)
+                   for ft, f in zip(pe_t.panels, pe.panels))
+    return dataclasses.replace(pe_t, panels=panels, twin=pe)
 
 
 def buckets(pe: ColPanelELL):
@@ -151,19 +194,31 @@ def merge_add(out: torch.Tensor, rows: torch.Tensor, merge, part: torch.Tensor) 
     return out.index_add_(0, rows, part)
 
 
-def col_panel_spmm_raw(pe: ColPanelELL, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for ``x [n_cols, H]`` (no autograd of its own)."""
+def col_panel_spmm_plain(pe: ColPanelELL, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in plain PyTorch, bucket by bucket."""
     global bucket_products
     h = x.shape[1]
-    with span("spmm.colpanel"):
-        out = torch.zeros((pe.n_rows, h), dtype=x.dtype, device=x.device)
-        for s, w, cols, vals, rows, merge in buckets(pe):
-            nb, k = cols.shape
-            parts = [bucket_partial(x[s:s + w], cols[sl], vals[sl])
-                     for sl in row_chunks(nb, k * h, COLPANEL_CHUNK_BUDGET_ELEMS)]
-            bucket_products += len(parts)
-            merge_add(out, rows, merge, parts[0] if len(parts) == 1 else torch.cat(parts))
+    out = torch.zeros((pe.n_rows, h), dtype=x.dtype, device=x.device)
+    for s, w, cols, vals, rows, merge in buckets(pe):
+        nb, k = cols.shape
+        parts = [bucket_partial(x[s:s + w], cols[sl], vals[sl])
+                 for sl in row_chunks(nb, k * h, COLPANEL_CHUNK_BUDGET_ELEMS)]
+        bucket_products += len(parts)
+        merge_add(out, rows, merge, parts[0] if len(parts) == 1 else torch.cat(parts))
     return out
+
+
+def col_panel_spmm_raw(pe: ColPanelELL, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for ``x [n_cols, H]`` (no autograd of its own): the plain
+    chain for a CPU ``x``, kernel E2 for a CUDA one (f32 only: it raises on
+    any other dtype)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError("col_panel_spmm runs on cpu (plain) or cuda (kernel E2), "
+                         f"not {x.device}")
+    with span("spmm.colpanel"):
+        if x.device.type == "cpu":
+            return col_panel_spmm_plain(pe, x)
+        return colpanel_spmm_cuda(pe, x)
 
 
 def bucket_partial(xs: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:

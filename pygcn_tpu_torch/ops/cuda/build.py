@@ -22,7 +22,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("bcsr_spmm", "ell_spmm", "gat_tile_attn", "gatv2_tile_attn")
+SOURCES = ("bcsr_spmm", "colpanel_spmm", "ell_spmm", "gat_tile_attn", "gatv2_tile_attn")
 
 
 def nvcc() -> str:

@@ -1,4 +1,4 @@
-"""Kernels B1-B9, the stream modes B5s and B6s, and E1 on a CUDA card against
+"""Kernels B1-B9, the stream modes B5s and B6s, E1 and E2 on a CUDA card against
 their plain versions (skipped without a card), on 128 x 128 tiles and on the
 other tile shapes a layout can carry.
 
@@ -79,6 +79,99 @@ def test_e1_kernel_matches_plain(dev, h):
     cot = torch.from_numpy(rng.standard_normal((300, h)).astype(np.float32)).to(dev)
     (dx,) = torch.autograd.grad(ell_mod.ell_spmm_pair(ell, ell_t, xg), xg, cot)
     torch.testing.assert_close(dx, ell_mod.ell_spmm_plain(ell_t, cot), rtol=1e-4, atol=1e-4)
+
+
+def _e2_matrix(rng):
+    """A 4000-node CSR matrix of unit-normal values in four 1024-wide sender
+    panels: row 3 without edges, row 9 with 900 edges in panel 0 (split over
+    the widest bucket) and row 5 with 3,000 over every panel, a hub row over
+    E2's cap that its schedule cuts into parts."""
+    n = 4000
+    rows, cols = rng.integers(0, n, 40000), rng.integers(0, n, 40000)
+    keep = ~np.isin(rows, (3, 5, 9))
+    rows = np.concatenate([rows[keep], np.full(900, 9), np.full(3000, 5)])
+    cols = np.concatenate([cols[keep], rng.permutation(1024)[:900], rng.permutation(n)[:3000]])
+    data = rng.standard_normal(rows.size).astype(np.float32)
+    return sp.csr_matrix((data, (rows, cols)), shape=(n, n))
+
+
+@pytest.mark.parametrize("h", [40, 47, 256])
+def test_e2_kernel_matches_plain(dev, h):
+    """E2 against the plain chain and a float64 product on the forward and
+    the transpose layout, bit for bit in two launches, one launch a
+    product, the row without edges zero and the hub row summed from its
+    parts; at H = 256 also on an x whose rows are not 16-byte aligned (the
+    4-byte path); forward and gradient through ``ColPanelSpMM``."""
+    from pygcn_tpu_torch.ops import colpanel as cp
+    from pygcn_tpu_torch.ops.cuda import colpanel_spmm as e2
+
+    rng = np.random.default_rng(h)
+    m = _e2_matrix(rng)
+    pes = [cp.build_col_panel_ell(a, 1024).to(dev) for a in (m, m.T.tocsr())]
+    for i, (a, pe) in enumerate(zip((m, m.T.tocsr()), pes)):
+        x = torch.from_numpy(rng.standard_normal((a.shape[1], h)).astype(np.float32)).to(dev)
+        before = e2.launches
+        got = cp.col_panel_spmm_raw(pe, x)
+        again = cp.col_panel_spmm_raw(pe, x)
+        torch.cuda.synchronize()
+        assert e2.launches == before + 2
+        assert torch.equal(got, again) and (i == 1 or not got[3].any())
+        torch.testing.assert_close(got, cp.col_panel_spmm_plain(pe, x), rtol=1e-4, atol=1e-4)
+        want = torch.from_numpy(a.toarray().astype(np.float64) @ x.double().cpu().numpy())
+        torch.testing.assert_close(got.double().cpu(), want, rtol=1e-4, atol=1e-4)
+    assert pes[0].cache["colpanel_spmm"][0].n_parts >= 2  # row 5's parts
+    if h == 256:
+        flat = torch.from_numpy(rng.standard_normal(4000 * 256 + 1).astype(np.float32)).to(dev)
+        x = flat[1:].view(4000, 256)  # rows 4 bytes off a 16-byte boundary
+        torch.testing.assert_close(cp.col_panel_spmm_raw(pes[0], x),
+                                   cp.col_panel_spmm_plain(pes[0], x), rtol=1e-4, atol=1e-4)
+    xg = x.clone().requires_grad_(True)
+    cot = torch.from_numpy(rng.standard_normal((4000, h)).astype(np.float32)).to(dev)
+    y = cp.col_panel_spmm_pair(pes[0], pes[1], xg)
+    (dx,) = torch.autograd.grad(y, xg, cot)
+    torch.testing.assert_close(y.detach(), cp.col_panel_spmm_plain(pes[0], x),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dx, cp.col_panel_spmm_plain(pes[1], cot), rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError, match="float32"):
+        cp.col_panel_spmm_raw(pes[0], x.to(torch.bfloat16))
+
+
+def test_e2_on_a_transpose_that_shares_the_structure(dev):
+    """An operator symmetric in its edges but not in its weights: the
+    transpose panels hold the forward panels' arrays and E2 runs both on
+    one schedule; ``spmm``, ``spmm_t`` and the gradient on the card against
+    the CPU (1e-4) and against float64 products."""
+    from pygcn_tpu_torch.ops.cuda import colpanel_spmm as e2
+    from pygcn_tpu_torch.ops.spmm import spmm, spmm_t
+
+    rng = np.random.default_rng(24)
+    m = _e2_matrix(rng)
+    m = m.maximum(m.T).tocsr()
+    m.data = (m.data * (1 + 1e-3 * rng.random(m.nnz))).astype(np.float32)
+    g = Graph.from_scipy(m, is_symmetric=False, build_dense=False, build_bcsr=False,
+                         build_ell=False, build_hybrid=False, build_colpanel=True,
+                         panel_width=1024)
+    x = torch.from_numpy(rng.standard_normal((4000, 64)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((4000, 64)).astype(np.float32))
+
+    def run(graph, x, cot):
+        xx = x.clone().requires_grad_()
+        y = spmm(graph, xx, impl="colpanel")
+        (dx,) = torch.autograd.grad(y, xx, cot)
+        return y.detach(), dx, spmm_t(graph, x, impl="colpanel")
+
+    want = run(g, x, cot)
+    gd = g.to(dev)
+    assert gd.colpanel_t.twin is gd.colpanel
+    got = run(gd, x.to(dev), cot.to(dev))
+    torch.cuda.synchronize()
+    assert gd.colpanel_t.cache["colpanel_spmm"][0] is gd.colpanel.cache["colpanel_spmm"][0]
+    assert e2.launches  # the card ran E2
+    dense = m.toarray().astype(np.float64)
+    f64 = (dense @ x.double().numpy(), dense.T @ cot.double().numpy(), dense.T @ x.double().numpy())
+    for a, w, d in zip(got, want, f64):
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(a.double().cpu(), torch.from_numpy(d), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("h", [1, 40, 128, 200])
@@ -1113,7 +1206,8 @@ def _colpanel_graph():
 def test_colpanel_spmm_on_the_card_matches_the_cpu(dev, impl):
     """``spmm``/``spmm_t`` and the gradient on the card against the same
     calls on the CPU (1e-4), with the same bits on a second call; the
-    hybrid launches B1 once a product, as a kernel."""
+    hybrid launches B1 once a product, as a kernel, and the column panels
+    and the hybrid's column-panel residual launch E2 once a product."""
     from pygcn_tpu_torch.ops.spmm import spmm, spmm_t
 
     g = _colpanel_graph()
@@ -1127,12 +1221,16 @@ def test_colpanel_spmm_on_the_card_matches_the_cpu(dev, impl):
         (dx,) = torch.autograd.grad(y, xx, cot)
         return y.detach(), dx, spmm_t(graph, x, impl=impl)
 
+    from pygcn_tpu_torch.ops.cuda import colpanel_spmm as e2
+
     want = run(g, x, cot)
     gd, xd, cd = g.to(dev), x.to(dev), cot.to(dev)
-    before = b1.launches
+    before, e2_before = b1.launches, e2.launches
     got, again = run(gd, xd, cd), run(gd, xd, cd)
     torch.cuda.synchronize()
     assert b1.launches - before == (6 if impl == "hybrid" else 0)
+    # the column panels and the hybrid's column-panel residual run E2
+    assert e2.launches - e2_before == (0 if impl == "panel" else 6)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         torch.testing.assert_close(a.cpu(), w, rtol=1e-4, atol=1e-4)
